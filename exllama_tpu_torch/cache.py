@@ -3,13 +3,17 @@
 One [B, Hkv, S_max, D] bf16 tensor per layer for K and for V, plus the
 host-side position cursor ``current_seq_len``. Unlike the JAX version, whose
 arrays are immutable and rebound after each step, the port updates these
-tensors IN PLACE (ops/attention.update_kv_cache and the deferred per-layer
-commit in models/llama.py); ``clone`` copies them.
+tensors IN PLACE (ops/attention.update_kv_cache, and commit_kv_cache for
+the deferred rows of a decode step); ``clone`` copies them. Since they never
+move, ``kv_ptrs`` -- the device array of their base pointers that the
+batched commit kernel K8 reads -- is built once, here.
 """
 
 from __future__ import annotations
 
 import torch
+
+from exllama_tpu_torch.ops.attention import kv_ptr_array
 
 
 class ExLlamaCache:
@@ -28,6 +32,7 @@ class ExLlamaCache:
             self.device = copy_from.device
             self.k = [t.clone() for t in copy_from.k]
             self.v = [t.clone() for t in copy_from.v]
+            self.kv_ptrs = kv_ptr_array(self.k, self.v)
             self.current_seq_len = copy_from.current_seq_len
             return
 
@@ -54,6 +59,7 @@ class ExLlamaCache:
             torch.zeros(layer_shape, dtype=torch.bfloat16, device=self.device)
             for _ in range(shape[0])
         ]
+        self.kv_ptrs = kv_ptr_array(self.k, self.v)
         self.current_seq_len = 0
 
     def zero(self):

@@ -5,10 +5,13 @@ exactly as the JAX package does. ``TuningParams`` keeps only the knobs the
 port implements; the JAX package's TPU knobs (VMEM budgets, ``q4_block_k``,
 ``prefill_w8*``, ``matmul_prefill_rows``) have no counterpart here.
 
-The port runs "the slice configuration": separate (unfused) decode kernels,
-plain per-layer KV commits after the layer loop, fused qkv / gate-up
-projections, a bf16 KV cache, exact 4-bit matmuls and a bf16 lm_head. A knob
-whose other values belong to a later slice is still accepted at its slice
+The port runs the JAX package's default decode configuration: the fused
+decode kernels (``fuse_mlp``, ``fuse_attn``; ``fuse_qkv`` off by default,
+as there), ``commit_impl="auto"``, fused qkv / gate-up projections, a bf16
+KV cache, exact 4-bit matmuls and a bf16 lm_head. Setting ``fuse_mlp``,
+``fuse_attn`` and ``fuse_qkv`` to False (any ``commit_impl``) gives the
+separate-kernel configuration of the port's first slice. A knob whose other
+values belong to a later slice is still accepted at its one implemented
 value, so call sites written for the JAX package keep working, and raises
 for any other value.
 """
@@ -20,18 +23,17 @@ import json
 import os
 from typing import Optional
 
-# knob -> the only value this slice implements
+# knob -> the only value the port implements so far
 _SLICE_ONLY = {
-    "fuse_mlp": False,
-    "fuse_attn": False,
-    "fuse_qkv": False,
-    "commit_impl": "xla",
     "quantize_lm_head": False,
     "pad_head_dim": False,
     "kv_cache_dtype": "bf16",
     "scale_dtype": "bf16",
     "fold_act_order": True,
 }
+
+
+COMMIT_IMPLS = ("auto", "xla", "pallas")
 
 
 @dataclasses.dataclass
@@ -48,14 +50,28 @@ class TuningParams:
     kv_cache_dtype: str = "bf16"
     # Storage dtype of the per-group scales; "f32" belongs to a later slice.
     scale_dtype: str = "bf16"
-    # Knobs fixed at the slice configuration (see _SLICE_ONLY). The loader
-    # always folds the act-order down-proj permutation into the gate/up
-    # output columns (a pure weight transform).
-    fold_act_order: bool = True
-    fuse_mlp: bool = False
-    fuse_attn: bool = False
+    # Decode MLP block (post-norm -> gate/up -> silu*up -> down -> +h) in
+    # one launch of kernel K6 (ops/mlp.q4_mlp) where fused_mlp_applicable
+    # holds; otherwise the separate kernels run regardless of this flag.
+    fuse_mlp: bool = True
+    # Deferred-commit decode layer tail (attention -> o-proj -> +h, and with
+    # fuse_mlp the MLP too) in one launch of kernel K7 (ops/attn_block)
+    # where attn_o_applicable holds.
+    fuse_attn: bool = True
+    # With fuse_attn and fuse_mlp: K7 also runs the input norm, the fused
+    # qkv GEMV and rope (ops/attn_block.layer_step). Off by default, as in
+    # the JAX package.
     fuse_qkv: bool = False
-    commit_impl: str = "xla"
+    # Deferred K/V commit of a decode step: "pallas" writes every layer's
+    # rows in one launch of the port's CUDA kernel K8 (the JAX value name is
+    # kept so call sites port unchanged); "xla" and "auto" write them with
+    # one plain tensor write per layer, as the JAX package's "auto" does. A
+    # per-row cursor always takes the plain writes.
+    commit_impl: str = "auto"
+    # Knobs fixed at their one implemented value (see _SLICE_ONLY). The
+    # loader always folds the act-order down-proj permutation into the
+    # gate/up output columns (a pure weight transform).
+    fold_act_order: bool = True
     quantize_lm_head: bool = False
     pad_head_dim: bool = False
 
@@ -63,8 +79,10 @@ class TuningParams:
         if name in _SLICE_ONLY and value != _SLICE_ONLY[name]:
             raise NotImplementedError(
                 f"TuningParams.{name}={value!r}: this port implements only "
-                f"{_SLICE_ONLY[name]!r} (the slice configuration)"
+                f"{_SLICE_ONLY[name]!r} so far"
             )
+        if name == "commit_impl" and value not in COMMIT_IMPLS:
+            raise ValueError(f"commit_impl {value!r} not in {COMMIT_IMPLS}")
         if name not in {f.name for f in dataclasses.fields(self)}:
             raise AttributeError(f"TuningParams has no knob {name!r}")
         object.__setattr__(self, name, value)

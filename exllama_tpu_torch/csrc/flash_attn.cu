@@ -10,9 +10,11 @@
 // cache[:, :, :attend_len], honouring the left-pad input mask, and in
 // deferred (decode) mode folding in the in-flight K/V row after the cache
 // (attention.py:594-613). Softmax scale 1/sqrt(D); p is cast to bf16 before
-// the PV product. Masked scores use the finite _MASK_VALUE and masked keys
-// get p = 0, with the l == 0 -> 1 guard, so a row that the mask hides
-// entirely comes out 0, never NaN. bf16 KV only (int8/int4 dequant is a
+// the PV product. Causally masked scores use the finite _MASK_VALUE and get
+// p = 0; left-pad keys get the finite bias NEG_INF added after that, as the
+// TPU kernel adds its bias (attention.py:563-565), so a query row whose
+// visible keys are all padding averages V over them; the l == 0 -> 1 guard
+// stays for a row with no causal key. bf16 KV only (int8/int4 dequant is a
 // later change).
 //
 // Bound on the H100: bytes at decode (T=1: every cache byte is read for ~2
@@ -35,6 +37,7 @@ namespace {
 using namespace nvcuda;
 
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;  // attention.py:37
+constexpr float NEG_INF = -1e9f;                               // attention.py:36
 constexpr int BR = 64, BC = 64;
 constexpr int WARPS = 4, THREADS = WARPS * 32;
 
@@ -143,9 +146,10 @@ __global__ void __launch_bounds__(THREADS) flash_attn_kernel(
 #pragma unroll
         for (int h2 = 0; h2 < 2; ++h2) {
           const int c = lane + 32 * h2, s = s0 + c;
-          ok[h2] = R < rows && s < kv_end && s < lim &&
-                   (mask == nullptr || mask[(size_t)b * mask_stride + s] != 0);
+          ok[h2] = R < rows && s < kv_end && s < lim;
           v[h2] = ok[h2] ? Ss[r * L::SLD + c] * scale : MASK_VALUE;
+          if (ok[h2] && mask != nullptr && mask[(size_t)b * mask_stride + s] == 0)
+            v[h2] += NEG_INF;  // pad bias after the causal mask
         }
         const float m_old = m_s[r];
         const float m_new = fmaxf(m_old, warp_max(fmaxf(v[0], v[1])));

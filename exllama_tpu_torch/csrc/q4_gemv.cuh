@@ -1,0 +1,211 @@
+// The 4-bit GPTQ group-sum GEMV, as a block-level device function shared by
+// K1 (q4_gemv.cu), K6 (q4_mlp.cu) and K7 (layer_tail.cu).
+//
+// out[m, n] = sum_g ( s[g,n] * sum_{k in g} x[m,k]*q[k,n]
+//                     - zs[g,n] * sum_{k in g} x[m,k] )
+// in f32: scales and zero-points act on group partial sums of exact
+// nibbles, never per weight (the TPU kernel's math, quant.py:_q4_gemv_kernel
+// and ops/mlp.py:_npair_gemv_partials).
+//
+// A block of 8 warps owns a tile of 32 output columns, one per lane, so a
+// warp's int32 loads of one packed row are 128 contiguous bytes; the warps
+// split the K groups of the tile (each lane issues four packed words before
+// using them) and add their partials in shared memory at the end.
+// The activation is staged in shared memory per K chunk, already in the form
+// the product takes (RMSNorm, act-order gather or silu(gate)*up applied),
+// with its per-group sums. A block may walk several tiles (the persistent
+// grids of K6/K7); when the whole K fits one chunk it is staged once.
+#pragma once
+
+#include "common.cuh"
+
+namespace q4 {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int BN = 32;                   // output columns per tile, one per lane
+constexpr int X_SMEM_BYTES = 40 * 1024;  // budget of the staged activation chunk
+constexpr int WORDS_IN_FLIGHT = 4;      // packed words a lane loads before using them
+
+// Loads of data another block wrote earlier in the same launch (the fused
+// kernels' scratch) bypass L1, which is not coherent across SMs.
+__device__ __forceinline__ float ld_cg(const bf16* p) {
+  return bf2f(__ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// silu(g) * up with the separate path's casts: g and u are the bf16-rounded
+// gate / up outputs; silu in f32, rounded to bf16, times u, rounded to bf16
+// (ops/mlp.py:_silu_boundary).
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  const float sg = bf2f(f2bf(g / (1.f + expf(-g))));
+  return bf2f(f2bf(sg * u));
+}
+
+// How the staged activation x[m, k] (m < M, k < K) is formed.
+struct XSrc {
+  const bf16* x;          // row m at x + m * ld
+  int ld;                 // row stride of x, in elements
+  const bf16* norm_w;     // [K] or NULL: x = bf16(x * rs[m] * w) (RMSNorm)
+  float eps;
+  const int32_t* x_map;   // [K] or NULL: x[m, k] = x[m, x_map[k]]
+  int glu_off;            // > 0: x[m, k] = silu_mul(x[m, k], x[m, glu_off + k])
+};
+
+// One packed weight matrix: qweight [K/8, N] int32, scales / zscale [K/gs, N].
+struct QW {
+  const int32_t* qweight;
+  const bf16* scales;
+  const bf16* zscale;
+  int N;
+};
+
+// Chunk of K staged at once for tile size MB (a multiple of gs, <= K).
+__host__ __device__ inline int gemv_kc(int mb, int K, int gs) {
+  int kc = (X_SMEM_BYTES / (2 * mb)) / gs * gs;
+  if (kc < gs) kc = gs;
+  if (kc > K) kc = K;
+  return kc;
+}
+
+__host__ __device__ inline size_t gemv_xs_bytes(int mb, int kc) {
+  return ((size_t)mb * kc * 2 + 15) & ~(size_t)15;
+}
+
+// Shared memory of q4_gemv_tiles: xs [MB][kc] bf16, xsum [MB][kc/gs] f32,
+// rs [MB] f32, red [WARPS][32] f32.
+__host__ __device__ inline size_t gemv_smem_bytes(int mb, int K, int gs) {
+  const int kc = gemv_kc(mb, K, gs);
+  return gemv_xs_bytes(mb, kc) + (size_t)(mb * (kc / gs) + mb + WARPS * 32) * 4;
+}
+
+// rs[m] = 1 / sqrt(mean(x[m]^2) + eps) in f32, one warp per row.
+template <int MB>
+__device__ void norm_scales(const XSrc& src, int M, int K, float* rs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int m = warp; m < MB; m += WARPS) {
+    float ss = 0.f;
+    if (m < M)
+      for (int k = lane; k < K; k += 32) {
+        const float v = ld_cg(src.x + (size_t)m * src.ld + k);
+        ss += v * v;
+      }
+    ss = warp_sum(ss);
+    if (lane == 0) rs[m] = 1.0f / sqrtf(ss / (float)K + src.eps);
+  }
+}
+
+// Stage x[:, k0 : k0+klen] into xs and its per-group sums into xsum.
+template <int MB>
+__device__ void stage_chunk(const XSrc& src, int M, int k0, int klen, int kc, int gs,
+                            bf16* xs, float* xsum, const float* rs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gpc = kc / gs, ng = klen / gs;
+  __syncthreads();  // rs ready, previous chunk consumed
+  for (int i = threadIdx.x; i < MB * klen; i += THREADS) {
+    const int m = i / klen, kk = i - m * klen;
+    float v = 0.f;
+    if (m < M) {
+      const int k = src.x_map ? src.x_map[k0 + kk] : k0 + kk;
+      const bf16* row = src.x + (size_t)m * src.ld;
+      if (src.glu_off > 0) {
+        v = silu_mul(ld_cg(row + k), ld_cg(row + src.glu_off + k));
+      } else {
+        v = ld_cg(row + k);
+        if (src.norm_w) v = bf2f(f2bf(v * rs[m] * bf2f(src.norm_w[k])));
+      }
+    }
+    xs[m * kc + kk] = f2bf(v);
+  }
+  __syncthreads();
+  for (int i = warp; i < MB * ng; i += WARPS) {
+    const int m = i / ng, g = i - m * ng;
+    float s = 0.f;
+    for (int j = lane; j < gs; j += 32) s += bf2f(xs[m * kc + g * gs + j]);
+    s = warp_sum(s);
+    if (lane == 0) xsum[m * gpc + g] = s;
+  }
+  __syncthreads();
+}
+
+// acc[m] += this lane's column n over the staged chunk, this warp's groups.
+template <int MB>
+__device__ __forceinline__ void gemv_chunk(float (&acc)[MB], const QW& w, int n, int k0,
+                                           int klen, int kc, int gs, const bf16* xs,
+                                           const float* xsum) {
+  const int warp = threadIdx.x >> 5;
+  const int ng = klen / gs, gpc = kc / gs;
+  for (int g = warp; g < ng; g += WARPS) {
+    const int row0 = k0 + g * gs;
+    const int32_t* qp = w.qweight + (size_t)(row0 / 8) * w.N + n;
+    float accq[MB];
+#pragma unroll
+    for (int m = 0; m < MB; ++m) accq[m] = 0.f;
+    for (int w0 = 0; w0 < gs / 8; w0 += WORDS_IN_FLIGHT) {  // gs in {32, 64, 128}
+      int32_t wv[WORDS_IN_FLIGHT];
+#pragma unroll
+      for (int j = 0; j < WORDS_IN_FLIGHT; ++j) wv[j] = __ldg(qp + (size_t)(w0 + j) * w.N);
+#pragma unroll
+      for (int j = 0; j < WORDS_IN_FLIGHT; ++j) {
+        const bf16* xk = xs + g * gs + (w0 + j) * 8;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          const float q = (float)((wv[j] >> (4 * i)) & 0xF);
+#pragma unroll
+          for (int m = 0; m < MB; ++m) accq[m] = fmaf(bf2f(xk[m * kc + i]), q, accq[m]);
+        }
+      }
+    }
+    const int grp = row0 / gs;
+    const float s = bf2f(w.scales[(size_t)grp * w.N + n]);
+    const float z = bf2f(w.zscale[(size_t)grp * w.N + n]);
+#pragma unroll
+    for (int m = 0; m < MB; ++m) acc[m] += s * accq[m] - z * xsum[m * gpc + g];
+  }
+}
+
+// x [M, K] (formed by src) @ w for the column tiles tile0, tile0 + step, ...;
+// epi(m, n, value) receives each finished f32 output (called by warp 0,
+// lane = column). Every thread of the block must call this together.
+template <int MB, class Epi>
+__device__ void q4_gemv_tiles(const XSrc& src, const QW& w, int M, int K, int gs,
+                              int tile0, int step, unsigned char* smem, Epi epi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int kc = gemv_kc(MB, K, gs);
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  float* xsum = reinterpret_cast<float*>(smem + gemv_xs_bytes(MB, kc));
+  float* rs = xsum + MB * (kc / gs);
+  float* red = rs + MB;
+  const int ntiles = (w.N + BN - 1) / BN;
+  if (tile0 >= ntiles) return;  // block-uniform
+  const bool one_chunk = kc >= K;
+  __syncthreads();              // the caller's previous use of smem is over
+  if (src.norm_w) norm_scales<MB>(src, M, K, rs);
+  if (one_chunk) stage_chunk<MB>(src, M, 0, K, kc, gs, xs, xsum, rs);
+  for (int tile = tile0; tile < ntiles; tile += step) {
+    const int n = tile * BN + lane;
+    const bool col_ok = n < w.N;
+    float acc[MB];
+#pragma unroll
+    for (int m = 0; m < MB; ++m) acc[m] = 0.f;
+    for (int k0 = 0; k0 < K; k0 += kc) {
+      const int klen = min(kc, K - k0);
+      if (!one_chunk) stage_chunk<MB>(src, M, k0, klen, kc, gs, xs, xsum, rs);
+      if (col_ok) gemv_chunk<MB>(acc, w, n, k0, klen, kc, gs, xs, xsum);
+    }
+    // add the WARPS partial sums of each (row, column)
+#pragma unroll
+    for (int m = 0; m < MB; ++m) {
+      if (m >= M) break;
+      __syncthreads();
+      red[warp * 32 + lane] = acc[m];
+      __syncthreads();
+      if (warp == 0 && col_ok) {
+        float s = 0.f;
+        for (int wi = 0; wi < WARPS; ++wi) s += red[wi * 32 + lane];
+        epi(m, n, s);
+      }
+    }
+  }
+}
+
+}  // namespace q4

@@ -39,6 +39,10 @@ _SIGNATURES = {
     "q4_matmul": ("q4_matmul_launch", "ppppp" + "iiii" + "p"),
     "flash_attn": ("flash_attn_launch", "pppppppp" + "iiiiiiii" + "f" + "p"),
     "dense_gemv": ("dense_gemv_launch", "ppp" + "iii" + "p"),
+    "head_argmax": ("head_argmax_launch", "ppppp" + "iii" + "f" + "p"),
+    "q4_mlp": ("q4_mlp_launch", "p" * 11 + "iiii" + "f" + "p"),
+    "layer_tail": ("layer_tail_launch", "p" * 33 + "i" * 11 + "ff" + "p"),
+    "kv_commit": ("kv_commit_launch", "ppp" + "i" * 6 + "p"),
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 

@@ -1,13 +1,19 @@
-"""The Llama-family model (port of exllama_tpu/models/llama.py), in the
-slice configuration: separate kernels per decode layer (no MLP or
-attention megakernels), fused qkv / gate-up projections, bf16 KV cache,
-exact 4-bit matmuls, a bf16 lm_head, and the deferred K/V rows of a decode
-step written after the layer loop with one plain tensor write per layer.
+"""The Llama-family model (port of exllama_tpu/models/llama.py), single
+device, no LoRA: fused qkv / gate-up projections, a bf16 KV cache, exact
+4-bit matmuls and a bf16 lm_head, with the JAX package's decode knobs
+(``TuningParams.fuse_mlp / fuse_attn / fuse_qkv / commit_impl``, its
+defaults too).
 
-Per layer: K1/K2 (q4 matmul) for every projection, K3 (flash attention),
-and on the head K4 (dense GEMV); everything between them is plain tensor
-code. PyTorch runs eagerly, so there is no jit: the layer loop is a Python
-loop and the cache is updated in place.
+In the default configuration a decode step (T=1, deferred K/V commit) runs
+per layer K1 (qkv GEMV with the input norm) and K7 (attention -> o-proj ->
+MLP in one launch), then commits every layer's K/V rows, and ends in K4
+(logits) or K5 (greedy ids). With ``fuse_qkv`` K7 also runs the qkv GEMV;
+with ``commit_impl="pallas"`` the commit is one K8 launch. Short prefill
+chunks (B*T <= 32) run their MLP as one K6 launch; long ones run K2 and
+K3. With the fuse flags off every decode layer runs the separate kernels
+K1 and K3. Everything between kernels is plain tensor code. PyTorch runs
+eagerly, so there is no jit: the layer loop is a Python loop and the cache
+is updated in place.
 """
 
 from __future__ import annotations
@@ -22,8 +28,21 @@ import torch.nn.functional as F
 from exllama_tpu_torch.cache import ExLlamaCache
 from exllama_tpu_torch.config import ExLlamaConfig
 from exllama_tpu_torch.formats.gptq import QuantTensor, concat_quant_tensors
-from exllama_tpu_torch.ops.attention import attend, update_kv_cache
-from exllama_tpu_torch.ops.dense import dense_matmul
+from exllama_tpu_torch.ops.attention import (
+    attend,
+    commit_kv_cache,
+    update_kv_cache,
+)
+from exllama_tpu_torch.ops.attn_block import (
+    attn_block_o,
+    attn_o_applicable,
+    layer_step,
+    layer_step_applicable,
+    layer_tail,
+    same_groupsize,
+)
+from exllama_tpu_torch.ops.dense import dense_matmul, head_argmax
+from exllama_tpu_torch.ops.mlp import fused_mlp_applicable, q4_mlp, silu_mul
 from exllama_tpu_torch.ops.norms import rms_norm
 from exllama_tpu_torch.ops.quant import q4_matmul
 from exllama_tpu_torch.ops.rope import apply_rope_sliced, slice_tables
@@ -108,12 +127,33 @@ def _decoder_layer(
     attend_len: int,
     input_mask: Optional[torch.Tensor],
     defer_kv: bool,
+    mlp_fuse: bool = True,
+    attn_fuse: bool = True,
+    qkv_fuse: bool = False,
 ):
-    """One decoder layer. Returns (h, k_row, v_row); the rows are the new
-    K/V of a deferred (T=1) step, which the caller commits."""
-    b, t, _ = h.shape
+    """One decoder layer (exllama_tpu/models/llama.py:_decoder_layer, single
+    device, no LoRA). Returns (h, k_row, v_row); the rows are the new K/V of
+    a deferred (T=1) step, which the caller commits."""
+    b, t, hidden = h.shape
     nq = heads * head_dim
     nkv = kv_heads * head_dim
+    mlp_ok = mlp_fuse and fused_mlp_applicable(lp.gateup, lp.down, hidden,
+                                               b * t)
+    attn_ok = (defer_kv and attn_fuse
+               and attn_o_applicable(lp.o, hidden, heads, head_dim, t, True,
+                                     batch=b, kv_heads=kv_heads)
+               and kc.dtype == torch.bfloat16)
+
+    # the whole layer in one K7 launch (llama.py:188-232)
+    if (qkv_fuse and attn_ok and mlp_ok
+            and layer_step_applicable(lp.qkv, lp.o, hidden, heads, head_dim)
+            and same_groupsize(lp.qkv, lp.o, lp.gateup, lp.down)):
+        return layer_step(
+            h, lp.qkv, lp.input_norm, rope_sin, rope_cos, kc, vc, past_len,
+            attend_len, lp.o, lp.post_norm, lp.gateup, lp.down, eps, heads,
+            kv_heads, head_dim, input_mask=input_mask,
+        )
+
     if lp.qkv is not None:
         # the input norm rides in the GEMV prologue at decode M
         fused = q4_matmul(h, lp.qkv, norm_w=lp.input_norm, norm_eps=eps)
@@ -130,28 +170,44 @@ def _decoder_layer(
     v = v.reshape(b, t, kv_heads, head_dim)
 
     k_row = v_row = None
+    attn = None
     if defer_kv:
         k_row, v_row = k, v
-        attn = attend(q, kc, vc, past_len, attend_len, input_mask,
-                      new_kv=(k, v))
+        if attn_ok:
+            if mlp_ok and same_groupsize(lp.o, lp.gateup, lp.down):
+                # the layer tail in one K7 launch (llama.py:286-315)
+                h = layer_tail(h, q, kc, vc, past_len, attend_len, lp.o,
+                               lp.post_norm, lp.gateup, lp.down, eps, (k, v),
+                               input_mask=input_mask)
+                return h, k_row, v_row
+            # attention + o-projection + residual in one K7 launch
+            h = attn_block_o(h, q, kc, vc, past_len, attend_len, lp.o,
+                             (k, v), input_mask=input_mask)
+        else:
+            attn = attend(q, kc, vc, past_len, attend_len, input_mask,
+                          new_kv=(k, v))
     else:
         update_kv_cache(kc, vc, k, v, past_len)
         attn = attend(q, kc, vc, past_len, attend_len, input_mask)
-    h = h + q4_matmul(attn.reshape(b, t, nq), lp.o)
+    if attn is not None:
+        h = h + q4_matmul(attn.reshape(b, t, nq), lp.o)
 
+    if mlp_ok:
+        # the MLP block in one K6 launch (llama.py:353-362)
+        return q4_mlp(h, lp.post_norm, lp.gateup, lp.down, eps), k_row, v_row
     a = rms_norm(h, lp.post_norm, eps)
     if lp.gateup is not None:
-        ni = lp.down.in_features
-        fused = q4_matmul(a, lp.gateup)
-        g, u = fused[..., :ni], fused[..., ni:]
+        mid = silu_mul(q4_matmul(a, lp.gateup), lp.down.in_features)
     else:
         g = q4_matmul(a, lp.gate)
         u = q4_matmul(a, lp.up)
-    h = h + q4_matmul(F.silu(g.to(torch.float32)).to(u.dtype) * u, lp.down)
+        mid = F.silu(g.to(torch.float32)).to(u.dtype) * u
+    h = h + q4_matmul(mid, lp.down)
     return h, k_row, v_row
 
 
-def _forward_impl(
+@torch.inference_mode()
+def forward_chunk(
     params: ModelParams,
     cache: ExLlamaCache,
     tokens: torch.Tensor,            # [B, T] int
@@ -165,35 +221,51 @@ def _forward_impl(
     kv_heads: int,
     head_dim: int,
     eps: float,
+    head_mode: str = "logits",
+    mlp_fuse: bool = True,
+    attn_fuse: bool = True,
+    qkv_fuse: bool = False,
+    commit_impl: str = "auto",
 ):
-    """One forward chunk over all layers: embedding -> layers -> final norm
-    -> lm_head (f32 logits), or None with ``preprocess_only``. Writes the
-    chunk's K/V into ``cache`` in place (the cursor is the caller's)."""
+    """One forward chunk over all layers (exllama_tpu/models/llama.py:
+    forward_chunk, single device, no LoRA): embedding -> layers -> final
+    norm -> lm_head. Returns f32 logits [B, T|1, vocab], int32 greedy token
+    ids [B, T|1] with ``head_mode="argmax"`` (kernel K5; no logits are
+    materialized), or None with ``preprocess_only``. Writes the chunk's K/V
+    into ``cache`` in place; the cursor ``cache.current_seq_len`` is the
+    caller's. The fuse flags and ``commit_impl`` are the JAX package's
+    knobs, with its defaults."""
+    if head_mode not in ("logits", "argmax"):
+        raise ValueError(f"head_mode {head_mode!r}")
     b, t = tokens.shape
     h = params.embed[tokens.to(torch.long)]
     sin_t, cos_t = slice_tables(params.rope_sin, params.rope_cos, past_len, t)
     # deferred commit for decode steps: each layer attends over the cache
     # plus its in-flight row, and the rows are written after the loop
     defer = t == 1
-    if defer and not isinstance(past_len, int):
+    if not isinstance(past_len, int):
         past_len = past_len.to(device=h.device, dtype=torch.int32)
-    rows = []
+    k_rows, v_rows = [], []
     for li, lp in enumerate(params.layers):
         h, k_row, v_row = _decoder_layer(
             h, lp, cache.k[li], cache.v[li],
             heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
             rope_sin=sin_t, rope_cos=cos_t, past_len=past_len,
             attend_len=attend_len, input_mask=input_mask, defer_kv=defer,
+            mlp_fuse=mlp_fuse, attn_fuse=attn_fuse, qkv_fuse=qkv_fuse,
         )
-        rows.append((k_row, v_row))
+        k_rows.append(k_row)
+        v_rows.append(v_row)
     if defer:
-        for li, (k_row, v_row) in enumerate(rows):
-            update_kv_cache(cache.k[li], cache.v[li], k_row, v_row, past_len)
+        commit_kv_cache(cache.k, cache.v, k_rows, v_rows, past_len,
+                        impl=commit_impl, ptrs=cache.kv_ptrs)
 
     if preprocess_only:
         return None
     if last_token_only:
         h = h[:, -1:, :]
+    if head_mode == "argmax":
+        return head_argmax(h, params.norm, params.lm_head, eps)
     h = rms_norm(h, params.norm, eps)
     return dense_matmul(h, params.lm_head)
 
@@ -266,6 +338,7 @@ class ExLlama:
         cache in place. Returns f32 logits [B, 1, vocab] / [B, T, vocab], or
         None with ``preprocess_only``."""
         cfg = self.config
+        tune = cfg.tuning
         tokens = torch.as_tensor(input_ids, dtype=torch.int32).to(self.device)
         if input_mask is not None:
             input_mask = torch.as_tensor(input_mask, dtype=torch.bool).to(
@@ -287,7 +360,7 @@ class ExLlama:
                 )
                 chunk = max(min(chunk, cs), 1)
             is_last = start + chunk >= q_len
-            logits = _forward_impl(
+            logits = forward_chunk(
                 self.params, cache, tokens[:, start : start + chunk], past,
                 input_mask,
                 attend_len=self._attend_len(past + chunk),
@@ -297,6 +370,10 @@ class ExLlama:
                 kv_heads=cfg.num_key_value_heads,
                 head_dim=cfg.head_dim,
                 eps=cfg.rms_norm_eps,
+                mlp_fuse=tune.fuse_mlp,
+                attn_fuse=tune.fuse_attn,
+                qkv_fuse=tune.fuse_qkv,
+                commit_impl=tune.commit_impl,
             )
             cache.current_seq_len += chunk
             if is_last:

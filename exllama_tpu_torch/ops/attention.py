@@ -9,11 +9,18 @@ Semantics, shared by both:
   * the cache is [B, Hkv, S_max, D]; only ``cache[:, :, :attend_len]`` is read;
   * query t of row b sits at position ``past[b] + t`` and sees key s iff
     ``s <= past + t`` (``past`` an int or a [B] tensor of per-row cursors);
-  * ``input_mask`` [B, >= attend_len] bool (True = real token) hides
-    left-padding keys; a query row left with no visible key returns 0;
+  * ``input_mask`` [B, >= attend_len] bool (True = real token) adds the
+    finite bias ``NEG_INF`` to the scores of left-padding keys after the
+    causal mask, as the JAX flash kernel does, so a query row whose visible
+    keys are all padding averages V over them;
   * ``new_kv`` (T=1 only) is deferred-commit decode: the step's own K/V rows
     are not in the cache yet, so position ``past`` is masked and the rows
     are folded in after the cache; the caller writes them afterwards.
+
+``commit_kv_cache`` writes the deferred K/V rows of a decode step into
+every layer's cache: one launch of kernel K8 ``kv_commit``
+(csrc/kv_commit.cu, counted on ``kv_commit.launches``) under
+``impl="pallas"``, one plain write per layer otherwise.
 
 int8/int4 caches belong to a later slice and raise ``NotImplementedError``.
 """
@@ -26,8 +33,10 @@ from typing import Optional
 import torch
 
 from exllama_tpu_torch import kernels
+from exllama_tpu_torch.config import COMMIT_IMPLS
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # attention.py:37
+NEG_INF = -1e9      # additive left-pad bias (attention.py:36)
 
 
 def _past_tensor(past_len, b: int, device) -> torch.Tensor:
@@ -91,17 +100,20 @@ def attend_plain(
         ok = s_pos[None, None, :] < t_pos[:, :, None]
     else:
         ok = s_pos[None, None, :] <= t_pos[:, :, None]                 # [B, T, S]
+    ok = ok[:, None, None].expand(b, hkv, g, t, attend_len)            # [B,Hkv,G,T,S]
+    scores = torch.where(ok, scores, MASK_VALUE)
     if input_mask is not None:
-        ok = ok & input_mask[:, None, :attend_len].to(q.device, torch.bool)
-    ok = ok[:, None, None]                                             # [B,1,1,T,S]
-    ok = ok.expand(b, hkv, g, t, attend_len)
+        # the pad bias is added after the causal mask, as the JAX flash
+        # kernel does: a row whose visible keys are all padding averages V
+        # over them (every score rounds to NEG_INF)
+        pad = ~input_mask[:, :attend_len].to(q.device, torch.bool)
+        scores = scores + torch.where(pad, NEG_INF, 0.0)[:, None, None, None]
     if deferred:
         kn = new_kv[0].transpose(1, 2).to(torch.float32)              # [B,Hkv,1,D]
         s_new = torch.einsum("bthgd,bhsd->bhgts", qf, kn) * scale
         scores = torch.cat([scores, s_new], dim=-1)
         ok = torch.cat([ok, torch.ones_like(ok[..., :1])], dim=-1)
         v = torch.cat([v, new_kv[1].transpose(1, 2).to(v.dtype)], dim=2)
-    scores = torch.where(ok, scores, MASK_VALUE)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(scores - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
@@ -167,3 +179,90 @@ def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
 
 
 attend.launches = 0
+
+
+# ------------------------------------------------- deferred batched commit
+
+def kv_ptr_array(k_caches, v_caches) -> torch.Tensor:
+    """K8's operand: an int64 array, on the caches' device, of the 2L cache
+    base pointers (K layers, then V), after checking that the caches are
+    contiguous 16-byte aligned bf16 tensors of one shape. The caches are
+    updated in place and never move, so ``ExLlamaCache`` builds this once
+    (``kv_ptrs``)."""
+    shape, dev = k_caches[0].shape, k_caches[0].device
+    if len(k_caches) != len(v_caches):
+        raise ValueError("kv_commit: as many K as V caches")
+    for t in (*k_caches, *v_caches):
+        if (t.dtype != torch.bfloat16 or not t.is_contiguous()
+                or t.device != dev or t.shape != shape or t.data_ptr() % 16):
+            raise ValueError("kv_commit: contiguous 16-byte aligned bf16 "
+                             "caches of one shape on one device")
+    return torch.tensor([t.data_ptr() for t in (*k_caches, *v_caches)],
+                        dtype=torch.int64).to(dev)
+
+
+def kv_commit(k_caches, v_caches, new_k, new_v, past_len: int, ptrs=None):
+    """K8: every layer's rows new_k / new_v [L, B, 1, Hkv, D] written into
+    k_caches[l] / v_caches[l] [B, Hkv, S, D] at the shared cursor
+    ``past_len``, in place, in one launch (the plain per-layer writes for
+    CPU caches). ``ptrs`` is :func:`kv_ptr_array` of these caches, built
+    here when not given."""
+    _check_bf16_cache(k_caches[0])
+    if k_caches[0].device.type == "cpu":
+        for li in range(len(k_caches)):
+            update_kv_cache(k_caches[li], v_caches[li], new_k[li], new_v[li],
+                            past_len)
+        return
+    if k_caches[0].device.type != "cuda":
+        raise RuntimeError(f"kv_commit: unsupported device "
+                           f"{k_caches[0].device}")
+    n_layers = len(k_caches)
+    b, hkv, s_max, d = k_caches[0].shape
+    new_k = new_k.to(torch.bfloat16).contiguous()
+    new_v = new_v.to(torch.bfloat16).contiguous()
+    if new_k.shape != (n_layers, b, 1, hkv, d) or new_v.shape != new_k.shape:
+        raise ValueError(f"kv_commit: rows {tuple(new_k.shape)} vs caches "
+                         f"{n_layers} x {tuple(k_caches[0].shape)}")
+    if d % 8 or not 0 <= past_len < s_max:
+        raise ValueError(f"kv_commit: head_dim {d}, cursor {past_len}")
+    if ptrs is None:
+        ptrs = kv_ptr_array(k_caches, v_caches)
+    if ptrs.shape != (2 * n_layers,) or ptrs.dtype != torch.int64:
+        raise ValueError("kv_commit: ptrs must be kv_ptr_array(caches)")
+    for t in (new_k, new_v):
+        if t.device != ptrs.device or t.data_ptr() % 16:
+            raise ValueError("kv_commit: rows must be 16-byte aligned, on "
+                             "the caches' device")
+    kernels.check(kernels.launcher("kv_commit")(
+        ptrs.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), n_layers, b,
+        hkv, s_max, d, past_len, kernels.stream_of(new_k),
+    ), "kv_commit")
+    kv_commit.launches += 1
+
+
+kv_commit.launches = 0
+
+
+def commit_kv_cache(k_caches, v_caches, new_k, new_v, past_len,
+                    impl: str = "auto", ptrs=None):
+    """Deferred commit of a decode step (port of attention.py:284): the
+    rows new_k[l] / new_v[l] ([B, 1, Hkv, D]; a stacked [L, ...] tensor or a
+    list) go into every layer's cache at ``past_len``, in place.
+
+    ``impl="pallas"`` with an int cursor takes :func:`kv_commit`, K8 (the
+    JAX value name, kept so call sites port unchanged), with the caches'
+    pointer array ``ptrs`` (``ExLlamaCache.kv_ptrs``); ``"xla"`` and
+    ``"auto"`` -- which resolves to the plain writes, as in the JAX
+    package -- write one layer at a time with :func:`update_kv_cache`, as
+    does a per-row cursor under any impl (attention.py:309-319)."""
+    if impl not in COMMIT_IMPLS:
+        raise ValueError(f"commit_impl {impl!r}")
+    if impl == "pallas" and isinstance(past_len, int):
+        if not torch.is_tensor(new_k):
+            new_k, new_v = torch.stack(list(new_k)), torch.stack(list(new_v))
+        kv_commit(k_caches, v_caches, new_k, new_v, past_len, ptrs)
+        return k_caches, v_caches
+    for li in range(len(k_caches)):
+        update_kv_cache(k_caches[li], v_caches[li], new_k[li], new_v[li],
+                        past_len)
+    return k_caches, v_caches

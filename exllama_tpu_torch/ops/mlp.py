@@ -1,0 +1,95 @@
+"""Fused decode MLP block (port of exllama_tpu/ops/mlp.py):
+
+    h + down( silu(gate(xn)) * up(xn) ),   xn = rms_norm(h) * w
+
+in one launch of kernel K6 ``q4_mlp`` (csrc/q4_mlp.cu) for M = B*T <= 32
+rows on CUDA tensors; ``q4_mlp_plain`` is its plain PyTorch version, the
+separate-kernel path's composition with the same cast points. The caller
+checks ``fused_mlp_applicable`` first.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from exllama_tpu_torch import kernels
+from exllama_tpu_torch.formats.gptq import QuantTensor
+from exllama_tpu_torch.ops.norms import rms_norm
+from exllama_tpu_torch.ops.quant import (
+    GEMV_MAX_M,
+    _check_qt,
+    check_qt_tensors,
+    q4_gemv_plain,
+)
+
+KERNEL_GROUPSIZES = (32, 64, 128)
+
+
+def fused_mlp_applicable(gateup, down, hidden: int, m: int) -> bool:
+    """The JAX gate's semantic conditions (mlp.py:249-286): fused gate|up
+    and down present, no act-order on either, residual width == down's
+    output, one groupsize, M small enough for the GEMV regime. The TPU
+    conditions (npair layout, N_ALIGN padding, the VMEM budget) have no
+    counterpart; K6's own limit is the groupsizes its GEMV takes."""
+    if gateup is None or down is None or m > GEMV_MAX_M:
+        return False
+    if gateup.x_map is not None or down.x_map is not None:
+        return False
+    if gateup.groupsize != down.groupsize:
+        return False
+    if gateup.groupsize not in KERNEL_GROUPSIZES:
+        return False
+    return (down.out_features == hidden and gateup.in_features == hidden
+            and gateup.out_features == 2 * down.in_features)
+
+
+def silu_mul(gu: torch.Tensor, inter: int) -> torch.Tensor:
+    """silu(gate) * up of a fused [..., 2*inter] bf16 gate|up output: silu in
+    f32 rounded to bf16, times up in bf16 (mlp.py:_silu_boundary)."""
+    g, u = gu[..., :inter], gu[..., inter:]
+    return F.silu(g.to(torch.float32)).to(u.dtype) * u
+
+
+def q4_mlp_plain(h, norm_w, gateup: QuantTensor, down: QuantTensor, eps):
+    """The MLP block as the separate path computes it, h [..., hidden]."""
+    *lead, k = h.shape
+    h2 = h.reshape(-1, k)
+    a = rms_norm(h2, norm_w, eps)
+    mid = silu_mul(q4_gemv_plain(a, gateup), down.in_features)
+    return (h2 + q4_gemv_plain(mid, down)).reshape(*lead, k)
+
+
+def q4_mlp(h: torch.Tensor, norm_w: torch.Tensor, gateup: QuantTensor,
+           down: QuantTensor, eps: float) -> torch.Tensor:
+    """K6: the whole MLP block of h [..., hidden] bf16 in one launch."""
+    if h.device.type == "cpu":
+        return q4_mlp_plain(h, norm_w, gateup, down, eps)
+    if h.device.type != "cuda":
+        raise RuntimeError(f"q4_mlp: unsupported device {h.device}")
+    *lead, hidden = h.shape
+    h2 = h.reshape(-1, hidden).contiguous()
+    m = h2.shape[0]
+    inter = down.in_features
+    if not fused_mlp_applicable(gateup, down, hidden, m):
+        raise ValueError("q4_mlp: shapes outside fused_mlp_applicable")
+    _check_qt(h2, gateup)
+    check_qt_tensors(down, h.device)
+    norm_w = norm_w.to(torch.bfloat16).contiguous()
+    # scratch: gate|up [M, 2*inter] bf16, then the barrier counter
+    gu_bytes = -(-m * 2 * inter * 2 // 256) * 256
+    scratch = torch.empty((gu_bytes + 256,), dtype=torch.uint8, device=h.device)
+    base = scratch.data_ptr()
+    out = torch.empty_like(h2)
+    kernels.check(kernels.launcher("q4_mlp")(
+        h2.data_ptr(), norm_w.data_ptr(), gateup.qweight.data_ptr(),
+        gateup.scales.data_ptr(), gateup.zscale.data_ptr(),
+        down.qweight.data_ptr(), down.scales.data_ptr(),
+        down.zscale.data_ptr(), base, base + gu_bytes, out.data_ptr(),
+        m, hidden, inter, gateup.groupsize, float(eps), kernels.stream_of(h2),
+    ), "q4_mlp")
+    q4_mlp.launches += 1
+    return out.reshape(*lead, hidden)
+
+
+q4_mlp.launches = 0

@@ -35,18 +35,23 @@ def _q4_matmul_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
-def _check_qt(x: torch.Tensor, qt: QuantTensor):
-    if x.dim() != 2 or x.shape[1] != qt.in_features:
-        raise ValueError(f"x {tuple(x.shape)} vs in_features {qt.in_features}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"x must be bf16, got {x.dtype}")
+def check_qt_tensors(qt: QuantTensor, device: torch.device):
+    """Raise unless qt's tensors are what the kernels read, on ``device``."""
     if qt.groupsize not in (32, 64, 128):
         raise ValueError(f"groupsize {qt.groupsize}: kernels take 32/64/128")
     for name, t, dt in (("qweight", qt.qweight, torch.int32),
                         ("scales", qt.scales, torch.bfloat16),
                         ("zscale", qt.zscale, torch.bfloat16)):
-        if t.dtype != dt or not t.is_contiguous() or t.device != x.device:
-            raise ValueError(f"{name}: need contiguous {dt} on {x.device}")
+        if t.dtype != dt or not t.is_contiguous() or t.device != device:
+            raise ValueError(f"{name}: need contiguous {dt} on {device}")
+
+
+def _check_qt(x: torch.Tensor, qt: QuantTensor):
+    if x.dim() != 2 or x.shape[1] != qt.in_features:
+        raise ValueError(f"x {tuple(x.shape)} vs in_features {qt.in_features}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x must be bf16, got {x.dtype}")
+    check_qt_tensors(qt, x.device)
 
 
 def q4_gemv_plain(x, qt, norm_w=None, norm_eps=1e-6):

@@ -40,7 +40,8 @@ def test_config_parses_written_config_json(tmp_path):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("fuse_mlp", True), ("fuse_attn", True), ("commit_impl", "pallas"),
+    ("kv_cache_dtype", "int4"), ("pad_head_dim", True),
+    ("fold_act_order", False),
     ("kv_cache_dtype", "int8"), ("scale_dtype", "f32"),
     ("quantize_lm_head", True),
 ])
@@ -49,6 +50,24 @@ def test_tuning_knob_outside_the_slice_raises(knob, value):
     setattr(t, knob, getattr(t, knob))       # the slice value is accepted
     with pytest.raises(NotImplementedError):
         setattr(t, knob, value)
+
+
+def test_jax_decode_defaults_are_the_ports_defaults():
+    """The JAX package's default decode knobs are accepted, are the port's
+    defaults, and the separate-kernel configuration is reachable."""
+    ours, ref = TuningParams(), JaxConfig().tuning
+    for knob in ("fuse_mlp", "fuse_attn", "fuse_qkv", "commit_impl",
+                 "fuse_projections", "kv_cache_dtype", "scale_dtype"):
+        assert getattr(ours, knob) == getattr(ref, knob), knob
+    assert (ours.fuse_mlp, ours.fuse_attn, ours.fuse_qkv,
+            ours.commit_impl) == (True, True, False, "auto")
+    for knob, value in (("fuse_mlp", False), ("fuse_attn", False),
+                        ("fuse_qkv", True), ("commit_impl", "xla"),
+                        ("commit_impl", "pallas")):
+        setattr(ours, knob, value)
+        assert getattr(ours, knob) == value
+    with pytest.raises(ValueError):
+        ours.commit_impl = "triton"
 
 
 @pytest.mark.parametrize("act_order", [False, True])

@@ -48,6 +48,10 @@ def _pair(act_order=False, groupsize=128, seed=0, kv_heads=2):
     jc = _jax_config(kv_heads=kv_heads)
     jp = jax_synth(jc, groupsize, act_order, seed)
     pc = _tiny(port.ExLlamaConfig(), kv_heads=kv_heads)
+    # the port in the same separate-kernel configuration
+    pc.tuning.fuse_mlp = False
+    pc.tuning.fuse_attn = False
+    pc.tuning.commit_impl = "xla"
     pp = port.params_from_jax(jax.tree.map(np.asarray, jp), pc, device="cpu")
     return JaxModel(jc, params=jp), port.ExLlama(pc, params=pp, device="cpu")
 
