@@ -15,10 +15,15 @@ Phases, one line or block of output each; any failure exits non-zero:
      could take and, for the fused kernels K6/K7, the port's own chain of
      separate kernels for the same work; K7's attention is also held at
      its own scale, with no residual and planted keys (k7_attention_cases);
+     the W4A8 kernels K9-K11 are held to 5e-3 against their plain versions'
+     unrounded values after the plain versions have shown that a dropped
+     residual pass, zero-point term or nibble moves the output by more than
+     3x that (turbo_cases);
   4. a 2-layer model at full 7B width built from one seed on the card and on
      the CPU: teacher-forced prefill + decode logits compared, in the default
      configuration and with fuse_qkv + commit_impl="pallas", and the greedy
-     head's tokens held against the CPU logits;
+     head's tokens held against the CPU logits; then the same comparison
+     under matmul_impl="pallas_a8x2" and "pallas_a8t";
   5. the main path at full width, in the default configuration (the JAX
      package's: fuse_mlp, fuse_attn, commit_impl="auto"): a 32-layer
      Llama-7B-shape model (random weights from a seed) answering three
@@ -28,17 +33,27 @@ Phases, one line or block of output each; any failure exits non-zero:
      forward_chunk(head_mode="argmax") after the 1919-token prompt, once with
      commit_impl="auto" and once with fuse_qkv + commit_impl="pallas";
   7. the separate-kernel configuration of the first slice (fusions off) on
-     request 1, so fused and separate decode tokens/s come from one run.
+     request 1, so fused and separate decode tokens/s come from one run;
+  8. the opt-in matmul modes on the same 32-layer model: request 1 under
+     matmul_impl="pallas_a8t" with the resident int8 image (K11, K10 for the
+     o-projection, K9 at decode), under "pallas_a8x2", under "pallas_a8t"
+     with prefill_w8="off" (K10 everywhere) and in the exact mode with
+     EXL_GLU_FUSE=1 (K12), phase 6's fuse_qkv + K8 greedy decode under
+     "pallas_a8" and "pallas_a8x2", the 18-token request 2 under
+     "pallas_a8" (K6 in K9's arithmetic), and the generator's decode under
+     exact / a8 / a8x2 in turns, with tokens/s beside phase 5's.
 
-Each of phases 5-7 sets every launch counter to 0 just before it drives its
+Each of phases 5-8 sets every launch counter to 0 just before it drives its
 path and reads them just after; a kernel its path must run that shows no
 launch fails the run. The line before the last is a JSON summary of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. Needs exactly
 one visible CUDA device.
 """
 
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -49,13 +64,20 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 BF16_FLOP_PER_S = 989e12       # dense bf16 tensor-core peak
+INT8_OP_PER_S = 1979e12        # dense int8 tensor-core peak
 SEED = 0
 # kernel vs plain, max |difference| over max |plain| (reasons in kernel_cases
 # and fused_cases); head_argmax: plain max logit minus the plain logit at the
 # kernel's token, over max |plain logit|; kv_commit: exact
 TOL = {"q4_gemv": 1e-2, "q4_dequant_matmul": 1e-2, "flash_attn": 2e-2,
        "dense_gemv": 1e-4, "head_argmax": 1e-4, "q4_mlp": 2e-2,
-       "layer_tail": 2e-2, "kv_commit": 0.0}
+       "layer_tail": 2e-2, "kv_commit": 0.0,
+       # against the plain version's unrounded f32 values (turbo_cases)
+       "q4_gemv_a8": 5e-3, "q4_prefill_a8": 5e-3, "w8_matmul": 5e-3,
+       "q4_matmul_glu": 1e-2, "q4_mlp_a8": 2e-2,
+       # K7 in one-pass a8: the JAX suite's own limit for its fused layer
+       # kernel in a8 (tests/test_attn_block.py:478); a8x2 keeps K7's 2e-2
+       "layer_tail_a8": 5e-2, "layer_tail_a8x2": 2e-2}
 
 
 def log(*a):
@@ -94,9 +116,11 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=BF16_FLOP_PER_S):
+    """The least time the card could take: bytes over the memory rate or
+    operations over ``peak`` (the tensor-core rate of their type)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -135,12 +159,12 @@ def check_close(name, got, ref, rel_tol):
 
 def make_recorder(timer, res):
     def record(kernel, label, err, rel, k_fn, p_fn, l_fn, nbytes, flops,
-               iters=15, s_fn=None):
+               iters=15, s_fn=None, peak=BF16_FLOP_PER_S):
         kms = timer(k_fn, iters)
         pms = timer(p_fn, max(3, iters // 3))
         lms = None if l_fn is None else timer(l_fn, iters)
         sms = None if s_fn is None else timer(s_fn, iters)
-        b, by = bound_ms(nbytes, flops)
+        b, by = bound_ms(nbytes, flops, peak)
         r = dict(case=label, max_abs_err=err, rel_err=rel, ms=kms,
                  plain_ms=pms, library_ms=lms, bound_ms=b, bound_by=by)
         if s_fn is not None:
@@ -601,6 +625,325 @@ def k7_attention_cases(device, timer, res):
                flops, iters=10)
 
 
+def with_outliers(gen, x, gs, factor=50.0):
+    """One element per group of gs scaled up by ``factor``: it sets the int8
+    step of its whole group, which is the noise the a8x2 residual pass takes
+    away (elsewhere a8 and a8x2 differ by less than K9's tolerance)."""
+    m, k = x.shape
+    idx = torch.randint(0, gs, (m, k // gs), generator=gen, device=x.device)
+    idx = idx + torch.arange(0, k, gs, device=x.device)
+    return x.scatter(1, idx, (x.gather(1, idx).float() * factor).bfloat16())
+
+
+def require_fault_moves(label, ref, faulty, tol):
+    """Each plain output in ``faulty`` {fault: tensor} must differ from the
+    plain ``ref`` by more than 3x the tolerance: a kernel with that fault
+    could not pass."""
+    scale = ref.float().abs().max().item()
+    margins = {}
+    for fault, out in faulty.items():
+        moved = (out.float() - ref.float()).abs().max().item()
+        margins[fault] = round(moved / (tol * scale), 1)
+        if not moved > 3 * tol * scale:
+            raise AssertionError(f"{label}: '{fault}' moves the plain output "
+                                 f"by only {moved:.3g} (scale {scale:.3g})")
+    log(f"  {label}: each fault moves the plain output by this many times "
+        f"the tolerance: {margins}")
+
+
+def turbo_cases(device, timer, res):
+    """Hold K9-K12 against their plain versions at Llama-7B shapes, with
+    kernel / plain / library / bound times. K9-K11 do the same integer
+    arithmetic as their plain versions, so they are held to 5e-3 of the
+    output scale against the plain version's unrounded f32 values: what is
+    left is the kernel's bf16 output rounding (half a step, at most 0.39% of
+    an element) and the order of the f32 sums."""
+    from exllama_tpu_torch.formats.gptq import (
+        dequantize_t,
+        w8_col_scale,
+        with_w8,
+    )
+    from exllama_tpu_torch.ops import attn_block, mlp, quant
+    from exllama_tpu_torch.ops.norms import rms_norm
+    from exllama_tpu_torch.ops.rope import rope_tables, slice_tables
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    record = make_recorder(timer, res)
+    hidden, inter, heads, d, s_max, gs = 4096, 11008, 32, 128, 2048, 128
+    eps = 1e-6
+    f32 = torch.float32
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).bfloat16()
+
+    def norm_w():
+        return (torch.rand(hidden, generator=gen, device=device)
+                + 0.5).bfloat16()
+
+    def broken(qt, **kw):
+        return dataclasses.replace(qt, **kw)
+
+    def no_even_nibbles(qt):
+        return broken(qt, qweight=qt.qweight & ~0x0F0F0F0F)
+
+    # ---- K9: the a8 / a8x2 GEMV beside K1 on the same inputs
+    qkv = random_qt(gen, hidden, 12288, gs, False, device)
+    down = random_qt(gen, inter, hidden, gs, False, device)
+    nw = norm_w()
+    for nm, qt, k, n, w_norm, ms in (("qkv", qkv, hidden, 12288, nw, (1, 18)),
+                                     ("down", down, inter, hidden, None, (1,))):
+        w = dequantize_t(qt)
+        nbytes0 = q4_bytes(k, n, gs) + (k * 2 if w_norm is not None else 0)
+        for m in ms:
+            x = with_outliers(gen, rnd(m, k), gs)
+            nbytes = nbytes0 + m * k * 2 + m * n * 2
+            tag = f"{nm} g{gs} M={m}" + (" norm" if w_norm is not None else "")
+            if m > 2:      # K1 at this M, not among kernel_cases' shapes
+                got = quant.q4_gemv(x, qt, w_norm, eps)
+                ref = quant.q4_gemv_plain(x, qt, w_norm, eps)
+                err, rel = check_close(f"q4_gemv {tag}", got, ref,
+                                       TOL["q4_gemv"])
+                record("q4_gemv", tag, err, rel,
+                       lambda: quant.q4_gemv(x, qt, w_norm, eps),
+                       lambda: quant.q4_gemv_plain(x, qt, w_norm, eps),
+                       lambda: torch.matmul(x, w), nbytes, 2 * m * k * n)
+            for two_pass in (False, True):
+                mode = "a8x2" if two_pass else "a8"
+                ref = quant.q4_gemv_a8_plain(x, qt, w_norm, eps, two_pass, f32)
+                if m == 1 and nm == "qkv":
+                    faulty = {
+                        "zero-point term dropped": quant.q4_gemv_a8_plain(
+                            x, broken(qt, zscale=torch.zeros_like(qt.zscale)),
+                            w_norm, eps, two_pass, f32),
+                        "even nibbles dropped": quant.q4_gemv_a8_plain(
+                            x, no_even_nibbles(qt), w_norm, eps, two_pass, f32),
+                    }
+                    if two_pass:
+                        faulty["residual pass dropped"] = \
+                            quant.q4_gemv_a8_plain(x, qt, w_norm, eps, False,
+                                                   f32)
+                    require_fault_moves(f"q4_gemv_a8 {mode} {tag}", ref,
+                                        faulty, TOL["q4_gemv_a8"])
+                got = quant.q4_gemv_a8(x, qt, w_norm, eps, two_pass)
+                err, rel = check_close(f"q4_gemv_a8 {mode} {tag}", got, ref,
+                                       TOL["q4_gemv_a8"])
+                record("q4_gemv_a8", f"{mode} {tag}", err, rel,
+                       lambda: quant.q4_gemv_a8(x, qt, w_norm, eps, two_pass),
+                       lambda: quant.q4_gemv_a8_plain(x, qt, w_norm, eps,
+                                                      two_pass),
+                       lambda: torch.matmul(x, w), nbytes, 2 * m * k * n)
+        del w
+    del qkv
+
+    # ---- K6 in K9's arithmetic: 2e-2, as the exact K6 (gate|up is rounded
+    # to bf16 between the GEMVs on both sides)
+    gateup = random_qt(gen, hidden, 2 * inter, gs, False, device)
+    nbytes_mlp = (q4_bytes(hidden, 2 * inter, gs) + q4_bytes(inter, hidden, gs)
+                  + hidden * 2)
+    gu32 = random_qt(gen, hidden, 2 * inter, 32, False, device)
+    dn32 = random_qt(gen, inter, hidden, 32, False, device)
+    for m, impl, gu, dn in ((1, "pallas_a8", gateup, down),
+                            (1, "pallas_a8x2", gateup, down),
+                            (18, "pallas_a8", gateup, down),
+                            (1, "pallas_a8", gu32, dn32)):
+        h = rnd(m, 1, hidden)
+        got = mlp.q4_mlp(h, nw, gu, dn, eps, impl)
+        ref = mlp.q4_mlp_plain(h, nw, gu, dn, eps, impl)
+        tag = f"{impl[7:]} g{gu.groupsize} M={m}"
+        err, rel = check_close(f"q4_mlp_a8 {tag}", got, ref, TOL["q4_mlp_a8"])
+
+        def separate():
+            a = rms_norm(h, nw, eps)
+            mid = mlp.silu_mul(quant.q4_matmul(a, gu, impl), inter)
+            return h + quant.q4_matmul(mid, dn, impl)
+
+        record("q4_mlp_a8", tag, err, rel,
+               lambda: mlp.q4_mlp(h, nw, gu, dn, eps, impl),
+               lambda: mlp.q4_mlp_plain(h, nw, gu, dn, eps, impl),
+               None, q4_bytes(hidden, 2 * inter, gu.groupsize)
+               + q4_bytes(inter, hidden, gu.groupsize) + hidden * 2
+               + 2 * m * hidden * 2, 2 * m * 3 * hidden * inter,
+               s_fn=separate)
+    del gu32, dn32
+
+    # ---- K7 in K9's arithmetic: a8x2 2e-2, as the exact K7; one-pass a8
+    # 5e-2, since the kernel's attention row differs from the plain one by
+    # bf16 steps and a step in a GEMV's input draws other int8 roundings
+    # (K9 itself is held to 5e-3 above). The attention is held at its own
+    # scale (h = 0, planted keys) as in k7_attention_cases
+    o = random_qt(gen, heads * d, hidden, gs, False, device)
+    qkv7 = random_qt(gen, hidden, 3 * heads * d, gs, False, device)
+    iw = norm_w()
+    sin, cos = rope_tables(s_max, d, device=device)
+    b, hkv, past = 1, 32, 2000
+    nq = nkv = heads * d
+    sin_t, cos_t = slice_tables(sin, cos, past, 1)
+    h, q = rnd(b, 1, hidden), rnd(b, 1, heads, d)
+    kc, vc = rnd(b, hkv, s_max, d), rnd(b, hkv, s_max, d)
+    new_kv = (rnd(b, 1, hkv, d), rnd(b, 1, hkv, d))
+    # B = 2, GQA-8, row 0 left-padded by 17 tokens (the exact K7's case)
+    h2, q2 = rnd(2, 1, hidden), rnd(2, 1, heads, d)
+    kc2, vc2 = rnd(2, 8, s_max, d), rnd(2, 8, s_max, d)
+    new_kv2 = (rnd(2, 1, 8, d), rnd(2, 1, 8, d))
+    mask2 = torch.ones((2, s_max), dtype=torch.bool, device=device)
+    mask2[0, :17] = False
+    for entry, impl in (("layer_tail", "pallas_a8"),
+                        ("layer_tail", "pallas_a8x2"),
+                        ("layer_step", "pallas_a8"),
+                        ("layer_tail gqa8", "pallas_a8")):
+        if entry == "layer_tail gqa8":
+            args = (h2, q2, kc2, vc2, past, s_max, o, nw, gateup, down, eps,
+                    new_kv2, mask2, impl)
+            k_fn = lambda: attn_block.layer_tail(*args)  # noqa: E731
+            p_fn = lambda: attn_block.layer_tail_plain(*args)  # noqa: E731
+        elif entry == "layer_tail":
+            args = (h, q, kc, vc, past, s_max, o, nw, gateup, down, eps,
+                    new_kv, None, impl)
+            k_fn = lambda: attn_block.layer_tail(*args)  # noqa: E731
+            p_fn = lambda: attn_block.layer_tail_plain(*args)  # noqa: E731
+        else:
+            args = (h, qkv7, iw, sin_t, cos_t, kc, vc, past, s_max, o, nw,
+                    gateup, down, eps, heads, hkv, d, None, impl)
+            k_fn = lambda: attn_block.layer_step(*args)  # noqa: E731
+            p_fn = lambda: attn_block.layer_step_plain(*args)  # noqa: E731
+        got, ref = k_fn(), p_fn()
+        if entry == "layer_step":
+            for i, nm in ((1, "k_row"), (2, "v_row")):
+                check_close(f"layer_step a8 {nm}", got[i], ref[i], 1e-2)
+            got, ref = got[0], ref[0]
+        gqa = entry.endswith("gqa8")
+        bb, kv_w = (2, 8 * d) if gqa else (b, nkv)
+        tag = (f"{impl[7:]} {entry} B={bb} past=2000"
+               + (" left-pad mask" if gqa else ""))
+        err, rel = check_close(f"layer_tail_a8 {tag}", got, ref,
+                               TOL[f"layer_tail_{impl[7:]}"])
+        nbytes = (q4_bytes(nq, hidden, gs) + 2 * bb * past * kv_w * 2
+                  + 2 * bb * hidden * 2 + nbytes_mlp
+                  + (bb * s_max if gqa else 0))
+        flops = (4 * d * heads * bb * (past + 1) + 2 * bb * nq * hidden
+                 + 2 * bb * 3 * hidden * inter)
+        if entry == "layer_step":
+            nbytes += (q4_bytes(hidden, nq + 2 * nkv, gs) + hidden * 2
+                       + b * d * 8 + 2 * b * nkv * 2)
+            flops += 2 * b * hidden * (nq + 2 * nkv)
+        else:
+            nbytes += bb * nq * 2 + 2 * bb * kv_w * 2
+        record(f"layer_tail_{impl[7:]}", tag, err, rel, k_fn, p_fn, None,
+               nbytes, flops, iters=10)
+    del qkv7, gateup, h2, q2, kc2, vc2, new_kv2
+    q, kc, vc, new_kv, _ = planted_attention(gen, b, heads, hkv, s_max, past,
+                                             0, device)
+    h0 = torch.zeros((b, 1, hidden), dtype=torch.bfloat16, device=device)
+    tol = TOL["layer_tail_a8"]
+    lost = torch.ones((b, s_max), dtype=torch.bool, device=device)
+    lost[:, 256:512] = False
+    ref = attn_block.attn_block_o_plain(h0, q, kc, vc, past, s_max, o, new_kv,
+                                        None, "pallas_a8")
+    require_fault_moves("layer_tail_a8 attn_block_o h=0 peaked", ref, {
+        "in-flight row dropped": attn_block.attn_block_o_plain(
+            h0, q, kc, vc, past, s_max, o, (-new_kv[0], new_kv[1]), None,
+            "pallas_a8"),
+        "split lost": attn_block.attn_block_o_plain(
+            h0, q, kc, vc, past, s_max, o, new_kv, lost, "pallas_a8"),
+    }, tol)
+    args = (h0, q, kc, vc, past, s_max, o, new_kv, None, "pallas_a8")
+    got = attn_block.attn_block_o(*args)
+    err, rel = check_close("layer_tail_a8 attn_block_o h=0", got, ref, tol)
+    record("layer_tail_a8", "a8 attn_block_o h=0 peaked B=1 past=2000", err,
+           rel, lambda: attn_block.attn_block_o(*args),
+           lambda: attn_block.attn_block_o_plain(*args), None,
+           q4_bytes(nq, hidden, gs) + 2 * b * past * nkv * 2
+           + 2 * b * hidden * 2 + b * nq * 2 + 2 * b * nkv * 2,
+           4 * d * heads * b * (past + 1) + 2 * b * nq * hidden, iters=10)
+    del q, kc, vc, new_kv, o
+
+    # ---- K10, K11: the int8 tensor-core prefill matmuls at M = 1919; the
+    # library yardstick of K11 is torch._int_mm on the same int8 operands
+    # plus the rescale (where this torch has it), of K10 the bf16 product
+    # that also stands beside K2
+    m = 1919
+    shapes = {"qkv": (hidden, 12288), "o": (hidden, hidden),
+              "gateup": (hidden, 2 * inter), "down": (inter, hidden)}
+    for nm, (k, n) in shapes.items():
+        qt = down if nm == "down" else random_qt(gen, k, n, gs, False, device)
+        x = rnd(m, k)
+        ops = 2 * m * k * n
+        # K10 at every shape (what an image would save), K11 at all but o
+        ws = w8_col_scale(qt)
+        ref = quant.q4_prefill_a8_plain(x, qt, ws, f32)
+        if nm == "o":
+            require_fault_moves(f"q4_prefill_a8 {nm}", ref, {
+                "even nibbles dropped": quant.q4_prefill_a8_plain(
+                    x, no_even_nibbles(qt), ws, f32)},
+                TOL["q4_prefill_a8"])
+        got = quant.q4_prefill_a8(x, qt, ws)
+        err, rel = check_close(f"q4_prefill_a8 {nm}", got, ref,
+                               TOL["q4_prefill_a8"])
+        w = dequantize_t(qt)
+        record("q4_prefill_a8", f"{nm} g{gs} M={m}", err, rel,
+               lambda: quant.q4_prefill_a8(x, qt, ws),
+               lambda: quant.q4_prefill_a8_plain(x, qt, ws),
+               lambda: torch.matmul(x, w),
+               q4_bytes(k, n, gs) + n * 4 + m * k * 2 + m * n * 2, ops,
+               iters=8, peak=INT8_OP_PER_S)
+        del w
+        if nm != "o":
+            qt8 = with_w8(qt)
+            ref = quant.w8_matmul_plain(x, qt8.w8, qt8.w8_scale, f32)
+            got = quant.w8_matmul(x, qt8)
+            err, rel = check_close(f"w8_matmul {nm}", got, ref,
+                                   TOL["w8_matmul"])
+            record("w8_matmul", f"{nm} M={m}", err, rel,
+                   lambda: quant.w8_matmul(x, qt8),
+                   lambda: quant.w8_matmul_plain(x, qt8.w8, qt8.w8_scale),
+                   int_mm_library(x, qt8),
+                   k * n + n * 4 + m * k * 2 + m * n * 2, ops, iters=8,
+                   peak=INT8_OP_PER_S)
+            del qt8
+        del qt
+
+    # ---- K12: the down projection with the GLU prologue, beside K2 plus
+    # the plain silu(gate)*up it replaces. 1e-2, as K2.
+    x = rnd(m, 2 * inter)
+    got = quant.q4_matmul_glu(x, down, inter, inter)
+    ref = quant.q4_matmul_glu_plain(x, down, inter, inter)
+    err, rel = check_close("q4_matmul_glu down", got, ref,
+                           TOL["q4_matmul_glu"])
+    w = dequantize_t(down)
+    record("q4_matmul_glu", f"down g{gs} M={m}", err, rel,
+           lambda: quant.q4_matmul_glu(x, down, inter, inter),
+           lambda: quant.q4_matmul_glu_plain(x, down, inter, inter),
+           lambda: torch.matmul(quant.glu_silu_mul(x, inter, inter), w),
+           q4_bytes(inter, hidden, gs) + m * 2 * inter * 2 + m * hidden * 2,
+           2 * m * inter * hidden, iters=8,
+           s_fn=lambda: quant.q4_dequant_matmul(
+               quant.glu_silu_mul(x, inter, inter), down))
+
+
+def int_mm_library(x, qt8):
+    """One-call yardstick of K11: torch._int_mm on the row-quantized x and
+    the image, plus the rescale. None where this torch cannot run it."""
+    from exllama_tpu_torch.ops import quant
+
+    xq, sx = quant._quant_rows(x.float())
+    xq = xq.to(torch.int8)
+    w8_cm = qt8.w8.t().contiguous().t()        # column-major, as cuBLASLt asks
+    ws = qt8.w8_scale
+
+    def lib():
+        return (torch._int_mm(xq, w8_cm).float() * sx * ws).bfloat16()
+
+    try:
+        lib()
+        torch.cuda.synchronize()
+    except (RuntimeError, AttributeError) as e:
+        log(f"  torch._int_mm is not usable here ({str(e)[:80]}): no library "
+            f"time for w8_matmul")
+        return None
+    return lib
+
+
 # --------------------------------------------------------------- phase 4
 
 def model_vs_cpu(device):
@@ -658,6 +1001,51 @@ def model_vs_cpu(device):
                                  f"the CPU max")
     cfg.tuning.fuse_qkv = False
     cfg.tuning.commit_impl = "auto"
+    return worst, turbo_model_vs_cpu(cfg, cpu_params, steps[:5], device)
+
+
+# card vs CPU logits over the logit scale under the W4A8 modes. a8x2 is
+# exact-grade (its quantization error is ~2^-14 of a group's maximum): the
+# exact mode's 3%. a8t quantizes every prefill activation to int8, so a
+# bf16 step of difference between kernel and plain version can draw
+# another int8 rounding downstream; at this depth it stays inside the same
+# 3% (0.44% measured on an H100).
+TURBO_MODEL_TOL = {"pallas_a8x2": 0.03, "pallas_a8t": 0.03}
+
+
+def turbo_model_vs_cpu(cfg, cpu_params, steps, device):
+    """The same 2-layer model under "pallas_a8x2" and "pallas_a8t" (int8
+    images attached on both sides): prefill + 4 decode steps, card vs CPU.
+    Returns {impl: worst relative difference}."""
+    import exllama_tpu_torch as port
+    from exllama_tpu_torch.models.llama import _attach_prefill_w8
+
+    worst = {}
+    for impl, tol in TURBO_MODEL_TOL.items():
+        cfg.tuning.matmul_impl = impl
+        cfg.tuning.prefill_w8 = "on"
+        params = cpu_params
+        if impl == "pallas_a8t":
+            params = _attach_prefill_w8(cpu_params, cfg)
+        cpu_model = port.ExLlama(cfg, params=params, device="cpu")
+        gpu_model = port.ExLlama(cfg, params=params.to(device), device=device)
+        if impl == "pallas_a8t":
+            assert gpu_model.params.layers[0].down.w8 is not None
+        c_cpu = port.ExLlamaCache(cpu_model)
+        c_gpu = port.ExLlamaCache(gpu_model)
+        worst[impl] = 0.0
+        for i, tok in enumerate(steps):
+            ref = cpu_model.forward(tok, c_cpu, last_id_only=i > 0)
+            got = gpu_model.forward(tok, c_gpu, last_id_only=i > 0).cpu()
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            if not torch.isfinite(got).all() or rel > tol:
+                raise AssertionError(f"matmul_impl={impl} step {i}: card vs "
+                                     f"CPU logits rel {rel:.4f} > {tol}")
+            worst[impl] = max(worst[impl], rel)
+        del gpu_model, c_gpu
+    cfg.tuning.matmul_impl = "auto"
+    cfg.tuning.prefill_w8 = "auto"
+    torch.cuda.empty_cache()
     return worst
 
 
@@ -673,7 +1061,13 @@ def launch_counters():
             "head_argmax": dense.head_argmax,
             "q4_mlp": mlp.q4_mlp,
             "layer_tail": attn_block.layer_tail,
-            "kv_commit": attention.kv_commit}
+            "kv_commit": attention.kv_commit,
+            "q4_gemv_a8": quant.q4_gemv_a8,
+            "q4_prefill_a8": quant.q4_prefill_a8,
+            "w8_matmul": quant.w8_matmul,
+            "q4_matmul_glu": quant.q4_matmul_glu,
+            "q4_mlp_a8": mlp.q4_mlp_a8,
+            "layer_tail_a8": attn_block.layer_tail_a8}
 
 
 def zero_counts():
@@ -726,6 +1120,13 @@ class MainPath:
     def set_tuning(self, **knobs):
         for k, v in knobs.items():
             setattr(self.cfg.tuning, k, v)
+
+    def use_model(self, model):
+        """Serve from ``model`` (the same configuration and cache)."""
+        self.model = model
+        self.gen = self.port.ExLlamaGenerator(model, self.tok, self.cache,
+                                              seed=SEED)
+        self.gen.disallow_tokens([self.tok.eos_token_id])
 
     def request1(self, label):
         """The 1919-token prompt + 128 tokens, then the same request split
@@ -832,6 +1233,150 @@ def greedy(mp, label, **knobs):
     return dict(decode_tps=128 / dt, host_s=t_host, per_decode_step=per_step)
 
 
+def turbo_path(mp, exact, launches):
+    """Phase 8: request 1 under each opt-in matmul mode on the 32-layer
+    model, launch counts zeroed before and required after each, and the
+    18-token request 2 under "pallas_a8". ``exact`` is phase 5's result."""
+    port, cfg = mp.port, mp.cfg
+    base = mp.model
+    n_layers = cfg.num_hidden_layers
+    out = {}
+
+    def run(label, want_prefill, want_step):
+        zero_counts()
+        r = mp.request1(label)
+        c = counts()
+        require(f"phase 8 {label} prefill", r["per_prefill"], want_prefill)
+        require(f"phase 8 {label} decode step", r["per_decode_step"],
+                want_step)
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+        out[label] = r
+        return r
+
+    a8_step = {"q4_gemv_a8": n_layers, "layer_tail_a8": n_layers,
+               "dense_gemv": 1, "q4_gemv": 0, "layer_tail": 0}
+
+    # (a) turbo prefill against the resident int8 image
+    mp.set_tuning(matmul_impl="pallas_a8t", prefill_w8="auto")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    turbo = port.ExLlama(cfg, params=base.params, device=base.device)
+    torch.cuda.synchronize()
+    image = turbo.w8_image_bytes()
+    want = sum(qt.in_features * qt.out_features + 4 * qt.out_features
+               for lp in turbo.params.layers
+               for qt in (lp.qkv, lp.gateup, lp.down)) + sum(
+        4 * lp.o.out_features for lp in turbo.params.layers)
+    assert image == want, (image, want)
+    assert all(lp.o.w8 is None and lp.down.w8 is not None
+               for lp in turbo.params.layers)
+    log(f"  int8 image: {image} bytes ({image / 2**30:.2f} GiB) attached in "
+        f"{time.time() - t0:.1f} s")
+    mp.use_model(turbo)
+    run("a8t+image",
+        {"w8_matmul": 3 * n_layers, "q4_prefill_a8": n_layers,
+         "flash_attn": n_layers, "q4_dequant_matmul": 0}, a8_step)
+    out["a8t+image"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["a8t+image"]["image_bytes"] = image
+    log(f"  a8t+image max_memory_allocated "
+        f"{out['a8t+image']['peak_bytes'] / 2**30:.2f} GiB")
+    mp.use_model(base)
+    del turbo
+    torch.cuda.empty_cache()
+
+    # (b) a8x2: K9 with the residual pass at decode, prefill on the exact K2
+    mp.set_tuning(matmul_impl="pallas_a8x2")
+    run("a8x2", {"q4_dequant_matmul": 4 * n_layers, "flash_attn": n_layers,
+                 "w8_matmul": 0, "q4_prefill_a8": 0}, a8_step)
+
+    # phase 6's card-bound greedy path (fuse_qkv + the K8 commit: one K7
+    # launch a layer) in the a8 arithmetic, where the kernels' own times
+    # show end to end
+    for impl in ("pallas_a8", "pallas_a8x2"):
+        mp.set_tuning(matmul_impl=impl)
+        zero_counts()
+        label = f"fuse_qkv, commit_impl=pallas, {impl}"
+        out[label] = g = greedy(mp, label, qkv_fuse=True, commit_impl="pallas",
+                                matmul_impl=impl)
+        require(f"phase 8 greedy {impl}", g["per_decode_step"], {
+            "layer_tail_a8": n_layers, "head_argmax": 1, "kv_commit": 1,
+            "q4_gemv_a8": 0, "layer_tail": 0, "q4_gemv": 0})
+        for k, v in counts().items():
+            launches[k] = launches.get(k, 0) + v
+
+    # (c) turbo prefill without images: every matmul re-quantizes its tile
+    # (and, with prefill_w8="off", reduces its column scales per call)
+    mp.set_tuning(matmul_impl="pallas_a8t", prefill_w8="off")
+    run("a8t, prefill_w8=off",
+        {"q4_prefill_a8": 4 * n_layers, "w8_matmul": 0,
+         "q4_dequant_matmul": 0, "flash_attn": n_layers}, a8_step)
+
+    # (d) the exact mode with the GLU prologue in the down projection
+    mp.set_tuning(matmul_impl="auto", prefill_w8="auto")
+    os.environ["EXL_GLU_FUSE"] = "1"
+    try:
+        run("exact, EXL_GLU_FUSE=1",
+            {"q4_matmul_glu": n_layers, "q4_dequant_matmul": 3 * n_layers,
+             "flash_attn": n_layers},
+            {"q4_gemv": n_layers, "layer_tail": n_layers, "dense_gemv": 1,
+             "q4_matmul_glu": 0})
+    finally:
+        del os.environ["EXL_GLU_FUSE"]
+
+    # request 2 under "pallas_a8": its 18-token prefill runs the MLP as K6
+    # and the projections as K9, all in the a8 arithmetic
+    mp.set_tuning(matmul_impl="pallas_a8")
+    zero_counts()
+    text = mp.gen.generate_simple("The quick brown fox", max_new_tokens=16)
+    assert isinstance(text, str) and mp.cache.current_seq_len == 19 + 16 - 1
+    c = counts()
+    require("phase 8 request 2 under pallas_a8", c, {
+        "q4_mlp_a8": n_layers, "q4_gemv_a8": None, "layer_tail_a8": None,
+        "q4_mlp": 0, "q4_gemv": 0, "layer_tail": 0})
+    for k, v in c.items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  request 2 under pallas_a8: launches {c}")
+    mp.set_tuning(matmul_impl="auto")
+
+    # the generator's decode is host-bound and its rate moves between two
+    # runs of the same kernels, so the decode modes are also timed in turns
+    # (exact, a8, a8x2, three rounds) after the same prefill
+    rates = {"auto": [], "pallas_a8": [], "pallas_a8x2": []}
+    zero_counts()
+    for _ in range(3):
+        for impl, got in rates.items():
+            mp.set_tuning(matmul_impl=impl)
+            mp.gen.gen_begin(mp.ids)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            mp.gen.gen_tokens(128)
+            torch.cuda.synchronize()
+            got.append(128 / (time.time() - t0))
+    mp.set_tuning(matmul_impl="auto")
+    c = counts()
+    require("phase 8 decode in turns", c, {
+        "q4_gemv": 3 * 128 * n_layers, "layer_tail": 3 * 128 * n_layers,
+        "q4_gemv_a8": 6 * 128 * n_layers, "layer_tail_a8": 6 * 128 * n_layers})
+    for k, v in c.items():
+        launches[k] = launches.get(k, 0) + v
+    out["decode_in_turns"] = rates
+    log("  decode tok/s in turns (3 rounds of 128 tokens after the 1918-token "
+        "prefill): " + "; ".join(
+            f"{impl}: " + ", ".join(f"{r:.2f}" for r in got)
+            + f" (median {statistics.median(got):.2f})"
+            for impl, got in rates.items()))
+
+    log(f"  tok/s beside the exact mode (phase 5: prompt "
+        f"{exact['prompt_tps']:.1f}, decode {exact['decode_tps']:.2f}): "
+        + "; ".join(
+            f"{k}: " + (f"prompt {v['prompt_tps']:.1f}, "
+                        if "prompt_tps" in v else "")
+            + f"decode {v['decode_tps']:.2f}" for k, v in out.items()
+            if "decode_tps" in v))
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 SOURCES = {
@@ -852,6 +1397,14 @@ SOURCES = {
                    "layer_tail B=1 past=2000"),
     "kv_commit": ("exllama_tpu_torch/csrc/kv_commit.cu",
                   "exllama_tpu/ops/attention.py:173", "L=32 B=1"),
+    "q4_gemv_a8": ("exllama_tpu_torch/csrc/q4_gemv.cuh",
+                   "exllama_tpu/ops/quant.py:333", "a8 qkv g128 M=1 norm"),
+    "q4_prefill_a8": ("exllama_tpu_torch/csrc/q4_prefill_a8.cu",
+                      "exllama_tpu/ops/quant.py:776", "o g128 M=1919"),
+    "w8_matmul": ("exllama_tpu_torch/csrc/w8_matmul.cu",
+                  "exllama_tpu/ops/quant.py:1273", "gateup M=1919"),
+    "q4_matmul_glu": ("exllama_tpu_torch/csrc/q4_matmul.cu",
+                      "exllama_tpu/ops/quant.py:654", "down g128 M=1919"),
 }
 
 
@@ -873,8 +1426,8 @@ def main() -> int:
     log(smi)
 
     secs = kernels.build()
-    log(f"[2 build] {len(kernels._SIGNATURES)} kernels built and loaded in "
-        f"{secs:.1f} s")
+    log(f"[2 build] {len(kernels.LIBRARIES)} libraries (12 kernels; K1, K6, "
+        f"K7 once per GEMV mode) built and loaded in {secs:.1f} s")
 
     log("[3 kernels] kernel vs plain on the card, medians of L2-cold runs")
     t0 = time.time()
@@ -882,14 +1435,18 @@ def main() -> int:
     res = {}
     kernel_cases(device, timer, res)
     fused_cases(device, timer, res)
+    turbo_cases(device, timer, res)
     log(f"[3 kernels] all agree ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    worst = model_vs_cpu(device)
+    worst, worst_turbo = model_vs_cpu(device)
     log(f"[4 model] 2 layers at 7B width, 64-token prefill + 8 decode steps, "
         f"default and fuse_qkv + K8 commit: card vs CPU logits within "
-        f"{worst:.4f} of the logit scale (limit 0.03), greedy head agrees "
-        f"({time.time() - t0:.1f} s)")
+        f"{worst:.4f} of the logit scale (limit 0.03), greedy head agrees; "
+        f"prefill + 4 steps under the W4A8 modes: "
+        + ", ".join(f"{k} within {v:.4f} (limit {TURBO_MODEL_TOL[k]})"
+                    for k, v in worst_turbo.items())
+        + f" ({time.time() - t0:.1f} s)")
 
     log("[5 main path] Llama-7B shapes, 32 layers, g128, bf16 KV, "
         "max_seq_len 2048, default configuration")
@@ -948,6 +1505,13 @@ def main() -> int:
                                for k, v in runs.items()))
     log(f"[7 separate kernels] done ({time.time() - t0:.1f} s)")
 
+    log("[8 matmul modes] request 1 under pallas_a8t (+ int8 image), "
+        "pallas_a8x2, pallas_a8t with prefill_w8=off, exact with "
+        "EXL_GLU_FUSE=1; request 2 under pallas_a8")
+    t0 = time.time()
+    turbo_path(mp, fused, launches)
+    log(f"[8 matmul modes] done ({time.time() - t0:.1f} s)")
+
     summary = []
     for kname, (src, replaces, rep_case) in SOURCES.items():
         r = next(c for c in res[kname] if c["case"].startswith(rep_case))
@@ -965,6 +1529,9 @@ def main() -> int:
         )
         if "separate_ms" in r:
             entry["separate_ms"] = r["separate_ms"]
+        if kname == "q4_gemv_a8":       # K9 inside the fused kernels
+            entry["launches_in_q4_mlp"] = launches["q4_mlp_a8"]
+            entry["launches_in_layer_tail"] = launches["layer_tail_a8"]
         summary.append(entry)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,17 +3,21 @@
 ``ExLlamaConfig`` parses a HuggingFace ``config.json`` for the Llama family
 exactly as the JAX package does. ``TuningParams`` keeps only the knobs the
 port implements; the JAX package's TPU knobs (VMEM budgets, ``q4_block_k``,
-``prefill_w8*``, ``matmul_prefill_rows``) have no counterpart here.
+``matmul_prefill_rows``) have no counterpart here.
 
-The port runs the JAX package's default decode configuration: the fused
-decode kernels (``fuse_mlp``, ``fuse_attn``; ``fuse_qkv`` off by default,
-as there), ``commit_impl="auto"``, fused qkv / gate-up projections, a bf16
-KV cache, exact 4-bit matmuls and a bf16 lm_head. Setting ``fuse_mlp``,
-``fuse_attn`` and ``fuse_qkv`` to False (any ``commit_impl``) gives the
-separate-kernel configuration of the port's first slice. A knob whose other
-values belong to a later slice is still accepted at its one implemented
-value, so call sites written for the JAX package keep working, and raises
-for any other value.
+By default the port runs the JAX package's default decode configuration:
+the fused decode kernels (``fuse_mlp``, ``fuse_attn``; ``fuse_qkv`` off by
+default, as there), ``commit_impl="auto"``, fused qkv / gate-up
+projections, a bf16 KV cache, exact 4-bit matmuls (``matmul_impl="auto"``)
+and a bf16 lm_head. Setting ``fuse_mlp``, ``fuse_attn`` and ``fuse_qkv`` to
+False (any ``commit_impl``) gives the separate-kernel configuration of the
+port's first slice. ``matmul_impl`` opts into the W4A8 turbo modes: int8
+activations at decode M (``"pallas_a8"``, with a residual pass
+``"pallas_a8x2"``) and int8 tensor-core prefill too (``"pallas_a8t"``,
+against a resident int8 image of the weights where ``prefill_w8`` allows).
+A knob whose other values belong to a later slice is still accepted at its
+one implemented value, so call sites written for the JAX package keep
+working, and raises for any other value.
 """
 
 from __future__ import annotations
@@ -34,12 +38,46 @@ _SLICE_ONLY = {
 
 
 COMMIT_IMPLS = ("auto", "xla", "pallas")
+# The JAX value names are kept so call sites port unchanged: "auto" and
+# "pallas" are the exact kernels, the others the W4A8 modes.
+MATMUL_IMPLS = ("auto", "pallas", "pallas_a8", "pallas_a8x2", "pallas_a8t")
+A8_IMPLS = MATMUL_IMPLS[2:]
+PREFILL_W8 = ("auto", "on", "off")
+
+
+def check_matmul_impl(impl: str) -> str:
+    """``impl`` if the port implements it. The JAX package's plain-XLA
+    path and its interpret-mode strings raise NotImplementedError, anything
+    else ValueError."""
+    if impl in MATMUL_IMPLS:
+        return impl
+    if impl == "xla" or impl.removesuffix("_interpret") in MATMUL_IMPLS:
+        raise NotImplementedError(
+            f"matmul_impl {impl!r}: the port runs its kernels (or, on CPU "
+            f"tensors, their plain versions) under {MATMUL_IMPLS}")
+    raise ValueError(f"matmul_impl {impl!r} not in {MATMUL_IMPLS}")
 
 
 @dataclasses.dataclass
 class TuningParams:
     """Runtime knobs of the port."""
 
+    # 4-bit matmul arithmetic: "auto" / "pallas" = the exact kernels (K1 at
+    # M <= 32, K2 above); "pallas_a8" = int8 activations per (row, group)
+    # against the nibbles at M <= 32 (K9), exact above; "pallas_a8x2" = K9
+    # with a second int8 pass over the residual; "pallas_a8t" = K9 at
+    # M <= 32 and int8 tensor-core products above (K11 against a resident
+    # int8 image, K10 re-quantizing the 4-bit tile in the kernel).
+    matmul_impl: str = "auto"
+    # Turbo prefill ("pallas_a8t") weight strategy: "auto" keeps a
+    # load-time int8 image of as many layer weights as the budget below
+    # allows, "on" of all of them whatever it costs, "off" of none (every
+    # prefill matmul re-quantizes in the kernel). No effect on other modes.
+    prefill_w8: str = "auto"
+    # Device memory "auto" may fill with packed weights + the KV cache +
+    # images, in GiB. None: the card's total memory less 2.5 GiB for
+    # activations and workspace, read when the images are attached.
+    prefill_w8_budget_gb: Optional[float] = None
     # Decode-time attention length bucketing: the attended KV length is
     # rounded up to a multiple of this (0 = always the full max_seq_len).
     attn_len_bucket: int = 256
@@ -83,6 +121,10 @@ class TuningParams:
             )
         if name == "commit_impl" and value not in COMMIT_IMPLS:
             raise ValueError(f"commit_impl {value!r} not in {COMMIT_IMPLS}")
+        if name == "matmul_impl":
+            check_matmul_impl(value)
+        if name == "prefill_w8" and value not in PREFILL_W8:
+            raise ValueError(f"prefill_w8 {value!r} not in {PREFILL_W8}")
         if name not in {f.name for f in dataclasses.fields(self)}:
             raise AttributeError(f"TuningParams has no knob {name!r}")
         object.__setattr__(self, name, value)

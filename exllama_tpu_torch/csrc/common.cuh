@@ -11,6 +11,14 @@ typedef __nv_bfloat16 bf16;
 __device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16_rn(v); }
 
+// silu(g) * up with the separate path's casts: g and u are the bf16-rounded
+// gate / up outputs; silu in f32, rounded to bf16, times u, rounded to bf16
+// (ops/mlp.py:_silu_boundary, ops/quant.py:680-682).
+__device__ __forceinline__ float silu_mul(float g, float u) {
+  const float sg = bf2f(f2bf(g / (1.f + expf(-g))));
+  return bf2f(f2bf(sg * u));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -47,19 +47,20 @@ __device__ __forceinline__ float rope_elem(const bf16* head, int d, const float*
 
 // The MLP block of rows h [M, hidden]: gu = bf16(rms_norm(h) @ gateup)
 // into scratch, barrier, out = bf16(h + bf16(silu(gate)*up @ down)).
-// gateup holds gate in columns [0, inter) and up in [inter, 2*inter).
-template <int MB>
+// gateup holds gate in columns [0, inter) and up in [inter, 2*inter). MODE
+// is the arithmetic of both GEMVs (q4_gemv.cuh).
+template <int MB, int MODE>
 __device__ void mlp_phases(const bf16* h, const bf16* norm_w, float eps, const QW& gu,
                            const QW& dn, int M, int hidden, int inter, int gs, bf16* gu_scr,
                            bf16* out, unsigned int* bar, unsigned int& epoch,
                            unsigned char* smem) {
   const int ngu = gu.N;
   const XSrc xa{h, hidden, norm_w, eps, nullptr, 0};
-  q4::q4_gemv_tiles<MB>(xa, gu, M, hidden, gs, blockIdx.x, gridDim.x, smem,
+  q4::q4_gemv_tiles<MB, MODE>(xa, gu, M, hidden, gs, blockIdx.x, gridDim.x, smem,
                         [&](int m, int n, float v) { gu_scr[(size_t)m * ngu + n] = f2bf(v); });
   grid_sync(bar, epoch);
   const XSrc xb{gu_scr, ngu, nullptr, 0.f, nullptr, inter};
-  q4::q4_gemv_tiles<MB>(xb, dn, M, inter, gs, blockIdx.x, gridDim.x, smem,
+  q4::q4_gemv_tiles<MB, MODE>(xb, dn, M, inter, gs, blockIdx.x, gridDim.x, smem,
                         [&](int m, int n, float v) {
                           const size_t i = (size_t)m * hidden + n;
                           out[i] = f2bf(q4::ld_cg(h + i) + bf2f(f2bf(v)));

@@ -33,6 +33,10 @@
 // attention row. Rope is applied as q and the in-flight k are loaded, so
 // phase B needs one barrier only. Scratch (qkv, partials, attention row,
 // h', gate|up, the barrier counter) is allocated by the wrapper.
+//
+// Built with -DGEMV_MODE=1 or 2 every GEMV phase (qkv, o-proj, gate|up,
+// down) runs the W4A8 arithmetic of K9 (attn_block.py's a8 / a8x2 kernels);
+// attention itself stays bf16. One library per mode.
 #include "fused_layer.cuh"
 
 namespace {
@@ -295,7 +299,7 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams
   if (p.in_norm) {  // phase B: input norm + fused qkv GEMV
     const int nqkv = p.qkv.N;
     const XSrc x{p.h, p.hidden, p.in_norm, p.eps, nullptr, 0};
-    q4::q4_gemv_tiles<MB>(x, p.qkv, M, p.hidden, p.gs, blockIdx.x, gridDim.x, smem,
+    q4::q4_gemv_tiles<MB, GEMV_MODE>(x, p.qkv, M, p.hidden, p.gs, blockIdx.x, gridDim.x, smem,
                           [&](int m, int n, float v) {
                             p.qkv_scr[(size_t)m * nqkv + n] = f2bf(v);
                           });
@@ -310,14 +314,14 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams
   const int hid = p.hidden;
   bf16* hdst = p.post_norm ? p.h1_scr : p.out;
   const XSrc xo{p.attn_scr, p.H * D, nullptr, 0.f, nullptr, 0};
-  q4::q4_gemv_tiles<MB>(xo, p.o, M, p.H * D, p.gs, blockIdx.x, gridDim.x, smem,
+  q4::q4_gemv_tiles<MB, GEMV_MODE>(xo, p.o, M, p.H * D, p.gs, blockIdx.x, gridDim.x, smem,
                         [&](int m, int n, float v) {
                           const size_t i = (size_t)m * hid + n;
                           hdst[i] = f2bf(bf2f(p.h[i]) + bf2f(f2bf(v)));
                         });
   if (!p.post_norm) return;
   fused::grid_sync(p.bar, epoch);
-  fused::mlp_phases<MB>(p.h1_scr, p.post_norm, p.eps, p.gu, p.dn, M, hid, p.inter, p.gs,
+  fused::mlp_phases<MB, GEMV_MODE>(p.h1_scr, p.post_norm, p.eps, p.gu, p.dn, M, hid, p.inter, p.gs,
                         p.gu_scr, p.out, p.bar, epoch, smem);
 }
 
@@ -327,7 +331,7 @@ cudaError_t launch(TailParams p, int nsplit_cap, cudaStream_t st) {
   const int ks[4] = {p.hidden, p.H * D, p.inter, p.hidden};
   for (int i = 0; i < 4; ++i) {
     if (ks[i] <= 0) continue;
-    const size_t s = q4::gemv_smem_bytes(MB, ks[i], p.gs);
+    const size_t s = q4::gemv_smem_bytes(MB, ks[i], p.gs, GEMV_MODE);
     if (s > smem) smem = s;
   }
   const int grid = fused::coop_grid(layer_tail_kernel<MB>, smem);

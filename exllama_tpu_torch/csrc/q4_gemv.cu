@@ -24,6 +24,11 @@
 // per-group sums, which all columns share. The loop itself is the shared
 // device function q4::q4_gemv_tiles (q4_gemv.cuh), which the fused kernels
 // K6 and K7 run too; here each block owns one column tile.
+//
+// Built with -DGEMV_MODE=1 or 2 this file is K9, the W4A8 GEMV (replaces
+// quant.py:_q4_gemv_kernel_npair_a8, same launch site): int8 activations
+// per (row, group) against the nibbles in integer arithmetic, see
+// q4_gemv.cuh. Same operands, same entry point, one library per mode.
 #include "q4_gemv.cuh"
 
 namespace {
@@ -39,7 +44,7 @@ __global__ void __launch_bounds__(THREADS) q4_gemv_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const XSrc src{x, K, norm_w, eps, x_map, 0};
   const QW w{qweight, scales, zscale, N};
-  q4_gemv_tiles<MB>(src, w, M, K, gs, blockIdx.x, gridDim.x, smem,
+  q4_gemv_tiles<MB, GEMV_MODE>(src, w, M, K, gs, blockIdx.x, gridDim.x, smem,
                     [&](int m, int n, float v) { out[(size_t)m * N + n] = f2bf(v); });
 }
 
@@ -47,7 +52,7 @@ template <int MB>
 cudaError_t launch(const bf16* x, const int32_t* qw, const bf16* s, const bf16* z,
                    const bf16* nw, const int32_t* xmap, bf16* out, int M, int K,
                    int N, int gs, float eps, cudaStream_t st) {
-  const size_t smem = gemv_smem_bytes(MB, K, gs);
+  const size_t smem = gemv_smem_bytes(MB, K, gs, GEMV_MODE);
   cudaError_t e = allow_smem(q4_gemv_kernel<MB>, (int)smem);
   if (e != cudaSuccess) return e;
   dim3 grid((N + BN - 1) / BN);

@@ -17,6 +17,14 @@
 // rows. The K loop lives inside the block (the TPU kernel's sequential
 // grid axis). Not yet pipelined: no cp.async/TMA double buffering and no
 // wgmma -- that is the work of a later performance change.
+//
+// K12, the GLU mode (template flag; replaces quant.py:
+// _q4_deqw2_kernel_npair_glu, same launch site): the A tile is formed from
+// the raw fused gate|up output x [M, W] as bf16(bf16(silu_f32(gate)) * up),
+// gate = x[m, k], up = x[m, ou + k] (the cast order of quant.py:680-682), so
+// the [M, K] activation of the down projection never exists in memory. Each
+// of the N/128 column blocks re-reads its rows' gate and up (L2 serves most
+// of it) and recomputes the silu; the exact instantiation is untouched.
 #include <mma.h>
 
 #include "common.cuh"
@@ -30,10 +38,13 @@ constexpr int THREADS = 256;
 constexpr int A_LD = BK + 8;   // padded row strides (bank spread; 16-byte multiples)
 constexpr int B_LD = BN + 8;
 
+// x rows have stride ldx; with GLU the row holds gate at [0, K) and up at
+// [ou, ou + K).
+template <bool GLU>
 __global__ void __launch_bounds__(THREADS) q4_matmul_kernel(
     const bf16* __restrict__ x, const int32_t* __restrict__ qweight,
     const bf16* __restrict__ scales, const bf16* __restrict__ zscale,
-    bf16* __restrict__ out, int M, int K, int N, int gs) {
+    bf16* __restrict__ out, int M, int K, int N, int gs, int ldx, int ou) {
   __shared__ __align__(128) bf16 As[BM * A_LD];
   __shared__ __align__(128) bf16 Bs[BK * B_LD];
   __shared__ __align__(128) float Cs[THREADS / 32][16 * 16];
@@ -54,7 +65,17 @@ __global__ void __launch_bounds__(THREADS) q4_matmul_kernel(
       const int r = i >> 2, c8 = (i & 3) * 8;
       const int gm = m0 + r;
       uint4 v = make_uint4(0, 0, 0, 0);
-      if (gm < M) v = *reinterpret_cast<const uint4*>(x + (size_t)gm * K + k0 + c8);
+      if (gm < M) {
+        const bf16* src = x + (size_t)gm * ldx + k0 + c8;
+        v = *reinterpret_cast<const uint4*>(src);
+        if constexpr (GLU) {
+          const uint4 u = *reinterpret_cast<const uint4*>(src + ou);
+          bf16* g8 = reinterpret_cast<bf16*>(&v);
+          const bf16* u8 = reinterpret_cast<const bf16*>(&u);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) g8[e] = f2bf(silu_mul(bf2f(g8[e]), bf2f(u8[e])));
+        }
+      }
       *reinterpret_cast<uint4*>(As + r * A_LD + c8) = v;
     }
     // weight tile: BK/8 packed rows x BN columns, each word -> 8 bf16
@@ -120,8 +141,21 @@ extern "C" int q4_matmul_launch(const void* x, const void* qweight, const void* 
                                 const void* zscale, void* out, int M, int K, int N, int gs,
                                 void* stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  q4_matmul_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+  q4_matmul_kernel<false><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
       (const bf16*)x, (const int32_t*)qweight, (const bf16*)scales, (const bf16*)zscale,
-      (bf16*)out, M, K, N, gs);
+      (bf16*)out, M, K, N, gs, K, 0);
+  return cudaGetLastError();
+}
+
+// K12: x [M, W] bf16, the raw fused gate|up output (W % 8 == 0, ou % 8 == 0,
+// ou + K <= W, 16-byte aligned rows); the product runs over
+// silu(x[:, :K]) * x[:, ou : ou + K]. The other operands as above.
+extern "C" int q4_matmul_glu_launch(const void* x, const void* qweight, const void* scales,
+                                    const void* zscale, void* out, int M, int K, int N,
+                                    int gs, int W, int ou, void* stream) {
+  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  q4_matmul_kernel<true><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const int32_t*)qweight, (const bf16*)scales, (const bf16*)zscale,
+      (bf16*)out, M, K, N, gs, W, ou);
   return cudaGetLastError();
 }

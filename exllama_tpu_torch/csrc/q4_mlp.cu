@@ -18,6 +18,9 @@
 // scratch [M, 2*inter] bf16 that the wrapper allocates, and the down phase
 // applies silu(gate)*up while it stages its activation chunks, so the
 // intermediate [M, inter] never exists in memory.
+//
+// Built with -DGEMV_MODE=1 or 2 both GEMVs run the W4A8 arithmetic of K9
+// (mlp.py:_q4_mlp_kernel with a8 / a8x2), one library per mode.
 #include "fused_layer.cuh"
 
 namespace {
@@ -40,14 +43,14 @@ template <int MB>
 __global__ void __launch_bounds__(q4::THREADS, 2) q4_mlp_kernel(const MlpParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned int epoch = 0;
-  fused::mlp_phases<MB>(p.h, p.norm_w, p.eps, p.gu, p.dn, p.M, p.hidden, p.inter, p.gs,
+  fused::mlp_phases<MB, GEMV_MODE>(p.h, p.norm_w, p.eps, p.gu, p.dn, p.M, p.hidden, p.inter, p.gs,
                         p.gu_scr, p.out, p.bar, epoch, smem);
 }
 
 template <int MB>
 cudaError_t launch(const MlpParams& p, cudaStream_t st) {
-  size_t smem = q4::gemv_smem_bytes(MB, p.hidden, p.gs);
-  const size_t s2 = q4::gemv_smem_bytes(MB, p.inter, p.gs);
+  size_t smem = q4::gemv_smem_bytes(MB, p.hidden, p.gs, GEMV_MODE);
+  const size_t s2 = q4::gemv_smem_bytes(MB, p.inter, p.gs, GEMV_MODE);
   if (s2 > smem) smem = s2;
   const int grid = fused::coop_grid(q4_mlp_kernel<MB>, smem);
   return fused::coop_launch(q4_mlp_kernel<MB>, grid, p, smem, p.bar, st);

@@ -149,6 +149,10 @@ class QuantTensor:
     zscale: torch.Tensor             # bf16  [K/gs, N] = (stored_zero+1)*scales
     x_map: Optional[torch.Tensor]    # int32 [K] or None
     groupsize: int
+    # turbo prefill (with_w8 / with_w8_scale): the weight re-quantized per
+    # column to int8, w ~ w8 * w8_scale; rows in the stored (sequential) order
+    w8: Optional[torch.Tensor] = None         # int8 [K, N]
+    w8_scale: Optional[torch.Tensor] = None   # f32  [N]
 
     @property
     def in_features(self) -> int:
@@ -167,12 +171,14 @@ class QuantTensor:
         return self.qweight.device
 
     def to(self, device) -> "QuantTensor":
+        def mv(t):
+            return None if t is None else t.to(device)
+
         return QuantTensor(
-            qweight=self.qweight.to(device),
-            scales=self.scales.to(device),
-            zscale=self.zscale.to(device),
-            x_map=None if self.x_map is None else self.x_map.to(device),
-            groupsize=self.groupsize,
+            qweight=mv(self.qweight), scales=mv(self.scales),
+            zscale=mv(self.zscale), x_map=mv(self.x_map),
+            groupsize=self.groupsize, w8=mv(self.w8),
+            w8_scale=mv(self.w8_scale),
         )
 
 
@@ -253,24 +259,62 @@ def dequantize(qt: QuantTensor) -> np.ndarray:
     return dequantize_t(qt.to("cpu"), torch.float32).numpy()
 
 
+def w8_col_scale(qt: QuantTensor) -> torch.Tensor:
+    """Per-column int8 re-quantization scale max(colmax, 1e-20)/127 of the
+    f32 dequantized weight, f32 [N] (exllama_tpu formats/gptq._build_w8 and
+    ops/quant._w8_col_scale: one formula for the image and for the
+    in-kernel requant)."""
+    amax = dequantize_t(qt, torch.float32).abs().amax(dim=0)
+    return amax.clamp_min(1e-20) * (1.0 / 127.0)
+
+
+def with_w8_scale(qt: QuantTensor) -> QuantTensor:
+    """Attach only the column scales (4 bytes a column): the in-kernel
+    requant of turbo prefill (K10) then skips its per-call dequantize and
+    reduce."""
+    if qt.w8_scale is not None:
+        return qt
+    return dataclasses.replace(qt, w8_scale=w8_col_scale(qt))
+
+
+def with_w8(qt: QuantTensor) -> QuantTensor:
+    """Attach the resident int8 image for turbo prefill (K11): the f32
+    dequantized weight re-quantized per column, w8 = clip(round(w / scale),
+    +-127). Load-time plain tensor code, on qt's device; costs K*N bytes,
+    twice the packed 4-bit weight."""
+    if qt.w8 is not None:
+        return qt
+    w = dequantize_t(qt, torch.float32)
+    scale = w.abs().amax(dim=0).clamp_min(1e-20) * (1.0 / 127.0)
+    w8 = torch.round(w / scale).clamp_(-127, 127).to(torch.int8)
+    return dataclasses.replace(qt, w8=w8.contiguous(), w8_scale=scale)
+
+
 def concat_quant_tensors(qts: "list[QuantTensor]") -> QuantTensor:
     """Fuse same-input QuantTensors along output columns (qkv, gate|up).
 
     The port's layout has no column padding, so part ``i`` starts at column
     ``sum(out_features of parts before it)``. Act-order tensors cannot be
-    fused: their activations need different permutations.
+    fused: their activations need different permutations. The int8 image
+    and its scales are per column, so they concatenate too, and are carried
+    only when every part has them.
     """
     first = qts[0]
     for qt in qts:
         assert qt.in_features == first.in_features
         assert qt.groupsize == first.groupsize
         assert qt.x_map is None, "cannot fuse act-order tensors"
+
+    def cat(name, dim):
+        parts = [getattr(qt, name) for qt in qts]
+        if any(p is None for p in parts):
+            return None
+        return torch.cat(parts, dim=dim)
+
     return QuantTensor(
-        qweight=torch.cat([qt.qweight for qt in qts], dim=1),
-        scales=torch.cat([qt.scales for qt in qts], dim=1),
-        zscale=torch.cat([qt.zscale for qt in qts], dim=1),
-        x_map=None,
-        groupsize=first.groupsize,
+        qweight=cat("qweight", 1), scales=cat("scales", 1),
+        zscale=cat("zscale", 1), x_map=None, groupsize=first.groupsize,
+        w8=cat("w8", 1), w8_scale=cat("w8_scale", 0),
     )
 
 
@@ -282,6 +326,8 @@ def permute_out_columns(qt: QuantTensor, perm) -> QuantTensor:
         qweight=qt.qweight[:, perm].contiguous(),
         scales=qt.scales[:, perm].contiguous(),
         zscale=qt.zscale[:, perm].contiguous(),
+        w8=None if qt.w8 is None else qt.w8[:, perm].contiguous(),
+        w8_scale=None if qt.w8_scale is None else qt.w8_scale[perm],
     )
 
 

@@ -1,12 +1,15 @@
 """Build and load the port's CUDA kernels (exllama_tpu_torch/csrc/*.cu).
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C interface, loaded with ``ctypes``. The libraries go
-to ``exllama_tpu_torch/_build/`` (git-ignored), named by a hash of the
-source and the shared headers, so an edited source rebuilds and an unchanged
-one is reused. All sources build in parallel, one ``nvcc`` each, at the
-first kernel call (or an explicit :func:`build`). Nothing here runs at
-import time: CPU-only installs import the package freely and never build.
+library with a plain C interface, loaded with ``ctypes``; the sources of
+the shared GEMV loop (K1, K6, K7) compile once per arithmetic mode
+(``-DGEMV_MODE``: exact, a8, a8x2), one library each. The libraries go to
+``exllama_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
+the shared headers and the flags, so an edited source rebuilds and an
+unchanged one is reused. All libraries build in parallel, one ``nvcc``
+each, at the first kernel call (or an explicit :func:`build`). Nothing here
+runs at import time: CPU-only installs import the package freely and never
+build.
 
 Every C entry point takes pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
@@ -33,17 +36,49 @@ NVCC_FLAGS = [
     "-Xptxas", "-v",
 ]
 
-# ctypes signatures: "p" pointer / stream, "i" int, "f" float
-_SIGNATURES = {
-    "q4_gemv": ("q4_gemv_launch", "ppppppp" + "iiii" + "f" + "p"),
-    "q4_matmul": ("q4_matmul_launch", "ppppp" + "iiii" + "p"),
-    "flash_attn": ("flash_attn_launch", "pppppppp" + "iiiiiiii" + "f" + "p"),
-    "dense_gemv": ("dense_gemv_launch", "ppp" + "iii" + "p"),
-    "head_argmax": ("head_argmax_launch", "ppppp" + "iii" + "f" + "p"),
-    "q4_mlp": ("q4_mlp_launch", "p" * 11 + "iiii" + "f" + "p"),
-    "layer_tail": ("layer_tail_launch", "p" * 33 + "i" * 11 + "ff" + "p"),
-    "kv_commit": ("kv_commit_launch", "ppp" + "i" * 6 + "p"),
+# library -> (source stem, extra nvcc flags)
+LIBRARIES = {
+    "q4_gemv": ("q4_gemv", []),
+    "q4_matmul": ("q4_matmul", []),
+    "flash_attn": ("flash_attn", []),
+    "dense_gemv": ("dense_gemv", []),
+    "head_argmax": ("head_argmax", []),
+    "q4_mlp": ("q4_mlp", []),
+    "layer_tail": ("layer_tail", []),
+    "kv_commit": ("kv_commit", []),
+    "q4_prefill_a8": ("q4_prefill_a8", []),
+    "w8_matmul": ("w8_matmul", []),
 }
+# the W4A8 builds of the shared GEMV loop; see csrc/q4_gemv.cuh
+GEMV_MODES = {"a8": 1, "a8x2": 2}
+for _stem in ("q4_gemv", "q4_mlp", "layer_tail"):
+    for _mode, _n in GEMV_MODES.items():
+        LIBRARIES[f"{_stem}_{_mode}"] = (_stem, [f"-DGEMV_MODE={_n}"])
+
+# entry point -> (library, C function, ctypes signature: "p" pointer /
+# stream, "i" int, "f" float)
+_SIGNATURES = {
+    "q4_gemv": ("q4_gemv", "q4_gemv_launch", "ppppppp" + "iiii" + "f" + "p"),
+    "q4_matmul": ("q4_matmul", "q4_matmul_launch", "ppppp" + "iiii" + "p"),
+    "q4_matmul_glu": ("q4_matmul", "q4_matmul_glu_launch",
+                      "ppppp" + "i" * 6 + "p"),
+    "flash_attn": ("flash_attn", "flash_attn_launch",
+                   "pppppppp" + "iiiiiiii" + "f" + "p"),
+    "dense_gemv": ("dense_gemv", "dense_gemv_launch", "ppp" + "iii" + "p"),
+    "head_argmax": ("head_argmax", "head_argmax_launch",
+                    "ppppp" + "iii" + "f" + "p"),
+    "q4_mlp": ("q4_mlp", "q4_mlp_launch", "p" * 11 + "iiii" + "f" + "p"),
+    "layer_tail": ("layer_tail", "layer_tail_launch",
+                   "p" * 33 + "i" * 11 + "ff" + "p"),
+    "kv_commit": ("kv_commit", "kv_commit_launch", "ppp" + "i" * 6 + "p"),
+    "q4_prefill_a8": ("q4_prefill_a8", "q4_prefill_a8_launch",
+                      "p" * 8 + "iiii" + "p"),
+    "w8_matmul": ("w8_matmul", "w8_matmul_launch", "p" * 6 + "iii" + "p"),
+}
+for _stem in ("q4_gemv", "q4_mlp", "layer_tail"):
+    for _mode in GEMV_MODES:
+        _SIGNATURES[f"{_stem}_{_mode}"] = (
+            f"{_stem}_{_mode}", *_SIGNATURES[_stem][1:])
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -59,38 +94,39 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def _target(stem: str) -> Path:
+def _target(lib: str) -> Path:
+    stem, flags = LIBRARIES[lib]
     h = hashlib.sha256()
     h.update((CSRC / f"{stem}.cu").read_bytes())
     for hdr in sorted(CSRC.glob("*.cuh")):
         h.update(hdr.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + flags).encode())
+    return BUILD_DIR / f"{lib}-{h.hexdigest()[:16]}.so"
 
 
 def build() -> float:
-    """Compile every kernel source that has no up-to-date library, all in
-    parallel, and load them all. Returns the seconds spent."""
+    """Compile every library that is not up to date, all in parallel, and
+    load them all. Returns the seconds spent."""
     t0 = time.time()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for stem in _SIGNATURES:
-        out = _target(stem)
+    for lib, (stem, flags) in LIBRARIES.items():
+        out = _target(lib)
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(BUILD_DIR / f"{stem}.log", "w")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        log = open(BUILD_DIR / f"{lib}.log", "w")
+        cmd = [nvcc, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{stem}.cu")]
-        procs.append((stem, out, tmp, log, subprocess.Popen(
+        procs.append((lib, out, tmp, log, subprocess.Popen(
             cmd, stdout=log, stderr=subprocess.STDOUT)))
     failed = []
-    for stem, out, tmp, log, p in procs:
+    for lib, out, tmp, log, p in procs:
         rc = p.wait()
         log.close()
         if rc != 0:
-            failed.append(stem)
+            failed.append(lib)
         else:
             os.replace(tmp, out)
     if failed:
@@ -98,29 +134,32 @@ def build() -> float:
             (BUILD_DIR / f"{s}.log").read_text()[-4000:] for s in failed
         )
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
-    for stem in _SIGNATURES:
-        _load(stem)
+    for lib in LIBRARIES:
+        _load(lib)
     return time.time() - t0
 
 
-def _load(stem: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(_target(stem)))
-    fn_name, sig = _SIGNATURES[stem]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = [_CTYPES[c] for c in sig]
-    fn.restype = ctypes.c_int
-    _libs[stem] = lib
-    return lib
+def _load(lib: str) -> ctypes.CDLL:
+    cdll = ctypes.CDLL(str(_target(lib)))
+    for owner, fn_name, sig in _SIGNATURES.values():
+        if owner == lib:
+            fn = getattr(cdll, fn_name)
+            fn.argtypes = [_CTYPES[c] for c in sig]
+            fn.restype = ctypes.c_int
+    _libs[lib] = cdll
+    return cdll
 
 
-def launcher(stem: str):
-    """The C launch function of kernel ``stem``, building on first use."""
-    if stem not in _libs:
-        if not _target(stem).exists():
+def launcher(name: str):
+    """The C launch function of entry point ``name`` (a key of
+    ``_SIGNATURES``), building on first use."""
+    lib, fn_name, _ = _SIGNATURES[name]
+    if lib not in _libs:
+        if not _target(lib).exists():
             build()
         else:
-            _load(stem)
-    return getattr(_libs[stem], _SIGNATURES[stem][0])
+            _load(lib)
+    return getattr(_libs[lib], fn_name)
 
 
 def check(err: int, name: str):

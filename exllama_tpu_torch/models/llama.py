@@ -1,7 +1,8 @@
 """The Llama-family model (port of exllama_tpu/models/llama.py), single
-device, no LoRA: fused qkv / gate-up projections, a bf16 KV cache, exact
-4-bit matmuls and a bf16 lm_head, with the JAX package's decode knobs
-(``TuningParams.fuse_mlp / fuse_attn / fuse_qkv / commit_impl``, its
+device, no LoRA: fused qkv / gate-up projections, a bf16 KV cache, 4-bit
+matmuls in the arithmetic ``matmul_impl`` names (exact by default, the
+W4A8 turbo modes opt-in) and a bf16 lm_head, with the JAX package's decode
+knobs (``TuningParams.fuse_mlp / fuse_attn / fuse_qkv / commit_impl``, its
 defaults too).
 
 In the default configuration a decode step (T=1, deferred K/V commit) runs
@@ -11,15 +12,22 @@ MLP in one launch), then commits every layer's K/V rows, and ends in K4
 with ``commit_impl="pallas"`` the commit is one K8 launch. Short prefill
 chunks (B*T <= 32) run their MLP as one K6 launch; long ones run K2 and
 K3. With the fuse flags off every decode layer runs the separate kernels
-K1 and K3. Everything between kernels is plain tensor code. PyTorch runs
-eagerly, so there is no jit: the layer loop is a Python loop and the cache
-is updated in place.
+K1 and K3. Under ``matmul_impl="pallas_a8"`` / ``"pallas_a8x2"`` every
+GEMV of those kernels (K1, K6, K7) runs K9's int8-activation arithmetic;
+under ``"pallas_a8t"`` long prefill chunks also run their matmuls on the
+int8 tensor cores: K11 against a tensor's resident int8 image
+(``_attach_prefill_w8``), K10 where it has none. ``EXL_GLU_FUSE=1`` in the
+environment makes the long-prefill down projection form silu(gate)*up in
+its kernel (K12). Everything between kernels is plain tensor code. PyTorch
+runs eagerly, so there is no jit: the layer loop is a Python loop and the
+cache is updated in place.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Optional
 
 import torch
@@ -27,7 +35,12 @@ import torch.nn.functional as F
 
 from exllama_tpu_torch.cache import ExLlamaCache
 from exllama_tpu_torch.config import ExLlamaConfig
-from exllama_tpu_torch.formats.gptq import QuantTensor, concat_quant_tensors
+from exllama_tpu_torch.formats.gptq import (
+    QuantTensor,
+    concat_quant_tensors,
+    with_w8,
+    with_w8_scale,
+)
 from exllama_tpu_torch.ops.attention import (
     attend,
     commit_kv_cache,
@@ -130,10 +143,12 @@ def _decoder_layer(
     mlp_fuse: bool = True,
     attn_fuse: bool = True,
     qkv_fuse: bool = False,
+    matmul_impl: str = "auto",
 ):
     """One decoder layer (exllama_tpu/models/llama.py:_decoder_layer, single
     device, no LoRA). Returns (h, k_row, v_row); the rows are the new K/V of
     a deferred (T=1) step, which the caller commits."""
+    impl = matmul_impl
     b, t, hidden = h.shape
     nq = heads * head_dim
     nkv = kv_heads * head_dim
@@ -151,20 +166,21 @@ def _decoder_layer(
         return layer_step(
             h, lp.qkv, lp.input_norm, rope_sin, rope_cos, kc, vc, past_len,
             attend_len, lp.o, lp.post_norm, lp.gateup, lp.down, eps, heads,
-            kv_heads, head_dim, input_mask=input_mask,
+            kv_heads, head_dim, input_mask=input_mask, impl=impl,
         )
 
     if lp.qkv is not None:
         # the input norm rides in the GEMV prologue at decode M
-        fused = q4_matmul(h, lp.qkv, norm_w=lp.input_norm, norm_eps=eps)
+        fused = q4_matmul(h, lp.qkv, impl, norm_w=lp.input_norm,
+                          norm_eps=eps)
         q = fused[..., :nq]
         k = fused[..., nq : nq + nkv]
         v = fused[..., nq + nkv :]
     else:
         a = rms_norm(h, lp.input_norm, eps)
-        q = q4_matmul(a, lp.q)
-        k = q4_matmul(a, lp.k)
-        v = q4_matmul(a, lp.v)
+        q = q4_matmul(a, lp.q, impl)
+        k = q4_matmul(a, lp.k, impl)
+        v = q4_matmul(a, lp.v, impl)
     q = apply_rope_sliced(q.reshape(b, t, heads, head_dim), rope_sin, rope_cos)
     k = apply_rope_sliced(k.reshape(b, t, kv_heads, head_dim), rope_sin, rope_cos)
     v = v.reshape(b, t, kv_heads, head_dim)
@@ -178,11 +194,11 @@ def _decoder_layer(
                 # the layer tail in one K7 launch (llama.py:286-315)
                 h = layer_tail(h, q, kc, vc, past_len, attend_len, lp.o,
                                lp.post_norm, lp.gateup, lp.down, eps, (k, v),
-                               input_mask=input_mask)
+                               input_mask=input_mask, impl=impl)
                 return h, k_row, v_row
             # attention + o-projection + residual in one K7 launch
             h = attn_block_o(h, q, kc, vc, past_len, attend_len, lp.o,
-                             (k, v), input_mask=input_mask)
+                             (k, v), input_mask=input_mask, impl=impl)
         else:
             attn = attend(q, kc, vc, past_len, attend_len, input_mask,
                           new_kv=(k, v))
@@ -190,19 +206,28 @@ def _decoder_layer(
         update_kv_cache(kc, vc, k, v, past_len)
         attn = attend(q, kc, vc, past_len, attend_len, input_mask)
     if attn is not None:
-        h = h + q4_matmul(attn.reshape(b, t, nq), lp.o)
+        h = h + q4_matmul(attn.reshape(b, t, nq), lp.o, impl)
 
     if mlp_ok:
         # the MLP block in one K6 launch (llama.py:353-362)
-        return q4_mlp(h, lp.post_norm, lp.gateup, lp.down, eps), k_row, v_row
+        return (q4_mlp(h, lp.post_norm, lp.gateup, lp.down, eps, impl),
+                k_row, v_row)
     a = rms_norm(h, lp.post_norm, eps)
+    ni = lp.down.in_features
+    if lp.gateup is not None and os.environ.get("EXL_GLU_FUSE", "0") == "1":
+        # opt-in (llama.py:367-378): the down projection forms
+        # silu(gate)*up from the raw gate|up output in its kernel (K12); up
+        # starts at column ni of the port's unpadded fused tensor
+        fused = q4_matmul(a, lp.gateup, impl)
+        h = h + q4_matmul(fused, lp.down, impl, glu=(ni, ni))
+        return h, k_row, v_row
     if lp.gateup is not None:
-        mid = silu_mul(q4_matmul(a, lp.gateup), lp.down.in_features)
+        mid = silu_mul(q4_matmul(a, lp.gateup, impl), ni)
     else:
-        g = q4_matmul(a, lp.gate)
-        u = q4_matmul(a, lp.up)
+        g = q4_matmul(a, lp.gate, impl)
+        u = q4_matmul(a, lp.up, impl)
         mid = F.silu(g.to(torch.float32)).to(u.dtype) * u
-    h = h + q4_matmul(mid, lp.down)
+    h = h + q4_matmul(mid, lp.down, impl)
     return h, k_row, v_row
 
 
@@ -226,6 +251,7 @@ def forward_chunk(
     attn_fuse: bool = True,
     qkv_fuse: bool = False,
     commit_impl: str = "auto",
+    matmul_impl: str = "auto",
 ):
     """One forward chunk over all layers (exllama_tpu/models/llama.py:
     forward_chunk, single device, no LoRA): embedding -> layers -> final
@@ -233,8 +259,8 @@ def forward_chunk(
     ids [B, T|1] with ``head_mode="argmax"`` (kernel K5; no logits are
     materialized), or None with ``preprocess_only``. Writes the chunk's K/V
     into ``cache`` in place; the cursor ``cache.current_seq_len`` is the
-    caller's. The fuse flags and ``commit_impl`` are the JAX package's
-    knobs, with its defaults."""
+    caller's. The fuse flags, ``commit_impl`` and ``matmul_impl`` are the
+    JAX package's knobs; ``matmul_impl`` defaults to the exact kernels."""
     if head_mode not in ("logits", "argmax"):
         raise ValueError(f"head_mode {head_mode!r}")
     b, t = tokens.shape
@@ -253,6 +279,7 @@ def forward_chunk(
             rope_sin=sin_t, rope_cos=cos_t, past_len=past_len,
             attend_len=attend_len, input_mask=input_mask, defer_kv=defer,
             mlp_fuse=mlp_fuse, attn_fuse=attn_fuse, qkv_fuse=qkv_fuse,
+            matmul_impl=matmul_impl,
         )
         k_rows.append(k_row)
         v_rows.append(v_row)
@@ -280,6 +307,70 @@ def _require_device(device) -> torch.device:
     return device
 
 
+_W8_FIELDS = ("q", "k", "v", "o", "gate", "up", "down", "qkv", "gateup")
+# Which tensors get an int8 image first when only some fit: down, then the
+# MLP columns, then qkv; o never gets one. The order is the JAX package's,
+# measured on a TPU (exllama_tpu/models/llama.py:797-803), kept so that the
+# two packages attach the same images.
+_W8_PRIORITY = {"down": 0, "gateup": 1, "gate": 1, "up": 1,
+                "qkv": 2, "q": 2, "k": 2, "v": 2, "o": 9}
+W8_HEADROOM_GB = 2.5      # left for activations and workspace under "auto"
+
+
+def _quant_bytes(qt: QuantTensor, image_only: bool = False) -> int:
+    fields = ("w8", "w8_scale") if image_only else (
+        "qweight", "scales", "zscale", "x_map", "w8", "w8_scale")
+    return sum(t.numel() * t.element_size()
+               for t in (getattr(qt, f) for f in fields) if t is not None)
+
+
+def _attach_prefill_w8(params: ModelParams, config) -> ModelParams:
+    """Attach the resident int8 weight images of turbo prefill
+    (formats.gptq.with_w8; exllama_tpu/models/llama.py:_attach_prefill_w8).
+    ``prefill_w8="on"`` (or "off", when called directly) attaches every
+    image but o's; "auto" attaches, in priority order, the images that fit
+    ``prefill_w8_budget_gb`` next to the packed weights and a batch-1 KV
+    cache at ``max_seq_len``. An image costs K*N + 4*N bytes, twice the
+    packed weight. Every tensor without an image gets the column scales
+    alone (4 bytes a column), which K10 reads."""
+    tune = config.tuning
+    tensors = [(li, f, getattr(lp, f)) for li, lp in enumerate(params.layers)
+               for f in _W8_FIELDS if getattr(lp, f) is not None]
+    w8_budget = None          # None: attach everything
+    if tune.prefill_w8 == "auto":
+        budget_gb = tune.prefill_w8_budget_gb
+        if budget_gb is None:
+            if params.device.type != "cuda":
+                raise ValueError("prefill_w8='auto' off the card needs "
+                                 "prefill_w8_budget_gb")
+            total = torch.cuda.get_device_properties(params.device).total_memory
+            budget_gb = total / 2 ** 30 - W8_HEADROOM_GB
+        packed = sum(_quant_bytes(qt) for _, _, qt in tensors)
+        kv_bytes = (2 * config.num_hidden_layers * config.max_seq_len
+                    * config.num_key_value_heads * config.head_dim * 2)
+        w8_budget = max(budget_gb * 2 ** 30 - packed - kv_bytes, 0)
+
+    spent = 0
+    images = set()
+    # stable: by priority, then layer, then the order of _W8_FIELDS
+    for li, f, qt in sorted(tensors,
+                            key=lambda t: (_W8_PRIORITY[t[1]], t[0])):
+        cost = qt.in_features * qt.out_features + 4 * qt.out_features
+        if _W8_PRIORITY[f] >= 9 or (w8_budget is not None
+                                    and spent + cost > w8_budget):
+            continue
+        spent += cost
+        images.add((li, f))
+
+    layers = [
+        dataclasses.replace(lp, **{
+            f: with_w8(qt) if (li, f) in images else with_w8_scale(qt)
+            for lj, f, qt in tensors if lj == li})
+        for li, lp in enumerate(params.layers)
+    ]
+    return dataclasses.replace(params, layers=layers)
+
+
 class ExLlama:
     """Model wrapper: owns params + config, exposes ``forward``.
 
@@ -301,6 +392,11 @@ class ExLlama:
             params = load_model_params(config, device=self.device)
         elif params.device != self.device:
             params = params.to(self.device)
+        # turbo prefill keeps int8 images of the weights on the card
+        if (config.tuning.matmul_impl == "pallas_a8t"
+                and config.tuning.prefill_w8 != "off"
+                and self.device.type == "cuda"):
+            params = _attach_prefill_w8(params, config)
         self.params = params
 
     def _attend_len(self, upto: int) -> int:
@@ -318,12 +414,17 @@ class ExLlama:
             for f in dataclasses.fields(LayerParams):
                 x = getattr(lp, f.name)
                 if isinstance(x, QuantTensor):
-                    for t in (x.qweight, x.scales, x.zscale, x.x_map):
-                        if t is not None:
-                            total += t.numel() * t.element_size()
+                    total += _quant_bytes(x)
                 elif x is not None:
                     total += x.numel() * x.element_size()
         return total
+
+    def w8_image_bytes(self) -> int:
+        """Bytes of the int8 images and column scales of turbo prefill."""
+        return sum(_quant_bytes(x, image_only=True)
+                   for lp in self.params.layers
+                   for x in (getattr(lp, f) for f in _W8_FIELDS)
+                   if x is not None)
 
     @torch.inference_mode()
     def forward(
@@ -374,6 +475,7 @@ class ExLlama:
                 attn_fuse=tune.fuse_attn,
                 qkv_fuse=tune.fuse_qkv,
                 commit_impl=tune.commit_impl,
+                matmul_impl=tune.matmul_impl,
             )
             cache.current_seq_len += chunk
             if is_last:

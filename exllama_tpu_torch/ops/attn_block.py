@@ -8,7 +8,10 @@ single launch per layer on the deferred-commit decode path (T = 1):
   * ``layer_step``: input norm -> fused qkv GEMV -> rope ahead of
     ``layer_tail``; also returns the step's K/V rows for the commit.
 
-Every launch of any of the three counts on ``layer_tail.launches``. The
+Every launch of any of the three counts on ``layer_tail.launches``, or,
+under the W4A8 values of ``impl`` ("pallas_a8", "pallas_a8x2",
+"pallas_a8t": every GEMV phase in K9's integer arithmetic, the a8 builds of
+the same source; attention stays bf16), on ``layer_tail_a8.launches``. The
 ``*_plain`` functions are their plain PyTorch versions, the separate path's
 composition (``attend_plain`` and the q4 plain products), which CPU tensors
 take. The caller checks ``attn_o_applicable`` (and, for the MLP and qkv
@@ -24,13 +27,10 @@ from typing import Optional
 import torch
 
 from exllama_tpu_torch import kernels
+from exllama_tpu_torch.config import A8_IMPLS, check_matmul_impl
 from exllama_tpu_torch.ops.attention import _past_tensor, attend_plain
-from exllama_tpu_torch.ops.mlp import q4_mlp_plain
-from exllama_tpu_torch.ops.quant import (
-    GEMV_MAX_M,
-    check_qt_tensors,
-    q4_gemv_plain,
-)
+from exllama_tpu_torch.ops.mlp import gemv_plain_of, q4_mlp_plain
+from exllama_tpu_torch.ops.quant import GEMV_MAX_M, check_qt_tensors
 from exllama_tpu_torch.ops.rope import apply_rope_sliced
 
 HEAD_DIM = 128         # K7's attention takes head_dim 128
@@ -77,25 +77,27 @@ def same_groupsize(*qts) -> bool:
 # ------------------------------------------------------------ plain versions
 
 def attn_block_o_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
-                       new_kv, input_mask=None):
+                       new_kv, input_mask=None, impl="auto"):
     b, _, hidden = h.shape
     attn = attend_plain(q, k_cache, v_cache, past_len, attend_len, input_mask,
                         new_kv)
-    return h + q4_gemv_plain(attn.reshape(b, -1), o).reshape(b, 1, hidden)
+    return h + gemv_plain_of(impl)(attn.reshape(b, -1), o).reshape(
+        b, 1, hidden)
 
 
 def layer_tail_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
-                     post_norm, gateup, down, eps, new_kv, input_mask=None):
+                     post_norm, gateup, down, eps, new_kv, input_mask=None,
+                     impl="auto"):
     h = attn_block_o_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
-                           new_kv, input_mask)
-    return q4_mlp_plain(h, post_norm, gateup, down, eps)
+                           new_kv, input_mask, impl)
+    return q4_mlp_plain(h, post_norm, gateup, down, eps, impl)
 
 
 def _qkv_rows_plain(h, qkv, input_norm, rope_sin, rope_cos, heads, kv_heads,
-                    head_dim, eps):
+                    head_dim, eps, impl="auto"):
     b = h.shape[0]
     nq, nkv = heads * head_dim, kv_heads * head_dim
-    fused = q4_gemv_plain(h.reshape(b, -1), qkv, input_norm, eps)
+    fused = gemv_plain_of(impl)(h.reshape(b, -1), qkv, input_norm, eps)
     q = fused[:, :nq].reshape(b, 1, heads, head_dim)
     k = fused[:, nq:nq + nkv].reshape(b, 1, kv_heads, head_dim)
     v = fused[:, nq + nkv:].reshape(b, 1, kv_heads, head_dim)
@@ -105,11 +107,13 @@ def _qkv_rows_plain(h, qkv, input_norm, rope_sin, rope_cos, heads, kv_heads,
 
 def layer_step_plain(h, qkv, input_norm, rope_sin, rope_cos, k_cache, v_cache,
                      past_len, attend_len, o, post_norm, gateup, down, eps,
-                     heads, kv_heads, head_dim, input_mask=None):
+                     heads, kv_heads, head_dim, input_mask=None,
+                     impl="auto"):
     q, k, v = _qkv_rows_plain(h, qkv, input_norm, rope_sin, rope_cos, heads,
-                              kv_heads, head_dim, eps)
+                              kv_heads, head_dim, eps, impl)
     h = layer_tail_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
-                         post_norm, gateup, down, eps, (k, v), input_mask)
+                         post_norm, gateup, down, eps, (k, v), input_mask,
+                         impl)
     return h, k, v
 
 
@@ -131,8 +135,11 @@ def _aligned(name, x, dtype):
 
 def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
             q=None, new_kv=None, qkv=None, input_norm=None, rope=None,
-            post_norm=None, gateup=None, down=None, eps=1e-6):
+            post_norm=None, gateup=None, down=None, eps=1e-6, impl="auto"):
     """One K7 launch; returns (out [B, 1, hidden], k_row, v_row)."""
+    a8 = impl in A8_IMPLS
+    lib = "layer_tail" if not a8 else (
+        "layer_tail_a8x2" if impl == "pallas_a8x2" else "layer_tail_a8")
     b, t, hidden = h.shape
     dev = h.device
     if t != 1 or b > GEMV_MAX_M:
@@ -217,7 +224,7 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
                 (qt.qweight.data_ptr(), qt.scales.data_ptr(),
                  qt.zscale.data_ptr()))
 
-    kernels.check(kernels.launcher("layer_tail")(
+    kernels.check(kernels.launcher(lib)(
         P(q), *(P(x) for x in (new_kv or (None, None))),
         k_cache.data_ptr(), v_cache.data_ptr(), past.data_ptr(), P(mask),
         h2.data_ptr(), *qw(o), P(input_norm), *qw(qkv), P(sin), P(cos),
@@ -228,61 +235,75 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
         0 if sin is None or sin.shape[0] == 1 else d,
         nsplit_cap, attend_len, float(eps), 1.0 / math.sqrt(d),
         kernels.stream_of(h2),
-    ), "layer_tail")
-    layer_tail.launches += 1
+    ), lib)
+    (layer_tail_a8 if a8 else layer_tail).launches += 1
     return out.reshape(b, 1, hidden), k_row, v_row
 
 
 # ----------------------------------------------------------- entry points
 
 def attn_block_o(h, q, k_cache, v_cache, past_len, attend_len: int, o,
-                 new_kv, input_mask=None):
+                 new_kv, input_mask=None, impl: str = "auto"):
     """h + o_proj(flash_attend(q, cache + new_kv)) in one K7 launch.
     h [B, 1, hidden], q [B, 1, H, D] post-rope, new_kv ([B, 1, Hkv, D],)*2."""
+    check_matmul_impl(impl)
     if h.device.type == "cpu":
         return attn_block_o_plain(h, q, k_cache, v_cache, past_len,
-                                  attend_len, o, new_kv, input_mask)
+                                  attend_len, o, new_kv, input_mask, impl)
     if h.device.type != "cuda":
         raise RuntimeError(f"attn_block_o: unsupported device {h.device}")
     return _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask,
-                   q=q, new_kv=new_kv)[0]
+                   q=q, new_kv=new_kv, impl=impl)[0]
 
 
 def layer_tail(h, q, k_cache, v_cache, past_len, attend_len: int, o,
-               post_norm, gateup, down, eps: float, new_kv, input_mask=None):
+               post_norm, gateup, down, eps: float, new_kv, input_mask=None,
+               impl: str = "auto"):
     """The decode layer after rope -- attention, o-proj, residual,
     post-norm, MLP, residual -- in one K7 launch."""
+    check_matmul_impl(impl)
     if h.device.type == "cpu":
         return layer_tail_plain(h, q, k_cache, v_cache, past_len, attend_len,
                                 o, post_norm, gateup, down, eps, new_kv,
-                                input_mask)
+                                input_mask, impl)
     if h.device.type != "cuda":
         raise RuntimeError(f"layer_tail: unsupported device {h.device}")
     return _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask,
                    q=q, new_kv=new_kv, post_norm=post_norm, gateup=gateup,
-                   down=down, eps=eps)[0]
+                   down=down, eps=eps, impl=impl)[0]
+
+
+def layer_tail_a8(*args, two_pass: bool = False, **kwargs):
+    """``layer_tail`` with K9's arithmetic in every GEMV phase (``two_pass``:
+    a8x2). Its ``launches`` counts the a8 launches of all three entry
+    points."""
+    return layer_tail(*args, impl="pallas_a8x2" if two_pass else "pallas_a8",
+                      **kwargs)
 
 
 def layer_step(h, qkv, input_norm, rope_sin, rope_cos, k_cache, v_cache,
                past_len, attend_len: int, o, post_norm, gateup, down,
                eps: float, heads: int, kv_heads: int, head_dim: int,
-               input_mask=None):
+               input_mask=None, impl: str = "auto"):
     """The whole decode layer in one K7 launch: input norm, fused qkv GEMV
     and rope (rope_sin / rope_cos [1 | B, 1, 1, D], pre-sliced), then
     ``layer_tail``. Returns (h [B, 1, hidden], k_row, v_row [B, 1, Hkv, D])
     -- the rows feed the caller's deferred commit."""
+    check_matmul_impl(impl)
     if h.device.type == "cpu":
         return layer_step_plain(h, qkv, input_norm, rope_sin, rope_cos,
                                 k_cache, v_cache, past_len, attend_len, o,
                                 post_norm, gateup, down, eps, heads, kv_heads,
-                                head_dim, input_mask)
+                                head_dim, input_mask, impl)
     if h.device.type != "cuda":
         raise RuntimeError(f"layer_step: unsupported device {h.device}")
     if heads * head_dim != o.in_features or k_cache.shape[1] != kv_heads:
         raise ValueError("layer_step: heads / kv_heads disagree with o, cache")
     return _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask,
                    qkv=qkv, input_norm=input_norm, rope=(rope_sin, rope_cos),
-                   post_norm=post_norm, gateup=gateup, down=down, eps=eps)
+                   post_norm=post_norm, gateup=gateup, down=down, eps=eps,
+                   impl=impl)
 
 
 layer_tail.launches = 0
+layer_tail_a8.launches = 0

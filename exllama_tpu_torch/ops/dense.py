@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from exllama_tpu_torch import kernels
+from exllama_tpu_torch.ops import full_f32_matmul
 from exllama_tpu_torch.ops.norms import rms_norm
 
 GEMV_MAX_M = 32   # the JAX package's switch (a TPU number)
@@ -19,9 +20,8 @@ GEMV_MAX_M = 32   # the JAX package's switch (a TPU number)
 
 def dense_gemv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [M, K] bf16 @ w [K, V] bf16 -> f32 [M, V], f32 accumulation."""
-    # f32 products in full precision on the card as well (no TF32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return x.to(torch.float32) @ w.to(torch.float32)
+    with full_f32_matmul():
+        return x.to(torch.float32) @ w.to(torch.float32)
 
 
 def dense_gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

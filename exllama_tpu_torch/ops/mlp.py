@@ -4,8 +4,11 @@
 
 in one launch of kernel K6 ``q4_mlp`` (csrc/q4_mlp.cu) for M = B*T <= 32
 rows on CUDA tensors; ``q4_mlp_plain`` is its plain PyTorch version, the
-separate-kernel path's composition with the same cast points. The caller
-checks ``fused_mlp_applicable`` first.
+separate-kernel path's composition with the same cast points. Under the
+W4A8 values of ``impl`` ("pallas_a8", "pallas_a8x2", "pallas_a8t") both
+GEMVs run K9's integer arithmetic (the a8 builds of the same source;
+launches count on ``q4_mlp_a8``). The caller checks
+``fused_mlp_applicable`` first.
 """
 
 from __future__ import annotations
@@ -14,12 +17,14 @@ import torch
 import torch.nn.functional as F
 
 from exllama_tpu_torch import kernels
+from exllama_tpu_torch.config import A8_IMPLS, check_matmul_impl
 from exllama_tpu_torch.formats.gptq import QuantTensor
 from exllama_tpu_torch.ops.norms import rms_norm
 from exllama_tpu_torch.ops.quant import (
     GEMV_MAX_M,
     _check_qt,
     check_qt_tensors,
+    q4_gemv_a8_plain,
     q4_gemv_plain,
 )
 
@@ -51,20 +56,34 @@ def silu_mul(gu: torch.Tensor, inter: int) -> torch.Tensor:
     return F.silu(g.to(torch.float32)).to(u.dtype) * u
 
 
-def q4_mlp_plain(h, norm_w, gateup: QuantTensor, down: QuantTensor, eps):
+def gemv_plain_of(impl: str):
+    """The plain GEMV (x, qt, norm_w=None, eps=1e-6) that ``impl`` runs at
+    M <= 32: exact, a8 or a8x2."""
+    if check_matmul_impl(impl) not in A8_IMPLS:
+        return q4_gemv_plain
+    two_pass = impl == "pallas_a8x2"
+    return lambda x, qt, norm_w=None, eps=1e-6: q4_gemv_a8_plain(
+        x, qt, norm_w, eps, two_pass)
+
+
+def q4_mlp_plain(h, norm_w, gateup: QuantTensor, down: QuantTensor, eps,
+                 impl: str = "auto"):
     """The MLP block as the separate path computes it, h [..., hidden]."""
+    gemv = gemv_plain_of(impl)
     *lead, k = h.shape
     h2 = h.reshape(-1, k)
     a = rms_norm(h2, norm_w, eps)
-    mid = silu_mul(q4_gemv_plain(a, gateup), down.in_features)
-    return (h2 + q4_gemv_plain(mid, down)).reshape(*lead, k)
+    mid = silu_mul(gemv(a, gateup), down.in_features)
+    return (h2 + gemv(mid, down)).reshape(*lead, k)
 
 
 def q4_mlp(h: torch.Tensor, norm_w: torch.Tensor, gateup: QuantTensor,
-           down: QuantTensor, eps: float) -> torch.Tensor:
-    """K6: the whole MLP block of h [..., hidden] bf16 in one launch."""
+           down: QuantTensor, eps: float, impl: str = "auto") -> torch.Tensor:
+    """K6: the whole MLP block of h [..., hidden] bf16 in one launch; its
+    GEMVs exact, a8 or a8x2 by ``impl``."""
+    a8 = check_matmul_impl(impl) in A8_IMPLS
     if h.device.type == "cpu":
-        return q4_mlp_plain(h, norm_w, gateup, down, eps)
+        return q4_mlp_plain(h, norm_w, gateup, down, eps, impl)
     if h.device.type != "cuda":
         raise RuntimeError(f"q4_mlp: unsupported device {h.device}")
     *lead, hidden = h.shape
@@ -81,15 +100,24 @@ def q4_mlp(h: torch.Tensor, norm_w: torch.Tensor, gateup: QuantTensor,
     scratch = torch.empty((gu_bytes + 256,), dtype=torch.uint8, device=h.device)
     base = scratch.data_ptr()
     out = torch.empty_like(h2)
-    kernels.check(kernels.launcher("q4_mlp")(
+    lib = "q4_mlp" if not a8 else (
+        "q4_mlp_a8x2" if impl == "pallas_a8x2" else "q4_mlp_a8")
+    kernels.check(kernels.launcher(lib)(
         h2.data_ptr(), norm_w.data_ptr(), gateup.qweight.data_ptr(),
         gateup.scales.data_ptr(), gateup.zscale.data_ptr(),
         down.qweight.data_ptr(), down.scales.data_ptr(),
         down.zscale.data_ptr(), base, base + gu_bytes, out.data_ptr(),
         m, hidden, inter, gateup.groupsize, float(eps), kernels.stream_of(h2),
-    ), "q4_mlp")
-    q4_mlp.launches += 1
+    ), lib)
+    (q4_mlp_a8 if a8 else q4_mlp).launches += 1
     return out.reshape(*lead, hidden)
 
 
+def q4_mlp_a8(h, norm_w, gateup, down, eps, two_pass: bool = False):
+    """K6 with K9's arithmetic in both GEMVs (``two_pass``: a8x2)."""
+    return q4_mlp(h, norm_w, gateup, down, eps,
+                  "pallas_a8x2" if two_pass else "pallas_a8")
+
+
 q4_mlp.launches = 0
+q4_mlp_a8.launches = 0

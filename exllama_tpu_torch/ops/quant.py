@@ -1,26 +1,50 @@
 """4-bit GPTQ matmul (port of exllama_tpu/ops/quant.py:q4_matmul).
 
-Two hand-written CUDA kernels, chosen by the row count M exactly where the
-JAX package switches its Pallas kernels (``GEMV_MAX_M = 32``, a threshold
-measured on a TPU and kept for now):
+Six hand-written CUDA kernels, chosen by ``impl`` (the JAX package's
+``TuningParams.matmul_impl`` values) and by the row count M exactly where
+the JAX package switches its Pallas kernels (``GEMV_MAX_M = 32``, a
+threshold measured on a TPU and kept for now):
 
-  * M <= 32: K1 ``q4_gemv`` (csrc/q4_gemv.cu) -- group partial sums with the
-    optional RMSNorm and act-order gather in its prologue;
-  * M > 32:  K2 ``q4_dequant_matmul`` (csrc/q4_matmul.cu) -- bf16 tile
-    dequant + tensor-core products; act-order x is gathered before it.
+  * M <= 32, exact ("auto" / "pallas"): K1 ``q4_gemv`` (csrc/q4_gemv.cu) --
+    f32 group partial sums of exact nibbles, with the optional RMSNorm and
+    act-order gather in its prologue;
+  * M <= 32, "pallas_a8" / "pallas_a8x2" / "pallas_a8t": K9 ``q4_gemv_a8``
+    (the a8 builds of the same source) -- int8 activations per (row, group)
+    against the nibbles in integer arithmetic; a8x2 adds a residual pass;
+  * M > 32, exact and "pallas_a8" / "pallas_a8x2": K2 ``q4_dequant_matmul``
+    (csrc/q4_matmul.cu) -- bf16 tile dequant + tensor-core products;
+  * M > 32, "pallas_a8t": K11 ``w8_matmul`` (csrc/w8_matmul.cu) against the
+    tensor's resident int8 image, or K10 ``q4_prefill_a8``
+    (csrc/q4_prefill_a8.cu), which re-quantizes the 4-bit tile to int8 in
+    the kernel, where the tensor has none; both int8 tensor-core products
+    of row-quantized activations;
+  * ``glu=(ni, ou)`` at M > 32: K12 ``q4_matmul_glu`` (K2's GLU mode) forms
+    silu(gate)*up from the raw fused gate|up output inside the kernel.
 
-Each kernel wrapper runs the plain PyTorch version for CPU tensors only
-(the tests), launches the kernel for CUDA tensors and raises otherwise.
-``_q4_matmul_plain`` is the analogue of the JAX ``_q4_matmul_xla``:
-dequantize to bf16, f32-accumulated product, cast to x.dtype.
+Act-order x is gathered, and at M > 32 the norm applied, before the
+prefill kernels. Each kernel wrapper runs its plain PyTorch version for CPU
+tensors only (the tests), launches the kernel for CUDA tensors and raises
+otherwise. ``_q4_matmul_plain`` is the analogue of the JAX
+``_q4_matmul_xla``: dequantize to bf16, f32-accumulated product, cast to
+x.dtype. The a8 plain versions do the kernels' integer arithmetic (int8
+values multiplied exactly), not a dequantized product: their noise is the
+kernels' noise.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from exllama_tpu_torch import kernels
-from exllama_tpu_torch.formats.gptq import QuantTensor, dequantize_t
+from exllama_tpu_torch.config import A8_IMPLS, check_matmul_impl
+from exllama_tpu_torch.formats.gptq import (
+    QuantTensor,
+    dequantize_t,
+    unpack_qweight,
+    w8_col_scale,
+)
+from exllama_tpu_torch.ops import full_f32_matmul
 from exllama_tpu_torch.ops.norms import rms_norm
 
 GEMV_MAX_M = 32   # the JAX package's decode/prefill switch (a TPU number)
@@ -28,10 +52,9 @@ GEMV_MAX_M = 32   # the JAX package's decode/prefill switch (a TPU number)
 
 def _q4_matmul_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     """x [M, K] @ dequant(qt) with f32 accumulation, in x.dtype."""
-    # f32 products in full precision on the card as well (no TF32)
-    torch.backends.cuda.matmul.allow_tf32 = False
     w = dequantize_t(qt, torch.bfloat16)
-    out = x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
+    with full_f32_matmul():
+        out = x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.float32)
     return out.to(x.dtype)
 
 
@@ -54,12 +77,82 @@ def _check_qt(x: torch.Tensor, qt: QuantTensor):
     check_qt_tensors(qt, x.device)
 
 
-def q4_gemv_plain(x, qt, norm_w=None, norm_eps=1e-6):
+def _prologue_plain(x, qt, norm_w, norm_eps):
+    """The GEMV prologue: rms_norm(x)*w (optional), then the act-order
+    gather (optional)."""
     if norm_w is not None:
         x = rms_norm(x, norm_w, norm_eps)
     if qt.x_map is not None:
         x = x.index_select(1, qt.x_map.to(torch.long))
-    return _q4_matmul_plain(x, qt)
+    return x
+
+
+def q4_gemv_plain(x, qt, norm_w=None, norm_eps=1e-6):
+    return _q4_matmul_plain(_prologue_plain(x, qt, norm_w, norm_eps), qt)
+
+
+def _quant_rows(xf: torch.Tensor):
+    """Symmetric int8 quantization along the last axis: (integer-valued f32
+    xq, f32 scale), scale = max(amax, 1e-20)/127, xq = clip(round(x /
+    scale), +-127); round is half-to-even, as jnp.round."""
+    sx = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-20) * (1.0 / 127.0)
+    return torch.round(xf / sx).clamp_(-127, 127), sx
+
+
+def q4_gemv_a8_plain(x, qt, norm_w=None, norm_eps=1e-6, two_pass=False,
+                     out_dtype=None):
+    """K9's arithmetic in plain tensor code (quant.py:
+    _q4_gemv_kernel_npair_a8): per (row, group) int8 activations, integer
+    nibble products (exact in f32: at most 128*127*15 < 2^24 a group), one
+    f32 rescale per (group, column), the zero-point term on the exact f32
+    group sum of x. ``two_pass``: a second int8 pass over the residual
+    r = x - sx*xq at scale sx/254. ``out_dtype`` (default x.dtype):
+    float32 returns the sums before the output rounding, which is what a
+    kernel's bf16 output is held against to half a bf16 step."""
+    x = _prologue_plain(x, qt, norm_w, norm_eps)
+    m, k = x.shape
+    gs, n = qt.groupsize, qt.out_features
+    xf = x.to(torch.float32).reshape(m, k // gs, gs)
+    q = unpack_qweight(qt.qweight).to(torch.float32).reshape(k // gs, gs, n)
+    s = qt.scales.to(torch.float32)
+    z = qt.zscale.to(torch.float32)
+    xq, sx = _quant_rows(xf)
+    with full_f32_matmul():
+        d = torch.einsum("mgk,gkn->mgn", xq, q) * sx
+        if two_pass:
+            sx2 = sx * (1.0 / 254.0)
+            xq2 = torch.round((xf - xq * sx) / sx2).clamp_(-127, 127)
+            d = d + torch.einsum("mgk,gkn->mgn", xq2, q) * sx2
+    out = (d * s - xf.sum(dim=-1, keepdim=True) * z).sum(dim=1)
+    return out.to(out_dtype or x.dtype)
+
+
+def _gemv_checks(name, x, qt, norm_w):
+    _check_qt(x, qt)
+    m, k = x.shape
+    if m > GEMV_MAX_M:
+        raise ValueError(f"{name} takes M <= {GEMV_MAX_M}, got {m}")
+    if norm_w is not None:
+        norm_w = norm_w.to(torch.bfloat16).contiguous()
+        if norm_w.shape != (k,):
+            raise ValueError(f"norm_w shape {tuple(norm_w.shape)} != ({k},)")
+    xm = qt.x_map
+    if xm is not None and (xm.dtype != torch.int32 or xm.shape != (k,)):
+        raise ValueError("x_map must be int32 [K]")
+    return x.contiguous(), norm_w
+
+
+def _gemv_launch(lib, x, qt, norm_w, norm_eps):
+    m, k = x.shape
+    out = torch.empty((m, qt.out_features), dtype=torch.bfloat16,
+                      device=x.device)
+    kernels.check(kernels.launcher(lib)(
+        x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
+        qt.zscale.data_ptr(), kernels.ptr(norm_w), kernels.ptr(qt.x_map),
+        out.data_ptr(), m, k, qt.out_features, qt.groupsize, float(norm_eps),
+        kernels.stream_of(x),
+    ), lib)
+    return out
 
 
 def q4_gemv(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_eps=1e-6):
@@ -70,31 +163,42 @@ def q4_gemv(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_eps=1e-6):
         return q4_gemv_plain(x, qt, norm_w, norm_eps)
     if x.device.type != "cuda":
         raise RuntimeError(f"q4_gemv: unsupported device {x.device}")
-    _check_qt(x, qt)
-    m, k = x.shape
-    if m > GEMV_MAX_M:
-        raise ValueError(f"q4_gemv takes M <= {GEMV_MAX_M}, got {m}")
-    x = x.contiguous()
-    if norm_w is not None:
-        norm_w = norm_w.to(torch.bfloat16).contiguous()
-        if norm_w.shape != (k,):
-            raise ValueError(f"norm_w shape {tuple(norm_w.shape)} != ({k},)")
-    xm = qt.x_map
-    if xm is not None and (xm.dtype != torch.int32 or xm.shape != (k,)):
-        raise ValueError("x_map must be int32 [K]")
-    out = torch.empty((m, qt.out_features), dtype=torch.bfloat16,
-                      device=x.device)
-    kernels.check(kernels.launcher("q4_gemv")(
-        x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
-        qt.zscale.data_ptr(), kernels.ptr(norm_w), kernels.ptr(xm),
-        out.data_ptr(), m, k, qt.out_features, qt.groupsize, float(norm_eps),
-        kernels.stream_of(x),
-    ), "q4_gemv")
+    x, norm_w = _gemv_checks("q4_gemv", x, qt, norm_w)
+    out = _gemv_launch("q4_gemv", x, qt, norm_w, norm_eps)
     q4_gemv.launches += 1
     return out
 
 
 q4_gemv.launches = 0
+
+
+def q4_gemv_a8(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_eps=1e-6,
+               two_pass: bool = False):
+    """K9: K1's function with W4A8 arithmetic (``two_pass``: a8x2).
+
+    x [M <= 32, K] bf16 -> [M, N] bf16."""
+    if x.device.type == "cpu":
+        return q4_gemv_a8_plain(x, qt, norm_w, norm_eps, two_pass)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"q4_gemv_a8: unsupported device {x.device}")
+    x, norm_w = _gemv_checks("q4_gemv_a8", x, qt, norm_w)
+    out = _gemv_launch("q4_gemv_a8x2" if two_pass else "q4_gemv_a8", x, qt,
+                       norm_w, norm_eps)
+    q4_gemv_a8.launches += 1
+    return out
+
+
+q4_gemv_a8.launches = 0
+
+
+def _prefill_input(name, x, qt):
+    _check_qt(x, qt)
+    if x.shape[1] % 32:
+        raise ValueError(f"{name} needs K % 32 == 0, got {x.shape[1]}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:       # the kernels load x in 16-byte vectors
+        x = x.clone()
+    return x
 
 
 def q4_dequant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
@@ -103,13 +207,8 @@ def q4_dequant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
         return _q4_matmul_plain(x, qt)
     if x.device.type != "cuda":
         raise RuntimeError(f"q4_dequant_matmul: unsupported device {x.device}")
-    _check_qt(x, qt)
+    x = _prefill_input("q4_dequant_matmul", x, qt)
     m, k = x.shape
-    if k % 32:
-        raise ValueError(f"q4_dequant_matmul needs K % 32 == 0, got {k}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:       # the kernel loads x in 16-byte vectors
-        x = x.clone()
     out = torch.empty((m, qt.out_features), dtype=torch.bfloat16,
                       device=x.device)
     kernels.check(kernels.launcher("q4_matmul")(
@@ -124,22 +223,185 @@ def q4_dequant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 q4_dequant_matmul.launches = 0
 
 
+def glu_silu_mul(x: torch.Tensor, ni: int, ou: int) -> torch.Tensor:
+    """silu(gate)*up of a raw fused gate|up output x [..., W] (gate in
+    columns [0, ni), up in [ou, ou + ni)): silu in f32 rounded to bf16, times
+    up in bf16 (quant.py:_glu_silu_mul)."""
+    g, u = x[..., :ni], x[..., ou:ou + ni]
+    return F.silu(g.to(torch.float32)).to(u.dtype) * u
+
+
+def q4_matmul_glu_plain(x, qt, ni, ou):
+    return _q4_matmul_plain(glu_silu_mul(x, ni, ou), qt)
+
+
+def q4_matmul_glu(x: torch.Tensor, qt: QuantTensor, ni: int,
+                  ou: int) -> torch.Tensor:
+    """K12: (silu(x[:, :ni]) * x[:, ou:ou+ni]) @ W with the activation
+    formed inside the kernel; x [M, W] bf16, ni = qt.in_features."""
+    if x.device.type == "cpu":
+        return q4_matmul_glu_plain(x, qt, ni, ou)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"q4_matmul_glu: unsupported device {x.device}")
+    m, w_in = x.shape
+    if (x.dtype != torch.bfloat16 or ni != qt.in_features or ni % 32
+            or ou % 8 or w_in % 8 or ou + ni > w_in):
+        raise ValueError(f"q4_matmul_glu: x {tuple(x.shape)} {x.dtype}, "
+                         f"glu ({ni}, {ou}) vs in_features {qt.in_features}")
+    check_qt_tensors(qt, x.device)
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    out = torch.empty((m, qt.out_features), dtype=torch.bfloat16,
+                      device=x.device)
+    kernels.check(kernels.launcher("q4_matmul_glu")(
+        x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
+        qt.zscale.data_ptr(), out.data_ptr(), m, ni, qt.out_features,
+        qt.groupsize, w_in, ou, kernels.stream_of(x),
+    ), "q4_matmul_glu")
+    q4_matmul_glu.launches += 1
+    return out
+
+
+q4_matmul_glu.launches = 0
+
+
+def w8_matmul_plain(x, w8, ws, out_dtype=None):
+    """K11's arithmetic in plain tensor code (quant.py:_q4_matmul_w8):
+    float(xq @ w8) * sx * ws with xq, sx the per-row int8 quantization of
+    x; w8 integer-valued [K, N]. The product runs in f64, where it is
+    exact (|sum| <= 127*127*K < 2^53). ``out_dtype`` as in
+    q4_gemv_a8_plain."""
+    xq, sx = _quant_rows(x.to(torch.float32))
+    acc = xq.to(torch.float64) @ w8.to(torch.float64)
+    out = acc.to(torch.float32) * sx * ws.to(torch.float32)
+    return out.to(out_dtype or x.dtype)
+
+
+def q4_prefill_a8_plain(x, qt, ws, out_dtype=None):
+    """K10's arithmetic in plain tensor code (quant.py:
+    _q4_prefill_kernel_npair_a8): the f32 dequantized weight re-quantized
+    per column as clip(round(w * (1/ws)), +-127), then K11's product."""
+    w = dequantize_t(qt, torch.float32)
+    inv = 1.0 / ws.to(torch.float32).clamp_min(1e-22)
+    return w8_matmul_plain(x, torch.round(w * inv).clamp_(-127, 127), ws,
+                           out_dtype)
+
+
+def _int8_operands(name, x, qt, ws):
+    x = _prefill_input(name, x, qt)
+    n = qt.out_features
+    if (ws.dtype != torch.float32 or ws.shape != (n,) or ws.device != x.device
+            or not ws.is_contiguous()):
+        raise ValueError(f"{name}: column scales must be contiguous f32 "
+                         f"[{n}] on {x.device}")
+    m, k = x.shape
+    xq = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    sx = torch.empty((m,), dtype=torch.float32, device=x.device)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    return x, xq, sx, out
+
+
+def w8_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
+    """K11: x [M, K] bf16 (already normed, in the weight's row order) against
+    qt's resident int8 image -> [M, N] bf16. The rows of x are quantized to
+    int8 by a small kernel of the same launch."""
+    if qt.w8 is None or qt.w8_scale is None:
+        raise ValueError("w8_matmul: the tensor carries no int8 image")
+    if x.device.type == "cpu":
+        return w8_matmul_plain(x, qt.w8, qt.w8_scale)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"w8_matmul: unsupported device {x.device}")
+    x, xq, sx, out = _int8_operands("w8_matmul", x, qt, qt.w8_scale)
+    m, k = x.shape
+    w8 = qt.w8
+    if (w8.dtype != torch.int8 or w8.shape != (k, qt.out_features)
+            or w8.device != x.device or not w8.is_contiguous()):
+        raise ValueError(f"w8: need contiguous int8 [{k}, {qt.out_features}] "
+                         f"on {x.device}")
+    kernels.check(kernels.launcher("w8_matmul")(
+        x.data_ptr(), w8.data_ptr(), qt.w8_scale.data_ptr(), xq.data_ptr(),
+        sx.data_ptr(), out.data_ptr(), m, k, qt.out_features,
+        kernels.stream_of(x),
+    ), "w8_matmul")
+    w8_matmul.launches += 1
+    return out
+
+
+w8_matmul.launches = 0
+
+
+def q4_prefill_a8(x: torch.Tensor, qt: QuantTensor,
+                  ws: torch.Tensor) -> torch.Tensor:
+    """K10: x [M, K] bf16 (already normed, in the weight's row order) @ W
+    through int8: the 4-bit tile re-quantized in the kernel against the
+    column scales ws f32 [N] -> [M, N] bf16."""
+    if x.device.type == "cpu":
+        return q4_prefill_a8_plain(x, qt, ws)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"q4_prefill_a8: unsupported device {x.device}")
+    x, xq, sx, out = _int8_operands("q4_prefill_a8", x, qt, ws)
+    m, k = x.shape
+    kernels.check(kernels.launcher("q4_prefill_a8")(
+        x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
+        qt.zscale.data_ptr(), ws.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+        out.data_ptr(), m, k, qt.out_features, qt.groupsize,
+        kernels.stream_of(x),
+    ), "q4_prefill_a8")
+    q4_prefill_a8.launches += 1
+    return out
+
+
+q4_prefill_a8.launches = 0
+
+
 def q4_matmul(
     x: torch.Tensor,
     qt: QuantTensor,
+    impl: str = "auto",
     norm_w: "torch.Tensor | None" = None,
     norm_eps: float = 1e-6,
+    glu: "tuple[int, int] | None" = None,
 ) -> torch.Tensor:
     """``[rms_norm](x) @ dequant(qt)``; x [..., in_features] bf16 ->
-    [..., out_features] bf16. Dispatches by M = prod(leading dims)."""
+    [..., out_features] bf16. Dispatches by ``impl`` and M = prod(leading
+    dims) as the module docstring says (quant.py:_q4_matmul_pallas without
+    its TPU block choosers).
+
+    ``glu=(ni, ou)``: x is the raw fused gate|up output [..., W] and the
+    product runs over silu(x[..., :ni]) * x[..., ou:ou+ni]; in the kernel
+    (K12) at M > 32 without act-order and outside "pallas_a8t", formed up
+    front otherwise. Composes with neither ``norm_w`` nor act-order fusion.
+    """
+    impl = check_matmul_impl(impl)
+    if glu is not None:
+        ni, ou = glu
+        if norm_w is not None or ou + ni > x.shape[-1]:
+            raise ValueError(f"glu {glu} with x {tuple(x.shape)}, norm_w "
+                             f"{'set' if norm_w is not None else 'None'}")
+        *lead, w_in = x.shape
+        x2 = x.reshape(-1, w_in)
+        if (x2.shape[0] > GEMV_MAX_M and qt.x_map is None
+                and impl != "pallas_a8t" and qt.in_features == ni
+                and ou % 8 == 0 and w_in % 8 == 0):
+            return q4_matmul_glu(x2, qt, ni, ou).reshape(
+                *lead, qt.out_features)
+        x = glu_silu_mul(x, ni, ou)
     *lead, k = x.shape
     x2 = x.reshape(-1, k)
     if x2.shape[0] <= GEMV_MAX_M:
-        out = q4_gemv(x2, qt, norm_w, norm_eps)
+        if impl in A8_IMPLS:
+            out = q4_gemv_a8(x2, qt, norm_w, norm_eps,
+                             two_pass=impl == "pallas_a8x2")
+        else:
+            out = q4_gemv(x2, qt, norm_w, norm_eps)
     else:
-        if norm_w is not None:
-            x2 = rms_norm(x2, norm_w, norm_eps)
-        if qt.x_map is not None:
-            x2 = x2.index_select(1, qt.x_map.to(torch.long))
-        out = q4_dequant_matmul(x2, qt)
+        x2 = _prologue_plain(x2, qt, norm_w, norm_eps)
+        if impl != "pallas_a8t":
+            out = q4_dequant_matmul(x2, qt)
+        elif qt.w8 is not None:
+            out = w8_matmul(x2, qt)
+        else:
+            ws = qt.w8_scale if qt.w8_scale is not None else w8_col_scale(qt)
+            out = q4_prefill_a8(x2, qt, ws)
     return out.reshape(*lead, qt.out_features)

@@ -57,7 +57,8 @@ def test_jax_decode_defaults_are_the_ports_defaults():
     defaults, and the separate-kernel configuration is reachable."""
     ours, ref = TuningParams(), JaxConfig().tuning
     for knob in ("fuse_mlp", "fuse_attn", "fuse_qkv", "commit_impl",
-                 "fuse_projections", "kv_cache_dtype", "scale_dtype"):
+                 "fuse_projections", "kv_cache_dtype", "scale_dtype",
+                 "matmul_impl", "prefill_w8"):
         assert getattr(ours, knob) == getattr(ref, knob), knob
     assert (ours.fuse_mlp, ours.fuse_attn, ours.fuse_qkv,
             ours.commit_impl) == (True, True, False, "auto")
@@ -106,6 +107,10 @@ def test_npair_unpack_matches_jax_and_repacks_to_wire():
 def test_import_leaves_out_jax():
     code = (
         "import sys, exllama_tpu_torch, exllama_tpu_torch.generator\n"
+        "import exllama_tpu_torch.kernels, exllama_tpu_torch.ops.quant\n"
+        "import exllama_tpu_torch.ops.mlp, exllama_tpu_torch.ops.attn_block\n"
+        "import exllama_tpu_torch.models.llama as llama\n"
+        "assert llama._attach_prefill_w8 and llama.q4_matmul\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exllama_tpu' or m.startswith('exllama_tpu.')"
         " or m == 'ml_dtypes']\n"
