@@ -18,12 +18,18 @@ Phases, one line or block of output each; any failure exits non-zero:
      the W4A8 kernels K9-K11 are held to 5e-3 against their plain versions'
      unrounded values after the plain versions have shown that a dropped
      residual pass, zero-point term or nibble moves the output by more than
-     3x that (turbo_cases);
+     3x that (turbo_cases); K3, K7 and K8 over an int8 and an int4 KV
+     cache at the same shapes (2e-2 / 5e-2 as over bf16, K8 bit-equal),
+     after an independent f32 reference has shown that per-key K or V
+     scales replaced by their mean, the V scale also applied to the
+     softmax denominator, and swapped int4 halves each move the output by
+     more than 3x the limit (kv_cases);
   4. a 2-layer model at full 7B width built from one seed on the card and on
      the CPU: teacher-forced prefill + decode logits compared, in the default
      configuration and with fuse_qkv + commit_impl="pallas", and the greedy
      head's tokens held against the CPU logits; then the same comparison
-     under matmul_impl="pallas_a8x2" and "pallas_a8t";
+     under matmul_impl="pallas_a8x2" and "pallas_a8t", and under an int8
+     and an int4 KV cache in both configurations;
   5. the main path at full width, in the default configuration (the JAX
      package's: fuse_mlp, fuse_attn, commit_impl="auto"): a 32-layer
      Llama-7B-shape model (random weights from a seed) answering three
@@ -41,9 +47,15 @@ Phases, one line or block of output each; any failure exits non-zero:
      EXL_GLU_FUSE=1 (K12), phase 6's fuse_qkv + K8 greedy decode under
      "pallas_a8" and "pallas_a8x2", the 18-token request 2 under
      "pallas_a8" (K6 in K9's arithmetic), and the generator's decode under
-     exact / a8 / a8x2 in turns, with tokens/s beside phase 5's.
+     exact / a8 / a8x2 in turns, with tokens/s beside phase 5's;
+  9. the quantized KV caches on the same 32-layer model, each under the
+     config that exllama_tpu_torch.model_init.make_config returns for its
+     flags (a config.json written to a temporary directory): request 1
+     under --kv_int8, --kv_int4, --turbo and --turbo --turbo_prefill, then
+     phase 6's fuse_qkv + K8 greedy decode under int8, int4 and --turbo,
+     with prompt and decode tokens/s, peak memory and the cache's bytes.
 
-Each of phases 5-8 sets every launch counter to 0 just before it drives its
+Each of phases 5-9 sets every launch counter to 0 just before it drives its
 path and reads them just after; a kernel its path must run that shows no
 launch fails the run. The line before the last is a JSON summary of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. Needs exactly
@@ -57,6 +69,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -78,6 +91,12 @@ TOL = {"q4_gemv": 1e-2, "q4_dequant_matmul": 1e-2, "flash_attn": 2e-2,
        # K7 in one-pass a8: the JAX suite's own limit for its fused layer
        # kernel in a8 (tests/test_attn_block.py:478); a8x2 keeps K7's 2e-2
        "layer_tail_a8": 5e-2, "layer_tail_a8x2": 2e-2}
+# over an int8 / int4 KV cache: kernel and plain version read the same bytes
+# and scales, so K3 and K7 keep their limits and K8 stays bit-equal
+KV_KINDS = ("int8", "int4")
+for _kind in KV_KINDS:
+    for _name in ("flash_attn", "layer_tail", "layer_tail_a8", "kv_commit"):
+        TOL[f"{_name}_{_kind}"] = TOL[_name]
 
 
 def log(*a):
@@ -509,7 +528,8 @@ def fused_cases(device, timer, res):
     nk, nv = rnd(n_layers, b, 1, hkv, d), rnd(n_layers, b, 1, hkv, d)
     kcs, vcs = caches[:n_layers], caches[n_layers:]
     ptrs = attention.kv_ptr_array(kcs, vcs)
-    attention.commit_kv_cache(kcs, vcs, nk, nv, past, "pallas", ptrs)
+    attention.commit_kv_cache(kcs, vcs, nk, nv, past, impl="pallas",
+                              ptrs=ptrs)
     attention.commit_kv_cache(plain[:n_layers], plain[n_layers:], nk, nv,
                               past, impl="xla")
     err = max((g.float() - r.float()).abs().max().item()
@@ -520,7 +540,7 @@ def fused_cases(device, timer, res):
     rows = 2 * n_layers * b * hkv * d * 2
     record("kv_commit", f"L={n_layers} B={b} Hkv={hkv}", err, 0.0,
            lambda: attention.commit_kv_cache(kcs, vcs, nk, nv, past,
-                                             "pallas", ptrs),
+                                             impl="pallas", ptrs=ptrs),
            lambda: attention.commit_kv_cache(kcs, vcs, nk, nv, past,
                                              impl="xla"),
            None, 2 * rows, 0)
@@ -944,6 +964,294 @@ def int_mm_library(x, qt8):
     return lib
 
 
+
+# ------------------------------------------- phase 3: quantized KV caches
+
+def quantized_cache(gen, kind, b, hkv, s_max, d, device, rows=None,
+                    spread=True):
+    """An int8 / int4 cache with its f32 scales, written by the plain
+    update_kv_cache from bf16 rows [B, S, Hkv, D] (``rows``: a (K, V) pair;
+    default N(0, 1)), each row scaled by a power of two in [1/4, 2] with
+    ``spread``, so that the per-key scales differ by up to x8."""
+    from exllama_tpu_torch.ops import attention
+
+    dc = d // 2 if kind == "int4" else d
+    kc = torch.zeros((b, hkv, s_max, dc), dtype=torch.int8, device=device)
+    vc = torch.zeros_like(kc)
+    ks = torch.zeros((b, hkv, s_max), dtype=torch.float32, device=device)
+    vs = torch.zeros_like(ks)
+    out = []
+    for i in range(2):
+        x = (torch.randn((b, s_max, hkv, d), generator=gen, device=device)
+             if rows is None else rows[i].float())
+        if spread:
+            x = x * 2.0 ** torch.randint(-2, 2, (b, s_max, hkv, 1),
+                                         generator=gen, device=device)
+        out.append(x.bfloat16())
+    attention.update_kv_cache(kc, vc, out[0], out[1], 0, ks, vs)
+    return kc, vc, ks, vs
+
+
+def dequantized(c, s, d):
+    """The bf16 cache a quantized one stands for (the library yardstick's
+    input)."""
+    from exllama_tpu_torch.ops import attention
+
+    raw = (attention.unpack_kv4(c, torch.float32) if c.shape[-1] != d
+           else c.float())
+    return (raw * s[..., None]).bfloat16()
+
+
+def quantized_attention_reference(q, kc, vc, ks, vs, past, new_kv,
+                                  fault=None):
+    """Deferred decode attention (T = 1, no padding) over a quantized
+    cache, written out in f32 independently of attend_plain, and the faults
+    a kernel could make: "k_scale" / "v_scale" (one scale, the mean, for
+    every key), "v_scale_on_l" (the V scale also in the softmax
+    denominator), "halves" (the two halves of an int4 head swapped)."""
+    b, _, h, d = q.shape
+    hkv = kc.shape[1]
+    g = h // hkv
+
+    def raw(c):
+        c = c[:, :, :past]
+        if c.shape[-1] == d:
+            return c.float()
+        lo, hi = ((c & 15) - 8).float(), (c >> 4).float()
+        return torch.cat([hi, lo] if fault == "halves" else [lo, hi], -1)
+
+    def scales(s, flat):
+        s = s[:, :, :past]
+        return s.mean(-1, keepdim=True).expand_as(s) if flat else s
+
+    k, v = raw(kc), raw(vc)
+    ksc, vsc = scales(ks, fault == "k_scale"), scales(vs, fault == "v_scale")
+    qf = q.float().reshape(b, hkv, g, d)
+    sc = torch.einsum("bhgd,bhsd->bhgs", qf, k) * ksc[:, :, None]
+    s_new = torch.einsum("bhgd,bhd->bhg", qf, new_kv[0][:, 0].float())
+    sc = torch.cat([sc, s_new[..., None]], -1) / math.sqrt(d)
+    p = torch.exp(sc - sc.amax(-1, keepdim=True))
+    pv, p_new = p[..., :-1] * vsc[:, :, None], p[..., -1:]
+    l = (pv.sum(-1, keepdim=True) + p_new if fault == "v_scale_on_l"
+         else p.sum(-1, keepdim=True))
+    o = torch.einsum("bhgs,bhsd->bhgd", pv.bfloat16().float(), v)
+    o = o + p_new * new_kv[1][:, 0].float()[:, :, None]
+    return (o / l).reshape(b, 1, h, d).bfloat16()
+
+
+def kv_cases(device, timer, res):
+    """Hold K3, K7 and K8 over an int8 and an int4 KV cache against their
+    plain versions at Llama-7B shapes, with kernel / plain / library / bound
+    times, under the names <kernel>_<kind>."""
+    from exllama_tpu_torch.ops import attention, attn_block
+    from exllama_tpu_torch.ops.mlp import gemv_plain_of
+    from exllama_tpu_torch.ops.rope import rope_tables, slice_tables
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    record = make_recorder(timer, res)
+    hidden, inter, heads, d, s_max, gs = 4096, 11008, 32, 128, 2048, 128
+    eps, past = 1e-6, 2000
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).bfloat16()
+
+    def norm_w():
+        return (torch.rand(hidden, generator=gen, device=device)
+                + 0.5).bfloat16()
+
+    def kv_bytes(kind, keys, hkv):
+        """K and V rows of ``keys`` keys plus their two f32 scales."""
+        return 2 * keys * hkv * (d // 2 if kind == "int4" else d) \
+            + 2 * keys * hkv * 4
+
+    o = random_qt(gen, heads * d, hidden, gs, False, device)
+    gateup = random_qt(gen, hidden, 2 * inter, gs, False, device)
+    down = random_qt(gen, inter, hidden, gs, False, device)
+    qkv = random_qt(gen, hidden, 3 * heads * d, gs, False, device)
+    iw, nw = norm_w(), norm_w()
+    sin_t, cos_t = slice_tables(*rope_tables(s_max, d, device=device), past, 1)
+    nq = nkv = heads * d
+    nbytes_mlp = (q4_bytes(hidden, 2 * inter, gs) + q4_bytes(inter, hidden, gs)
+                  + hidden * 2)
+
+    for kind in KV_KINDS:
+        # ---- the faults, on an independent reference: a peaked softmax
+        # (q x4, planted keys) over rows whose scales differ by up to x8
+        q, kcb, vcb, new_kv, _ = planted_attention(gen, 1, heads, heads, s_max,
+                                                   past, 0, device)
+        kc, vc, ks, vs = quantized_cache(
+            gen, kind, 1, heads, s_max, d, device,
+            rows=(kcb.transpose(1, 2), vcb.transpose(1, 2)))
+        args = (q, kc, vc, ks, vs, past, new_kv)
+        ref = quantized_attention_reference(*args)
+        plain = attention.attend_plain(q, kc, vc, past, s_max, None, new_kv,
+                                       ks, vs)
+        check_close(f"attend_plain {kind} vs the f32 reference", plain, ref,
+                    TOL["flash_attn"])
+        names = {"k_scale": "per-key K scale dropped (their mean used)",
+                 "v_scale": "per-key V scale dropped (their mean used)",
+                 "v_scale_on_l": "V scale also applied to l"}
+        if kind == "int4":
+            names["halves"] = "int4 halves swapped"
+        faulty = {nm: quantized_attention_reference(*args, fault=f)
+                  for f, nm in names.items()}
+        require_fault_moves(f"flash_attn_{kind} decode peaked", ref, faulty,
+                            TOL["flash_attn"])
+        # ... and at K7's scale: h = 0, so its output is o-proj(attention)
+        h0 = torch.zeros((1, 1, hidden), dtype=torch.bfloat16, device=device)
+        through_o = gemv_plain_of("auto")
+        require_fault_moves(
+            f"layer_tail_{kind} attn_block_o h=0 peaked",
+            through_o(ref.reshape(1, -1), o),
+            {nm: through_o(out.reshape(1, -1), o)
+             for nm, out in faulty.items()}, TOL["layer_tail"])
+        targs = (h0, q, kc, vc, past, s_max, o, new_kv, None, "auto", ks, vs)
+        got = attn_block.attn_block_o(*targs)
+        ref7 = attn_block.attn_block_o_plain(*targs)
+        err, rel = check_close(f"layer_tail_{kind} attn_block_o h=0", got,
+                               ref7, TOL["layer_tail"])
+        record(f"layer_tail_{kind}",
+               f"{kind} attn_block_o h=0 peaked B=1 past=2000", err, rel,
+               lambda: attn_block.attn_block_o(*targs),
+               lambda: attn_block.attn_block_o_plain(*targs), None,
+               q4_bytes(nq, hidden, gs) + kv_bytes(kind, past, heads)
+               + 2 * hidden * 2 + nq * 2 + 2 * nkv * 2,
+               4 * d * heads * (past + 1) + 2 * nq * hidden, iters=10)
+        got = attention.attend(q, kc, vc, past, s_max, None, new_kv, ks, vs)
+        check_close(f"flash_attn_{kind} decode peaked", got, plain,
+                    TOL["flash_attn"])
+
+        # ---- K3 at the main path's shapes
+        acases = [
+            # label, B, T, Hkv, past, deferred, masked
+            (f"{kind} decode past=2000", 1, 1, 32, past, True, False),
+            (f"{kind} prefill T=1919 past=0", 1, 1919, 32, 0, False, False),
+            (f"{kind} decode B=2 past=2000 gqa8 left-pad mask", 2, 1, 8, past,
+             True, True),
+        ]
+        for label, b, t, hkv, pst, deferred, masked in acases:
+            q = rnd(b, t, heads, d)
+            kc, vc, ks, vs = quantized_cache(gen, kind, b, hkv, s_max, d,
+                                             device)
+            new_kv = (rnd(b, 1, hkv, d), rnd(b, 1, hkv, d)) if deferred \
+                else None
+            mask = None
+            if masked:
+                mask = torch.ones((b, s_max), dtype=torch.bool, device=device)
+                mask[0, :17] = False
+            aargs = (q, kc, vc, pst, s_max, mask, new_kv, ks, vs)
+            got = attention.attend(*aargs)
+            ref = attention.attend_plain(*aargs)
+            err, rel = check_close(f"flash_attn_{kind} {label}", got, ref,
+                                   TOL["flash_attn"])
+            lim = [min(s_max, pst + ti + (0 if deferred else 1))
+                   for ti in range(t)]
+            vis = b * sum(li + (1 if deferred else 0) for li in lim)
+            nbytes = (2 * q.numel() * 2 + kv_bytes(kind, b * max(lim), hkv)
+                      + (2 * b * hkv * d * 2 if deferred else 0)
+                      + (b * s_max if masked else 0))
+            # library yardstick: SDPA over the dequantized bf16 cache
+            pos = torch.arange(s_max, device=device)
+            allow = pos[None, :] < (pst + torch.arange(t, device=device)[
+                :, None] + (0 if deferred else 1))
+            allow = allow[None].expand(b, t, s_max)
+            if mask is not None:
+                allow = allow & mask[:, None]
+            allow, qh = allow[:, None], q.transpose(1, 2)
+            kd, vd = dequantized(kc, ks, d), dequantized(vc, vs, d)
+
+            def lib():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qh, kd, vd, attn_mask=allow, enable_gqa=hkv != heads)
+
+            record(f"flash_attn_{kind}", label, err, rel,
+                   lambda: attention.attend(*aargs),
+                   lambda: attention.attend_plain(*aargs), lib, nbytes,
+                   4 * d * heads * vis, iters=10)
+            del kd, vd
+
+        # ---- K7 at the main path's shapes, exact and a8 builds
+        h, q = rnd(1, 1, hidden), rnd(1, 1, heads, d)
+        kc, vc, ks, vs = quantized_cache(gen, kind, 1, heads, s_max, d, device,
+                                         spread=False)
+        new_kv = (rnd(1, 1, heads, d), rnd(1, 1, heads, d))
+        for entry in ("layer_tail", "layer_step"):
+            for impl in ("auto", "pallas_a8"):
+                if entry == "layer_tail":
+                    targs = (h, q, kc, vc, past, s_max, o, nw, gateup, down,
+                             eps, new_kv, None, impl, ks, vs)
+                    k_fn = lambda: attn_block.layer_tail(*targs)  # noqa: E731
+                    p_fn = lambda: attn_block.layer_tail_plain(*targs)  # noqa: E731
+                else:
+                    targs = (h, qkv, iw, sin_t, cos_t, kc, vc, past, s_max, o,
+                             nw, gateup, down, eps, heads, heads, d, None,
+                             impl, ks, vs)
+                    k_fn = lambda: attn_block.layer_step(*targs)  # noqa: E731
+                    p_fn = lambda: attn_block.layer_step_plain(*targs)  # noqa: E731
+                got, ref = k_fn(), p_fn()
+                if entry == "layer_step":
+                    for i, nm in ((1, "k_row"), (2, "v_row")):
+                        check_close(f"layer_step {kind} {nm}", got[i], ref[i],
+                                    1e-2)
+                    got, ref = got[0], ref[0]
+                name = ("layer_tail_a8_" if impl == "pallas_a8"
+                        else "layer_tail_") + kind
+                tag = (f"{kind} " + ("a8 " if impl == "pallas_a8" else "")
+                       + f"{entry} B=1 past=2000")
+                err, rel = check_close(f"{name} {tag}", got, ref, TOL[name])
+                nbytes = (q4_bytes(nq, hidden, gs)
+                          + kv_bytes(kind, past, heads) + 2 * hidden * 2
+                          + nbytes_mlp)
+                flops = (4 * d * heads * (past + 1) + 2 * nq * hidden
+                         + 2 * 3 * hidden * inter)
+                if entry == "layer_step":
+                    nbytes += (q4_bytes(hidden, nq + 2 * nkv, gs) + hidden * 2
+                               + d * 8 + 2 * nkv * 2)
+                    flops += 2 * hidden * (nq + 2 * nkv)
+                else:
+                    nbytes += nq * 2 + 2 * nkv * 2
+                record(name, tag, err, rel, k_fn, p_fn, None, nbytes, flops,
+                       iters=10)
+
+        # ---- K8: bytes and scales bit-equal to the plain quantized writes;
+        # an all-zero row and half-way values among the rows
+        n_layers, b, hkv, cur = 32, 1, 32, 1919
+        caches = [quantized_cache(gen, kind, b, hkv, s_max, d, device)
+                  for _ in range(n_layers)]
+        lists = [[c[i] for c in caches] for i in range(4)]   # k, v, ks, vs
+        plain = [[t.clone() for t in ts] for ts in lists]
+        nk, nv = rnd(n_layers, b, 1, hkv, d), rnd(n_layers, b, 1, hkv, d)
+        nk[0, 0, 0, 0] = 0
+        nk[0, 0, 0, 1] = ((torch.arange(d, device=device) % 14 - 7) + 0.5) * 0.5
+        nk[0, 0, 0, 1, 0] = 63.5 if kind == "int8" else 3.5   # the scale: 0.5
+        ptrs = attention.kv_ptr_array(*lists)
+        attention.commit_kv_cache(lists[0], lists[1], nk, nv, cur, lists[2],
+                                  lists[3], impl="pallas", ptrs=ptrs)
+        attention.commit_kv_cache(plain[0], plain[1], nk, nv, cur, plain[2],
+                                  plain[3], impl="xla")
+        n_diff = sum(int((g != r).sum()) for gs_, rs_ in zip(lists, plain)
+                     for g, r in zip(gs_, rs_))
+        if n_diff:
+            raise AssertionError(f"kv_commit_{kind}: {n_diff} bytes / scales "
+                                 f"differ from the plain quantized writes")
+        if not (lists[2][0][:, :, cur] > 0).all():
+            raise AssertionError(f"kv_commit_{kind}: no scale written")
+        rows = 2 * n_layers * b * hkv
+        nbytes = (rows * d * 2 + rows * (d // 2 if kind == "int4" else d)
+                  + rows * 4)
+        record(f"kv_commit_{kind}", f"{kind} L={n_layers} B={b} Hkv={hkv}",
+               0.0, 0.0,
+               lambda: attention.commit_kv_cache(
+                   lists[0], lists[1], nk, nv, cur, lists[2], lists[3],
+                   impl="pallas", ptrs=ptrs),
+               lambda: attention.commit_kv_cache(
+                   lists[0], lists[1], nk, nv, cur, lists[2], lists[3],
+                   impl="xla"),
+               None, nbytes, 0)
+        del caches, lists, plain
+
+
 # --------------------------------------------------------------- phase 4
 
 def model_vs_cpu(device):
@@ -1001,7 +1309,62 @@ def model_vs_cpu(device):
                                  f"the CPU max")
     cfg.tuning.fuse_qkv = False
     cfg.tuning.commit_impl = "auto"
-    return worst, turbo_model_vs_cpu(cfg, cpu_params, steps[:5], device)
+    return (worst, turbo_model_vs_cpu(cfg, cpu_params, steps[:5], device),
+            kv_model_vs_cpu(cfg, cpu_model, gpu_model, steps[:3]))
+
+
+# card vs CPU logits over the logit scale under a quantized cache: (prefill,
+# decode), the bf16 cache's 3%. Each decode step starts from the CPU's cache
+# bytes and scales, so it is held on its own arithmetic: a quantizer
+# amplifies what came before it (two rows one bf16 step apart round to other
+# integers, and an int4 integer is a seventh of a row's maximum). At this
+# width the prefill chunk, written and attended in one call, stays inside
+# the same limit (0.3% measured on an H100, int8 and int4).
+KV_MODEL_TOL = {"int8": (0.03, 0.03), "int4": (0.03, 0.03)}
+
+
+def kv_model_vs_cpu(cfg, cpu_model, gpu_model, steps):
+    """The same 2-layer model under an int8 and an int4 KV cache, default
+    configuration and fuse_qkv + K8 commit: prefill + 2 decode steps, card
+    vs CPU. Returns {kind: (worst prefill, worst decode)}."""
+    import exllama_tpu_torch as port
+
+    worst = {}
+    for kind, (lim_prefill, lim_decode) in KV_MODEL_TOL.items():
+        cfg.tuning.kv_cache_dtype = kind
+        worst[kind] = [0.0, 0.0]
+        for qkv_fuse, commit in ((False, "auto"), (True, "pallas")):
+            cfg.tuning.fuse_qkv = qkv_fuse
+            cfg.tuning.commit_impl = commit
+            c_cpu = port.ExLlamaCache(cpu_model)
+            c_gpu = port.ExLlamaCache(gpu_model)
+            assert c_gpu.k[0].dtype == torch.int8 and c_gpu.k_scale
+            for i, tok in enumerate(steps):
+                ref = cpu_model.forward(tok, c_cpu, last_id_only=i > 0)
+                got = gpu_model.forward(tok, c_gpu, last_id_only=i > 0).cpu()
+                rel = ((got - ref).abs().max() / ref.abs().max()).item()
+                lim = lim_decode if i else lim_prefill
+                if not torch.isfinite(got).all() or rel > lim:
+                    raise AssertionError(
+                        f"kv_cache_dtype={kind} fuse_qkv={qkv_fuse} "
+                        f"commit={commit} step {i}: card vs CPU logits rel "
+                        f"{rel:.4f} > {lim}")
+                worst[kind][i > 0] = max(worst[kind][i > 0], rel)
+                same = 0.0
+                for dst, src in zip(c_gpu._tensor_lists(),
+                                    c_cpu._tensor_lists()):
+                    for t, a in zip(dst, src):
+                        a = a.to(t.device)
+                        same += (t == a).float().mean().item() / (4 * len(dst))
+                        t.copy_(a)
+                if same < 0.9:
+                    raise AssertionError(
+                        f"kv_cache_dtype={kind} step {i}: only {same:.3f} of "
+                        f"the card's cache bytes and scales are the CPU's")
+    cfg.tuning.kv_cache_dtype = "bf16"
+    cfg.tuning.fuse_qkv = False
+    cfg.tuning.commit_impl = "auto"
+    return worst
 
 
 # card vs CPU logits over the logit scale under the W4A8 modes. a8x2 is
@@ -1054,29 +1417,36 @@ def turbo_model_vs_cpu(cfg, cpu_params, steps, device):
 def launch_counters():
     from exllama_tpu_torch.ops import attention, attn_block, dense, mlp, quant
 
-    return {"q4_gemv": quant.q4_gemv,
-            "q4_dequant_matmul": quant.q4_dequant_matmul,
-            "flash_attn": attention.attend,
-            "dense_gemv": dense.dense_gemv,
-            "head_argmax": dense.head_argmax,
-            "q4_mlp": mlp.q4_mlp,
-            "layer_tail": attn_block.layer_tail,
-            "kv_commit": attention.kv_commit,
-            "q4_gemv_a8": quant.q4_gemv_a8,
-            "q4_prefill_a8": quant.q4_prefill_a8,
-            "w8_matmul": quant.w8_matmul,
-            "q4_matmul_glu": quant.q4_matmul_glu,
-            "q4_mlp_a8": mlp.q4_mlp_a8,
-            "layer_tail_a8": attn_block.layer_tail_a8}
+    fns = {"q4_gemv": quant.q4_gemv,
+           "q4_dequant_matmul": quant.q4_dequant_matmul,
+           "flash_attn": attention.attend,
+           "dense_gemv": dense.dense_gemv,
+           "head_argmax": dense.head_argmax,
+           "q4_mlp": mlp.q4_mlp,
+           "layer_tail": attn_block.layer_tail,
+           "kv_commit": attention.kv_commit,
+           "q4_gemv_a8": quant.q4_gemv_a8,
+           "q4_prefill_a8": quant.q4_prefill_a8,
+           "w8_matmul": quant.w8_matmul,
+           "q4_matmul_glu": quant.q4_matmul_glu,
+           "q4_mlp_a8": mlp.q4_mlp_a8,
+           "layer_tail_a8": attn_block.layer_tail_a8}
+    out = {name: (fn, "launches") for name, fn in fns.items()}
+    # launches over an int8 / int4 KV cache count apart from the bf16 ones
+    for name in ("flash_attn", "layer_tail", "layer_tail_a8", "kv_commit"):
+        for kind in KV_KINDS:
+            out[f"{name}_{kind}"] = (fns[name], f"launches_{kind}")
+    return out
 
 
 def zero_counts():
-    for f in launch_counters().values():
-        f.launches = 0
+    for fn, attr in launch_counters().values():
+        setattr(fn, attr, 0)
 
 
 def counts():
-    return {k: f.launches for k, f in launch_counters().items()}
+    return {k: getattr(fn, attr)
+            for k, (fn, attr) in launch_counters().items()}
 
 
 def require(name, got, want):
@@ -1121,9 +1491,11 @@ class MainPath:
         for k, v in knobs.items():
             setattr(self.cfg.tuning, k, v)
 
-    def use_model(self, model):
-        """Serve from ``model`` (the same configuration and cache)."""
-        self.model = model
+    def use_model(self, model, cache=None):
+        """Serve from ``model`` (its configuration ``model.config``), with
+        the cache in use or ``cache``."""
+        self.model, self.cfg = model, model.config
+        self.cache = self.cache if cache is None else cache
         self.gen = self.port.ExLlamaGenerator(model, self.tok, self.cache,
                                               seed=SEED)
         self.gen.disallow_tokens([self.tok.eos_token_id])
@@ -1377,6 +1749,132 @@ def turbo_path(mp, exact, launches):
     return out
 
 
+
+def kv_path(mp, bf16, launches):
+    """Phase 9: the quantized KV caches at full width, each under the config
+    that model_init.make_config returns for its flags. ``bf16`` is phase
+    5's result, {"greedy": phase 6's, "a8 greedy": phase 8's} beside it."""
+    import argparse
+
+    from exllama_tpu_torch import model_init
+
+    port = mp.port
+    base, base_cache = mp.model, mp.cache
+    n_layers = mp.cfg.num_hidden_layers
+    out, served = {}, {}
+
+    def tally():
+        for k, v in counts().items():
+            launches[k] = launches.get(k, 0) + v
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "config.json")
+        with open(path, "w") as f:      # Llama-7B (benchmark.py:43-45)
+            json.dump({"hidden_size": 4096, "intermediate_size": 11008,
+                       "num_attention_heads": 32, "num_hidden_layers": 32,
+                       "vocab_size": 32000, "rms_norm_eps": 1e-6}, f)
+        for flags, greedy_too in ((["--kv_int8"], True), (["--kv_int4"], True),
+                                  (["--turbo"], True),
+                                  (["--turbo", "--turbo_prefill"], False)):
+            label = " ".join(flags)
+            parser = argparse.ArgumentParser()
+            model_init.add_args(parser)
+            cfg = model_init.make_config(parser.parse_args(
+                ["-c", path, "-m", "synthetic", "-l", "2048"] + flags))
+            kind, impl = cfg.tuning.kv_cache_dtype, cfg.tuning.matmul_impl
+            assert kind == ("int4" if "--kv_int4" in flags else "int8")
+            assert impl == {"--kv_int8": "auto", "--kv_int4": "auto",
+                            "--turbo": "pallas_a8"}.get(label, "pallas_a8t")
+            torch.cuda.reset_peak_memory_stats()
+            model = port.ExLlama(cfg, params=base.params, device=base.device)
+            cache = port.ExLlamaCache(model)
+            assert cache.k[0].dtype == torch.int8 and cache.k[0].shape[-1] == (
+                64 if kind == "int4" else 128)
+            mp.use_model(model, cache)
+            a8 = impl != "auto"
+            tail = ("layer_tail_a8_" if a8 else "layer_tail_") + kind
+            prefill = {f"flash_attn_{kind}": n_layers, "flash_attn": 0}
+            if impl == "pallas_a8t":
+                assert model.params.layers[0].down.w8 is not None
+                prefill.update(w8_matmul=3 * n_layers, q4_prefill_a8=n_layers,
+                               q4_dequant_matmul=0)
+            else:
+                prefill.update(q4_dequant_matmul=4 * n_layers, w8_matmul=0)
+            step = {tail: n_layers, "layer_tail": 0, "layer_tail_a8": 0,
+                    "q4_gemv_a8" if a8 else "q4_gemv": n_layers,
+                    "q4_gemv" if a8 else "q4_gemv_a8": 0, "dense_gemv": 1,
+                    f"flash_attn_{kind}": 0, f"kv_commit_{kind}": 0}
+            zero_counts()
+            out[label] = r = mp.request1(label)
+            require(f"phase 9 {label} prefill", r["per_prefill"], prefill)
+            require(f"phase 9 {label} decode step", r["per_decode_step"], step)
+            logits = model.forward(mp.gen.sequence[:, -1:], cache)
+            assert logits.shape == (1, 1, cfg.vocab_size)
+            assert torch.isfinite(logits).all()
+            assert (cache.k_scale[-1][:, :, :cache.current_seq_len] > 0).all()
+            tally()
+            r["cache_bytes"] = cache.nbytes()
+            r["peak_bytes"] = torch.cuda.max_memory_allocated()
+            log(f"  {label}: cache {r['cache_bytes']} bytes "
+                f"({r['cache_bytes'] / 2**30:.3f} GiB; bf16 "
+                f"{base_cache.nbytes() / 2**30:.3f} GiB), max_memory_allocated "
+                f"{r['peak_bytes'] / 2**30:.2f} GiB (the bf16 cache and phase "
+                f"5's model stay allocated beside it)")
+            if greedy_too:
+                # phase 6's card-bound path: one K7 launch a layer, one K8
+                # commit a step, over the quantized cache
+                zero_counts()
+                glabel = f"{label}, fuse_qkv, commit_impl=pallas"
+                out[glabel] = g = greedy(mp, glabel, qkv_fuse=True,
+                                         commit_impl="pallas",
+                                         matmul_impl=impl)
+                require(f"phase 9 greedy {label}", g["per_decode_step"], {
+                    tail: n_layers, f"kv_commit_{kind}": 1, "head_argmax": 1,
+                    "layer_tail": 0, "layer_tail_a8": 0, "kv_commit": 0,
+                    "q4_gemv": 0, "q4_gemv_a8": 0})
+                tally()
+                served[label] = (model, impl)
+            mp.use_model(base, base_cache)
+            del model, cache
+            torch.cuda.empty_cache()
+
+        # that path is within a tenth of being host-bound, and the host's
+        # pace moves between two runs of the same kernels: the cache formats
+        # are also timed in turns (two rounds), beside bf16 under both GEMV
+        # arithmetics
+        served = {"bf16": (base, "auto"), "bf16, pallas_a8": (base, "pallas_a8"),
+                  **served}
+        rates = {label: [] for label in served}
+        zero_counts()
+        for _ in range(2):
+            for label, (model, impl) in served.items():
+                cache = (base_cache if model is base
+                         else port.ExLlamaCache(model))
+                mp.use_model(model, cache)
+                g = greedy(mp, f"in turns, {label}", qkv_fuse=True,
+                           commit_impl="pallas", matmul_impl=impl)
+                rates[label].append((g["decode_tps"], g["host_s"]))
+        mp.use_model(base, base_cache)
+        tally()
+        out["greedy_in_turns"] = rates
+        log("  greedy fuse_qkv + K8 tok/s in turns (host's share of the "
+            "time in brackets): " + "; ".join(
+                f"{label}: " + ", ".join(
+                    f"{r:.2f} ({h * r / 128:.0%})" for r, h in got)
+                for label, got in rates.items()))
+        del served
+        torch.cuda.empty_cache()
+    log(f"  tok/s beside the bf16 cache (phase 5: prompt "
+        f"{bf16['prompt_tps']:.1f}, decode {bf16['decode_tps']:.2f}; greedy "
+        f"fuse_qkv + K8: {bf16['greedy']:.2f}, under pallas_a8 "
+        f"{bf16['a8 greedy']:.2f}): " + "; ".join(
+            f"{k}: " + (f"prompt {v['prompt_tps']:.1f}, "
+                        if "prompt_tps" in v else "")
+            + f"decode {v['decode_tps']:.2f}" for k, v in out.items()
+            if "decode_tps" in v))
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 SOURCES = {
@@ -1406,6 +1904,12 @@ SOURCES = {
     "q4_matmul_glu": ("exllama_tpu_torch/csrc/q4_matmul.cu",
                       "exllama_tpu/ops/quant.py:654", "down g128 M=1919"),
 }
+# the same kernels over a quantized KV cache, listed beside the bf16 ones
+for _kind in KV_KINDS:
+    for _name, _case in (("flash_attn", "decode past=2000"),
+                         ("layer_tail", "layer_tail B=1 past=2000"),
+                         ("kv_commit", "L=32 B=1")):
+        SOURCES[f"{_name}_{_kind}"] = (*SOURCES[_name][:2], f"{_kind} {_case}")
 
 
 def main() -> int:
@@ -1427,7 +1931,8 @@ def main() -> int:
 
     secs = kernels.build()
     log(f"[2 build] {len(kernels.LIBRARIES)} libraries (12 kernels; K1, K6, "
-        f"K7 once per GEMV mode) built and loaded in {secs:.1f} s")
+        f"K7 once per GEMV mode, K7 again for the quantized KV caches) built "
+        f"and loaded in {secs:.1f} s")
 
     log("[3 kernels] kernel vs plain on the card, medians of L2-cold runs")
     t0 = time.time()
@@ -1436,16 +1941,22 @@ def main() -> int:
     kernel_cases(device, timer, res)
     fused_cases(device, timer, res)
     turbo_cases(device, timer, res)
+    kv_cases(device, timer, res)
     log(f"[3 kernels] all agree ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    worst, worst_turbo = model_vs_cpu(device)
+    worst, worst_turbo, worst_kv = model_vs_cpu(device)
     log(f"[4 model] 2 layers at 7B width, 64-token prefill + 8 decode steps, "
         f"default and fuse_qkv + K8 commit: card vs CPU logits within "
         f"{worst:.4f} of the logit scale (limit 0.03), greedy head agrees; "
         f"prefill + 4 steps under the W4A8 modes: "
         + ", ".join(f"{k} within {v:.4f} (limit {TURBO_MODEL_TOL[k]})"
                     for k, v in worst_turbo.items())
+        + "; under a quantized KV cache, both configurations, each decode "
+        "step from the CPU's cache state: "
+        + ", ".join(f"{k} prefill within {v[0]:.4f} (limit "
+                    f"{KV_MODEL_TOL[k][0]}), decode within {v[1]:.4f} (limit "
+                    f"{KV_MODEL_TOL[k][1]})" for k, v in worst_kv.items())
         + f" ({time.time() - t0:.1f} s)")
 
     log("[5 main path] Llama-7B shapes, 32 layers, g128, bf16 KV, "
@@ -1509,8 +2020,18 @@ def main() -> int:
         "pallas_a8x2, pallas_a8t with prefill_w8=off, exact with "
         "EXL_GLU_FUSE=1; request 2 under pallas_a8")
     t0 = time.time()
-    turbo_path(mp, fused, launches)
+    turbo = turbo_path(mp, fused, launches)
     log(f"[8 matmul modes] done ({time.time() - t0:.1f} s)")
+
+    log("[9 quantized KV cache] request 1 under the configs of "
+        "model_init.make_config for --kv_int8, --kv_int4, --turbo and --turbo "
+        "--turbo_prefill; greedy fuse_qkv + K8 decode under the first three")
+    t0 = time.time()
+    fused["greedy"] = runs["fuse_qkv, commit_impl=pallas"]["decode_tps"]
+    fused["a8 greedy"] = turbo[
+        "fuse_qkv, commit_impl=pallas, pallas_a8"]["decode_tps"]
+    kv_path(mp, fused, launches)
+    log(f"[9 quantized KV cache] done ({time.time() - t0:.1f} s)")
 
     summary = []
     for kname, (src, replaces, rep_case) in SOURCES.items():
@@ -1532,6 +2053,10 @@ def main() -> int:
         if kname == "q4_gemv_a8":       # K9 inside the fused kernels
             entry["launches_in_q4_mlp"] = launches["q4_mlp_a8"]
             entry["launches_in_layer_tail"] = launches["layer_tail_a8"]
+        if kname.startswith("layer_tail_"):     # K7 over a quantized cache:
+            a8 = launches["layer_tail_a8_" + kname[11:]]   # exact + a8 GEMVs
+            entry["launches"] += a8
+            entry["launches_a8"] = a8
         summary.append(entry)
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

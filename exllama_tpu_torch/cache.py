@@ -1,12 +1,22 @@
 """Preallocated KV cache (port of exllama_tpu/cache.py:ExLlamaCache).
 
-One [B, Hkv, S_max, D] bf16 tensor per layer for K and for V, plus the
-host-side position cursor ``current_seq_len``. Unlike the JAX version, whose
-arrays are immutable and rebound after each step, the port updates these
-tensors IN PLACE (ops/attention.update_kv_cache, and commit_kv_cache for
-the deferred rows of a decode step); ``clone`` copies them. Since they never
-move, ``kv_ptrs`` -- the device array of their base pointers that the
-batched commit kernel K8 reads -- is built once, here.
+One [B, Hkv, S_max, D] tensor per layer for K and for V, plus the host-side
+position cursor ``current_seq_len``. ``TuningParams.kv_cache_dtype`` picks
+the storage: bf16; int8 (one byte an element); or int4 (int8 bytes
+[.., D/2], two elements a byte, ops/attention.quantize_kv_rows4). The
+quantized caches carry ``k_scale`` / ``v_scale``, one f32 [B, Hkv, S_max]
+tensor per layer (None for bf16). With ``pad_head_dim`` a bf16 / int8
+cache of a head_dim that kernel K3 does not take is stored at the next
+width it does (64, else a multiple of 128). At Llama-7B, S_max 2048, B 1
+the tensors hold 1.00 GiB in bf16, 0.50 GiB + 16 MiB of scales in int8,
+0.25 GiB + 16 MiB in int4.
+
+Unlike the JAX version, whose arrays are immutable and rebound after each
+step, the port updates these tensors IN PLACE (ops/attention.update_kv_cache,
+and commit_kv_cache for the deferred rows of a decode step; ``roll_left``
+and ``copy_states`` here too); ``clone`` copies them. Since they never move,
+``kv_ptrs`` -- the device array of their base pointers that the batched
+commit kernel K8 reads -- is built once, here.
 """
 
 from __future__ import annotations
@@ -14,6 +24,16 @@ from __future__ import annotations
 import torch
 
 from exllama_tpu_torch.ops.attention import kv_ptr_array
+
+
+def stored_head_dim(head_dim: int, kv_cache_dtype: str, pad: bool) -> int:
+    """Last dim of a cache tensor (cache.py:124-134): D/2 bytes for int4;
+    with ``pad`` the next width K3 takes; else head_dim."""
+    if kv_cache_dtype == "int4":
+        return head_dim // 2
+    if pad and head_dim != 64 and head_dim % 128:
+        return 64 if head_dim < 64 else -(-head_dim // 128) * 128
+    return head_dim
 
 
 class ExLlamaCache:
@@ -30,15 +50,22 @@ class ExLlamaCache:
             self.max_seq_len = copy_from.max_seq_len
             self.shape = copy_from.shape
             self.device = copy_from.device
+            self.dtype = copy_from.dtype
             self.k = [t.clone() for t in copy_from.k]
             self.v = [t.clone() for t in copy_from.v]
-            self.kv_ptrs = kv_ptr_array(self.k, self.v)
+            self.k_scale = self.v_scale = None
+            if copy_from.k_scale is not None:
+                self.k_scale = [t.clone() for t in copy_from.k_scale]
+                self.v_scale = [t.clone() for t in copy_from.v_scale]
+            self.kv_ptrs = kv_ptr_array(self.k, self.v, self.k_scale,
+                                        self.v_scale)
             self.current_seq_len = copy_from.current_seq_len
             return
 
         if model is None:
             raise ValueError("need model= or copy_from=")
-        cfg = model.config          # TuningParams admits only a bf16 KV cache
+        cfg = model.config
+        tune = cfg.tuning
         shape = (
             cfg.num_hidden_layers,
             batch_size or cfg.batch_size,
@@ -50,22 +77,81 @@ class ExLlamaCache:
         self.max_seq_len = shape[2]
         self.shape = shape
         self.device = model.device
-        layer_shape = (shape[1], shape[3], shape[2], shape[4])  # B, Hkv, S, D
-        self.k = [
-            torch.zeros(layer_shape, dtype=torch.bfloat16, device=self.device)
-            for _ in range(shape[0])
-        ]
-        self.v = [
-            torch.zeros(layer_shape, dtype=torch.bfloat16, device=self.device)
-            for _ in range(shape[0])
-        ]
-        self.kv_ptrs = kv_ptr_array(self.k, self.v)
+        quantized = tune.kv_cache_dtype != "bf16"
+        self.dtype = torch.int8 if quantized else torch.bfloat16
+        d_store = stored_head_dim(shape[4], tune.kv_cache_dtype,
+                                  tune.pad_head_dim)
+        layer_shape = (shape[1], shape[3], shape[2], d_store)  # B, Hkv, S, D*
+
+        def layers(shp, dtype):
+            return [torch.zeros(shp, dtype=dtype, device=self.device)
+                    for _ in range(shape[0])]
+
+        self.k = layers(layer_shape, self.dtype)
+        self.v = layers(layer_shape, self.dtype)
+        self.k_scale = self.v_scale = None
+        if quantized:
+            self.k_scale = layers(layer_shape[:3], torch.float32)
+            self.v_scale = layers(layer_shape[:3], torch.float32)
+        self.kv_ptrs = kv_ptr_array(self.k, self.v, self.k_scale, self.v_scale)
         self.current_seq_len = 0
 
+    def _tensor_lists(self):
+        """The two or four per-layer lists; axes 0..2 of every tensor are
+        B, Hkv, S."""
+        return [x for x in (self.k, self.v, self.k_scale, self.v_scale)
+                if x is not None]
+
+    def nbytes(self) -> int:
+        """Bytes of the cache tensors, scales included."""
+        return sum(t.numel() * t.element_size()
+                   for ts in self._tensor_lists() for t in ts)
+
     def zero(self):
-        for t in self.k + self.v:
-            t.zero_()
+        for ts in self._tensor_lists():
+            for t in ts:
+                t.zero_()
         self.current_seq_len = 0
 
     def clone(self) -> "ExLlamaCache":
         return ExLlamaCache(copy_from=self)
+
+    def roll_left(self):
+        """Drop position 0 and shift everything left by one, position 0
+        wrapping to the end (cache.py:169), in place."""
+        for ts in self._tensor_lists():
+            for t in ts:
+                t.copy_(torch.roll(t, -1, dims=2))
+        self.current_seq_len -= 1
+
+    def copy_states(
+        self,
+        target: "ExLlamaCache",
+        from_column: int,
+        from_columns: int,
+        to_column: int,
+        to_columns: int,
+        from_row: int = 0,
+        from_rows: int = 1,
+        to_row: int = 0,
+        to_rows: int = 1,
+    ):
+        """Rectangle copy between caches (cache.py:177): ``from_columns``
+        cache positions from ``from_column`` of ``from_rows`` batch rows from
+        ``from_row`` go into ``target`` at ``to_column`` / ``to_row``, one
+        row broadcast over ``to_rows`` rows and one column over
+        ``to_columns`` columns. Writes ``target``'s tensors in place."""
+        if from_columns != to_columns and from_columns != 1:
+            raise ValueError("copy_states: from_columns must equal "
+                             "to_columns or be 1")
+        for srcs, dsts in zip(self._tensor_lists(), target._tensor_lists()):
+            for src, dst in zip(srcs, dsts):
+                s = src[from_row : from_row + from_rows, :,
+                        from_column : from_column + from_columns]
+                rows = to_rows if from_rows == 1 else from_rows
+                cols = to_columns if from_columns == 1 else from_columns
+                s = s.expand(rows, -1, cols, *s.shape[3:])
+                if src is dst:
+                    s = s.clone()       # overlapping rectangles of one cache
+                dst[to_row : to_row + rows, :,
+                    to_column : to_column + cols] = s.to(dst.dtype)

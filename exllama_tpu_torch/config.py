@@ -9,7 +9,9 @@ By default the port runs the JAX package's default decode configuration:
 the fused decode kernels (``fuse_mlp``, ``fuse_attn``; ``fuse_qkv`` off by
 default, as there), ``commit_impl="auto"``, fused qkv / gate-up
 projections, a bf16 KV cache, exact 4-bit matmuls (``matmul_impl="auto"``)
-and a bf16 lm_head. Setting ``fuse_mlp``, ``fuse_attn`` and ``fuse_qkv`` to
+and a bf16 lm_head. ``kv_cache_dtype`` opts into the quantized KV caches
+(``"int8"``, packed ``"int4"``; per-(token, head) f32 scales) and
+``pad_head_dim`` into a cache padded to a width the attention kernel takes. Setting ``fuse_mlp``, ``fuse_attn`` and ``fuse_qkv`` to
 False (any ``commit_impl``) gives the separate-kernel configuration of the
 port's first slice. ``matmul_impl`` opts into the W4A8 turbo modes: int8
 activations at decode M (``"pallas_a8"``, with a residual pass
@@ -30,8 +32,6 @@ from typing import Optional
 # knob -> the only value the port implements so far
 _SLICE_ONLY = {
     "quantize_lm_head": False,
-    "pad_head_dim": False,
-    "kv_cache_dtype": "bf16",
     "scale_dtype": "bf16",
     "fold_act_order": True,
 }
@@ -43,6 +43,8 @@ COMMIT_IMPLS = ("auto", "xla", "pallas")
 MATMUL_IMPLS = ("auto", "pallas", "pallas_a8", "pallas_a8x2", "pallas_a8t")
 A8_IMPLS = MATMUL_IMPLS[2:]
 PREFILL_W8 = ("auto", "on", "off")
+# bytes per stored element, as exllama_tpu/models/llama.py:777
+KV_CACHE_DTYPES = {"bf16": 2, "int8": 1, "int4": 0.5}
 
 
 def check_matmul_impl(impl: str) -> str:
@@ -84,7 +86,9 @@ class TuningParams:
     # Fuse q/k/v and gate/up into one matmul each at load time (skipped
     # automatically for act-order layers, whose x_maps differ per tensor).
     fuse_projections: bool = True
-    # KV cache storage; int8/int4 belong to a later slice.
+    # KV cache storage: "bf16"; "int8" (one byte an element) or "int4" (two
+    # elements a byte, dims d and d + D/2 paired), each with one f32 scale
+    # per (token, kv head), quantized as the rows are written.
     kv_cache_dtype: str = "bf16"
     # Storage dtype of the per-group scales; "f32" belongs to a later slice.
     scale_dtype: str = "bf16"
@@ -106,12 +110,16 @@ class TuningParams:
     # one plain tensor write per layer, as the JAX package's "auto" does. A
     # per-row cursor always takes the plain writes.
     commit_impl: str = "auto"
+    # Store bf16 / int8 K and V rows zero-padded to a head width the
+    # attention kernel K3 takes (64, or the next multiple of 128), so that a
+    # model with another head_dim (100) runs K3; q is pre-scaled so the
+    # softmax scale stays 1/sqrt(head_dim). No effect on an int4 cache.
+    pad_head_dim: bool = False
     # Knobs fixed at their one implemented value (see _SLICE_ONLY). The
     # loader always folds the act-order down-proj permutation into the
     # gate/up output columns (a pure weight transform).
     fold_act_order: bool = True
     quantize_lm_head: bool = False
-    pad_head_dim: bool = False
 
     def __setattr__(self, name, value):
         if name in _SLICE_ONLY and value != _SLICE_ONLY[name]:
@@ -123,6 +131,9 @@ class TuningParams:
             raise ValueError(f"commit_impl {value!r} not in {COMMIT_IMPLS}")
         if name == "matmul_impl":
             check_matmul_impl(value)
+        if name == "kv_cache_dtype" and value not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype {value!r} not in "
+                             f"{tuple(KV_CACHE_DTYPES)}")
         if name == "prefill_w8" and value not in PREFILL_W8:
             raise ValueError(f"prefill_w8 {value!r} not in {PREFILL_W8}")
         if name not in {f.name for f in dataclasses.fields(self)}:

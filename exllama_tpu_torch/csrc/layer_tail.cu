@@ -3,7 +3,8 @@
 //
 //   [B: xn = rms_norm(h)*w_in; qkv = xn @ Wqkv; rope on q and k]
 //   C: attention of each query head over cache[:, :, :past_b] plus the
-//      in-flight K/V row of this step (bf16 KV, GQA, left-pad bias)
+//      in-flight K/V row of this step (bf16, int8 or int4 KV; GQA, left-pad
+//      bias)
 //   D: h' = h + bf16(attn @ Wo)
 //   [E/F with the MLP: out = h' + down(silu(gate(xn')) * up(xn')),
 //    xn' = rms_norm(h')*w_post; without it out = h']
@@ -17,9 +18,26 @@
 // is rounded to bf16 before the o-projection and the o output to bf16
 // before the residual add; the MLP numerics are K6's.
 //
+// A quantized cache (kv_mode 1: int8 rows of D bytes; 2: int4 rows of D/2
+// bytes, byte d = dims d (low nibble, q + 8) and d + D/2 (high nibble, two's
+// complement); f32 scales [B, Hkv, S] for K and for V) takes K3's
+// arithmetic, which is the TPU kernel's (attn_block.py:274-317): the raw
+// integers in the q.k dot, the f32 score times the key's K scale and then
+// 1/sqrt(D), the key's V scale on p before p is rounded to bf16, l over the
+// unscaled p; the in-flight row stays bf16. The quantized caches have
+// libraries of their own, built from this source with -DKV_QUANT=1 (one per
+// GEMV mode), whose kernel branches at run time into the int8 or the int4
+// attention phase; the bf16 libraries are the code they were (sharing one
+// kernel with the quantized phases cost the bf16 attention 2-4 us on an
+// H100, two kernels in one library doubled its build time). For
+// PV a lane still owns head dims 4*lane..4*lane+3: with int4 lanes 0-15 take
+// the low nibbles and lanes 16-31 the high nibbles of the same 64 bytes.
+//
 // Bound on the H100: bytes. At Llama-7B, B=1, past=2000 it streams 8.9 MB
-// of o-proj, 32.8 MB of K/V and about 72 MB of MLP weights (~114 MB, ~34 us
-// at 3.35 TB/s); the flops are ~2 per weight or cache element. Design: a
+// of o-proj, 32.8 MB of K/V (16.9 MB in int8, 8.7 MB in int4, scales
+// included) and about 72 MB of MLP weights (~114 MB, ~34 us at 3.35 TB/s;
+// ~98 MB in int8, ~90 MB in int4); the flops are ~2 per weight or cache
+// element. Design: a
 // cooperative launch (every block co-resident, at most 4 to an SM) whose
 // phases are separated by grid barriers, where the TPU grid runs them in
 // order. The GEMV phases walk 32-column tiles with the shared group-sum
@@ -36,8 +54,13 @@
 //
 // Built with -DGEMV_MODE=1 or 2 every GEMV phase (qkv, o-proj, gate|up,
 // down) runs the W4A8 arithmetic of K9 (attn_block.py's a8 / a8x2 kernels);
-// attention itself stays bf16. One library per mode.
+// attention itself keeps K3's arithmetic. One library per mode (and cache
+// kind: bf16, or quantized).
 #include "fused_layer.cuh"
+
+#ifndef KV_QUANT
+#define KV_QUANT 0  // 1: the library for int8 / int4 KV caches
+#endif
 
 namespace {
 
@@ -55,8 +78,10 @@ struct TailParams {
   const bf16* q;          // [B, H, D] post-rope queries (NULL with phase B)
   const bf16* k_new;      // [B, Hkv, D] in-flight rows (NULL with phase B)
   const bf16* v_new;
-  const bf16* k_cache;    // [B, Hkv, S, D]
-  const bf16* v_cache;
+  const void* k_cache;    // [B, Hkv, S, D] bf16 | int8, or [.., D/2] int4 bytes
+  const void* v_cache;
+  const float* k_scale;   // [B, Hkv, S] (NULL for a bf16 cache)
+  const float* v_scale;
   const int32_t* past;    // [B]
   const uint8_t* mask;    // [B, mask_stride] (1 = real token) or NULL
   const bf16* h;          // [B, hidden] residual input
@@ -81,6 +106,7 @@ struct TailParams {
   bf16* gu_scr;           // [B, 2*inter]
   unsigned int* bar;
   int B, H, Hkv, S, hidden, inter, gs, nsplit, mask_stride, rope_stride, attend_len;
+  int kv_mode;            // 0 bf16, 1 int8, 2 int4
   float eps, scale;
 };
 
@@ -104,7 +130,18 @@ __device__ __forceinline__ void unpack8(const uint4& u, float (&f)[8]) {
   }
 }
 
-// Phase C: one work item = (batch row b, kv head hk, key split).
+// Raw value e (0..3) of the four cache bytes in w: int8, or for int4 the low
+// (hi = false) or high nibble, as unpack_kv4 (attention.py:97).
+template <int KV>
+__device__ __forceinline__ float kv_raw(uint32_t w, int e, bool hi) {
+  const int b = (int)(int8_t)(w >> (8 * e));
+  if constexpr (KV == 1) return (float)b;
+  return (float)(hi ? b >> 4 : (b & 15) - 8);
+}
+
+// Phase C: one work item = (batch row b, kv head hk, key split). KV: the
+// cache format (TailParams::kv_mode).
+template <int KV>
 __device__ void attention_phase(const TailParams& p, float* sm) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int G = p.H / p.Hkv;
@@ -163,27 +200,54 @@ __device__ void attention_phase(const TailParams& p, float* sm) {
       l[j] = 0.f;
       acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
     }
-    const size_t kv_off = ((size_t)b * p.Hkv + hk) * p.S * D;
-    const bf16* kb = p.k_cache + kv_off;
-    const bf16* vb = p.v_cache + kv_off;
+    constexpr int RB = KV == 0 ? D * 2 : KV == 1 ? D : D / 2;  // bytes of a row
+    const size_t strip = ((size_t)b * p.Hkv + hk) * p.S;
+    const unsigned char* kb = static_cast<const unsigned char*>(p.k_cache) + strip * RB;
+    const unsigned char* vb = static_cast<const unsigned char*>(p.v_cache) + strip * RB;
     for (int c0 = s_begin + warp * 32; c0 < s_end; c0 += WARPS * 32) {
       const int s = c0 + lane;
       const bool valid = s < s_end;
       float sc[GMAX];
 #pragma unroll
       for (int j = 0; j < GMAX; ++j) sc[j] = 0.f;
+      float ksc = 1.f, vsc = 1.f;  // this lane's key's scales (KV != 0)
       if (valid) {
-        const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)s * D);
+        const uint4* kr = reinterpret_cast<const uint4*>(kb + (size_t)s * RB);
+        if constexpr (KV == 0) {
 #pragma unroll 4
-        for (int v8 = 0; v8 < D / 8; ++v8) {
-          float f[8];
-          unpack8(__ldg(kr + v8), f);
+          for (int v8 = 0; v8 < D / 8; ++v8) {
+            float f[8];
+            unpack8(__ldg(kr + v8), f);
 #pragma unroll
-          for (int j = 0; j < GMAX; ++j) {
-            if (j >= G) break;
-            const float* qj = qs + j * D + v8 * 8;
+            for (int j = 0; j < GMAX; ++j) {
+              if (j >= G) break;
+              const float* qj = qs + j * D + v8 * 8;
 #pragma unroll
-            for (int e = 0; e < 8; ++e) sc[j] = fmaf(qj[e], f[e], sc[j]);
+              for (int e = 0; e < 8; ++e) sc[j] = fmaf(qj[e], f[e], sc[j]);
+            }
+          }
+        } else {
+          ksc = __ldg(p.k_scale + strip + s);
+          vsc = __ldg(p.v_scale + strip + s);
+#pragma unroll 2
+          for (int v16 = 0; v16 < RB / 16; ++v16) {
+            const uint4 u = __ldg(kr + v16);
+            const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const int d0 = v16 * 16 + i * 4 + e;  // byte column = low dim
+                const float lo = kv_raw<KV>(w4[i], e, false);
+                const float hi = KV == 2 ? kv_raw<KV>(w4[i], e, true) : 0.f;
+#pragma unroll
+                for (int j = 0; j < GMAX; ++j) {
+                  if (j >= G) break;
+                  sc[j] = fmaf(qs[j * D + d0], lo, sc[j]);
+                  if constexpr (KV == 2) sc[j] = fmaf(qs[j * D + D / 2 + d0], hi, sc[j]);
+                }
+              }
+            }
           }
         }
       }
@@ -194,7 +258,9 @@ __device__ void attention_phase(const TailParams& p, float* sm) {
         if (j >= G) break;
         float sv = MASK_VALUE;
         if (valid) {
-          sv = sc[j] * p.scale;
+          sv = sc[j];
+          if constexpr (KV != 0) sv *= ksc;  // the K scale, then 1/sqrt(D)
+          sv *= p.scale;
           if (pad) sv += NEG_INF;  // pad bias after the causal mask
         }
         const float m_new = fmaxf(m[j], warp_max(sv));
@@ -204,13 +270,27 @@ __device__ void attention_phase(const TailParams& p, float* sm) {
         m[j] = m_new;
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[j][e] *= alpha;
-        pbf[j] = bf2f(f2bf(pj));  // p is rounded to bf16 for the PV product
+        // p is rounded to bf16 for the PV product, the V scale folded in
+        // first; l above sums the unscaled p
+        pbf[j] = bf2f(f2bf(KV != 0 ? pj * vsc : pj));
       }
       const int nk = min(32, s_end - c0);
       for (int kk = 0; kk < nk; ++kk) {
-        const uint2 u = __ldg(reinterpret_cast<const uint2*>(vb + (size_t)(c0 + kk) * D) + lane);
-        const float2 v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-        const float2 v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        float2 v01, v23;  // head dims 4*lane .. 4*lane+3 of key c0 + kk
+        const unsigned char* vrow = vb + (size_t)(c0 + kk) * RB;
+        if constexpr (KV == 0) {
+          const uint2 u = __ldg(reinterpret_cast<const uint2*>(vrow) + lane);
+          v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+          v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+        } else {
+          // int8: bytes 4*lane..; int4: lanes 0-15 the low nibbles, lanes
+          // 16-31 the high nibbles of bytes 4*(lane & 15)..
+          const int word = KV == 1 ? lane : (lane & 15);
+          const uint32_t w = __ldg(reinterpret_cast<const uint32_t*>(vrow) + word);
+          const bool hi = lane >= 16;
+          v01 = make_float2(kv_raw<KV>(w, 0, hi), kv_raw<KV>(w, 1, hi));
+          v23 = make_float2(kv_raw<KV>(w, 2, hi), kv_raw<KV>(w, 3, hi));
+        }
 #pragma unroll
         for (int j = 0; j < GMAX; ++j) {
           if (j >= G) break;
@@ -306,7 +386,14 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams
     fused::grid_sync(p.bar, epoch);
   }
   __syncthreads();
-  attention_phase(p, reinterpret_cast<float*>(smem));
+#if KV_QUANT
+  if (p.kv_mode == 1)  // uniform across the grid
+    attention_phase<1>(p, reinterpret_cast<float*>(smem));
+  else
+    attention_phase<2>(p, reinterpret_cast<float*>(smem));
+#else
+  attention_phase<0>(p, reinterpret_cast<float*>(smem));
+#endif
   fused::grid_sync(p.bar, epoch);
   combine_phase(p);
   fused::grid_sync(p.bar, epoch);
@@ -346,7 +433,9 @@ cudaError_t launch(TailParams p, int nsplit_cap, cudaStream_t st) {
 
 // Operands (bf16 unless noted; NULL where a phase is off):
 //   q [B, H, D], k_new / v_new [B, Hkv, D]   (NULL with phase B)
-//   k_cache / v_cache [B, Hkv, S, D]; past [B] int32; mask [B, mask_stride]
+//   k_cache / v_cache [B, Hkv, S, D] bf16 (kv_mode 0) or int8 (1), or
+//   [B, Hkv, S, D/2] int4 bytes (2); k_scale / v_scale [B, Hkv, S] f32 (NULL
+//   for kv_mode 0); past [B] int32; mask [B, mask_stride]
 //   uint8 or NULL; h [B, hidden]; o: qweight [H*D/8, hidden] int32,
 //   scales / zscale [H*D/gs, hidden]
 //   phase B: in_norm [hidden]; qkv qweight [hidden/8, (H+2*Hkv)*D], scales /
@@ -359,21 +448,28 @@ cudaError_t launch(TailParams p, int nsplit_cap, cudaStream_t st) {
 //   s >= min(past_b, attend_len) are not read.
 extern "C" int layer_tail_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_cache,
-    const void* v_cache, const void* past, const void* mask, const void* h, const void* o_q,
+    const void* v_cache, const void* k_scale, const void* v_scale, const void* past,
+    const void* mask, const void* h, const void* o_q,
     const void* o_s, const void* o_z, const void* in_norm, const void* qkv_q,
     const void* qkv_s, const void* qkv_z, const void* sin, const void* cos, void* k_row,
     void* v_row, const void* post_norm, const void* gu_q, const void* gu_s,
     const void* gu_z, const void* dn_q, const void* dn_s, const void* dn_z, void* qkv_scr,
     void* part, void* attn_scr, void* h1_scr, void* gu_scr, void* bar, void* out, int B,
     int H, int Hkv, int S, int hidden, int inter, int gs, int mask_stride, int rope_stride,
-    int nsplit_cap, int attend_len, float eps, float scale, void* stream) {
+    int nsplit_cap, int attend_len, int kv_mode, float eps, float scale, void* stream) {
   if (H % Hkv || H / Hkv > GMAX || nsplit_cap < 1) return cudaErrorInvalidValue;
+  if (kv_mode < 0 || kv_mode > 2 || (kv_mode != 0) != (KV_QUANT != 0) ||
+      (kv_mode != 0) != (k_scale != nullptr) || (k_scale == nullptr) != (v_scale == nullptr))
+    return cudaErrorInvalidValue;
   TailParams p;
   p.q = (const bf16*)q;
   p.k_new = (const bf16*)k_new;
   p.v_new = (const bf16*)v_new;
-  p.k_cache = (const bf16*)k_cache;
-  p.v_cache = (const bf16*)v_cache;
+  p.k_cache = k_cache;
+  p.v_cache = v_cache;
+  p.k_scale = (const float*)k_scale;
+  p.v_scale = (const float*)v_scale;
+  p.kv_mode = kv_mode;
   p.past = (const int32_t*)past;
   p.mask = (const uint8_t*)mask;
   p.h = (const bf16*)h;

@@ -3,7 +3,8 @@
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``; the sources of
 the shared GEMV loop (K1, K6, K7) compile once per arithmetic mode
-(``-DGEMV_MODE``: exact, a8, a8x2), one library each. The libraries go to
+(``-DGEMV_MODE``: exact, a8, a8x2), one library each, and K7 once more per
+mode for the quantized KV caches (``-DKV_QUANT=1``). The libraries go to
 ``exllama_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
 the shared headers and the flags, so an edited source rebuilds and an
 unchanged one is reused. All libraries build in parallel, one ``nvcc``
@@ -63,14 +64,14 @@ _SIGNATURES = {
     "q4_matmul_glu": ("q4_matmul", "q4_matmul_glu_launch",
                       "ppppp" + "i" * 6 + "p"),
     "flash_attn": ("flash_attn", "flash_attn_launch",
-                   "pppppppp" + "iiiiiiii" + "f" + "p"),
+                   "p" * 10 + "i" * 9 + "f" + "p"),
     "dense_gemv": ("dense_gemv", "dense_gemv_launch", "ppp" + "iii" + "p"),
     "head_argmax": ("head_argmax", "head_argmax_launch",
                     "ppppp" + "iii" + "f" + "p"),
     "q4_mlp": ("q4_mlp", "q4_mlp_launch", "p" * 11 + "iiii" + "f" + "p"),
     "layer_tail": ("layer_tail", "layer_tail_launch",
-                   "p" * 33 + "i" * 11 + "ff" + "p"),
-    "kv_commit": ("kv_commit", "kv_commit_launch", "ppp" + "i" * 6 + "p"),
+                   "p" * 35 + "i" * 12 + "ff" + "p"),
+    "kv_commit": ("kv_commit", "kv_commit_launch", "ppp" + "i" * 7 + "p"),
     "q4_prefill_a8": ("q4_prefill_a8", "q4_prefill_a8_launch",
                       "p" * 8 + "iiii" + "p"),
     "w8_matmul": ("w8_matmul", "w8_matmul_launch", "p" * 6 + "iii" + "p"),
@@ -79,6 +80,12 @@ for _stem in ("q4_gemv", "q4_mlp", "layer_tail"):
     for _mode in GEMV_MODES:
         _SIGNATURES[f"{_stem}_{_mode}"] = (
             f"{_stem}_{_mode}", *_SIGNATURES[_stem][1:])
+# K7 over an int8 / int4 KV cache: the same source once more per GEMV mode,
+# so that the bf16 libraries stay the code they were
+for _lib in ("layer_tail", "layer_tail_a8", "layer_tail_a8x2"):
+    LIBRARIES[f"{_lib}_kvq"] = (
+        "layer_tail", LIBRARIES[_lib][1] + ["-DKV_QUANT=1"])
+    _SIGNATURES[f"{_lib}_kvq"] = (f"{_lib}_kvq", *_SIGNATURES[_lib][1:])
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict[str, ctypes.CDLL] = {}

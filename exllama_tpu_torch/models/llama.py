@@ -1,7 +1,9 @@
 """The Llama-family model (port of exllama_tpu/models/llama.py), single
-device, no LoRA: fused qkv / gate-up projections, a bf16 KV cache, 4-bit
-matmuls in the arithmetic ``matmul_impl`` names (exact by default, the
-W4A8 turbo modes opt-in) and a bf16 lm_head, with the JAX package's decode
+device, no LoRA: fused qkv / gate-up projections, a bf16, int8 or int4 KV
+cache (``kv_cache_dtype``; optionally padded to a head width K3 takes,
+``pad_head_dim``), 4-bit matmuls in the arithmetic ``matmul_impl`` names
+(exact by default, the W4A8 turbo modes opt-in) and a bf16 lm_head, with
+the JAX package's decode
 knobs (``TuningParams.fuse_mlp / fuse_attn / fuse_qkv / commit_impl``, its
 defaults too).
 
@@ -18,7 +20,11 @@ under ``"pallas_a8t"`` long prefill chunks also run their matmuls on the
 int8 tensor cores: K11 against a tensor's resident int8 image
 (``_attach_prefill_w8``), K10 where it has none. ``EXL_GLU_FUSE=1`` in the
 environment makes the long-prefill down projection form silu(gate)*up in
-its kernel (K12). Everything between kernels is plain tensor code. PyTorch
+its kernel (K12). A quantized cache is read by the same K3 / K7 and written
+by the same K8, each dispatching on the cache format; a prefill chunk is
+quantized as it is written and attended from the cache, a decode step
+attends to its own row in bf16 and quantizes it at the commit. Everything
+between kernels is plain tensor code. PyTorch
 runs eagerly, so there is no jit: the layer loop is a Python loop and the
 cache is updated in place.
 """
@@ -34,7 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from exllama_tpu_torch.cache import ExLlamaCache
-from exllama_tpu_torch.config import ExLlamaConfig
+from exllama_tpu_torch.config import KV_CACHE_DTYPES, ExLlamaConfig
 from exllama_tpu_torch.formats.gptq import (
     QuantTensor,
     concat_quant_tensors,
@@ -129,6 +135,8 @@ def _decoder_layer(
     lp: LayerParams,
     kc: torch.Tensor,                # [B, Hkv, S, D], updated in place
     vc: torch.Tensor,
+    ksc: Optional[torch.Tensor],     # [B, Hkv, S] f32 (int8 / int4 cache)
+    vsc: Optional[torch.Tensor],
     *,
     heads: int,
     kv_heads: int,
@@ -156,8 +164,7 @@ def _decoder_layer(
                                                b * t)
     attn_ok = (defer_kv and attn_fuse
                and attn_o_applicable(lp.o, hidden, heads, head_dim, t, True,
-                                     batch=b, kv_heads=kv_heads)
-               and kc.dtype == torch.bfloat16)
+                                     batch=b, kv_heads=kv_heads))
 
     # the whole layer in one K7 launch (llama.py:188-232)
     if (qkv_fuse and attn_ok and mlp_ok
@@ -167,6 +174,7 @@ def _decoder_layer(
             h, lp.qkv, lp.input_norm, rope_sin, rope_cos, kc, vc, past_len,
             attend_len, lp.o, lp.post_norm, lp.gateup, lp.down, eps, heads,
             kv_heads, head_dim, input_mask=input_mask, impl=impl,
+            k_scale=ksc, v_scale=vsc,
         )
 
     if lp.qkv is not None:
@@ -184,6 +192,16 @@ def _decoder_layer(
     q = apply_rope_sliced(q.reshape(b, t, heads, head_dim), rope_sin, rope_cos)
     k = apply_rope_sliced(k.reshape(b, t, kv_heads, head_dim), rope_sin, rope_cos)
     v = v.reshape(b, t, kv_heads, head_dim)
+    # padded-head-dim cache (llama.py:262-275): q, k, v are zero-padded to
+    # the cache's width -- pad columns add exactly 0 to the scores and give
+    # 0 output columns, sliced off below -- and q is pre-scaled so that the
+    # kernel's 1/sqrt(padded width) leaves 1/sqrt(head_dim)
+    d_pad = kc.shape[-1] - head_dim
+    if d_pad > 0:
+        f = (kc.shape[-1] / head_dim) ** 0.5
+        q = F.pad((q.to(torch.float32) * f).to(q.dtype), (0, d_pad))
+        k = F.pad(k, (0, d_pad))
+        v = F.pad(v, (0, d_pad))
 
     k_row = v_row = None
     attn = None
@@ -194,18 +212,25 @@ def _decoder_layer(
                 # the layer tail in one K7 launch (llama.py:286-315)
                 h = layer_tail(h, q, kc, vc, past_len, attend_len, lp.o,
                                lp.post_norm, lp.gateup, lp.down, eps, (k, v),
-                               input_mask=input_mask, impl=impl)
+                               input_mask=input_mask, impl=impl,
+                               k_scale=ksc, v_scale=vsc)
                 return h, k_row, v_row
             # attention + o-projection + residual in one K7 launch
             h = attn_block_o(h, q, kc, vc, past_len, attend_len, lp.o,
-                             (k, v), input_mask=input_mask, impl=impl)
+                             (k, v), input_mask=input_mask, impl=impl,
+                             k_scale=ksc, v_scale=vsc)
         else:
             attn = attend(q, kc, vc, past_len, attend_len, input_mask,
-                          new_kv=(k, v))
+                          new_kv=(k, v), k_scale=ksc, v_scale=vsc)
     else:
-        update_kv_cache(kc, vc, k, v, past_len)
-        attn = attend(q, kc, vc, past_len, attend_len, input_mask)
+        # the chunk is quantized as it is written and attended from the
+        # cache: its queries see their own keys quantized (llama.py:328)
+        update_kv_cache(kc, vc, k, v, past_len, ksc, vsc)
+        attn = attend(q, kc, vc, past_len, attend_len, input_mask,
+                      k_scale=ksc, v_scale=vsc)
     if attn is not None:
+        if d_pad > 0:
+            attn = attn[..., :head_dim]
         h = h + q4_matmul(attn.reshape(b, t, nq), lp.o, impl)
 
     if mlp_ok:
@@ -272,9 +297,12 @@ def forward_chunk(
     if not isinstance(past_len, int):
         past_len = past_len.to(device=h.device, dtype=torch.int32)
     k_rows, v_rows = [], []
+    quantized = cache.k_scale is not None
     for li, lp in enumerate(params.layers):
         h, k_row, v_row = _decoder_layer(
             h, lp, cache.k[li], cache.v[li],
+            cache.k_scale[li] if quantized else None,
+            cache.v_scale[li] if quantized else None,
             heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
             rope_sin=sin_t, rope_cos=cos_t, past_len=past_len,
             attend_len=attend_len, input_mask=input_mask, defer_kv=defer,
@@ -284,8 +312,11 @@ def forward_chunk(
         k_rows.append(k_row)
         v_rows.append(v_row)
     if defer:
+        # the step's rows were attended in bf16; they are quantized here,
+        # so the next step sees them quantized (llama.py:546-556)
         commit_kv_cache(cache.k, cache.v, k_rows, v_rows, past_len,
-                        impl=commit_impl, ptrs=cache.kv_ptrs)
+                        cache.k_scale, cache.v_scale, impl=commit_impl,
+                        ptrs=cache.kv_ptrs)
 
     if preprocess_only:
         return None
@@ -346,8 +377,9 @@ def _attach_prefill_w8(params: ModelParams, config) -> ModelParams:
             total = torch.cuda.get_device_properties(params.device).total_memory
             budget_gb = total / 2 ** 30 - W8_HEADROOM_GB
         packed = sum(_quant_bytes(qt) for _, _, qt in tensors)
-        kv_bytes = (2 * config.num_hidden_layers * config.max_seq_len
-                    * config.num_key_value_heads * config.head_dim * 2)
+        kv_bytes = int(2 * config.num_hidden_layers * config.max_seq_len
+                       * config.num_key_value_heads * config.head_dim
+                       * KV_CACHE_DTYPES[tune.kv_cache_dtype])
         w8_budget = max(budget_gb * 2 ** 30 - packed - kv_bytes, 0)
 
     spent = 0

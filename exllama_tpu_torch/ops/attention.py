@@ -1,10 +1,12 @@
 """GQA attention over the preallocated KV cache (port of
-exllama_tpu/ops/attention.py, bf16 cache only).
+exllama_tpu/ops/attention.py): a bf16 cache, or a quantized one -- int8, or
+int4 packed two values a byte -- with one f32 scale per (token, kv head).
 
 ``attend`` launches kernel K3 ``flash_attn`` (csrc/flash_attn.cu) for any
-query length on CUDA tensors and counts each launch on ``attend.launches``;
-``attend_plain`` is its plain PyTorch version (the port of ``attend_xla``).
-Semantics, shared by both:
+query length on CUDA tensors and counts each launch (``attend.launches``
+for a bf16 cache, ``attend.launches_int8`` / ``attend.launches_int4`` for a
+quantized one); ``attend_plain`` is its plain PyTorch version. Semantics,
+shared by both:
 
   * the cache is [B, Hkv, S_max, D]; only ``cache[:, :, :attend_len]`` is read;
   * query t of row b sits at position ``past[b] + t`` and sees key s iff
@@ -15,14 +17,25 @@ Semantics, shared by both:
     keys are all padding averages V over them;
   * ``new_kv`` (T=1 only) is deferred-commit decode: the step's own K/V rows
     are not in the cache yet, so position ``past`` is masked and the rows
-    are folded in after the cache; the caller writes them afterwards.
+    are folded in after the cache, in bf16; the caller writes them
+    afterwards;
+  * with ``k_scale`` / ``v_scale`` [B, Hkv, S_max] f32 the cache holds
+    integers (int8 [.., D], or int4 bytes [.., D/2], told apart by the last
+    dim): the scores are (q . k_int) * k_scale * 1/sqrt(D), in that order,
+    and the V scale multiplies p before p is rounded to bf16 for the PV
+    product, while the softmax denominator sums the unscaled p -- the
+    arithmetic of the JAX flash kernels (attention.py:544-586), not of
+    ``attend_xla``, which dequantizes K and V to bf16 first.
 
+Rows are quantized where they are written: ``update_kv_cache`` (prefill:
+the chunk is written, then attended from the cache, so its queries see
+their own keys quantized) and ``commit_kv_cache`` (decode: the query
+attended to its own row in bf16; the next step sees it quantized).
 ``commit_kv_cache`` writes the deferred K/V rows of a decode step into
 every layer's cache: one launch of kernel K8 ``kv_commit``
-(csrc/kv_commit.cu, counted on ``kv_commit.launches``) under
+(csrc/kv_commit.cu, which quantizes in the kernel; counted on
+``kv_commit.launches`` / ``launches_int8`` / ``launches_int4``) under
 ``impl="pallas"``, one plain write per layer otherwise.
-
-int8/int4 caches belong to a later slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,6 +50,8 @@ from exllama_tpu_torch.config import COMMIT_IMPLS
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # attention.py:37
 NEG_INF = -1e9      # additive left-pad bias (attention.py:36)
+# a kernel's kv_mode argument, and the suffix of its launch counter
+KV_MODES = ("bf16", "int8", "int4")
 
 
 def _past_tensor(past_len, b: int, device) -> torch.Tensor:
@@ -45,42 +60,131 @@ def _past_tensor(past_len, b: int, device) -> torch.Tensor:
     return past_len.to(device=device, dtype=torch.int32).reshape(-1).expand(b)
 
 
-def _check_bf16_cache(k_cache: torch.Tensor):
-    if k_cache.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"KV cache dtype {k_cache.dtype}: only bf16 is ported"
-        )
+def kv_mode(k_cache: torch.Tensor, d: int, k_scale) -> int:
+    """Index into ``KV_MODES`` of a cache that holds rows of head width
+    ``d``: bf16 without scales; with scales int8 ([.., d]) or packed int4
+    ([.., d / 2])."""
+    if k_scale is None:
+        if k_cache.dtype != torch.bfloat16 or k_cache.shape[-1] != d:
+            raise ValueError(f"a {k_cache.dtype} [.., {k_cache.shape[-1]}] "
+                             f"KV cache without scales (head width {d})")
+        return 0
+    if k_cache.dtype != torch.int8 or k_scale.dtype != torch.float32:
+        raise ValueError("a KV cache with scales is int8 with f32 scales")
+    if k_scale.shape != k_cache.shape[:3]:
+        raise ValueError("KV scales must be [B, Hkv, S_max]")
+    if k_cache.shape[-1] == d:
+        return 1
+    if 2 * k_cache.shape[-1] == d:
+        return 2
+    raise ValueError(f"int8 KV cache [.., {k_cache.shape[-1]}] for head "
+                     f"width {d}")
 
 
-def update_kv_cache(k_cache, v_cache, new_k, new_v, past_len):
-    """Write T new rows [B, T, Hkv, D] at position ``past_len`` (an int or a
-    [B] tensor). Updates the caches IN PLACE (the JAX version is functional
-    and relies on buffer donation) and returns them."""
-    _check_bf16_cache(k_cache)
-    t = new_k.shape[1]
+def count_launch(fn, mode: int):
+    """One more launch on ``fn``'s counter for this cache format."""
+    attr = "launches" if mode == 0 else f"launches_{KV_MODES[mode]}"
+    setattr(fn, attr, getattr(fn, attr) + 1)
+
+
+def init_launch_counters(fn):
+    fn.launches = fn.launches_int8 = fn.launches_int4 = 0
+
+
+# ------------------------------------------------------- row quantization
+
+def _true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as a correctly rounded f32 division on every device: on CUDA
+    tensors PyTorch turns division by a Python scalar into a multiplication
+    by its reciprocal, which differs in the last bit for c = 127 or 7."""
+    return x / torch.full_like(x, c)
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """Per-(token, head) symmetric int8 quantization of [..., D] rows
+    (attention.py:58): (int8 values, f32 scales [...]), scale = max(amax,
+    1e-8) / 127, q = clip(round(x / scale), +-127); a true f32 division and
+    round half to even, so the bytes and scales are the JAX function's."""
+    xf = x.to(torch.float32)
+    scale = _true_div(xf.abs().amax(dim=-1).clamp_min(1e-8), 127.0)
+    q = torch.round(xf / scale[..., None]).clamp_(-127, 127)
+    return q.to(torch.int8), scale
+
+
+def quantize_kv_rows4(x: torch.Tensor):
+    """Per-(token, head) symmetric int4 quantization of [..., D] rows, two
+    values a byte along D (attention.py:71): (int8 [..., D/2], f32 scales).
+    q in [-7, 7], scale = max(amax, 1e-8) / 7. Byte d pairs dims (d, d +
+    D/2): low nibble q_lo + 8, high nibble (q_hi + 8) ^ 8, so the signed
+    byte is 16 * q_hi + q_lo + 8."""
+    xf = x.to(torch.float32)
+    scale = _true_div(xf.abs().amax(dim=-1).clamp_min(1e-8), 7.0)
+    q = torch.round(xf / scale[..., None]).clamp_(-7, 7).to(torch.int32) + 8
+    d = x.shape[-1]
+    byte = q[..., : d // 2] | ((q[..., d // 2:] ^ 8) << 4)       # 0..255
+    byte = torch.where(byte >= 128, byte - 256, byte)
+    return byte.to(torch.int8), scale
+
+
+def unpack_kv4(packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """[..., D/2] int4-packed bytes -> [..., D] raw values in [-8, 7], the
+    scale not applied (attention.py:97)."""
+    lo = (packed & 0x0F).to(dtype) - 8.0
+    hi = (packed & -16).to(dtype) * 0.0625
+    return torch.cat([lo, hi], dim=-1)
+
+
+def _write_at(cache, new, past_len):
+    """new [B, T, Hkv, ...] into cache [B, Hkv, S, ...] at ``past_len`` (an
+    int, or a [B] tensor of per-row cursors), in place."""
+    t = new.shape[1]
+    new = new.transpose(1, 2)
     if isinstance(past_len, int):
-        k_cache[:, :, past_len : past_len + t] = new_k.transpose(1, 2)
-        v_cache[:, :, past_len : past_len + t] = new_v.transpose(1, 2)
+        cache[:, :, past_len : past_len + t] = new
     else:
         for i, p in enumerate(past_len.tolist()):
-            k_cache[i, :, p : p + t] = new_k[i].transpose(0, 1)
-            v_cache[i, :, p : p + t] = new_v[i].transpose(0, 1)
-    return k_cache, v_cache
+            cache[i, :, p : p + t] = new[i]
+
+
+def update_kv_cache(k_cache, v_cache, new_k, new_v, past_len, k_scale=None,
+                    v_scale=None):
+    """Write T new rows [B, T, Hkv, D] at position ``past_len`` (an int or a
+    [B] tensor). For a quantized cache (``k_scale`` / ``v_scale`` given; int4
+    where the cache is narrower than the rows) the rows are quantized per
+    (token, head) and the scales written alongside. Updates the tensors IN
+    PLACE (the JAX version is functional and relies on buffer donation) and
+    returns (k_cache, v_cache, k_scale, v_scale)."""
+    if k_scale is not None:
+        mode = kv_mode(k_cache, new_k.shape[-1], k_scale)
+        quant = quantize_kv_rows4 if mode == 2 else quantize_kv_rows
+        for cache, scale, new in ((k_cache, k_scale, new_k),
+                                  (v_cache, v_scale, new_v)):
+            q, s = quant(new)
+            _write_at(cache, q, past_len)
+            _write_at(scale, s, past_len)
+        return k_cache, v_cache, k_scale, v_scale
+    kv_mode(k_cache, new_k.shape[-1], None)
+    _write_at(k_cache, new_k, past_len)
+    _write_at(v_cache, new_v, past_len)
+    return k_cache, v_cache, None, None
 
 
 def attend_plain(
     q: torch.Tensor,            # [B, T, H, D]
-    k_cache: torch.Tensor,      # [B, Hkv, S_max, D]
+    k_cache: torch.Tensor,      # [B, Hkv, S_max, D] (int4: D/2)
     v_cache: torch.Tensor,
     past_len,                   # int or [B]
     attend_len: int,
     input_mask: Optional[torch.Tensor] = None,   # [B, >=attend_len] bool
     new_kv=None,                # ([B,1,Hkv,D], [B,1,Hkv,D]) or None
+    k_scale: Optional[torch.Tensor] = None,      # [B, Hkv, S_max] f32
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of K3: full masked softmax in f32, p cast to bf16
-    before the PV product, normalized after it."""
-    _check_bf16_cache(k_cache)
+    before the PV product, normalized after it; a quantized cache enters as
+    its raw integers, the K scale on the scores, the V scale on p."""
     b, t, h, d = q.shape
+    mode = kv_mode(k_cache, d, k_scale)
     hkv = k_cache.shape[1]
     g = h // hkv
     deferred = new_kv is not None
@@ -89,10 +193,16 @@ def attend_plain(
     past = _past_tensor(past_len, b, q.device).to(torch.long)
     scale = 1.0 / math.sqrt(d)
 
-    k = k_cache[:, :, :attend_len].to(torch.float32)    # [B, Hkv, S, D]
+    k = k_cache[:, :, :attend_len]
     v = v_cache[:, :, :attend_len]
+    if mode == 2:
+        k, v = unpack_kv4(k, torch.float32), unpack_kv4(v, torch.float32)
+    k = k.to(torch.float32)                             # [B, Hkv, S, D]
     qf = q.reshape(b, t, hkv, g, d).to(torch.float32)
-    scores = torch.einsum("bthgd,bhsd->bhgts", qf, k) * scale
+    scores = torch.einsum("bthgd,bhsd->bhgts", qf, k)
+    if mode:
+        scores = scores * k_scale[:, :, None, None, :attend_len]
+    scores = scores * scale
 
     s_pos = torch.arange(attend_len, device=q.device)
     t_pos = past[:, None] + torch.arange(t, device=q.device)[None, :]  # [B, T]
@@ -108,16 +218,23 @@ def attend_plain(
         # over them (every score rounds to NEG_INF)
         pad = ~input_mask[:, :attend_len].to(q.device, torch.bool)
         scores = scores + torch.where(pad, NEG_INF, 0.0)[:, None, None, None]
+    vs = v_scale[:, :, None, None, :attend_len] if mode else None
     if deferred:
         kn = new_kv[0].transpose(1, 2).to(torch.float32)              # [B,Hkv,1,D]
         s_new = torch.einsum("bthgd,bhsd->bhgts", qf, kn) * scale
         scores = torch.cat([scores, s_new], dim=-1)
         ok = torch.cat([ok, torch.ones_like(ok[..., :1])], dim=-1)
-        v = torch.cat([v, new_kv[1].transpose(1, 2).to(v.dtype)], dim=2)
+        # the in-flight row stays bf16: no scale on its p
+        v = torch.cat([v.to(torch.float32),
+                       new_kv[1].transpose(1, 2).to(torch.float32)], dim=2)
+        if mode:
+            vs = torch.cat([vs, torch.ones_like(vs[..., :1])], dim=-1)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(scores - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0.0, 1.0, l)
+    if mode:
+        p = p * vs
     o = torch.einsum(
         "bhgts,bhsd->bthgd",
         p.to(torch.bfloat16).to(torch.float32), v.to(torch.float32),
@@ -127,19 +244,20 @@ def attend_plain(
 
 
 def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
-           new_kv=None):
+           new_kv=None, k_scale=None, v_scale=None):
     """Masked causal GQA attention, [B, T, H, D] in q.dtype: kernel K3 for
-    CUDA tensors, :func:`attend_plain` for CPU ones."""
+    CUDA tensors, :func:`attend_plain` for CPU ones. ``k_scale`` /
+    ``v_scale`` [B, Hkv, S_max] f32 go with an int8 or int4 cache."""
     if q.device.type == "cpu":
         return attend_plain(q, k_cache, v_cache, past_len, attend_len,
-                            input_mask, new_kv)
+                            input_mask, new_kv, k_scale, v_scale)
     if q.device.type != "cuda":
         raise RuntimeError(f"attend: unsupported device {q.device}")
-    _check_bf16_cache(k_cache)
     b, t, h, d = q.shape
-    _, hkv, s_max, dk = k_cache.shape
-    if d not in (64, 128) or dk != d:
-        raise ValueError(f"flash_attn: head_dim {d} (cache {dk}); takes 64/128")
+    mode = kv_mode(k_cache, d, k_scale)
+    _, hkv, s_max, _ = k_cache.shape
+    if d not in (64, 128):
+        raise ValueError(f"flash_attn: head_dim {d}; takes 64 or 128")
     if h % hkv or k_cache.shape[0] != b or v_cache.shape != k_cache.shape:
         raise ValueError("flash_attn: q / cache shapes disagree")
     if not 0 < attend_len <= s_max:
@@ -147,11 +265,20 @@ def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
     q = q.contiguous()
     if q.data_ptr() % 16:       # the kernel loads rows in 16-byte vectors
         q = q.clone()
-    for x in (q, k_cache, v_cache):
-        if x.dtype != torch.bfloat16 or not x.is_contiguous():
-            raise ValueError("flash_attn takes contiguous bf16 q and caches")
-        if x.data_ptr() % 16:
-            raise ValueError("flash_attn needs 16-byte aligned q and caches")
+    if q.dtype != torch.bfloat16:
+        raise ValueError("flash_attn takes a bf16 q")
+    for x in (k_cache, v_cache):
+        if x.dtype != k_cache.dtype or not x.is_contiguous() \
+                or x.data_ptr() % 16 or x.device != q.device:
+            raise ValueError("flash_attn takes contiguous 16-byte aligned "
+                             "caches of one type on q's device")
+    if mode:
+        for x in (k_scale, v_scale):
+            if x is None or x.dtype != torch.float32 \
+                    or x.shape != (b, hkv, s_max) or not x.is_contiguous() \
+                    or x.device != q.device:
+                raise ValueError("flash_attn takes contiguous f32 "
+                                 "[B, Hkv, S_max] K and V scales")
     past = _past_tensor(past_len, b, q.device).contiguous()
     mask = None
     if input_mask is not None:
@@ -168,56 +295,75 @@ def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
             raise ValueError("new_kv rows must be [B, 1, Hkv, D]")
     out = torch.empty_like(q)
     kernels.check(kernels.launcher("flash_attn")(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), past.data_ptr(),
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kernels.ptr(k_scale if mode else None),
+        kernels.ptr(v_scale if mode else None), past.data_ptr(),
         kernels.ptr(mask), kernels.ptr(kn), kernels.ptr(vn), out.data_ptr(),
         b, t, h, hkv, d, s_max, attend_len,
-        0 if mask is None else mask.shape[1], 1.0 / math.sqrt(d),
+        0 if mask is None else mask.shape[1], mode, 1.0 / math.sqrt(d),
         kernels.stream_of(q),
     ), "flash_attn")
-    attend.launches += 1
+    count_launch(attend, mode)
     return out
 
 
-attend.launches = 0
+init_launch_counters(attend)
 
 
 # ------------------------------------------------- deferred batched commit
 
-def kv_ptr_array(k_caches, v_caches) -> torch.Tensor:
-    """K8's operand: an int64 array, on the caches' device, of the 2L cache
-    base pointers (K layers, then V), after checking that the caches are
-    contiguous 16-byte aligned bf16 tensors of one shape. The caches are
-    updated in place and never move, so ``ExLlamaCache`` builds this once
-    (``kv_ptrs``)."""
-    shape, dev = k_caches[0].shape, k_caches[0].device
+def kv_ptr_array(k_caches, v_caches, k_scales=None,
+                 v_scales=None) -> torch.Tensor:
+    """K8's operand: an int64 array, on the caches' device, of the cache
+    base pointers -- the 2L of K layers then V layers, followed for a
+    quantized cache by the 2L of K scales then V scales -- after checking
+    that they are contiguous 16-byte aligned tensors of one shape and type.
+    The tensors are updated in place and never move, so ``ExLlamaCache``
+    builds this once (``kv_ptrs``)."""
     if len(k_caches) != len(v_caches):
         raise ValueError("kv_commit: as many K as V caches")
-    for t in (*k_caches, *v_caches):
-        if (t.dtype != torch.bfloat16 or not t.is_contiguous()
-                or t.device != dev or t.shape != shape or t.data_ptr() % 16):
-            raise ValueError("kv_commit: contiguous 16-byte aligned bf16 "
-                             "caches of one shape on one device")
-    return torch.tensor([t.data_ptr() for t in (*k_caches, *v_caches)],
+    groups = [(*k_caches, *v_caches)]
+    if k_scales is not None:
+        if len(k_scales) != len(k_caches) or len(v_scales) != len(k_caches):
+            raise ValueError("kv_commit: one K and one V scale per layer")
+        groups.append((*k_scales, *v_scales))
+    dev = k_caches[0].device
+    for group in groups:
+        first = group[0]
+        for t in group:
+            if (t.dtype != first.dtype or not t.is_contiguous()
+                    or t.device != dev or t.shape != first.shape
+                    or t.data_ptr() % 16):
+                raise ValueError("kv_commit: contiguous 16-byte aligned "
+                                 "caches (and scales) of one shape and type "
+                                 "on one device")
+    return torch.tensor([t.data_ptr() for group in groups for t in group],
                         dtype=torch.int64).to(dev)
 
 
-def kv_commit(k_caches, v_caches, new_k, new_v, past_len: int, ptrs=None):
-    """K8: every layer's rows new_k / new_v [L, B, 1, Hkv, D] written into
-    k_caches[l] / v_caches[l] [B, Hkv, S, D] at the shared cursor
-    ``past_len``, in place, in one launch (the plain per-layer writes for
-    CPU caches). ``ptrs`` is :func:`kv_ptr_array` of these caches, built
-    here when not given."""
-    _check_bf16_cache(k_caches[0])
+def kv_commit(k_caches, v_caches, new_k, new_v, past_len: int, k_scales=None,
+              v_scales=None, ptrs=None):
+    """K8: every layer's bf16 rows new_k / new_v [L, B, 1, Hkv, D] written
+    into k_caches[l] / v_caches[l] [B, Hkv, S, D] at the shared cursor
+    ``past_len``, in place, in one launch; for a quantized cache the kernel
+    quantizes each row (:func:`quantize_kv_rows` / ``quantize_kv_rows4``)
+    and writes its scale into k_scales[l] / v_scales[l] [B, Hkv, S] too.
+    CPU caches take the plain per-layer writes. ``ptrs`` is
+    :func:`kv_ptr_array` of these tensors, built here when not given."""
+    quantized = k_scales is not None
     if k_caches[0].device.type == "cpu":
         for li in range(len(k_caches)):
             update_kv_cache(k_caches[li], v_caches[li], new_k[li], new_v[li],
-                            past_len)
+                            past_len, k_scales[li] if quantized else None,
+                            v_scales[li] if quantized else None)
         return
     if k_caches[0].device.type != "cuda":
         raise RuntimeError(f"kv_commit: unsupported device "
                            f"{k_caches[0].device}")
     n_layers = len(k_caches)
-    b, hkv, s_max, d = k_caches[0].shape
+    b, hkv, s_max, _ = k_caches[0].shape
+    d = new_k.shape[-1]
+    mode = kv_mode(k_caches[0], d, k_scales[0] if quantized else None)
     new_k = new_k.to(torch.bfloat16).contiguous()
     new_v = new_v.to(torch.bfloat16).contiguous()
     if new_k.shape != (n_layers, b, 1, hkv, d) or new_v.shape != new_k.shape:
@@ -226,8 +372,9 @@ def kv_commit(k_caches, v_caches, new_k, new_v, past_len: int, ptrs=None):
     if d % 8 or not 0 <= past_len < s_max:
         raise ValueError(f"kv_commit: head_dim {d}, cursor {past_len}")
     if ptrs is None:
-        ptrs = kv_ptr_array(k_caches, v_caches)
-    if ptrs.shape != (2 * n_layers,) or ptrs.dtype != torch.int64:
+        ptrs = kv_ptr_array(k_caches, v_caches, k_scales, v_scales)
+    if ptrs.shape != ((4 if quantized else 2) * n_layers,) \
+            or ptrs.dtype != torch.int64:
         raise ValueError("kv_commit: ptrs must be kv_ptr_array(caches)")
     for t in (new_k, new_v):
         if t.device != ptrs.device or t.data_ptr() % 16:
@@ -235,19 +382,23 @@ def kv_commit(k_caches, v_caches, new_k, new_v, past_len: int, ptrs=None):
                              "the caches' device")
     kernels.check(kernels.launcher("kv_commit")(
         ptrs.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), n_layers, b,
-        hkv, s_max, d, past_len, kernels.stream_of(new_k),
+        hkv, s_max, d, past_len, mode, kernels.stream_of(new_k),
     ), "kv_commit")
-    kv_commit.launches += 1
+    count_launch(kv_commit, mode)
 
 
-kv_commit.launches = 0
+init_launch_counters(kv_commit)
 
 
 def commit_kv_cache(k_caches, v_caches, new_k, new_v, past_len,
-                    impl: str = "auto", ptrs=None):
+                    k_scales=None, v_scales=None, impl: str = "auto",
+                    ptrs=None):
     """Deferred commit of a decode step (port of attention.py:284): the
-    rows new_k[l] / new_v[l] ([B, 1, Hkv, D]; a stacked [L, ...] tensor or a
-    list) go into every layer's cache at ``past_len``, in place.
+    bf16 rows new_k[l] / new_v[l] ([B, 1, Hkv, D]; a stacked [L, ...] tensor
+    or a list) go into every layer's cache at ``past_len``, in place,
+    quantized on the way into an int8 / int4 cache (``k_scales`` /
+    ``v_scales``: the layers' [B, Hkv, S] f32 scale tensors). Returns
+    (k_caches, v_caches, k_scales, v_scales).
 
     ``impl="pallas"`` with an int cursor takes :func:`kv_commit`, K8 (the
     JAX value name, kept so call sites port unchanged), with the caches'
@@ -257,12 +408,27 @@ def commit_kv_cache(k_caches, v_caches, new_k, new_v, past_len,
     does a per-row cursor under any impl (attention.py:309-319)."""
     if impl not in COMMIT_IMPLS:
         raise ValueError(f"commit_impl {impl!r}")
+    quantized = k_scales is not None
     if impl == "pallas" and isinstance(past_len, int):
         if not torch.is_tensor(new_k):
             new_k, new_v = torch.stack(list(new_k)), torch.stack(list(new_v))
-        kv_commit(k_caches, v_caches, new_k, new_v, past_len, ptrs)
-        return k_caches, v_caches
-    for li in range(len(k_caches)):
-        update_kv_cache(k_caches[li], v_caches[li], new_k[li], new_v[li],
-                        past_len)
-    return k_caches, v_caches
+        kv_commit(k_caches, v_caches, new_k, new_v, past_len, k_scales,
+                  v_scales, ptrs)
+    elif quantized:
+        # every layer's rows quantized in one pass (a row's bytes and scale
+        # depend on that row alone), then the per-layer writes
+        if not torch.is_tensor(new_k):
+            new_k, new_v = torch.stack(list(new_k)), torch.stack(list(new_v))
+        mode = kv_mode(k_caches[0], new_k.shape[-1], k_scales[0])
+        quant = quantize_kv_rows4 if mode == 2 else quantize_kv_rows
+        for caches, scales, new in ((k_caches, k_scales, new_k),
+                                    (v_caches, v_scales, new_v)):
+            q, s = quant(new)                   # [L, B, 1, Hkv, D*], [L, B, 1, Hkv]
+            for li in range(len(caches)):
+                _write_at(caches[li], q[li], past_len)
+                _write_at(scales[li], s[li], past_len)
+    else:
+        for li in range(len(k_caches)):
+            update_kv_cache(k_caches[li], v_caches[li], new_k[li], new_v[li],
+                            past_len)
+    return k_caches, v_caches, k_scales, v_scales

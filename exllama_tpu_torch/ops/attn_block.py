@@ -11,7 +11,10 @@ single launch per layer on the deferred-commit decode path (T = 1):
 Every launch of any of the three counts on ``layer_tail.launches``, or,
 under the W4A8 values of ``impl`` ("pallas_a8", "pallas_a8x2",
 "pallas_a8t": every GEMV phase in K9's integer arithmetic, the a8 builds of
-the same source; attention stays bf16), on ``layer_tail_a8.launches``. The
+the same source), on ``layer_tail_a8.launches``; a launch over an int8 or
+int4 KV cache (``k_scale`` / ``v_scale`` given, as ``ops.attention.attend``
+takes them) counts on ``launches_int8`` / ``launches_int4`` of the same
+function instead. The attention arithmetic is K3's in every case. The
 ``*_plain`` functions are their plain PyTorch versions, the separate path's
 composition (``attend_plain`` and the q4 plain products), which CPU tensors
 take. The caller checks ``attn_o_applicable`` (and, for the MLP and qkv
@@ -28,7 +31,13 @@ import torch
 
 from exllama_tpu_torch import kernels
 from exllama_tpu_torch.config import A8_IMPLS, check_matmul_impl
-from exllama_tpu_torch.ops.attention import _past_tensor, attend_plain
+from exllama_tpu_torch.ops.attention import (
+    _past_tensor,
+    attend_plain,
+    count_launch,
+    init_launch_counters,
+    kv_mode,
+)
 from exllama_tpu_torch.ops.mlp import gemv_plain_of, q4_mlp_plain
 from exllama_tpu_torch.ops.quant import GEMV_MAX_M, check_qt_tensors
 from exllama_tpu_torch.ops.rope import apply_rope_sliced
@@ -77,19 +86,20 @@ def same_groupsize(*qts) -> bool:
 # ------------------------------------------------------------ plain versions
 
 def attn_block_o_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
-                       new_kv, input_mask=None, impl="auto"):
+                       new_kv, input_mask=None, impl="auto", k_scale=None,
+                       v_scale=None):
     b, _, hidden = h.shape
     attn = attend_plain(q, k_cache, v_cache, past_len, attend_len, input_mask,
-                        new_kv)
+                        new_kv, k_scale, v_scale)
     return h + gemv_plain_of(impl)(attn.reshape(b, -1), o).reshape(
         b, 1, hidden)
 
 
 def layer_tail_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
                      post_norm, gateup, down, eps, new_kv, input_mask=None,
-                     impl="auto"):
+                     impl="auto", k_scale=None, v_scale=None):
     h = attn_block_o_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
-                           new_kv, input_mask, impl)
+                           new_kv, input_mask, impl, k_scale, v_scale)
     return q4_mlp_plain(h, post_norm, gateup, down, eps, impl)
 
 
@@ -108,12 +118,12 @@ def _qkv_rows_plain(h, qkv, input_norm, rope_sin, rope_cos, heads, kv_heads,
 def layer_step_plain(h, qkv, input_norm, rope_sin, rope_cos, k_cache, v_cache,
                      past_len, attend_len, o, post_norm, gateup, down, eps,
                      heads, kv_heads, head_dim, input_mask=None,
-                     impl="auto"):
+                     impl="auto", k_scale=None, v_scale=None):
     q, k, v = _qkv_rows_plain(h, qkv, input_norm, rope_sin, rope_cos, heads,
                               kv_heads, head_dim, eps, impl)
     h = layer_tail_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
                          post_norm, gateup, down, eps, (k, v), input_mask,
-                         impl)
+                         impl, k_scale, v_scale)
     return h, k, v
 
 
@@ -135,7 +145,8 @@ def _aligned(name, x, dtype):
 
 def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
             q=None, new_kv=None, qkv=None, input_norm=None, rope=None,
-            post_norm=None, gateup=None, down=None, eps=1e-6, impl="auto"):
+            post_norm=None, gateup=None, down=None, eps=1e-6, impl="auto",
+            k_scale=None, v_scale=None):
     """One K7 launch; returns (out [B, 1, hidden], k_row, v_row)."""
     a8 = impl in A8_IMPLS
     lib = "layer_tail" if not a8 else (
@@ -144,19 +155,28 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
     dev = h.device
     if t != 1 or b > GEMV_MAX_M:
         raise ValueError("layer_tail is a decode path: T = 1, B <= 32")
-    if k_cache.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"KV cache dtype {k_cache.dtype}: only bf16 is ported")
-    _, hkv, s_max, d = k_cache.shape
+    d = HEAD_DIM
+    mode = kv_mode(k_cache, d, k_scale)      # bf16 / int8 / int4 (D/2 bytes)
+    if mode:
+        lib += "_kvq"       # the build for quantized caches
+    _, hkv, s_max, _ = k_cache.shape
     heads = o.in_features // d
     g = heads // hkv
-    if (d != HEAD_DIM or k_cache.shape[0] != b or v_cache.shape != k_cache.shape
+    if (k_cache.shape[0] != b or v_cache.shape != k_cache.shape
             or heads % hkv or g > MAX_GROUP or o.out_features != hidden):
         raise ValueError("layer_tail: shapes outside attn_o_applicable")
     if not 0 < attend_len <= s_max:
         raise ValueError(f"attend_len {attend_len} outside (0, {s_max}]")
-    _aligned("k_cache", k_cache, torch.bfloat16)
-    _aligned("v_cache", v_cache, torch.bfloat16)
+    _aligned("k_cache", k_cache, k_cache.dtype)
+    _aligned("v_cache", v_cache, k_cache.dtype)
+    if mode:
+        _aligned("k_scale", k_scale, torch.float32)
+        _aligned("v_scale", v_scale, torch.float32)
+        if v_scale.shape != k_scale.shape:
+            raise ValueError("layer_tail: K and V scales of one shape")
+    if any(x.device != dev for x in (k_cache, v_cache, k_scale, v_scale)
+           if x is not None):
+        raise ValueError("layer_tail: caches and scales on h's device")
     h2 = h.reshape(b, hidden).contiguous()
     if h2.dtype != torch.bfloat16:
         raise TypeError("layer_tail takes a bf16 residual")
@@ -226,51 +246,56 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
 
     kernels.check(kernels.launcher(lib)(
         P(q), *(P(x) for x in (new_kv or (None, None))),
-        k_cache.data_ptr(), v_cache.data_ptr(), past.data_ptr(), P(mask),
+        k_cache.data_ptr(), v_cache.data_ptr(), P(k_scale if mode else None),
+        P(v_scale if mode else None), past.data_ptr(), P(mask),
         h2.data_ptr(), *qw(o), P(input_norm), *qw(qkv), P(sin), P(cos),
         P(k_row), P(v_row), P(post_norm), *qw(gateup), *qw(down), *ptrs,
         out.data_ptr(),
         b, heads, hkv, s_max, hidden, inter, o.groupsize,
         0 if mask is None else mask.shape[1],
         0 if sin is None or sin.shape[0] == 1 else d,
-        nsplit_cap, attend_len, float(eps), 1.0 / math.sqrt(d),
+        nsplit_cap, attend_len, mode, float(eps), 1.0 / math.sqrt(d),
         kernels.stream_of(h2),
     ), lib)
-    (layer_tail_a8 if a8 else layer_tail).launches += 1
+    count_launch(layer_tail_a8 if a8 else layer_tail, mode)
     return out.reshape(b, 1, hidden), k_row, v_row
 
 
 # ----------------------------------------------------------- entry points
 
 def attn_block_o(h, q, k_cache, v_cache, past_len, attend_len: int, o,
-                 new_kv, input_mask=None, impl: str = "auto"):
+                 new_kv, input_mask=None, impl: str = "auto", k_scale=None,
+                 v_scale=None):
     """h + o_proj(flash_attend(q, cache + new_kv)) in one K7 launch.
     h [B, 1, hidden], q [B, 1, H, D] post-rope, new_kv ([B, 1, Hkv, D],)*2."""
     check_matmul_impl(impl)
     if h.device.type == "cpu":
         return attn_block_o_plain(h, q, k_cache, v_cache, past_len,
-                                  attend_len, o, new_kv, input_mask, impl)
+                                  attend_len, o, new_kv, input_mask, impl,
+                                  k_scale, v_scale)
     if h.device.type != "cuda":
         raise RuntimeError(f"attn_block_o: unsupported device {h.device}")
     return _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask,
-                   q=q, new_kv=new_kv, impl=impl)[0]
+                   q=q, new_kv=new_kv, impl=impl, k_scale=k_scale,
+                   v_scale=v_scale)[0]
 
 
 def layer_tail(h, q, k_cache, v_cache, past_len, attend_len: int, o,
                post_norm, gateup, down, eps: float, new_kv, input_mask=None,
-               impl: str = "auto"):
+               impl: str = "auto", k_scale=None, v_scale=None):
     """The decode layer after rope -- attention, o-proj, residual,
     post-norm, MLP, residual -- in one K7 launch."""
     check_matmul_impl(impl)
     if h.device.type == "cpu":
         return layer_tail_plain(h, q, k_cache, v_cache, past_len, attend_len,
                                 o, post_norm, gateup, down, eps, new_kv,
-                                input_mask, impl)
+                                input_mask, impl, k_scale, v_scale)
     if h.device.type != "cuda":
         raise RuntimeError(f"layer_tail: unsupported device {h.device}")
     return _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask,
                    q=q, new_kv=new_kv, post_norm=post_norm, gateup=gateup,
-                   down=down, eps=eps, impl=impl)[0]
+                   down=down, eps=eps, impl=impl, k_scale=k_scale,
+                   v_scale=v_scale)[0]
 
 
 def layer_tail_a8(*args, two_pass: bool = False, **kwargs):
@@ -284,7 +309,8 @@ def layer_tail_a8(*args, two_pass: bool = False, **kwargs):
 def layer_step(h, qkv, input_norm, rope_sin, rope_cos, k_cache, v_cache,
                past_len, attend_len: int, o, post_norm, gateup, down,
                eps: float, heads: int, kv_heads: int, head_dim: int,
-               input_mask=None, impl: str = "auto"):
+               input_mask=None, impl: str = "auto", k_scale=None,
+               v_scale=None):
     """The whole decode layer in one K7 launch: input norm, fused qkv GEMV
     and rope (rope_sin / rope_cos [1 | B, 1, 1, D], pre-sliced), then
     ``layer_tail``. Returns (h [B, 1, hidden], k_row, v_row [B, 1, Hkv, D])
@@ -294,16 +320,17 @@ def layer_step(h, qkv, input_norm, rope_sin, rope_cos, k_cache, v_cache,
         return layer_step_plain(h, qkv, input_norm, rope_sin, rope_cos,
                                 k_cache, v_cache, past_len, attend_len, o,
                                 post_norm, gateup, down, eps, heads, kv_heads,
-                                head_dim, input_mask, impl)
+                                head_dim, input_mask, impl, k_scale, v_scale)
     if h.device.type != "cuda":
         raise RuntimeError(f"layer_step: unsupported device {h.device}")
-    if heads * head_dim != o.in_features or k_cache.shape[1] != kv_heads:
+    if (head_dim != HEAD_DIM or heads * head_dim != o.in_features
+            or k_cache.shape[1] != kv_heads):
         raise ValueError("layer_step: heads / kv_heads disagree with o, cache")
     return _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask,
                    qkv=qkv, input_norm=input_norm, rope=(rope_sin, rope_cos),
                    post_norm=post_norm, gateup=gateup, down=down, eps=eps,
-                   impl=impl)
+                   impl=impl, k_scale=k_scale, v_scale=v_scale)
 
 
-layer_tail.launches = 0
-layer_tail_a8.launches = 0
+init_launch_counters(layer_tail)
+init_launch_counters(layer_tail_a8)

@@ -40,9 +40,8 @@ def test_config_parses_written_config_json(tmp_path):
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("kv_cache_dtype", "int4"), ("pad_head_dim", True),
     ("fold_act_order", False),
-    ("kv_cache_dtype", "int8"), ("scale_dtype", "f32"),
+    ("scale_dtype", "f32"),
     ("quantize_lm_head", True),
 ])
 def test_tuning_knob_outside_the_slice_raises(knob, value):
@@ -50,6 +49,25 @@ def test_tuning_knob_outside_the_slice_raises(knob, value):
     setattr(t, knob, getattr(t, knob))       # the slice value is accepted
     with pytest.raises(NotImplementedError):
         setattr(t, knob, value)
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("kv_cache_dtype", "int4"), ("pad_head_dim", True),
+    ("kv_cache_dtype", "int8"),
+])
+def test_kv_cache_knob_is_accepted_and_round_trips(knob, value):
+    """The quantized and padded caches: the JAX package's values are taken,
+    read back, and can be set back; any other cache type is a ValueError."""
+    t, ref = TuningParams(), JaxConfig().tuning
+    default = getattr(t, knob)
+    assert default == getattr(ref, knob)
+    setattr(t, knob, value)
+    setattr(ref, knob, value)
+    assert getattr(t, knob) == getattr(ref, knob) == value
+    setattr(t, knob, default)
+    assert getattr(t, knob) == default
+    with pytest.raises(ValueError):
+        t.kv_cache_dtype = "fp8"
 
 
 def test_jax_decode_defaults_are_the_ports_defaults():
@@ -110,6 +128,7 @@ def test_import_leaves_out_jax():
         "import exllama_tpu_torch.kernels, exllama_tpu_torch.ops.quant\n"
         "import exllama_tpu_torch.ops.mlp, exllama_tpu_torch.ops.attn_block\n"
         "import exllama_tpu_torch.models.llama as llama\n"
+        "import exllama_tpu_torch.model_init, exllama_tpu_torch.cache\n"
         "assert llama._attach_prefill_w8 and llama.q4_matmul\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exllama_tpu' or m.startswith('exllama_tpu.')"

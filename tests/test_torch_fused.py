@@ -245,12 +245,19 @@ def test_layer_tail_gates():
 
 
 def test_layer_tail_takes_only_a_bf16_cache():
+    """... unless the cache comes with its scales: an int8 cache alone is
+    refused, with k_scale / v_scale it is attended
+    (tests/test_torch_kvcache.py holds that against the JAX kernel)."""
     x = _tail_inputs(1, 8, 64, seed=3)
     _, po = _qt_pair(HIDDEN, HIDDEN, 128, 2)
     kc = torch.zeros((1, 8, 64, D), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        attn_block.attn_block_o(_bf16(x["h"]), _bf16(x["q"]), kc, kc, 5, 64,
-                                po, (_bf16(x["kn"]), _bf16(x["vn"])))
+    args = (_bf16(x["h"]), _bf16(x["q"]), kc, kc, 5, 64, po,
+            (_bf16(x["kn"]), _bf16(x["vn"])))
+    with pytest.raises(ValueError):
+        attn_block.attn_block_o(*args)
+    scale = torch.ones((1, 8, 64), dtype=torch.float32)
+    out = attn_block.attn_block_o(*args, k_scale=scale, v_scale=scale)
+    assert out.shape == (1, 1, HIDDEN) and torch.isfinite(out.float()).all()
 
 
 # ------------------------------------------------------------ K8 commit

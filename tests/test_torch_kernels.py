@@ -491,3 +491,235 @@ def test_kv_commit_matches_plain(gen):
                               impl="xla")
     for got, want in zip(caches, ref):
         assert torch.equal(got, want)
+
+
+# ------------------------------------------------ quantized KV caches
+
+def _quantized_cache(gen, kind, b, hkv, s_max, d, filled):
+    """int8 / int4 caches and their scales, written by the plain
+    update_kv_cache from rows whose magnitudes differ by up to x8 (so the
+    per-key scales matter); positions from ``filled`` on stay zero."""
+    dc = d // 2 if kind == "int4" else d
+    kc = torch.zeros((b, hkv, s_max, dc), dtype=torch.int8, device="cuda")
+    vc = torch.zeros_like(kc)
+    ks = torch.zeros((b, hkv, s_max), dtype=torch.float32, device="cuda")
+    vs = torch.zeros_like(ks)
+
+    def rows():
+        mag = 2.0 ** torch.randint(-2, 2, (b, filled, hkv, 1), generator=gen,
+                                   device="cuda")
+        return (torch.randn((b, filled, hkv, d), generator=gen, device="cuda")
+                * mag).bfloat16()
+
+    attention.update_kv_cache(kc, vc, rows(), rows(), 0, ks, vs)
+    return kc, vc, ks, vs
+
+
+def _flat_scales(s, filled):
+    out = s.clone()
+    out[:, :, :filled] = s[:, :, :filled].mean(dim=2, keepdim=True)
+    return out
+
+
+def _swap_int4_halves(c):
+    raw = attention.unpack_kv4(c, torch.float32).to(torch.int32)
+    half = raw.shape[-1] // 2
+    b4 = (raw[..., half:] + 8) | (((raw[..., :half] + 8) ^ 8) << 4)
+    return torch.where(b4 >= 128, b4 - 256, b4).to(torch.int8)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("b,t,h,hkv,d,past,deferred,masked", [
+    (2, 1, 8, 2, 64, 170, True, False),
+    (1, 1, 4, 4, 128, 0, True, False),
+    (2, 37, 8, 2, 64, [5, 140], False, False),
+    (2, 19, 4, 1, 128, 0, False, True),
+    (1, 130, 4, 4, 128, 3, False, False),
+])
+def test_flash_attn_quantized_matches_plain(gen, kind, b, t, h, hkv, d, past,
+                                            deferred, masked):
+    """K3 over an int8 / int4 cache: 2e-2, as over bf16 -- kernel and plain
+    version read the same bytes and scales, and round p (with the V scale
+    folded in) to bf16 against a running and a final max. The plain version
+    first shows that per-key K or V scales replaced by their mean, and
+    swapped int4 halves, each move the output by more than 3x that."""
+    s_max, attend_len, filled = 256, 192, 180
+    kc, vc, ks, vs = _quantized_cache(gen, kind, b, hkv, s_max, d, filled)
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda").bfloat16()
+    past_t = (past if isinstance(past, int)
+              else torch.tensor(past, dtype=torch.int32, device="cuda"))
+    new_kv = None
+    if deferred:
+        new_kv = tuple(torch.randn((b, 1, hkv, d), generator=gen,
+                                   device="cuda").bfloat16()
+                       for _ in range(2))
+    mask = None
+    if masked:
+        mask = torch.ones((b, s_max), dtype=torch.bool, device="cuda")
+        mask[0, :6] = False
+    args = (q, kc, vc, past_t, attend_len, mask, new_kv)
+    ref = attention.attend_plain(*args, ks, vs)
+    if past != 0:
+        faults = [attention.attend_plain(*args, _flat_scales(ks, filled), vs),
+                  attention.attend_plain(*args, ks, _flat_scales(vs, filled))]
+        if kind == "int4":
+            faults.append(attention.attend_plain(
+                q, kc, _swap_int4_halves(vc), *args[3:], ks, vs))
+        for out in faults:
+            assert (out.float() - ref.float()).abs().max() \
+                > 3 * 2e-2 * ref.float().abs().max()
+    before = (attention.attend.launches, attention.attend.launches_int8,
+              attention.attend.launches_int4)
+    got = attention.attend(*args, ks, vs)
+    after = (attention.attend.launches, attention.attend.launches_int8,
+             attention.attend.launches_int4)
+    assert after == (before[0], before[1] + (kind == "int8"),
+                     before[2] + (kind == "int4"))
+    _close(got, ref, 2e-2)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("entry,b,hkv,past,masked,impl", [
+    case + (impl,)
+    for case in (("attn_block_o", 1, 8, 177, False),
+                 ("layer_tail", 3, 2, [0, 7, 133], False),
+                 ("layer_step", 2, 2, 200, True))
+    for impl in ("auto", "pallas_a8", "pallas_a8x2")
+    if (case[0], impl) != ("layer_step", "pallas_a8")
+])
+def test_layer_tail_quantized_matches_plain(gen, entry, b, hkv, past, masked,
+                                            impl, kind):
+    """K7's three entry points over an int8 / int4 cache, exact and W4A8
+    GEMVs: the limits of the bf16 cache (2e-2; one-pass a8 5e-2). One-pass
+    a8 is not held on layer_step here: its q comes from an int8-activation
+    GEMV, the keys' magnitudes differ by up to x8, and a bf16 step of
+    difference in q then moves a peaked softmax by more than a8's limit (8%
+    and 11% measured on an H100, where a8x2, exact-grade through the same
+    attention code, stays inside 2e-2)."""
+    hidden, heads, d, inter, s_max, gs = 1024, 8, 128, 1152, 256, 128
+    tol = 5e-2 if impl == "pallas_a8" else 2e-2
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.5).bfloat16()
+
+    o = _qt(gen, hidden, hidden, gs, False)
+    qkv = _qt(gen, hidden, (heads + 2 * hkv) * d, gs, False)
+    gateup = _qt(gen, hidden, 2 * inter, gs, False)
+    down = _qt(gen, inter, hidden, gs, False)
+    h, q = rnd(b, 1, hidden), rnd(b, 1, heads, d)
+    kc, vc, ks, vs = _quantized_cache(gen, kind, b, hkv, s_max, d, 220)
+    new_kv = (rnd(b, 1, hkv, d), rnd(b, 1, hkv, d))
+    iw = (torch.rand(hidden, generator=gen, device="cuda") + 0.5).bfloat16()
+    nw = (torch.rand(hidden, generator=gen, device="cuda") + 0.5).bfloat16()
+    past_t = (past if isinstance(past, int)
+              else torch.tensor(past, dtype=torch.int32, device="cuda"))
+    sin_t, cos_t = rope.slice_tables(*rope.rope_tables(s_max, d,
+                                                       device="cuda"),
+                                     past_t, 1)
+    mask = None
+    if masked:
+        mask = torch.ones((b, s_max), dtype=torch.bool, device="cuda")
+        mask[0, :9] = False
+    fn = attn_block.layer_tail if impl == "auto" \
+        else attn_block.layer_tail_a8
+    attr = f"launches_{kind}"
+    before = getattr(fn, attr), fn.launches
+    if entry == "attn_block_o":
+        args = (h, q, kc, vc, past_t, s_max, o, new_kv, mask, impl, ks, vs)
+        got = attn_block.attn_block_o(*args)
+        ref = attn_block.attn_block_o_plain(*args)
+    elif entry == "layer_tail":
+        args = (h, q, kc, vc, past_t, s_max, o, nw, gateup, down, 1e-6,
+                new_kv, mask, impl, ks, vs)
+        got = attn_block.layer_tail(*args)
+        ref = attn_block.layer_tail_plain(*args)
+    else:
+        args = (h, qkv, iw, sin_t, cos_t, kc, vc, past_t, s_max, o, nw,
+                gateup, down, 1e-6, heads, hkv, d, mask, impl, ks, vs)
+        got, kr, vr = attn_block.layer_step(*args)
+        ref, kr_ref, vr_ref = attn_block.layer_step_plain(*args)
+        _close(kr, kr_ref, 1e-2)
+        _close(vr, vr_ref, 1e-2)
+    assert (getattr(fn, attr), fn.launches) == (before[0] + 1, before[1])
+    _close(got, ref, tol)
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("b,hkv,n_pad", [(1, 8, 0), (2, 2, 9)])
+def test_attn_block_o_quantized_attention_at_its_own_scale(gen, kind, b, hkv,
+                                                           n_pad):
+    """h = 0 and a peaked softmax over a quantized cache (planted keys, as
+    test_attn_block_o_attention_at_its_own_scale, then quantized): 2e-2,
+    while the per-key K or V scales replaced by their mean, swapped int4
+    halves, a dropped in-flight row and a lost key split each move the plain
+    output by more than 3x that."""
+    hidden, heads, s_max, past = 1024, 8, 512, 400
+    o = _qt(gen, hidden, hidden, 128, False)
+    q, kcb, vcb, new_kv, mask = _planted(gen, b, heads, hkv, s_max, past,
+                                         n_pad)
+    # rows of unequal size, so that the scales differ from key to key
+    mag = 2.0 ** torch.randint(-2, 2, (b, hkv, s_max, 1), generator=gen,
+                               device="cuda")
+    vcb = (vcb.float() * mag).bfloat16()
+    dc = 64 if kind == "int4" else 128
+    kc = torch.zeros((b, hkv, s_max, dc), dtype=torch.int8, device="cuda")
+    vc = torch.zeros_like(kc)
+    ks = torch.zeros((b, hkv, s_max), dtype=torch.float32, device="cuda")
+    vs = torch.zeros_like(ks)
+    attention.update_kv_cache(kc, vc, kcb.transpose(1, 2), vcb.transpose(1, 2),
+                              0, ks, vs)
+    h = torch.zeros((b, 1, hidden), dtype=torch.bfloat16, device="cuda")
+
+    def plain(kc=kc, vc=vc, ks=ks, vs=vs, kv=new_kv, m=mask):
+        return attn_block.attn_block_o_plain(
+            h, q, kc, vc, past, s_max, o, kv, m, "auto", ks, vs).float()
+
+    ref = plain()
+    lost = torch.ones((b, s_max), dtype=torch.bool, device="cuda")
+    lost[:, 128:256] = False
+    faults = [plain(vs=_flat_scales(vs, past)),
+              plain(kv=(-new_kv[0], new_kv[1])),
+              plain(m=lost if mask is None else lost & mask)]
+    if kind == "int4":
+        faults.append(plain(vc=_swap_int4_halves(vc)))
+    for out in faults:
+        assert (out - ref).abs().max() > 3 * 2e-2 * ref.abs().max()
+    got = attn_block.attn_block_o(h, q, kc, vc, past, s_max, o, new_kv, mask,
+                                  "auto", ks, vs)
+    _close(got, ref, 2e-2)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_kv_commit_quantized_matches_plain(gen, kind, d):
+    """Bit-equal: the kernel quantizes each row as quantize_kv_rows /
+    quantize_kv_rows4 do (a true division, round half to even), bytes and
+    f32 scales, with an all-zero row and half-way values among the rows."""
+    n_layers, b, hkv, s_max, past = 3, 2, 4, 64, 37
+    dc = d // 2 if kind == "int4" else d
+    caches = [torch.randint(-128, 128, (b, hkv, s_max, dc), generator=gen,
+                            device="cuda", dtype=torch.int8)
+              for _ in range(2 * n_layers)]
+    scales = [torch.rand((b, hkv, s_max), generator=gen, device="cuda")
+              for _ in range(2 * n_layers)]
+    ref_c = [c.clone() for c in caches]
+    ref_s = [s.clone() for s in scales]
+    nk = torch.randn((n_layers, b, 1, hkv, d), generator=gen,
+                     device="cuda").bfloat16()
+    nv = torch.randn_like(nk)
+    nk[0, 0, 0, 0] = 0
+    half_way = ((torch.arange(d, device="cuda") % 14 - 7) + 0.5) * 0.5
+    nk[0, 0, 0, 1] = half_way
+    nk[0, 0, 0, 1, 0] = 63.5 if kind == "int8" else 3.5     # scale 0.5
+    before = getattr(attention.kv_commit, f"launches_{kind}")
+    attention.commit_kv_cache(
+        caches[:n_layers], caches[n_layers:], nk, nv, past,
+        scales[:n_layers], scales[n_layers:], impl="pallas")
+    assert getattr(attention.kv_commit, f"launches_{kind}") == before + 1
+    attention.commit_kv_cache(
+        ref_c[:n_layers], ref_c[n_layers:], nk, nv, past,
+        ref_s[:n_layers], ref_s[n_layers:], impl="xla")
+    for got, want in zip(caches + scales, ref_c + ref_s):
+        assert torch.equal(got, want)
+    assert not torch.equal(caches[0][:, :, past], caches[0][:, :, past - 1])

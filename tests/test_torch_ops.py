@@ -149,11 +149,23 @@ def test_update_kv_cache_in_place():
     np.testing.assert_array_equal(_np(kc), np.asarray(ref, np.float32))
 
 
-def test_int8_cache_not_ported():
-    q = torch.zeros((1, 1, 2, 64), dtype=torch.bfloat16)
-    kc = torch.zeros((1, 2, 8, 64), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        attention.attend(q, kc, kc, 0, 8)
+def test_int8_cache_is_attended():
+    """An int8 cache with its scales is taken (tests/test_torch_kvcache.py
+    holds it against the JAX kernels): close to the bf16 cache of the same
+    rows, at the JAX suite's limit for that (tests/test_kv_int8.py:108)."""
+    rng = np.random.default_rng(2)
+    q = _bf16(rng.normal(size=(1, 4, 4, 64)) * 0.5)
+    new = _bf16(rng.normal(size=(2, 1, 8, 2, 64)) * 0.5)
+    kc = torch.zeros((1, 2, 32, 64), dtype=torch.bfloat16)
+    vc = torch.zeros_like(kc)
+    attention.update_kv_cache(kc, vc, new[0], new[1], 0)
+    k8, v8 = kc.to(torch.int8), vc.to(torch.int8)
+    ks, vs = torch.zeros((2, 1, 2, 32))
+    attention.update_kv_cache(k8, v8, new[0], new[1], 0, ks, vs)
+    ref = attention.attend(q, kc, vc, 4, 32)
+    got = attention.attend(q, k8, v8, 4, 32, k_scale=ks, v_scale=vs)
+    assert (got.float() - ref.float()).abs().max() < 0.05
+    assert not torch.equal(got, ref)
 
 
 # ------------------------------------------------- dense, norm and rope
