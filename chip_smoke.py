@@ -9,7 +9,9 @@ Phases, one line or block of output each; any failure exits non-zero:
   2. build: every CUDA kernel under exllama_tpu_torch/csrc, compiled by nvcc
      in parallel (the build seconds are printed);
   3. each kernel against its plain PyTorch version on the card at the shapes
-     of the Llama-7B main path, with its time beside the plain version, one
+     of the Llama-7B main path (K2 also at the edges of its tile, K3's
+     split-KV decode at the edges of its 64-key splits and at B = 4 with
+     distinct cursors), with its time beside the plain version, one
      PyTorch library call computing the same function where there is one
      (timed here only; the port never calls it), the least time the card
      could take and, for the fused kernels K6/K7, the port's own chain of
@@ -258,6 +260,22 @@ def kernel_cases(device, timer, res):
                    lambda: quant._q4_matmul_plain(x, qt),
                    lambda: torch.matmul(x, w), nbytes, 2 * m * k * n)
         del w
+    # K2 at the edges of its 128 x 128 tile: the smallest M it takes (33),
+    # M = 127 / 129 around a tile, and an N that is not a multiple of 128
+    for m, k, n in ((33, 4096, 4096), (129, 4096, 4096), (1919, 4096, 4168)):
+        qt = random_qt(gen, k, n, 128, False, device)
+        w = dequantize_t(qt)
+        x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+        got = quant.q4_dequant_matmul(x, qt)
+        ref = quant._q4_matmul_plain(x, qt)
+        err, rel = check_close(f"q4_dequant_matmul {k}->{n} M={m}", got, ref,
+                               TOL["q4_dequant_matmul"])
+        record("q4_dequant_matmul", f"edge {k}->{n} g128 M={m}", err, rel,
+               lambda: quant.q4_dequant_matmul(x, qt),
+               lambda: quant._q4_matmul_plain(x, qt),
+               lambda: torch.matmul(x, w),
+               q4_bytes(k, n, 128) + m * k * 2 + m * n * 2, 2 * m * k * n)
+        del w
 
     # K3: rel tol 2e-2 -- the kernel rounds p to bf16 inside the online
     # softmax (against a running max), the plain version once against the
@@ -268,6 +286,14 @@ def kernel_cases(device, timer, res):
         ("decode past=100", 1, 1, 32, 100, 256, True, False),
         ("decode past=2000", 1, 1, 32, 2000, 2048, True, False),
         ("decode B=2 past=2000 gqa8", 2, 1, 8, 2000, 2048, True, False),
+        # the split-KV decode's 64-key splits: one key, ragged, full, empty
+        ("decode past=1", 1, 1, 32, 1, 256, True, False),
+        ("decode past=63", 1, 1, 32, 63, 256, True, False),
+        ("decode past=64", 1, 1, 32, 64, 256, True, False),
+        ("decode past=65", 1, 1, 32, 65, 256, True, False),
+        ("decode past=127", 1, 1, 32, 127, 256, True, False),
+        ("decode B=4 past=[0,65,1000,2000]", 4, 1, 32, [0, 65, 1000, 2000],
+         2048, True, False),
         ("prefill T=1919 past=0", 1, 1919, 32, 0, 2048, False, False),
         ("prefill B=2 T=64 past=[1000,1100]", 2, 64, 32, [1000, 1100], 1280,
          False, False),
@@ -2033,6 +2059,12 @@ def main() -> int:
     kv_path(mp, fused, launches)
     log(f"[9 quantized KV cache] done ({time.time() - t0:.1f} s)")
 
+    # K3's prefill path beside its decode path (the summary names decode)
+    log("  flash_attn prefill T=1919: " + "; ".join(
+        f"{kname} kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+        f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f}"
+        for kname in ("flash_attn", "flash_attn_int8", "flash_attn_int4")
+        for r in res[kname] if "prefill T=1919" in r["case"]))
     summary = []
     for kname, (src, replaces, rep_case) in SOURCES.items():
         r = next(c for c in res[kname] if c["case"].startswith(rep_case))

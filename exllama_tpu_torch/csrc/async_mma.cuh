@@ -1,0 +1,77 @@
+// The pipelined tensor-core building blocks of K2 (q4_matmul.cu) and K3
+// (flash_attn.cu), by inline PTX: asynchronous global -> shared copies
+// (cp.async, which the copy ring of both kernels is made of), ldmatrix
+// fragment loads and the bf16 mma.sync.m16n8k16 with f32 accumulators.
+//
+// Fragment layouts of mma.m16n8k16 (g = lane / 4, q = lane % 4):
+//   A 16x16 row-major: a[0] = (row g, cols 2q, 2q+1), a[1] = (row g+8, ..),
+//                      a[2] = (row g, cols 2q+8, 2q+9), a[3] = (row g+8, ..)
+//   B 16x8 (k x n):    b[0] = (k 2q, 2q+1; col g), b[1] = (k 2q+8, 2q+9; col g)
+//   C 16x8 f32:        c[0], c[1] = (row g, cols 2q, 2q+1), c[2], c[3] = row g+8
+// so the C fragments of two neighbouring 8-column tiles are, rounded to
+// bf16, the A fragment of a 16-deep product (flash attention's P).
+#pragma once
+
+#include "common.cuh"
+
+namespace tc {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; the first `bytes` (0..16) are
+// read, the rest of the 16 zero-filled (bytes = 0 reads nothing).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(bytes));
+}
+
+// 4 bytes global -> shared (only 4-byte alignment needed); bytes 0 or 4.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
+// l / 8, and register i receives matrix i's (row g, cols 2q, 2q+1).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// The same, each matrix transposed: register i receives matrix i's
+// (rows 2q, 2q+1; col g).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c += a * b on bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats -> one register of two bf16 (lo in the low half), round to
+// nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+}  // namespace tc

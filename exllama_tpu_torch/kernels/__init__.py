@@ -64,7 +64,7 @@ _SIGNATURES = {
     "q4_matmul_glu": ("q4_matmul", "q4_matmul_glu_launch",
                       "ppppp" + "i" * 6 + "p"),
     "flash_attn": ("flash_attn", "flash_attn_launch",
-                   "p" * 10 + "i" * 9 + "f" + "p"),
+                   "p" * 12 + "i" * 12 + "f" + "p"),
     "dense_gemv": ("dense_gemv", "dense_gemv_launch", "ppp" + "iii" + "p"),
     "head_argmax": ("head_argmax", "head_argmax_launch",
                     "ppppp" + "iii" + "f" + "p"),

@@ -5,8 +5,11 @@ int4 packed two values a byte -- with one f32 scale per (token, kv head).
 ``attend`` launches kernel K3 ``flash_attn`` (csrc/flash_attn.cu) for any
 query length on CUDA tensors and counts each launch (``attend.launches``
 for a bf16 cache, ``attend.launches_int8`` / ``attend.launches_int4`` for a
-quantized one); ``attend_plain`` is its plain PyTorch version. Semantics,
-shared by both:
+quantized one); ``attend_plain`` is its plain PyTorch version. K3 has two
+paths, picked by shape (``decode_rows``): split-KV decode, whose key splits
+``split_plan`` sizes and whose arithmetic ``attend_split_plain`` writes out
+in plain tensor code, and tensor-core prefill tiles. Semantics, shared by
+all:
 
   * the cache is [B, Hkv, S_max, D]; only ``cache[:, :, :attend_len]`` is read;
   * query t of row b sits at position ``past[b] + t`` and sees key s iff
@@ -169,40 +172,26 @@ def update_kv_cache(k_cache, v_cache, new_k, new_v, past_len, k_scale=None,
     return k_cache, v_cache, None, None
 
 
-def attend_plain(
-    q: torch.Tensor,            # [B, T, H, D]
-    k_cache: torch.Tensor,      # [B, Hkv, S_max, D] (int4: D/2)
-    v_cache: torch.Tensor,
-    past_len,                   # int or [B]
-    attend_len: int,
-    input_mask: Optional[torch.Tensor] = None,   # [B, >=attend_len] bool
-    new_kv=None,                # ([B,1,Hkv,D], [B,1,Hkv,D]) or None
-    k_scale: Optional[torch.Tensor] = None,      # [B, Hkv, S_max] f32
-    v_scale: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Plain version of K3: full masked softmax in f32, p cast to bf16
-    before the PV product, normalized after it; a quantized cache enters as
-    its raw integers, the K scale on the scores, the V scale on p."""
+def _masked_scores(q, k_cache, v_cache, past_len, attend_len, input_mask,
+                   deferred, k_scale, v_scale):
+    """K3's scores in f32 [B, Hkv, G, T, S] -- the K scale then 1/sqrt(D),
+    ``MASK_VALUE`` where causally masked, the pad bias added after that --
+    with the mask ``ok``, q [B, T, Hkv, G, D] and the raw V [B, Hkv, S, D]
+    in f32, and the V scales [B, Hkv, 1, 1, S] (None over bf16)."""
     b, t, h, d = q.shape
     mode = kv_mode(k_cache, d, k_scale)
     hkv = k_cache.shape[1]
     g = h // hkv
-    deferred = new_kv is not None
-    if deferred and t != 1:
-        raise ValueError("deferred-commit attend is a decode-only path")
     past = _past_tensor(past_len, b, q.device).to(torch.long)
-    scale = 1.0 / math.sqrt(d)
-
     k = k_cache[:, :, :attend_len]
     v = v_cache[:, :, :attend_len]
     if mode == 2:
         k, v = unpack_kv4(k, torch.float32), unpack_kv4(v, torch.float32)
-    k = k.to(torch.float32)                             # [B, Hkv, S, D]
     qf = q.reshape(b, t, hkv, g, d).to(torch.float32)
-    scores = torch.einsum("bthgd,bhsd->bhgts", qf, k)
+    scores = torch.einsum("bthgd,bhsd->bhgts", qf, k.to(torch.float32))
     if mode:
         scores = scores * k_scale[:, :, None, None, :attend_len]
-    scores = scores * scale
+    scores = scores * (1.0 / math.sqrt(d))
 
     s_pos = torch.arange(attend_len, device=q.device)
     t_pos = past[:, None] + torch.arange(t, device=q.device)[None, :]  # [B, T]
@@ -219,35 +208,168 @@ def attend_plain(
         pad = ~input_mask[:, :attend_len].to(q.device, torch.bool)
         scores = scores + torch.where(pad, NEG_INF, 0.0)[:, None, None, None]
     vs = v_scale[:, :, None, None, :attend_len] if mode else None
+    return scores, ok, qf, v.to(torch.float32), vs
+
+
+def _in_flight(qf, new_kv, d):
+    """The deferred step's own row: its scores [B, Hkv, G, T, 1] (no pad
+    bias, no scale) and its bf16 V row [B, Hkv, 1, D] in f32."""
+    kn = new_kv[0].transpose(1, 2).to(torch.float32)                   # [B,Hkv,1,D]
+    s_new = torch.einsum("bthgd,bhsd->bhgts", qf, kn) * (1.0 / math.sqrt(d))
+    return s_new, new_kv[1].transpose(1, 2).to(torch.float32)
+
+
+def attend_plain(
+    q: torch.Tensor,            # [B, T, H, D]
+    k_cache: torch.Tensor,      # [B, Hkv, S_max, D] (int4: D/2)
+    v_cache: torch.Tensor,
+    past_len,                   # int or [B]
+    attend_len: int,
+    input_mask: Optional[torch.Tensor] = None,   # [B, >=attend_len] bool
+    new_kv=None,                # ([B,1,Hkv,D], [B,1,Hkv,D]) or None
+    k_scale: Optional[torch.Tensor] = None,      # [B, Hkv, S_max] f32
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of K3: full masked softmax in f32, p cast to bf16
+    before the PV product, normalized after it; a quantized cache enters as
+    its raw integers, the K scale on the scores, the V scale on p."""
+    b, t, h, d = q.shape
+    deferred = new_kv is not None
+    if deferred and t != 1:
+        raise ValueError("deferred-commit attend is a decode-only path")
+    scores, ok, qf, v, vs = _masked_scores(
+        q, k_cache, v_cache, past_len, attend_len, input_mask, deferred,
+        k_scale, v_scale)
     if deferred:
-        kn = new_kv[0].transpose(1, 2).to(torch.float32)              # [B,Hkv,1,D]
-        s_new = torch.einsum("bthgd,bhsd->bhgts", qf, kn) * scale
+        s_new, v_new = _in_flight(qf, new_kv, d)
         scores = torch.cat([scores, s_new], dim=-1)
         ok = torch.cat([ok, torch.ones_like(ok[..., :1])], dim=-1)
         # the in-flight row stays bf16: no scale on its p
-        v = torch.cat([v.to(torch.float32),
-                       new_kv[1].transpose(1, 2).to(torch.float32)], dim=2)
-        if mode:
+        v = torch.cat([v, v_new], dim=2)
+        if vs is not None:
             vs = torch.cat([vs, torch.ones_like(vs[..., :1])], dim=-1)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.where(ok, torch.exp(scores - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     l = torch.where(l == 0.0, 1.0, l)
-    if mode:
+    if vs is not None:
         p = p * vs
-    o = torch.einsum(
-        "bhgts,bhsd->bthgd",
-        p.to(torch.bfloat16).to(torch.float32), v.to(torch.float32),
-    )
+    o = torch.einsum("bhgts,bhsd->bthgd", p.to(torch.bfloat16).to(torch.float32),
+                     v)
     o = o / l.permute(0, 3, 1, 2, 4)                                   # [B,T,Hkv,G,1]
     return o.reshape(b, t, h, d).to(q.dtype)
+
+
+def attend_split_plain(q, k_cache, v_cache, past_len, attend_len: int,
+                       input_mask=None, new_kv=None, k_scale=None,
+                       v_scale=None, *, nsplit: int, chunk: int,
+                       p_dtype=torch.bfloat16, out_dtype=None):
+    """K3's decode path in plain tensor code: the keys [0, attend_len) in
+    ``nsplit`` splits of ``chunk``; per split an (m, l, acc) partial -- m
+    the split's max score (``MASK_VALUE`` where it sees no key), l the sum
+    of the unscaled p = exp(score - m), acc the sum of p (V scale folded
+    in, rounded to ``p_dtype``) times V -- then the combine: the partials
+    rescaled to their common max, the in-flight row of a deferred step
+    folded in (in f32), l == 0 -> 1. ``p_dtype=torch.float32`` is the exact
+    decomposition of the full softmax; the output is in ``out_dtype``
+    (default q.dtype)."""
+    b, t, h, d = q.shape
+    deferred = new_kv is not None
+    if nsplit * chunk < attend_len or (nsplit - 1) * chunk >= attend_len:
+        raise ValueError(f"{nsplit} splits of {chunk} for {attend_len} keys")
+    scores, ok, qf, v, vs = _masked_scores(
+        q, k_cache, v_cache, past_len, attend_len, input_mask, deferred,
+        k_scale, v_scale)
+    ms, ls, accs = [], [], []
+    for i in range(nsplit):
+        sl = slice(i * chunk, min((i + 1) * chunk, attend_len))
+        m = scores[..., sl].amax(dim=-1, keepdim=True)
+        p = torch.where(ok[..., sl], torch.exp(scores[..., sl] - m), 0.0)
+        ls.append(p.sum(dim=-1, keepdim=True))
+        if vs is not None:
+            p = p * vs[..., sl]
+        accs.append(torch.einsum("bhgts,bhsd->bhgtd",
+                                 p.to(p_dtype).to(torch.float32), v[:, :, sl]))
+        ms.append(m)
+    m = torch.stack(ms).amax(dim=0)
+    f = [torch.exp(mi - m) for mi in ms]
+    l = sum(fi * li for fi, li in zip(f, ls))
+    acc = sum(fi * ai for fi, ai in zip(f, accs))                      # [B,Hkv,G,T,D]
+    if deferred:
+        s_new, v_new = _in_flight(qf, new_kv, d)
+        m_fin = torch.maximum(m, s_new)
+        alpha, p_new = torch.exp(m - m_fin), torch.exp(s_new - m_fin)
+        l = alpha * l + p_new
+        acc = alpha * acc + p_new * v_new[:, :, None]
+    l = torch.where(l == 0.0, 1.0, l)
+    o = (acc / l).permute(0, 3, 1, 2, 4)                               # [B,T,Hkv,G,D]
+    return o.reshape(b, t, h, d).to(out_dtype or q.dtype)
+
+
+# ------------------------------------------------------------- K3's paths
+
+KEY_TILE = 64            # keys per staged tile of K3; a split is a multiple
+DECODE_MAX_ROWS = 16     # query rows per kv head that take the decode path
+
+
+def decode_rows(t: int, g: int) -> Optional[int]:
+    """Query rows per work item of K3's split-KV decode path for T query
+    positions and g query heads per kv head -- the power of two >= the T*g
+    rows of a kv head, at most 16 -- or None where the shape takes the
+    prefill path. Every T = 1 step decodes (rows beyond 16 are taken 16 at a
+    time); otherwise up to 16 rows do: past that the tensor-core tiles of
+    the prefill path, 16 rows a warp, are no longer mostly padding."""
+    rows = t * g
+    if t != 1 and rows > DECODE_MAX_ROWS:
+        return None
+    r = 1
+    while r < min(rows, DECODE_MAX_ROWS):
+        r *= 2
+    return r
+
+
+def split_plan(items: int, attend_len: int, sms: int) -> tuple[int, int]:
+    """K3 decode's key splits for ``items`` (batch row, kv head, row group)
+    triples over keys [0, attend_len) on a card of ``sms`` SMs: (nsplit,
+    chunk), chunk a multiple of ``KEY_TILE``, the splits [i*chunk,
+    (i+1)*chunk) covering every key once and each starting below
+    attend_len, with about two work items per SM (one SM holds two decode
+    blocks) -- or one split per 64 keys where there are fewer keys."""
+    want = max(1, -(-2 * sms // items))
+    chunk = KEY_TILE * -(-attend_len // (want * KEY_TILE))
+    return -(-attend_len // chunk), chunk
+
+
+_SMS: dict = {}
+_SCRATCH: dict = {}
+
+
+def _sm_count(dev) -> int:
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
+
+
+def _decode_scratch(dev, n_part: int, n_ticket: int):
+    """The decode path's partials (f32) and tickets (int32, zero between
+    launches: the last block of each ticket resets it), grown per device
+    and kept, so a decode step allocates nothing."""
+    part, ticket = _SCRATCH.get(dev, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty((n_part,), dtype=torch.float32, device=dev)
+    if ticket is None or ticket.numel() < n_ticket:
+        ticket = torch.zeros((n_ticket,), dtype=torch.int32, device=dev)
+    _SCRATCH[dev] = (part, ticket)
+    return part, ticket
 
 
 def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
            new_kv=None, k_scale=None, v_scale=None):
     """Masked causal GQA attention, [B, T, H, D] in q.dtype: kernel K3 for
     CUDA tensors, :func:`attend_plain` for CPU ones. ``k_scale`` /
-    ``v_scale`` [B, Hkv, S_max] f32 go with an int8 or int4 cache."""
+    ``v_scale`` [B, Hkv, S_max] f32 go with an int8 or int4 cache. K3 takes
+    its split-KV decode path where :func:`decode_rows` says so (splits from
+    :func:`split_plan`), its tensor-core prefill path elsewhere."""
     if q.device.type == "cpu":
         return attend_plain(q, k_cache, v_cache, past_len, attend_len,
                             input_mask, new_kv, k_scale, v_scale)
@@ -293,15 +415,24 @@ def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
         vn = new_kv[1].to(torch.bfloat16).contiguous()
         if kn.shape != (b, 1, hkv, d) or vn.shape != (b, 1, hkv, d):
             raise ValueError("new_kv rows must be [B, 1, Hkv, D]")
+    rows = decode_rows(t, h // hkv)
+    part = ticket = None
+    nsplit = chunk = 0
+    if rows is not None:
+        groups = b * hkv * -(-t * (h // hkv) // rows)
+        nsplit, chunk = split_plan(groups, attend_len, _sm_count(q.device))
+        part, ticket = _decode_scratch(
+            q.device, groups * nsplit * rows * (d + 2), groups)
     out = torch.empty_like(q)
     kernels.check(kernels.launcher("flash_attn")(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kernels.ptr(k_scale if mode else None),
         kernels.ptr(v_scale if mode else None), past.data_ptr(),
         kernels.ptr(mask), kernels.ptr(kn), kernels.ptr(vn), out.data_ptr(),
+        kernels.ptr(part), kernels.ptr(ticket),
         b, t, h, hkv, d, s_max, attend_len,
-        0 if mask is None else mask.shape[1], mode, 1.0 / math.sqrt(d),
-        kernels.stream_of(q),
+        0 if mask is None else mask.shape[1], mode, rows or 0, nsplit, chunk,
+        1.0 / math.sqrt(d), kernels.stream_of(q),
     ), "flash_attn")
     count_launch(attend, mode)
     return out

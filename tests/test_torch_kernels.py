@@ -184,15 +184,26 @@ def test_q4_matmul_glu_matches_plain(gen, m, ni, n, gs):
     assert torch.equal(quant.q4_matmul(flipped, qt, glu=(ni, ou)), -got)
 
 
-@pytest.mark.parametrize("m,k,n,gs", [
-    (33, 256, 520, 32), (130, 512, 136, 64), (257, 1024, 384, 128),
+@pytest.mark.parametrize("m,k,n,gs,act", [
+    (33, 256, 520, 32, False), (130, 512, 136, 64, False),
+    (257, 1024, 384, 128, False),
+    # M around the 128-row tile, M = 1919; K % 64 == 32 (a half slab) at
+    # g32 and g64 ... 128; N % 8 != 0 (plain loads of weights and scales)
+    (127, 256, 264, 128, False), (129, 96, 200, 32, False),
+    (1919, 384, 264, 128, False), (64, 256, 100, 64, False),
+    (40, 128, 130, 32, False), (200, 512, 136, 128, True),
 ])
-def test_q4_dequant_matmul_matches_plain(gen, m, k, n, gs):
-    """1e-2: the same bf16 weights, f32 sums in another order, bf16 out."""
-    qt = _qt(gen, k, n, gs, False)
+def test_q4_dequant_matmul_matches_plain(gen, m, k, n, gs, act):
+    """1e-2: the same bf16 weights, f32 sums in another order, bf16 out.
+    Act-order: the caller gathers x (ops/quant.py:q4_matmul)."""
+    qt = _qt(gen, k, n, gs, act)
     x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
-    _close(quant.q4_dequant_matmul(x, qt),
-           quant._q4_matmul_plain(x, qt), 1e-2)
+    if act:
+        x = x.index_select(1, qt.x_map.long())
+    before = quant.q4_dequant_matmul.launches
+    got = quant.q4_dequant_matmul(x, qt)
+    assert quant.q4_dequant_matmul.launches == before + 1
+    _close(got, quant._q4_matmul_plain(x, qt), 1e-2)
 
 
 @pytest.mark.parametrize("b,t,h,hkv,d,past,deferred,masked", [
@@ -201,11 +212,24 @@ def test_q4_dequant_matmul_matches_plain(gen, m, k, n, gs):
     (2, 37, 8, 2, 64, [5, 40], False, False),
     (2, 19, 4, 1, 128, 0, False, True),
     (1, 130, 4, 4, 64, 3, False, False),
+    # the decode path's 64-key split edges: empty, one key, ragged, full
+    (1, 1, 4, 4, 128, 1, True, False),
+    (1, 1, 4, 4, 128, 63, True, False),
+    (1, 1, 4, 4, 128, 64, True, False),
+    (1, 1, 4, 4, 128, 65, True, False),
+    (1, 1, 4, 4, 64, 127, True, False),
+    (4, 1, 8, 2, 128, [0, 63, 64, 191], True, False),
+    (2, 1, 8, 2, 128, [150, 9], True, True),
+    (2, 1, 8, 2, 128, 100, False, False),       # decode, not deferred
+    (2, 3, 8, 2, 64, [10, 100], False, True),   # 12 rows a kv head
+    (1, 1, 32, 1, 64, 77, True, False),         # 32 rows: two row groups
+    (3, 1, 8, 8, 128, [191, 0, 128], True, True),
 ])
 def test_flash_attn_matches_plain(gen, b, t, h, hkv, d, past, deferred,
                                   masked):
     """2e-2: p is rounded to bf16 against a running max in the kernel and
-    against the final max in the plain version."""
+    against the final max in the plain version. Shapes of both paths:
+    split-KV decode (T = 1, or T * H / Hkv <= 16) and the prefill tiles."""
     s_max = 256
     q = torch.randn((b, t, h, d), generator=gen, device="cuda").bfloat16()
     kc = torch.randn((b, hkv, s_max, d), generator=gen,
@@ -535,6 +559,9 @@ def _swap_int4_halves(c):
     (2, 37, 8, 2, 64, [5, 140], False, False),
     (2, 19, 4, 1, 128, 0, False, True),
     (1, 130, 4, 4, 128, 3, False, False),
+    (4, 1, 8, 2, 128, [1, 64, 127, 179], True, False),
+    (2, 1, 8, 2, 64, [65, 150], True, True),
+    (2, 2, 8, 2, 128, [30, 120], False, False),
 ])
 def test_flash_attn_quantized_matches_plain(gen, kind, b, t, h, hkv, d, past,
                                             deferred, masked):

@@ -258,3 +258,152 @@ def test_greedy_and_sample():
     tok, prob = sampling.sample(torch.from_numpy(lg), gen, settings)
     np.testing.assert_array_equal(tok.numpy(), [1, 0])
     np.testing.assert_allclose(prob.numpy(), [1.0, 1.0])
+
+
+# ------------------------------------------ K3's split-KV decode, in plain code
+
+SPLIT_CASES = {
+    # name: (b, t, h, hkv, past, deferred, masked, kind)
+    "decode_past0": (2, 1, 4, 4, 0, True, False, None),
+    "decode_per_row": (2, 1, 4, 4, [30, 390], True, False, None),
+    "decode_not_deferred": (1, 1, 4, 2, 200, False, False, None),
+    "rows_t3_gqa4": (2, 3, 8, 2, [5, 300], False, False, None),
+    "left_pad_gqa": (2, 1, 8, 2, 150, True, True, None),
+    "int8_deferred": (2, 1, 4, 2, [64, 333], True, False, "int8"),
+    "int4_left_pad": (2, 1, 4, 2, 250, True, True, "int4"),
+}
+SPLIT_S, SPLIT_LEN, SPLIT_D = 448, 400, 64
+
+
+def _split_inputs(name):
+    b, t, h, hkv, past, deferred, masked, kind = SPLIT_CASES[name]
+    rng = np.random.default_rng(sum(map(ord, name)))
+    q, kc, vc, kn, vn = _attn_case(rng.integers(1 << 30), b, t, h, hkv,
+                                   SPLIT_D, SPLIT_S)
+    kc, vc = _bf16(kc), _bf16(vc)
+    ks = vs = None
+    if kind is not None:
+        quant_rows = (attention.quantize_kv_rows if kind == "int8"
+                      else attention.quantize_kv_rows4)
+        (kc, ks), (vc, vs) = (quant_rows(c.transpose(1, 2)) for c in (kc, vc))
+        kc, vc = kc.transpose(1, 2).contiguous(), vc.transpose(1, 2).contiguous()
+        ks, vs = ks.transpose(1, 2).contiguous(), vs.transpose(1, 2).contiguous()
+    mask = None
+    if masked:
+        mask = np.ones((b, SPLIT_S), bool)
+        mask[0, :40] = False
+    past_t = past if isinstance(past, int) else torch.tensor(past)
+    new_kv = (_bf16(kn), _bf16(vn)) if deferred else None
+    args = (_bf16(q), kc, vc, past_t, SPLIT_LEN,
+            None if mask is None else torch.from_numpy(mask), new_kv, ks, vs)
+    return args, past, mask
+
+
+def _chunk(nsplit):
+    chunk = attention.KEY_TILE * -(-SPLIT_LEN // (attention.KEY_TILE * nsplit))
+    assert -(-SPLIT_LEN // chunk) == nsplit
+    return chunk
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 7])
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_attend_split_decomposition_is_exact(name, nsplit):
+    """The split partials and their combine, in f32 with p unrounded, equal
+    one softmax over all keys (and the in-flight row) computed in f64 from
+    the same f32 scores, to 1e-5 of the output scale: the decomposition
+    itself adds nothing but f32 sum order. Splits past a row's cursor see
+    no key and must weigh nothing."""
+    args, _, _ = _split_inputs(name)
+    q, kc, vc, past, alen, mask, new_kv, ks, vs = args
+    got = attention.attend_split_plain(*args, nsplit=nsplit,
+                                       chunk=_chunk(nsplit),
+                                       p_dtype=torch.float32,
+                                       out_dtype=torch.float32)
+    scores, ok, qf, v, vsc = attention._masked_scores(
+        q, kc, vc, past, alen, mask, new_kv is not None, ks, vs)
+    p_scale = torch.ones_like(scores) if vsc is None else vsc.expand_as(scores)
+    if new_kv is not None:
+        s_new, v_new = attention._in_flight(qf, new_kv, SPLIT_D)
+        scores = torch.cat([scores, s_new], -1)
+        ok = torch.cat([ok, torch.ones_like(ok[..., :1])], -1)
+        p_scale = torch.cat([p_scale, torch.ones_like(p_scale[..., :1])], -1)
+        v = torch.cat([v, v_new], 2)
+    sd = scores.double()
+    p = torch.where(ok, torch.exp(sd - sd.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l == 0, 1.0, l)
+    ref = torch.einsum("bhgts,bhsd->bthgd", p * p_scale.double(), v.double())
+    ref = (ref / l.permute(0, 3, 1, 2, 4)).reshape(got.shape)
+    scale = ref.abs().max().item()
+    assert (got.double() - ref).abs().max().item() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("nsplit", [1, 2, 3, 7])
+@pytest.mark.parametrize("name", list(SPLIT_CASES))
+def test_attend_split_matches_plain_and_jax(name, nsplit):
+    """With p rounded to bf16 (against each split's own max, as K3's decode
+    path does) the bf16 output stays within 2e-2 of attend_plain (rounded
+    against the final max) and of the JAX package's flash attention, run in
+    interpret mode as its own tests run it."""
+    args, past, mask = _split_inputs(name)
+    q, kc, vc, past_t, alen, mask_t, new_kv, ks, vs = args
+    got = _np(attention.attend_split_plain(*args, nsplit=nsplit,
+                                           chunk=_chunk(nsplit)))
+    np.testing.assert_allclose(got, _np(attention.attend_plain(*args)),
+                               rtol=2e-2, atol=2e-2)
+    if nsplit not in (3, 7):     # one JAX run per case and split edge kind
+        return
+    jnp_ = lambda t: jnp.asarray(t.numpy())  # noqa: E731
+    ref = np.asarray(jattn.attend(
+        jnp.asarray(_np(q), jnp.bfloat16),
+        jnp_(kc) if ks is not None else jnp.asarray(_np(kc), jnp.bfloat16),
+        jnp_(vc) if ks is not None else jnp.asarray(_np(vc), jnp.bfloat16),
+        jnp.asarray(past, jnp.int32), alen,
+        None if mask is None else jnp.asarray(mask), impl="flash_interpret",
+        new_kv=None if new_kv is None else tuple(
+            jnp.asarray(_np(x), jnp.bfloat16) for x in new_kv),
+        k_scale=None if ks is None else jnp_(ks),
+        v_scale=None if vs is None else jnp_(vs),
+    ).astype(jnp.float32))
+    np.testing.assert_allclose(got, ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("items,attend_len,sms", [
+    (32, 2048, 132), (32, 2001, 132), (16, 2048, 132), (64, 256, 132),
+    (1, 64, 132), (1, 65, 132), (4, 1, 8), (1024, 4096, 132), (3, 777, 114),
+])
+def test_split_plan_covers_every_key_once(items, attend_len, sms):
+    """K3 decode's splits: chunks of whole 64-key tiles; the nsplit splits
+    [i*chunk, (i+1)*chunk) cover [0, attend_len) once, none starts past it;
+    about two work items per SM, or one split per tile where the keys run
+    out."""
+    nsplit, chunk = attention.split_plan(items, attend_len, sms)
+    assert chunk % attention.KEY_TILE == 0 and chunk > 0
+    assert nsplit * chunk >= attend_len > (nsplit - 1) * chunk
+    covered = np.zeros(attend_len, int)
+    for i in range(nsplit):
+        covered[i * chunk:min((i + 1) * chunk, attend_len)] += 1
+    assert (covered == 1).all()
+    # the shortest chunk of whole tiles with which about 2 * sms items,
+    # ``want`` splits a triple, cover the keys
+    want = -(-2 * sms // items)
+    assert want * chunk >= attend_len > want * (chunk - attention.KEY_TILE)
+    assert nsplit <= want
+
+
+def test_split_plan_at_llama7b():
+    """7B at B = 1 (32 kv heads, one row each) past 2000 (attend_len 2048)
+    on the H100's 132 SMs: 8 splits of 256 keys, 256 work items -- the
+    first slice's K3 ran 32 blocks."""
+    assert attention.split_plan(32, 2048, 132) == (8, 256)
+    assert attention.decode_rows(1, 1) == 1
+
+
+@pytest.mark.parametrize("t,g,rows", [
+    (1, 1, 1), (1, 4, 4), (1, 8, 8), (3, 4, 16), (2, 8, 16), (1, 32, 16),
+    (16, 1, 16), (17, 1, None), (2, 9, None), (1919, 1, None),
+])
+def test_decode_rows_by_shape(t, g, rows):
+    """Every T = 1 step and up to 16 query rows a kv head take the decode
+    path, rounded up to a power of two; more take the prefill tiles."""
+    assert attention.decode_rows(t, g) == rows
