@@ -25,18 +25,26 @@ Phases, one line or block of output each; any failure exits non-zero:
      after an independent f32 reference has shown that per-key K or V
      scales replaced by their mean, the V scale also applied to the
      softmax denominator, and swapped int4 halves each move the output by
-     more than 3x the limit (kv_cases);
+     more than 3x the limit (kv_cases); K1 and K9 (a8, a8x2) on their
+     tensor-core route at M = 2, 4, 16, 18, 32 on the four projections,
+     with the K1-vs-K2 crossover at M = 2..64 (gemv_tc_cases); K1, K9, K2,
+     K10 and K12 at groupsize 256 and groupsize = K (groupsize_cases); K3
+     at head_dim 256, decode and prefill, over bf16 / int8 / int4 caches,
+     and head_dim 100 on the einsum route's own counter (head_dim_cases);
   4. a 2-layer model at full 7B width built from one seed on the card and on
      the CPU: teacher-forced prefill + decode logits compared, in the default
      configuration and with fuse_qkv + commit_impl="pallas", and the greedy
      head's tokens held against the CPU logits; then the same comparison
      under matmul_impl="pallas_a8x2" and "pallas_a8t", and under an int8
-     and an int4 KV cache in both configurations;
+     and an int4 KV cache in both configurations; then 2-layer full-width
+     models at groupsize 256, at head_dim 256 and at head_dim 100
+     (OpenLlama-3B, attn_impl "auto": the einsum route) against the CPU;
   5. the main path at full width, in the default configuration (the JAX
      package's: fuse_mlp, fuse_attn, commit_impl="auto"): a 32-layer
      Llama-7B-shape model (random weights from a seed) answering three
      generate_simple requests, with prompt and decode tokens/s, peak memory
-     and every kernel's launch count;
+     and every kernel's launch count, request 2's 18-token prefill and a
+     B=2 decode step of request 3 timed;
   6. greedy decode as bench.py drives it: 128 tokens through
      forward_chunk(head_mode="argmax") after the 1919-token prompt, once with
      commit_impl="auto" and once with fuse_qkv + commit_impl="pallas";
@@ -1278,6 +1286,257 @@ def kv_cases(device, timer, res):
         del caches, lists, plain
 
 
+# ------------------------------- phase 3: the tensor-core GEMV, new shapes
+
+GEMV_MS = (2, 4, 16, 18, 32)        # rows of the tensor-core route's sweep
+CROSSOVER_MS = (2, 4, 8, 16, 24, 32, 33, 48, 64)
+
+
+def gemv_tc_cases(device, timer, res, crossover):
+    """K1 and K9 (a8, a8x2) on their tensor-core route at 2..32 rows, at the
+    four Llama-7B projections (qkv with the RMSNorm prologue), each against
+    its plain version with kernel / plain / library / bound times; and the
+    K1-vs-K2 crossover: both kernels at M = 2..32, K2 alone at 33..64
+    (K1 takes at most 32 rows), on the qkv and down shapes, into
+    ``crossover`` {shape: {M: {"q4_gemv": ms, "q4_dequant_matmul": ms}}}."""
+    from exllama_tpu_torch.formats.gptq import dequantize_t
+    from exllama_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    record = make_recorder(timer, res)
+    eps, f32 = 1e-6, torch.float32
+    shapes = [("qkv", 4096, 12288), ("o", 4096, 4096),
+              ("gateup", 4096, 22016), ("down", 11008, 4096)]
+    for nm, k, n in shapes:
+        qt = random_qt(gen, k, n, 128, False, device)
+        w = dequantize_t(qt)
+        nw = ((torch.rand(k, generator=gen, device=device) + 0.5).bfloat16()
+              if nm == "qkv" else None)
+        for m in GEMV_MS:
+            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+            tag = f"{nm} g128 M={m}" + (" norm" if nw is not None else "")
+            nbytes = (q4_bytes(k, n, 128) + m * k * 2 + m * n * 2
+                      + (k * 2 if nw is not None else 0))
+            got = quant.q4_gemv(x, qt, nw, eps)
+            err, rel = check_close(f"q4_gemv {tag}", got,
+                                   quant.q4_gemv_plain(x, qt, nw, eps),
+                                   TOL["q4_gemv"])
+            record("q4_gemv", tag, err, rel,
+                   lambda: quant.q4_gemv(x, qt, nw, eps),
+                   lambda: quant.q4_gemv_plain(x, qt, nw, eps),
+                   lambda: torch.matmul(x, w), nbytes, 2 * m * k * n,
+                   iters=10)
+            for two_pass in (False, True):
+                mode = "a8x2" if two_pass else "a8"
+                got = quant.q4_gemv_a8(x, qt, nw, eps, two_pass)
+                ref = quant.q4_gemv_a8_plain(x, qt, nw, eps, two_pass, f32)
+                err, rel = check_close(f"q4_gemv_a8 {mode} {tag}", got, ref,
+                                       TOL["q4_gemv_a8"])
+                record("q4_gemv_a8", f"{mode} {tag}", err, rel,
+                       lambda: quant.q4_gemv_a8(x, qt, nw, eps, two_pass),
+                       lambda: quant.q4_gemv_a8_plain(x, qt, nw, eps,
+                                                      two_pass),
+                       lambda: torch.matmul(x, w), nbytes, 2 * m * k * n,
+                       iters=10)
+        if nm in ("qkv", "down"):
+            row = crossover.setdefault(f"{nm} {k}->{n} g128", {})
+            for m in CROSSOVER_MS:
+                x = torch.randn((m, k), generator=gen,
+                                device=device).bfloat16()
+                t = {"q4_dequant_matmul": timer(
+                    lambda: quant.q4_dequant_matmul(x, qt), 10)}
+                if m <= quant.GEMV_MAX_M:
+                    t["q4_gemv"] = timer(lambda: quant.q4_gemv(x, qt), 10)
+                row[m] = t
+            log(f"  crossover {nm}: " + "; ".join(
+                f"M={m} " + ", ".join(f"{kk} {v:.4f}" for kk, v in t.items())
+                for m, t in row.items()))
+        del w
+
+
+def groupsize_cases(device, timer, res):
+    """K1, K9 (a8, a8x2), K2, K10 and K12 at groupsize 256 and at
+    groupsize = K (one group a column), against their plain versions at
+    Llama-7B shapes, each with its limit."""
+    from exllama_tpu_torch.formats.gptq import dequantize_t, w8_col_scale
+    from exllama_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    record = make_recorder(timer, res)
+    eps, f32 = 1e-6, torch.float32
+    for gs_name in ("256", "K"):
+        # K1 / K9: the qkv projection with its norm, one row and 18
+        k, n = 4096, 12288
+        gs = k if gs_name == "K" else 256
+        qt = random_qt(gen, k, n, gs, False, device)
+        w = dequantize_t(qt)
+        nw = (torch.rand(k, generator=gen, device=device) + 0.5).bfloat16()
+        for m in (1, 18):
+            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+            tag = f"qkv g{gs} M={m} norm"
+            nbytes = q4_bytes(k, n, gs) + m * k * 2 + m * n * 2 + k * 2
+            err, rel = check_close(f"q4_gemv {tag}",
+                                   quant.q4_gemv(x, qt, nw, eps),
+                                   quant.q4_gemv_plain(x, qt, nw, eps),
+                                   TOL["q4_gemv"])
+            record("q4_gemv", tag, err, rel,
+                   lambda: quant.q4_gemv(x, qt, nw, eps),
+                   lambda: quant.q4_gemv_plain(x, qt, nw, eps),
+                   lambda: torch.matmul(x, w), nbytes, 2 * m * k * n,
+                   iters=10)
+            for two_pass in (False, True):
+                mode = "a8x2" if two_pass else "a8"
+                err, rel = check_close(
+                    f"q4_gemv_a8 {mode} {tag}",
+                    quant.q4_gemv_a8(x, qt, nw, eps, two_pass),
+                    quant.q4_gemv_a8_plain(x, qt, nw, eps, two_pass, f32),
+                    TOL["q4_gemv_a8"])
+                record("q4_gemv_a8", f"{mode} {tag}", err, rel,
+                       lambda: quant.q4_gemv_a8(x, qt, nw, eps, two_pass),
+                       lambda: quant.q4_gemv_a8_plain(x, qt, nw, eps,
+                                                      two_pass),
+                       lambda: torch.matmul(x, w), nbytes, 2 * m * k * n,
+                       iters=10)
+        del w
+        m = 127
+        # K2: gate|up
+        k, n = 4096, 22016
+        gs = k if gs_name == "K" else 256
+        qt = random_qt(gen, k, n, gs, False, device)
+        w = dequantize_t(qt)
+        x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+        err, rel = check_close(f"q4_dequant_matmul gateup g{gs} M={m}",
+                               quant.q4_dequant_matmul(x, qt),
+                               quant._q4_matmul_plain(x, qt),
+                               TOL["q4_dequant_matmul"])
+        record("q4_dequant_matmul", f"gateup g{gs} M={m}", err, rel,
+               lambda: quant.q4_dequant_matmul(x, qt),
+               lambda: quant._q4_matmul_plain(x, qt),
+               lambda: torch.matmul(x, w),
+               q4_bytes(k, n, gs) + m * k * 2 + m * n * 2, 2 * m * k * n)
+        del w
+        # K10: the o-projection through int8
+        k, n = 4096, 4096
+        gs = k if gs_name == "K" else 256
+        qt = random_qt(gen, k, n, gs, False, device)
+        ws = w8_col_scale(qt)
+        x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+        err, rel = check_close(f"q4_prefill_a8 o g{gs} M={m}",
+                               quant.q4_prefill_a8(x, qt, ws),
+                               quant.q4_prefill_a8_plain(x, qt, ws, f32),
+                               TOL["q4_prefill_a8"])
+        w = dequantize_t(qt)
+        record("q4_prefill_a8", f"o g{gs} M={m}", err, rel,
+               lambda: quant.q4_prefill_a8(x, qt, ws),
+               lambda: quant.q4_prefill_a8_plain(x, qt, ws),
+               lambda: torch.matmul(x, w),
+               q4_bytes(k, n, gs) + n * 4 + m * k * 2 + m * n * 2,
+               2 * m * k * n, peak=INT8_OP_PER_S)
+        del w
+        # K12: down over silu(gate)*up formed in the kernel
+        ni, n = 11008, 4096
+        gs = ni if gs_name == "K" else 256
+        qt = random_qt(gen, ni, n, gs, False, device)
+        w = dequantize_t(qt)
+        x = torch.randn((m, 2 * ni), generator=gen, device=device).bfloat16()
+        err, rel = check_close(f"q4_matmul_glu down g{gs} M={m}",
+                               quant.q4_matmul_glu(x, qt, ni, ni),
+                               quant.q4_matmul_glu_plain(x, qt, ni, ni),
+                               TOL["q4_matmul_glu"])
+        record("q4_matmul_glu", f"down g{gs} M={m}", err, rel,
+               lambda: quant.q4_matmul_glu(x, qt, ni, ni),
+               lambda: quant.q4_matmul_glu_plain(x, qt, ni, ni),
+               lambda: torch.matmul(quant.glu_silu_mul(x, ni, ni), w),
+               q4_bytes(ni, n, gs) + m * 2 * ni * 2 + m * n * 2,
+               2 * m * ni * n)
+        del w
+
+
+def head_dim_cases(device, timer, res):
+    """K3 at head_dim 256 (16 heads of 256 at 7B width): split-KV decode
+    at past 2000 (and B = 2 with GQA 4:1) and the prefill tiles at T =
+    1919, over bf16, int8 and int4 caches, each against its plain version
+    (2e-2) with kernel / plain / SDPA / bound times; then head_dim 100
+    (OpenLlama-3B: 32 heads of 100), which attn_impl "auto" routes to the
+    einsum attention: its counter moves and K3's does not. Returns the
+    route's launches."""
+    from exllama_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    record = make_recorder(timer, res)
+    d, h, s_max = 256, 16, 2048
+    cases = [("decode past=2000", 1, 1, 16, 2000, 2048, True),
+             ("decode B=2 past=2000 gqa4", 2, 1, 4, 2000, 2048, True),
+             ("prefill T=1919 past=0", 1, 1919, 16, 0, 2048, False)]
+    for kind in ("bf16",) + KV_KINDS:
+        kname = "flash_attn" if kind == "bf16" else f"flash_attn_{kind}"
+        for label, b, t, hkv, past, alen, deferred in cases:
+            q = torch.randn((b, t, h, d), generator=gen,
+                            device=device).bfloat16()
+            ks = vs = None
+            if kind == "bf16":
+                kc, vc = (torch.randn((b, hkv, s_max, d), generator=gen,
+                                      device=device).bfloat16()
+                          for _ in range(2))
+                kd, vd = kc, vc
+            else:
+                kc, vc, ks, vs = quantized_cache(gen, kind, b, hkv, s_max, d,
+                                                 device)
+                kd, vd = dequantized(kc, ks, d), dequantized(vc, vs, d)
+            new_kv = None
+            if deferred:
+                new_kv = tuple(torch.randn((b, 1, hkv, d), generator=gen,
+                                           device=device).bfloat16()
+                               for _ in range(2))
+            args = (q, kc, vc, past, alen, None, new_kv, ks, vs)
+            err, rel = check_close(f"{kname} D=256 {label}",
+                                   attention.attend(*args),
+                                   attention.attend_plain(*args),
+                                   TOL[kname])
+            keys = past + (0 if deferred else t)
+            vis = b * sum(min(alen, past + ti + (0 if deferred else 1))
+                          + (1 if deferred else 0) for ti in range(t))
+            row_b = (d // 2 if kind == "int4" else d) * (
+                2 if kind == "bf16" else 1) + (0 if kind == "bf16" else 4)
+            nbytes = 2 * q.numel() * 2 + 2 * b * hkv * keys * row_b
+            qh = q.transpose(1, 2)
+            pos = torch.arange(alen, device=device)
+            tpos = past + torch.arange(t, device=device)
+            allow = (pos[None, :] < tpos[:, None] + (0 if deferred else 1))
+
+            def lib():
+                return torch.nn.functional.scaled_dot_product_attention(
+                    qh, kd[:, :, :alen], vd[:, :, :alen], attn_mask=allow,
+                    enable_gqa=hkv != h)
+
+            record(kname, f"D=256 {label}", err, rel,
+                   lambda: attention.attend(*args),
+                   lambda: attention.attend_plain(*args), lib, nbytes,
+                   4 * d * h * vis, iters=10)
+    # head_dim 100: the einsum route, on its own counter
+    d, h, hkv = 100, 32, 32
+    if attention.resolve_attn_impl("auto", d) != "xla":
+        raise AssertionError("head_dim 100 must take the einsum route")
+    fn = attention.attend_xla
+    before = (attention.attend_xla.launches, attention.attend.launches)
+    q = torch.randn((1, 1, h, d), generator=gen, device=device).bfloat16()
+    kc, vc = (torch.randn((1, hkv, 512, d), generator=gen,
+                          device=device).bfloat16() for _ in range(2))
+    new_kv = tuple(torch.randn((1, 1, hkv, d), generator=gen,
+                               device=device).bfloat16() for _ in range(2))
+    got = fn(q, kc, vc, 300, 512, None, new_kv)
+    ref = attention.attend_plain(q, kc, vc, 300, 512, None, new_kv)
+    check_close("attend_xla D=100 vs attend_plain", got, ref,
+                TOL["flash_attn"])
+    moved = (attention.attend_xla.launches - before[0],
+             attention.attend.launches - before[1])
+    if moved != (1, 0):
+        raise AssertionError(f"head_dim 100 route launches {moved}")
+    log(f"  attend_xla D=100 (OpenLlama-3B heads): the einsum route, "
+        f"counter +{moved[0]}, K3 +{moved[1]}")
+    return moved[0]
+
+
 # --------------------------------------------------------------- phase 4
 
 def model_vs_cpu(device):
@@ -1337,6 +1596,72 @@ def model_vs_cpu(device):
     cfg.tuning.commit_impl = "auto"
     return (worst, turbo_model_vs_cpu(cfg, cpu_params, steps[:5], device),
             kv_model_vs_cpu(cfg, cpu_model, gpu_model, steps[:3]))
+
+
+# the groupsize and head dims the port now takes on the card: (label,
+# ExLlamaConfig fields, groupsize). Full width, 2 layers: Llama-7B at
+# groupsize 256; 16 heads of 256 at 7B width; OpenLlama-3B (hidden 3200, 32
+# heads of 100, intermediate 8640, which groupsize 128 does not divide: 64)
+SHAPE_MODELS = (
+    ("groupsize 256", {}, 256),
+    ("head_dim 256", dict(num_attention_heads=16, num_key_value_heads=16,
+                          head_dim=256), 128),
+    ("head_dim 100", dict(hidden_size=3200, intermediate_size=8640,
+                          num_attention_heads=32, num_key_value_heads=32,
+                          head_dim=100), 64),
+)
+
+
+def shapes_model_vs_cpu(device):
+    """Phase 4's comparison (64-token prefill, then 4 teacher-forced decode
+    steps, card vs CPU logits within 3% of the logit scale) for each of
+    SHAPE_MODELS in the default configuration (attn_impl "auto"). Returns
+    {label: (worst rel, {counter: launches})}: head_dim 100 must take the
+    einsum route and never K3, head_dim 256 K3, groupsize 256 K1 and K2."""
+    import exllama_tpu_torch as port
+    from exllama_tpu_torch.ops import attention, quant
+
+    out = {}
+    rng = np.random.default_rng(SEED + 1)
+    for label, fields, gs in SHAPE_MODELS:
+        cfg = port.ExLlamaConfig()
+        for k, v in fields.items():
+            setattr(cfg, k, v)
+        cfg.num_key_value_groups = (cfg.num_attention_heads
+                                    // cfg.num_key_value_heads)
+        cfg.num_hidden_layers = 2
+        cfg.max_seq_len = 128
+        cpu_params = port.make_synthetic_params(cfg, gs, False, seed=3,
+                                                device="cpu", fast=True)
+        cpu_model = port.ExLlama(cfg, params=cpu_params, device="cpu")
+        gpu_model = port.ExLlama(cfg, params=cpu_params.to(device),
+                                 device=device)
+        ids = rng.integers(0, cfg.vocab_size, size=(1, 64)).astype(np.int32)
+        steps = [ids] + [rng.integers(0, cfg.vocab_size, size=(1, 1)).astype(
+            np.int32) for _ in range(4)]
+        c_cpu, c_gpu = port.ExLlamaCache(cpu_model), port.ExLlamaCache(gpu_model)
+        fns = {"flash_attn": attention.attend, "attend_xla":
+               attention.attend_xla, "q4_gemv": quant.q4_gemv,
+               "q4_dequant_matmul": quant.q4_dequant_matmul}
+        before = {k: f.launches for k, f in fns.items()}
+        worst = 0.0
+        for i, tok in enumerate(steps):
+            ref = cpu_model.forward(tok, c_cpu, last_id_only=i > 0)
+            got = gpu_model.forward(tok, c_gpu, last_id_only=i > 0).cpu()
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            if not torch.isfinite(got).all() or rel > 0.03:
+                raise AssertionError(f"{label} step {i}: card vs CPU logits "
+                                     f"rel {rel:.4f}")
+            worst = max(worst, rel)
+        moved = {k: f.launches - before[k] for k, f in fns.items()}
+        want = {"head_dim 100": {"attend_xla": None, "flash_attn": 0},
+                "head_dim 256": {"flash_attn": None, "attend_xla": 0},
+                "groupsize 256": {"q4_gemv": None,
+                                  "q4_dequant_matmul": None}}[label]
+        require(f"phase 4 {label}", moved, want)
+        out[label] = (worst, moved)
+        del cpu_model, gpu_model, cpu_params, c_cpu, c_gpu
+    return out
 
 
 # card vs CPU logits over the logit scale under a quantized cache: (prefill,
@@ -1590,6 +1915,38 @@ def main_path(mp):
     assert isinstance(texts, list) and len(texts) == 2
     assert gen2._mask is not None and gen2.sequence.shape[1] == 40 + 32
     log("  request 3: B=2 batch with a left-pad mask, 32 tokens each")
+
+    # timed: request 2's 18-token prefill (K1 / K6 / K3 at M = 18) and a
+    # decode step of request 3's B=2 batch (K1 and K7 at 2 rows), host
+    # clock around synchronised work, min of 3
+    ids2 = tok.encode("The quick brown fox")
+    t_pre, t_dec = [], []
+    for _ in range(3):
+        c0 = counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        gen.gen_begin(ids2)
+        torch.cuda.synchronize()
+        t_pre.append(time.time() - t0)
+        c1 = counts()
+        t0 = time.time()
+        gen2.gen_tokens(4)
+        torch.cuda.synchronize()
+        t_dec.append((time.time() - t0) / 4)
+        c2 = counts()
+        gen2.gen_rewind(4)
+    n2 = ids2.shape[1] - 1
+    r1["request2_prefill_ms"] = min(t_pre) * 1e3
+    r1["request3_decode_step_ms"] = min(t_dec) * 1e3
+    pre = {k: c1[k] - c0[k] for k in c0 if c1[k] - c0[k]}
+    step = {k: (c2[k] - c1[k]) / 4 for k in c0 if c2[k] - c1[k]}
+    log(f"  request 2: {n2}-token prefill in {r1['request2_prefill_ms']:.3f} "
+        f"ms (launches {pre}); request 3: B=2 decode step in "
+        f"{r1['request3_decode_step_ms']:.3f} ms (launches per step {step})")
+    require("phase 5 request 2 prefill", pre, {
+        "q4_gemv": 64, "q4_mlp": 32, "flash_attn": 32})
+    require("phase 5 request 3 decode step", step, {
+        "q4_gemv": 32, "layer_tail": 32})
     r1["peak_bytes"] = torch.cuda.max_memory_allocated()
     log(f"  max_memory_allocated {r1['peak_bytes'] / 2**30:.2f} GiB")
     return r1
@@ -1957,7 +2314,8 @@ def main() -> int:
 
     secs = kernels.build()
     log(f"[2 build] {len(kernels.LIBRARIES)} libraries (12 kernels; K1, K6, "
-        f"K7 once per GEMV mode, K7 again for the quantized KV caches) built "
+        f"K7 once per GEMV mode, K7 again for the quantized KV caches, K3 "
+        f"again for head_dim 256) built "
         f"and loaded in {secs:.1f} s")
 
     log("[3 kernels] kernel vs plain on the card, medians of L2-cold runs")
@@ -1968,6 +2326,10 @@ def main() -> int:
     fused_cases(device, timer, res)
     turbo_cases(device, timer, res)
     kv_cases(device, timer, res)
+    crossover = {}
+    gemv_tc_cases(device, timer, res, crossover)
+    groupsize_cases(device, timer, res)
+    xla_route = head_dim_cases(device, timer, res)
     log(f"[3 kernels] all agree ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
@@ -1984,6 +2346,13 @@ def main() -> int:
                     f"{KV_MODEL_TOL[k][0]}), decode within {v[1]:.4f} (limit "
                     f"{KV_MODEL_TOL[k][1]})" for k, v in worst_kv.items())
         + f" ({time.time() - t0:.1f} s)")
+    t0 = time.time()
+    shaped = shapes_model_vs_cpu(device)
+    log("[4 model] 2 layers at full width, attn_impl auto, 64-token prefill "
+        "+ 4 decode steps, card vs CPU logits: " + "; ".join(
+            f"{k} within {w:.4f} (limit 0.03; launches {c})"
+            for k, (w, c) in shaped.items()) + f" ({time.time() - t0:.1f} s)")
+    xla_route += shaped["head_dim 100"][1]["attend_xla"]
 
     log("[5 main path] Llama-7B shapes, 32 layers, g128, bf16 KV, "
         "max_seq_len 2048, default configuration")
@@ -2090,6 +2459,18 @@ def main() -> int:
             entry["launches"] += a8
             entry["launches_a8"] = a8
         summary.append(entry)
+    # the tensor-core route at M = 18 beside the kernels' headline cases
+    for entry in summary:
+        if entry["name"] in ("q4_gemv", "q4_gemv_a8"):
+            entry["m18"] = [
+                {k: c[k] for k in ("case", "ms", "plain_ms", "library_ms",
+                                   "bound_ms")}
+                for c in res[entry["name"]] if " M=18" in c["case"]
+                and "g128" in c["case"]]
+    log(f"  K1 vs K2 (ms): {json.dumps(crossover)}")
+    log(f"  phase 5 request 2 prefill {fused['request2_prefill_ms']:.3f} ms, "
+        f"request 3 decode step {fused['request3_decode_step_ms']:.3f} ms; "
+        f"the einsum attention route (head_dim 100) ran {xla_route} times")
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -11,7 +11,9 @@ default, as there), ``commit_impl="auto"``, fused qkv / gate-up
 projections, a bf16 KV cache, exact 4-bit matmuls (``matmul_impl="auto"``)
 and a bf16 lm_head. ``kv_cache_dtype`` opts into the quantized KV caches
 (``"int8"``, packed ``"int4"``; per-(token, head) f32 scales) and
-``pad_head_dim`` into a cache padded to a width the attention kernel takes. Setting ``fuse_mlp``, ``fuse_attn`` and ``fuse_qkv`` to
+``pad_head_dim`` into a cache padded to a width the attention kernel takes;
+``attn_impl`` picks kernel K3 or the plain einsum attention by head dim, as
+the JAX package does. Setting ``fuse_mlp``, ``fuse_attn`` and ``fuse_qkv`` to
 False (any ``commit_impl``) gives the separate-kernel configuration of the
 port's first slice. ``matmul_impl`` opts into the W4A8 turbo modes: int8
 activations at decode M (``"pallas_a8"``, with a residual pass
@@ -38,6 +40,10 @@ _SLICE_ONLY = {
 
 
 COMMIT_IMPLS = ("auto", "xla", "pallas")
+# attention routes (the JAX value names): "flash" = kernel K3 (and the fused
+# decode kernels), "xla" = the plain einsum attention the reference runs
+# outside its flash kernel, "auto" = "flash" where K3 takes the head dim
+ATTN_IMPLS = ("auto", "flash", "xla")
 # The JAX value names are kept so call sites port unchanged: "auto" and
 # "pallas" are the exact kernels, the others the W4A8 modes.
 MATMUL_IMPLS = ("auto", "pallas", "pallas_a8", "pallas_a8x2", "pallas_a8t")
@@ -80,6 +86,14 @@ class TuningParams:
     # images, in GiB. None: the card's total memory less 2.5 GiB for
     # activations and workspace, read when the images are attached.
     prefill_w8_budget_gb: Optional[float] = None
+    # Attention route: "flash" = kernel K3 (and, at decode, the fused layer
+    # kernel K7), "xla" = plain einsum attention (ops/attention.attend_xla,
+    # what the JAX package runs outside Pallas), "auto" = "flash" where
+    # ops/attention.flash_supported_head_dim holds for the width attended,
+    # "xla" elsewhere (OpenLlama-3B's head_dim 100). "flash" with another
+    # head dim raises. The JAX package's TPU-only short-attend demotion to
+    # "xla" has no counterpart.
+    attn_impl: str = "auto"
     # Decode-time attention length bucketing: the attended KV length is
     # rounded up to a multiple of this (0 = always the full max_seq_len).
     attn_len_bucket: int = 256
@@ -131,6 +145,8 @@ class TuningParams:
             raise ValueError(f"commit_impl {value!r} not in {COMMIT_IMPLS}")
         if name == "matmul_impl":
             check_matmul_impl(value)
+        if name == "attn_impl" and value not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl {value!r} not in {ATTN_IMPLS}")
         if name == "kv_cache_dtype" and value not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype {value!r} not in "
                              f"{tuple(KV_CACHE_DTYPES)}")

@@ -1,7 +1,9 @@
 // The pipelined tensor-core building blocks of K2 (q4_matmul.cu) and K3
-// (flash_attn.cu), by inline PTX: asynchronous global -> shared copies
+// (flash_attn.cu) and of the tensor-core GEMV (q4_gemv_tc.cuh), by inline
+// PTX: asynchronous global -> shared copies
 // (cp.async, which the copy ring of both kernels is made of), ldmatrix
-// fragment loads and the bf16 mma.sync.m16n8k16 with f32 accumulators.
+// fragment loads, the bf16 mma.sync.m16n8k16 with f32 accumulators and the
+// int8 mma.sync.m16n8k32 with s32 accumulators.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, q = lane % 4):
 //   A 16x16 row-major: a[0] = (row g, cols 2q, 2q+1), a[1] = (row g+8, ..),
@@ -65,6 +67,17 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a * b on int8 operands, s32 accumulators (mma.m16n8k32; A row
+// g / g + 8, k 4q..4q+3 in a[0] / a[1] and 16 + 4q.. in a[2] / a[3]; B k
+// 4q.. in b[0], 16 + 4q.. in b[1], column g).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // Two floats -> one register of two bf16 (lo in the low half), round to

@@ -64,6 +64,10 @@
 
 #include "async_mma.cuh"
 
+#ifndef FLASH_D256
+#define FLASH_D256 0  // 1: the library of head_dim 256 (one library per set of head dims)
+#endif
+
 namespace {
 
 constexpr float MASK_VALUE = -0.7f * 3.4028234663852886e38f;  // attention.py:37
@@ -271,7 +275,12 @@ __device__ __forceinline__ void v_dims(const unsigned char* vrow, int lane,
                                        float (&v)[D / 32]) {
   constexpr int DPL = D / 32;
   if constexpr (KV == 0) {
-    if constexpr (DPL == 4) {
+    if constexpr (DPL == 8) {
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(vrow + lane * 16), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[e] = f[e];
+    } else if constexpr (DPL == 4) {
       const uint2 u = *reinterpret_cast<const uint2*>(vrow + lane * 8);
       const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
       const float2 c = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
@@ -283,8 +292,10 @@ __device__ __forceinline__ void v_dims(const unsigned char* vrow, int lane,
     }
   } else {
     const int off = KV == 1 ? lane * DPL : (lane & 15) * DPL;
-    uint32_t w;
-    if constexpr (DPL == 4)
+    uint64_t w;
+    if constexpr (DPL == 8)
+      w = *reinterpret_cast<const uint64_t*>(vrow + off);
+    else if constexpr (DPL == 4)
       w = *reinterpret_cast<const uint32_t*>(vrow + off);
     else
       w = *reinterpret_cast<const uint16_t*>(vrow + off);
@@ -499,8 +510,19 @@ __global__ void __launch_bounds__(DT) decode_kernel(const Args a) {
 
 // ------------------------------------------------ (b) prefill, FA2 style
 
-constexpr int PW = 4, PT = PW * 32, BR = PW * 16;  // warps, threads, query rows
+constexpr int PW = 4, BR = PW * 16;  // warps of 16 query rows, query rows of a block
 constexpr int P_STAGES = 2;
+
+// At D = 256 a warp's O fragment alone would be 128 f32 registers a
+// thread, so the head dims of O are split across two warps: warps w and
+// w + PW own the same 16 query rows, both compute its S and softmax (the
+// same values, in the same order), and each multiplies P by its half of V.
+template <int D>
+struct PreShape {
+  static constexpr int DS = D > 128 ? 2 : 1;  // warps sharing a row strip
+  static constexpr int NT = PW * DS * 32;     // threads of a block
+  static constexpr int DO = D / DS;           // head dims of O a warp owns
+};
 
 template <int D, int KV>
 struct PreSmem {
@@ -512,15 +534,17 @@ struct PreSmem {
 };
 
 template <int D, int KV>
-__global__ void __launch_bounds__(PT) prefill_kernel(const Args a) {
+__global__ void __launch_bounds__(PreShape<D>::NT) prefill_kernel(const Args a) {
   using RW = Row<D, KV>;
   using P = PreSmem<D, KV>;
   constexpr int LD = P::LD;
+  constexpr int PT = PreShape<D>::NT, DO = PreShape<D>::DO;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   unsigned char* ring = smem + P::ring_off;
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = (tid >> 5) % PW, dh = (tid >> 5) / PW;  // row strip, O half
   const int gq = lane >> 2, q4 = lane & 3;
   const int g = a.H / a.Hkv, rows = a.T * g;
   const int nqt = (rows + BR - 1) / BR, nbh = a.B * a.Hkv;
@@ -568,9 +592,9 @@ __global__ void __launch_bounds__(PT) prefill_kernel(const Args a) {
     const int row = r0 + warp * 16 + gq + 8 * h;
     lim[h] = row < rows ? min(a.attend_len, pb + row / g + 1) : 0;
   }
-  float o[D / 8][4];
+  float o[DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < DO / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {MASK_VALUE, MASK_VALUE}, l[2] = {0.f, 0.f};
 
   for (int j = 0; j < ntiles; ++j) {
@@ -664,7 +688,7 @@ __global__ void __launch_bounds__(PT) prefill_kernel(const Args a) {
         }
       l[h] = alpha * l[h] + ps;  // per thread; the quad is summed at the end
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < DO / 8; ++n) {
         o[n][2 * h] *= alpha;
         o[n][2 * h + 1] *= alpha;
       }
@@ -678,9 +702,10 @@ __global__ void __launch_bounds__(PT) prefill_kernel(const Args a) {
                               tc::pack_bf16(sacc[2 * kk + 1][0], sacc[2 * kk + 1][1]),
                               tc::pack_bf16(sacc[2 * kk + 1][2], sacc[2 * kk + 1][3])};
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DO / 16; ++dp) {
         uint32_t vf[4];
-        tc::ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 15)) * LD + dp * 16 + (lane >> 4) * 8);
+        tc::ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 15)) * LD + dh * DO + dp * 16 +
+                                      (lane >> 4) * 8);
         tc::mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
         tc::mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
       }
@@ -696,9 +721,9 @@ __global__ void __launch_bounds__(PT) prefill_kernel(const Args a) {
     const int row = r0 + warp * 16 + gq + 8 * h;
     if (row >= rows) continue;
     const int t = row / g, head = hk * g + row - t * g;
-    bf16* dst = a.out + (((size_t)b * a.T + t) * a.H + head) * D + 2 * q4;
+    bf16* dst = a.out + (((size_t)b * a.T + t) * a.H + head) * D + dh * DO + 2 * q4;
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n)
+    for (int n = 0; n < DO / 8; ++n)
       *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
           __floats2bfloat162_rn(o[n][2 * h] / ll, o[n][2 * h + 1] / ll);
   }
@@ -729,7 +754,7 @@ cudaError_t launch(const Args& a, int rows_per_item, cudaStream_t st) {
   static const cudaError_t smem_ok = allow_smem(prefill_kernel<D, KV>, bytes);
   if (smem_ok != cudaSuccess) return smem_ok;
   const int rows = a.T * (a.H / a.Hkv);
-  prefill_kernel<D, KV><<<(rows + BR - 1) / BR * a.B * a.Hkv, PT, bytes, st>>>(a);
+  prefill_kernel<D, KV><<<(rows + BR - 1) / BR * a.B * a.Hkv, PreShape<D>::NT, bytes, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -739,7 +764,8 @@ cudaError_t launch(const Args& a, int rows_per_item, cudaStream_t st) {
 // (1) or [B, Hkv, S, D/2] int4 bytes (2); k_scale, v_scale [B, Hkv, S] f32
 // (NULL for kv_mode 0); past [B] int32; mask [B, mask_stride] uint8 or NULL;
 // k_new, v_new [B, 1, Hkv, D] bf16 or NULL (deferred mode, T = 1); out
-// [B, T, H, D] bf16. D must be 64 or 128.
+// [B, T, H, D] bf16. D must be 64 or 128, or 256 in the library built with
+// -DFLASH_D256=1 (which takes 256 only).
 // Decode path (part != NULL): query rows are taken rows_per_item (1, 2, 4,
 // 8 or 16) at a time; keys in nsplit splits of chunk (a multiple of 64,
 // nsplit * chunk >= attend_len); part holds B*Hkv*ngroups*nsplit*
@@ -777,7 +803,11 @@ extern "C" int flash_attn_launch(const void* q, const void* k_cache, const void*
       default: return cudaErrorInvalidValue;
     }
   };
+#if FLASH_D256
+  if (D == 256) return by_kv(std::integral_constant<int, 256>{});
+#else
   if (D == 64) return by_kv(std::integral_constant<int, 64>{});
   if (D == 128) return by_kv(std::integral_constant<int, 128>{});
+#endif
   return cudaErrorInvalidValue;
 }

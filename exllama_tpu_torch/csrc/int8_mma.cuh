@@ -24,7 +24,7 @@
 // that is the work of a later performance change.
 #pragma once
 
-#include "common.cuh"
+#include "async_mma.cuh"
 
 namespace i8 {
 
@@ -54,13 +54,7 @@ __global__ void __launch_bounds__(THREADS) row_quant_kernel(const bf16* __restri
     dst[k] = (int8_t)max(-127, min(127, __float2int_rn(__fdiv_rn(bf2f(row[k]), s))));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+using tc::mma_s8;
 
 // out = rescale(xq @ B); btile(Bt, k0, n0) fills Bt[n][k] = B[k0 + k, n0 + n]
 // for k < BK, n < BN (zeros beyond K or N); every thread calls it.

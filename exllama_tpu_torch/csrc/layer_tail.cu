@@ -40,8 +40,9 @@
 // element. Design: a
 // cooperative launch (every block co-resident, at most 4 to an SM) whose
 // phases are separated by grid barriers, where the TPU grid runs them in
-// order. The GEMV phases walk 32-column tiles with the shared group-sum
-// GEMV (q4_gemv.cuh). Attention has only B*Hkv (batch row, kv head) pairs --
+// order. The GEMV phases take the shared GEMV (fused_layer.cuh:
+// gemv_phase): 32-column tiles of the CUDA-core loop at B = 1, the
+// tensor-core GEMV with K split across the grid at B >= 2. Attention has only B*Hkv (batch row, kv head) pairs --
 // 32 at 7B, B=1, which is why the separate K3 decode reached 2% of its
 // bound -- so each pair's keys are split across blocks (split-KV): a block
 // owns a key range, its 8 warps each keep an online softmax over 32-key
@@ -105,6 +106,7 @@ struct TailParams {
   bf16* h1_scr;           // [B, hidden]
   bf16* gu_scr;           // [B, 2*inter]
   unsigned int* bar;
+  fused::SplitScratch gsc;  // the tensor-core GEMV phases' split partials, tickets
   int B, H, Hkv, S, hidden, inter, gs, nsplit, mask_stride, rope_stride, attend_len;
   int kv_mode;            // 0 bf16, 1 int8, 2 int4
   float eps, scale;
@@ -379,7 +381,7 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams
   if (p.in_norm) {  // phase B: input norm + fused qkv GEMV
     const int nqkv = p.qkv.N;
     const XSrc x{p.h, p.hidden, p.in_norm, p.eps, nullptr, 0};
-    q4::q4_gemv_tiles<MB, GEMV_MODE>(x, p.qkv, M, p.hidden, p.gs, blockIdx.x, gridDim.x, smem,
+    fused::gemv_phase<MB, GEMV_MODE>(x, p.qkv, M, p.hidden, p.gs, p.gsc, smem,
                           [&](int m, int n, float v) {
                             p.qkv_scr[(size_t)m * nqkv + n] = f2bf(v);
                           });
@@ -401,7 +403,7 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams
   const int hid = p.hidden;
   bf16* hdst = p.post_norm ? p.h1_scr : p.out;
   const XSrc xo{p.attn_scr, p.H * D, nullptr, 0.f, nullptr, 0};
-  q4::q4_gemv_tiles<MB, GEMV_MODE>(xo, p.o, M, p.H * D, p.gs, blockIdx.x, gridDim.x, smem,
+  fused::gemv_phase<MB, GEMV_MODE>(xo, p.o, M, p.H * D, p.gs, p.gsc, smem,
                         [&](int m, int n, float v) {
                           const size_t i = (size_t)m * hid + n;
                           hdst[i] = f2bf(bf2f(p.h[i]) + bf2f(f2bf(v)));
@@ -409,7 +411,7 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams
   if (!p.post_norm) return;
   fused::grid_sync(p.bar, epoch);
   fused::mlp_phases<MB, GEMV_MODE>(p.h1_scr, p.post_norm, p.eps, p.gu, p.dn, M, hid, p.inter, p.gs,
-                        p.gu_scr, p.out, p.bar, epoch, smem);
+                        p.gu_scr, p.out, p.gsc, p.bar, epoch, smem);
 }
 
 template <int MB>
@@ -418,7 +420,7 @@ cudaError_t launch(TailParams p, int nsplit_cap, cudaStream_t st) {
   const int ks[4] = {p.hidden, p.H * D, p.inter, p.hidden};
   for (int i = 0; i < 4; ++i) {
     if (ks[i] <= 0) continue;
-    const size_t s = q4::gemv_smem_bytes(MB, ks[i], p.gs, GEMV_MODE);
+    const size_t s = fused::gemv_smem(MB, ks[i], p.gs, GEMV_MODE);
     if (s > smem) smem = s;
   }
   const int grid = fused::coop_grid(layer_tail_kernel<MB>, smem);
@@ -444,7 +446,8 @@ cudaError_t launch(TailParams p, int nsplit_cap, cudaStream_t st) {
 //   MLP: post_norm [hidden]; gate|up and down as in K6; inter
 //   scratch: qkv_scr [B, (H+2*Hkv)*D] bf16, part [B*Hkv*nsplit_cap*G*(D+2)]
 //   f32, attn_scr [B, H*D], h1_scr [B, hidden], gu_scr [B, 2*inter] bf16,
-//   bar one uint32; out [B, hidden]. D = 128, H / Hkv <= 8; keys at
+//   bar one uint32; gpart, gticket the split scratch of fused::SplitScratch
+//   (B >= 2; MB = fused::fused_mb(B)); out [B, hidden]. D = 128, H / Hkv <= 8; keys at
 //   s >= min(past_b, attend_len) are not read.
 extern "C" int layer_tail_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_cache,
@@ -454,7 +457,7 @@ extern "C" int layer_tail_launch(
     const void* qkv_s, const void* qkv_z, const void* sin, const void* cos, void* k_row,
     void* v_row, const void* post_norm, const void* gu_q, const void* gu_s,
     const void* gu_z, const void* dn_q, const void* dn_s, const void* dn_z, void* qkv_scr,
-    void* part, void* attn_scr, void* h1_scr, void* gu_scr, void* bar, void* out, int B,
+    void* part, void* attn_scr, void* h1_scr, void* gu_scr, void* bar, void* gpart, void* gticket, void* out, int B,
     int H, int Hkv, int S, int hidden, int inter, int gs, int mask_stride, int rope_stride,
     int nsplit_cap, int attend_len, int kv_mode, float eps, float scale, void* stream) {
   if (H % Hkv || H / Hkv > GMAX || nsplit_cap < 1) return cudaErrorInvalidValue;
@@ -491,6 +494,7 @@ extern "C" int layer_tail_launch(
   p.h1_scr = (bf16*)h1_scr;
   p.gu_scr = (bf16*)gu_scr;
   p.bar = (unsigned int*)bar;
+  p.gsc = fused::SplitScratch{(float*)gpart, (unsigned int*)gticket};
   p.B = B;
   p.H = H;
   p.Hkv = Hkv;
@@ -505,11 +509,10 @@ extern "C" int layer_tail_launch(
   p.eps = eps;
   p.scale = scale;
   auto st = (cudaStream_t)stream;
-  switch (pick_mb(B)) {
+  if (B < 1 || B > 32 || (B > 1 && (gpart == nullptr || gticket == nullptr)))
+    return cudaErrorInvalidValue;
+  switch (fused::fused_mb(B)) {
     case 1: return launch<1>(p, nsplit_cap, st);
-    case 2: return launch<2>(p, nsplit_cap, st);
-    case 4: return launch<4>(p, nsplit_cap, st);
-    case 8: return launch<8>(p, nsplit_cap, st);
     case 16: return launch<16>(p, nsplit_cap, st);
     default: return launch<32>(p, nsplit_cap, st);
   }

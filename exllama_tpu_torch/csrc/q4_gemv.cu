@@ -1,5 +1,11 @@
 // K1 q4_gemv: 4-bit GPTQ GEMV for decode-sized M (M <= 32).
 //
+// Two routes by shape: one row at groupsize 32 / 64 / 128 takes the
+// CUDA-core loop below; 2 <= M <= 32, and one row at any other groupsize
+// (gs % 32 == 0 dividing K, gs = K included), take the tensor-core GEMV
+// q4tc::q4_gemv_tc (q4_gemv_tc.cuh), its K split across blocks as the
+// wrapper plans (ops/quant.gemv_split_plan). Both count as one K1 launch.
+//
 // Replaces the TPU kernel exllama_tpu/ops/quant.py:_q4_gemv_kernel_npair
 // (and its kgroup twin _q4_gemv_kernel, act-order prologue
 // _permute_prologue), launched at quant.py:1217.
@@ -29,13 +35,13 @@
 // quant.py:_q4_gemv_kernel_npair_a8, same launch site): int8 activations
 // per (row, group) against the nibbles in integer arithmetic, see
 // q4_gemv.cuh. Same operands, same entry point, one library per mode.
-#include "q4_gemv.cuh"
+#include "q4_gemv_tc.cuh"
 
 namespace {
 
 using namespace q4;
 
-template <int MB>
+// one row: the CUDA-core group-sum loop, one block per 32-column tile
 __global__ void __launch_bounds__(THREADS) q4_gemv_kernel(
     const bf16* __restrict__ x, const int32_t* __restrict__ qweight,
     const bf16* __restrict__ scales, const bf16* __restrict__ zscale,
@@ -44,20 +50,40 @@ __global__ void __launch_bounds__(THREADS) q4_gemv_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const XSrc src{x, K, norm_w, eps, x_map, 0};
   const QW w{qweight, scales, zscale, N};
-  q4_gemv_tiles<MB, GEMV_MODE>(src, w, M, K, gs, blockIdx.x, gridDim.x, smem,
-                    [&](int m, int n, float v) { out[(size_t)m * N + n] = f2bf(v); });
+  q4_gemv_tiles<1, GEMV_MODE>(src, w, M, K, gs, blockIdx.x, gridDim.x, smem,
+                              [&](int m, int n, float v) { out[(size_t)m * N + n] = f2bf(v); });
 }
 
-template <int MB>
-cudaError_t launch(const bf16* x, const int32_t* qw, const bf16* s, const bf16* z,
-                   const bf16* nw, const int32_t* xmap, bf16* out, int M, int K,
-                   int N, int gs, float eps, cudaStream_t st) {
-  const size_t smem = gemv_smem_bytes(MB, K, gs, GEMV_MODE);
-  cudaError_t e = allow_smem(q4_gemv_kernel<MB>, (int)smem);
-  if (e != cudaSuccess) return e;
-  dim3 grid((N + BN - 1) / BN);
-  q4_gemv_kernel<MB><<<grid, THREADS, smem, st>>>(x, qw, s, z, nw, xmap, out, M, K, N, gs,
-                                                  eps);
+// 2..32 rows (or another groupsize): the tensor-core GEMV, one block per
+// (128-column tile, K split)
+template <int MP>
+__global__ void __launch_bounds__(THREADS, 2) q4_gemv_tc_kernel(
+    const bf16* __restrict__ x, const int32_t* __restrict__ qweight,
+    const bf16* __restrict__ scales, const bf16* __restrict__ zscale,
+    const bf16* __restrict__ norm_w, const int32_t* __restrict__ x_map,
+    bf16* __restrict__ out, float* part, unsigned int* ticket, int M, int K, int N, int gs,
+    int nsplit, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const XSrc src{x, K, norm_w, eps, x_map, 0};
+  const QW w{qweight, scales, zscale, N};
+  q4tc::q4_gemv_tc<MP, GEMV_MODE>(
+      src, w, M, K, gs, blockIdx.x, gridDim.x, nsplit, part, ticket, smem,
+      [&](int m, int n, float v) { out[(size_t)m * N + n] = f2bf(v); });
+}
+
+template <int MP>
+cudaError_t launch_tc(const bf16* x, const int32_t* qw, const bf16* s, const bf16* z,
+                      const bf16* nw, const int32_t* xmap, bf16* out, float* part,
+                      unsigned int* ticket, int M, int K, int N, int gs, int nsplit, float eps,
+                      cudaStream_t st) {
+  const size_t smem = q4tc::smem_bytes(MP, GEMV_MODE);
+  static const cudaError_t ok = allow_smem(q4_gemv_tc_kernel<MP>, (int)smem);
+  if (ok != cudaSuccess) return ok;
+  nsplit = q4tc::norm_splits(nsplit, N, K, 1);
+  if (nsplit > 1 && (part == nullptr || ticket == nullptr)) return cudaErrorInvalidValue;
+  dim3 grid((N + q4tc::BN - 1) / q4tc::BN * nsplit);
+  q4_gemv_tc_kernel<MP><<<grid, THREADS, smem, st>>>(x, qw, s, z, nw, xmap, out, part, ticket,
+                                                     M, K, N, gs, nsplit, eps);
   return cudaGetLastError();
 }
 
@@ -65,10 +91,15 @@ cudaError_t launch(const bf16* x, const int32_t* qw, const bf16* s, const bf16* 
 
 // x [M, K] bf16; qweight [K/8, N] int32; scales, zscale [K/gs, N] bf16;
 // norm_w [K] bf16 or NULL; x_map [K] int32 or NULL; out [M, N] bf16.
+// Tensor-core route: nsplit splits of K (normalised as q4tc::norm_splits),
+// part >= ceil(N/128) * nsplit * MP * 128 f32 (MP = 16 for M <= 16, else
+// 32) and ticket ceil(N/128) uint32 zeros (the last block of each column
+// tile resets its own); both may be NULL with one split.
 extern "C" int q4_gemv_launch(const void* x, const void* qweight, const void* scales,
                               const void* zscale, const void* norm_w, const void* x_map,
-                              void* out, int M, int K, int N, int gs, float eps,
-                              void* stream) {
+                              void* out, void* part, void* ticket, int M, int K, int N, int gs,
+                              int nsplit, float eps, void* stream) {
+  if (M < 1 || M > 32 || gs < 32 || gs % 32 || K % gs) return cudaErrorInvalidValue;
   auto bx = (const bf16*)x;
   auto qw = (const int32_t*)qweight;
   auto s = (const bf16*)scales;
@@ -76,13 +107,17 @@ extern "C" int q4_gemv_launch(const void* x, const void* qweight, const void* sc
   auto nw = (const bf16*)norm_w;
   auto xm = (const int32_t*)x_map;
   auto o = (bf16*)out;
+  auto pt = (float*)part;
+  auto tk = (unsigned int*)ticket;
   auto st = (cudaStream_t)stream;
-  switch (pick_mb(M)) {
-    case 1: return launch<1>(bx, qw, s, z, nw, xm, o, M, K, N, gs, eps, st);
-    case 2: return launch<2>(bx, qw, s, z, nw, xm, o, M, K, N, gs, eps, st);
-    case 4: return launch<4>(bx, qw, s, z, nw, xm, o, M, K, N, gs, eps, st);
-    case 8: return launch<8>(bx, qw, s, z, nw, xm, o, M, K, N, gs, eps, st);
-    case 16: return launch<16>(bx, qw, s, z, nw, xm, o, M, K, N, gs, eps, st);
-    default: return launch<32>(bx, qw, s, z, nw, xm, o, M, K, N, gs, eps, st);
+  if (M == 1 && gs <= 128 && (gs & (gs - 1)) == 0) {
+    const size_t smem = gemv_smem_bytes(1, K, gs, GEMV_MODE);
+    cudaError_t e = allow_smem(q4_gemv_kernel, (int)smem);
+    if (e != cudaSuccess) return e;
+    q4_gemv_kernel<<<(N + BN - 1) / BN, THREADS, smem, st>>>(bx, qw, s, z, nw, xm, o, M, K, N,
+                                                             gs, eps);
+    return cudaGetLastError();
   }
+  if (M <= 16) return launch_tc<16>(bx, qw, s, z, nw, xm, o, pt, tk, M, K, N, gs, nsplit, eps, st);
+  return launch_tc<32>(bx, qw, s, z, nw, xm, o, pt, tk, M, K, N, gs, nsplit, eps, st);
 }

@@ -1,5 +1,8 @@
 // The 4-bit GPTQ group-sum GEMV, as a block-level device function shared by
-// K1 (q4_gemv.cu), K6 (q4_mlp.cu) and K7 (layer_tail.cu).
+// K1 (q4_gemv.cu), K6 (q4_mlp.cu) and K7 (layer_tail.cu): the CUDA-core loop
+// that serves one row at groupsize 32 / 64 / 128 (2..32 rows, and other
+// groupsizes, take the tensor-core GEMV of q4_gemv_tc.cuh, which shares
+// this file's staging prologues, XSrc / QW and the a8 quantization).
 //
 // out[m, n] = sum_g ( s[g,n] * sum_{k in g} x[m,k]*q[k,n]
 //                     - zs[g,n] * sum_{k in g} x[m,k] )

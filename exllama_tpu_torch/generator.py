@@ -193,7 +193,14 @@ class ExLlamaGenerator:
     def gen_tokens(self, n: int) -> np.ndarray:
         """n steps of forward -> penalty -> sample, fetching the tokens to
         the host once at the end. Returns np [B, n]; sequence and cache
-        advance by n."""
+        advance by n.
+
+        Deviation from the JAX package: every step passes the left-pad
+        ``input_mask`` of a masked batch (``gen_begin(..., mask=)``), so the
+        n steps equal n ``gen_single_token()`` calls, as the JAX docstring
+        says of its ``gen_tokens``; the JAX ``_decode_loop_n`` runs without
+        the mask, so after a masked ``gen_begin`` its padded rows attend to
+        their padding."""
         assert self.sequence is not None and self.sequence.shape[1] > 0
         past = self.cache.current_seq_len
         assert past + n <= self.model.config.max_seq_len, (past, n)

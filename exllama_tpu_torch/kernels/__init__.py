@@ -2,9 +2,10 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``; the sources of
-the shared GEMV loop (K1, K6, K7) compile once per arithmetic mode
+the shared GEMV (K1, K6, K7) compile once per arithmetic mode
 (``-DGEMV_MODE``: exact, a8, a8x2), one library each, and K7 once more per
-mode for the quantized KV caches (``-DKV_QUANT=1``). The libraries go to
+mode for the quantized KV caches (``-DKV_QUANT=1``), and K3 once more for
+head_dim 256 (``-DFLASH_D256=1``). The libraries go to
 ``exllama_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
 the shared headers and the flags, so an edited source rebuilds and an
 unchanged one is reused. All libraries build in parallel, one ``nvcc``
@@ -42,6 +43,8 @@ LIBRARIES = {
     "q4_gemv": ("q4_gemv", []),
     "q4_matmul": ("q4_matmul", []),
     "flash_attn": ("flash_attn", []),
+    # K3 at head_dim 256, a library of its own so that it builds in parallel
+    "flash_attn_d256": ("flash_attn", ["-DFLASH_D256=1"]),
     "dense_gemv": ("dense_gemv", []),
     "head_argmax": ("head_argmax", []),
     "q4_mlp": ("q4_mlp", []),
@@ -59,18 +62,20 @@ for _stem in ("q4_gemv", "q4_mlp", "layer_tail"):
 # entry point -> (library, C function, ctypes signature: "p" pointer /
 # stream, "i" int, "f" float)
 _SIGNATURES = {
-    "q4_gemv": ("q4_gemv", "q4_gemv_launch", "ppppppp" + "iiii" + "f" + "p"),
+    "q4_gemv": ("q4_gemv", "q4_gemv_launch", "p" * 9 + "i" * 5 + "f" + "p"),
     "q4_matmul": ("q4_matmul", "q4_matmul_launch", "ppppp" + "iiii" + "p"),
     "q4_matmul_glu": ("q4_matmul", "q4_matmul_glu_launch",
                       "ppppp" + "i" * 6 + "p"),
     "flash_attn": ("flash_attn", "flash_attn_launch",
                    "p" * 12 + "i" * 12 + "f" + "p"),
+    "flash_attn_d256": ("flash_attn_d256", "flash_attn_launch",
+                        "p" * 12 + "i" * 12 + "f" + "p"),
     "dense_gemv": ("dense_gemv", "dense_gemv_launch", "ppp" + "iii" + "p"),
     "head_argmax": ("head_argmax", "head_argmax_launch",
                     "ppppp" + "iii" + "f" + "p"),
-    "q4_mlp": ("q4_mlp", "q4_mlp_launch", "p" * 11 + "iiii" + "f" + "p"),
+    "q4_mlp": ("q4_mlp", "q4_mlp_launch", "p" * 13 + "iiii" + "f" + "p"),
     "layer_tail": ("layer_tail", "layer_tail_launch",
-                   "p" * 35 + "i" * 12 + "ff" + "p"),
+                   "p" * 37 + "i" * 12 + "ff" + "p"),
     "kv_commit": ("kv_commit", "kv_commit_launch", "ppp" + "i" * 7 + "p"),
     "q4_prefill_a8": ("q4_prefill_a8", "q4_prefill_a8_launch",
                       "p" * 8 + "iiii" + "p"),
@@ -177,6 +182,16 @@ def check(err: int, name: str):
 def ptr(t) -> int | None:
     """Device pointer of a tensor, or None (NULL) for an absent operand."""
     return None if t is None else t.data_ptr()
+
+
+_SMS: dict = {}
+
+
+def sm_count(dev) -> int:
+    """The SM count of CUDA device ``dev`` (cached)."""
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _SMS[dev]
 
 
 def stream_of(t) -> int:

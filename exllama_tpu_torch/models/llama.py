@@ -49,7 +49,9 @@ from exllama_tpu_torch.formats.gptq import (
 )
 from exllama_tpu_torch.ops.attention import (
     attend,
+    attend_xla,
     commit_kv_cache,
+    resolve_attn_impl,
     update_kv_cache,
 )
 from exllama_tpu_torch.ops.attn_block import (
@@ -152,17 +154,26 @@ def _decoder_layer(
     attn_fuse: bool = True,
     qkv_fuse: bool = False,
     matmul_impl: str = "auto",
+    attn_impl: str = "auto",
 ):
     """One decoder layer (exllama_tpu/models/llama.py:_decoder_layer, single
     device, no LoRA). Returns (h, k_row, v_row); the rows are the new K/V of
-    a deferred (T=1) step, which the caller commits."""
+    a deferred (T=1) step, which the caller commits. ``attn_impl`` routes
+    the attention of the width the cache stores (``resolve_attn_impl``):
+    K3, or the einsum route, which also keeps the fused K7 off, as the JAX
+    package keeps its megakernels to "flash"."""
     impl = matmul_impl
     b, t, hidden = h.shape
     nq = heads * head_dim
     nkv = kv_heads * head_dim
+    # the width attended: the padded cache's, else head_dim (an int4 cache
+    # stores D/2 bytes)
+    d_pad = max(kc.shape[-1] - head_dim, 0)
+    flash = resolve_attn_impl(attn_impl, head_dim + d_pad) == "flash"
+    attend_fn = attend if flash else attend_xla
     mlp_ok = mlp_fuse and fused_mlp_applicable(lp.gateup, lp.down, hidden,
                                                b * t)
-    attn_ok = (defer_kv and attn_fuse
+    attn_ok = (flash and defer_kv and attn_fuse
                and attn_o_applicable(lp.o, hidden, heads, head_dim, t, True,
                                      batch=b, kv_heads=kv_heads))
 
@@ -196,7 +207,6 @@ def _decoder_layer(
     # the cache's width -- pad columns add exactly 0 to the scores and give
     # 0 output columns, sliced off below -- and q is pre-scaled so that the
     # kernel's 1/sqrt(padded width) leaves 1/sqrt(head_dim)
-    d_pad = kc.shape[-1] - head_dim
     if d_pad > 0:
         f = (kc.shape[-1] / head_dim) ** 0.5
         q = F.pad((q.to(torch.float32) * f).to(q.dtype), (0, d_pad))
@@ -220,14 +230,14 @@ def _decoder_layer(
                              (k, v), input_mask=input_mask, impl=impl,
                              k_scale=ksc, v_scale=vsc)
         else:
-            attn = attend(q, kc, vc, past_len, attend_len, input_mask,
-                          new_kv=(k, v), k_scale=ksc, v_scale=vsc)
+            attn = attend_fn(q, kc, vc, past_len, attend_len, input_mask,
+                             new_kv=(k, v), k_scale=ksc, v_scale=vsc)
     else:
         # the chunk is quantized as it is written and attended from the
         # cache: its queries see their own keys quantized (llama.py:328)
         update_kv_cache(kc, vc, k, v, past_len, ksc, vsc)
-        attn = attend(q, kc, vc, past_len, attend_len, input_mask,
-                      k_scale=ksc, v_scale=vsc)
+        attn = attend_fn(q, kc, vc, past_len, attend_len, input_mask,
+                         k_scale=ksc, v_scale=vsc)
     if attn is not None:
         if d_pad > 0:
             attn = attn[..., :head_dim]
@@ -277,6 +287,7 @@ def forward_chunk(
     qkv_fuse: bool = False,
     commit_impl: str = "auto",
     matmul_impl: str = "auto",
+    attn_impl: str = "auto",
 ):
     """One forward chunk over all layers (exllama_tpu/models/llama.py:
     forward_chunk, single device, no LoRA): embedding -> layers -> final
@@ -284,8 +295,9 @@ def forward_chunk(
     ids [B, T|1] with ``head_mode="argmax"`` (kernel K5; no logits are
     materialized), or None with ``preprocess_only``. Writes the chunk's K/V
     into ``cache`` in place; the cursor ``cache.current_seq_len`` is the
-    caller's. The fuse flags, ``commit_impl`` and ``matmul_impl`` are the
-    JAX package's knobs; ``matmul_impl`` defaults to the exact kernels."""
+    caller's. The fuse flags, ``commit_impl``, ``matmul_impl`` and
+    ``attn_impl`` are the JAX package's knobs; ``matmul_impl`` defaults to
+    the exact kernels, ``attn_impl`` to K3 where it takes the head dim."""
     if head_mode not in ("logits", "argmax"):
         raise ValueError(f"head_mode {head_mode!r}")
     b, t = tokens.shape
@@ -307,7 +319,7 @@ def forward_chunk(
             rope_sin=sin_t, rope_cos=cos_t, past_len=past_len,
             attend_len=attend_len, input_mask=input_mask, defer_kv=defer,
             mlp_fuse=mlp_fuse, attn_fuse=attn_fuse, qkv_fuse=qkv_fuse,
-            matmul_impl=matmul_impl,
+            matmul_impl=matmul_impl, attn_impl=attn_impl,
         )
         k_rows.append(k_row)
         v_rows.append(v_row)
@@ -508,6 +520,7 @@ class ExLlama:
                 qkv_fuse=tune.fuse_qkv,
                 commit_impl=tune.commit_impl,
                 matmul_impl=tune.matmul_impl,
+                attn_impl=tune.attn_impl,
             )
             cache.current_seq_len += chunk
             if is_last:

@@ -5,7 +5,11 @@ int4 packed two values a byte -- with one f32 scale per (token, kv head).
 ``attend`` launches kernel K3 ``flash_attn`` (csrc/flash_attn.cu) for any
 query length on CUDA tensors and counts each launch (``attend.launches``
 for a bf16 cache, ``attend.launches_int8`` / ``attend.launches_int4`` for a
-quantized one); ``attend_plain`` is its plain PyTorch version. K3 has two
+quantized one); ``attend_plain`` is its plain PyTorch version. Head dims
+K3 does not take (``flash_supported_head_dim``) go, as in the JAX package,
+to the einsum attention ``attend_xla`` (plain tensor code on every device,
+its own counter); ``resolve_attn_impl`` picks the route for
+``TuningParams.attn_impl``. K3 has two
 paths, picked by shape (``decode_rows``): split-KV decode, whose key splits
 ``split_plan`` sizes and whose arithmetic ``attend_split_plain`` writes out
 in plain tensor code, and tensor-core prefill tiles. Semantics, shared by
@@ -49,7 +53,8 @@ from typing import Optional
 import torch
 
 from exllama_tpu_torch import kernels
-from exllama_tpu_torch.config import COMMIT_IMPLS
+from exllama_tpu_torch.config import ATTN_IMPLS, COMMIT_IMPLS
+from exllama_tpu_torch.ops import full_f32_matmul
 
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)  # attention.py:37
 NEG_INF = -1e9      # additive left-pad bias (attention.py:36)
@@ -306,6 +311,91 @@ def attend_split_plain(q, k_cache, v_cache, past_len, attend_len: int,
     return o.reshape(b, t, h, d).to(out_dtype or q.dtype)
 
 
+# ----------------------------------------------------- the einsum route
+
+def flash_supported_head_dim(d: int) -> bool:
+    """Head widths that take kernel K3: the JAX predicate
+    (exllama_tpu/ops/attention.py:flash_supported_head_dim: 64 or a multiple
+    of 128) within the widths K3 is built for, 64, 128 and 256."""
+    return d in (64, 128, 256)
+
+
+def resolve_attn_impl(impl: str, d: int) -> str:
+    """The attention route, "flash" (K3) or "xla" (:func:`attend_xla`), for
+    ``impl`` at head width ``d``: "auto" is "flash" where
+    :func:`flash_supported_head_dim` holds; "flash" at another width
+    raises."""
+    if impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl {impl!r} not in {ATTN_IMPLS}")
+    if impl == "auto":
+        return "flash" if flash_supported_head_dim(d) else "xla"
+    if impl == "flash" and not flash_supported_head_dim(d):
+        raise ValueError(f"attn_impl 'flash': kernel K3 does not take head "
+                         f"dim {d} (64, 128, 256)")
+    return impl
+
+
+def attend_xla(q, k_cache, v_cache, past_len, attend_len: int,
+               input_mask=None, new_kv=None, k_scale=None, v_scale=None):
+    """The einsum attention the JAX package runs outside its flash kernel
+    (exllama_tpu/ops/attention.py:attend_xla), plain tensor code on every
+    device: a quantized cache dequantized to q.dtype first, f32 scores
+    times 1/sqrt(D), ``NEG_INF`` where causally masked or padding, the
+    in-flight row of a deferred step appended, softmax in f32 rounded to
+    q.dtype, then PV. The route ``attn_impl`` takes for a head dim K3 does
+    not (``resolve_attn_impl``); its calls on CUDA tensors count on
+    ``attend_xla.launches`` (and ``_int8`` / ``_int4``), so a run can show
+    which route it took."""
+    b, t, h, d = q.shape
+    hkv = k_cache.shape[1]
+    g = h // hkv
+    deferred = new_kv is not None
+    if deferred and t != 1:
+        raise ValueError("deferred-commit attend is a decode-only path")
+    mode = kv_mode(k_cache, d, k_scale)
+    k = k_cache[:, :, :attend_len]
+    v = v_cache[:, :, :attend_len]
+    if mode == 2:
+        k, v = unpack_kv4(k, torch.float32), unpack_kv4(v, torch.float32)
+    if mode:
+        k = (k.to(torch.float32) * k_scale[:, :, :attend_len, None]).to(q.dtype)
+        v = (v.to(torch.float32) * v_scale[:, :, :attend_len, None]).to(q.dtype)
+    qf = q.reshape(b, t, hkv, g, d).to(torch.float32)
+    scale = 1.0 / (d ** 0.5)
+    with full_f32_matmul():
+        scores = torch.einsum("bthgd,bhsd->bhgts", qf, k.to(torch.float32))
+    scores = scores * scale
+    past = _past_tensor(past_len, b, q.device).to(torch.long)
+    s_pos = torch.arange(attend_len, device=q.device)
+    t_pos = past[:, None] + torch.arange(t, device=q.device)[None, :]
+    if deferred:
+        ok = s_pos[None, None, :] < t_pos[:, :, None]
+    else:
+        ok = s_pos[None, None, :] <= t_pos[:, :, None]                 # [B, T, S]
+    ok = ok[:, None, None]                                             # [B,1,1,T,S]
+    if input_mask is not None:
+        valid = input_mask[:, :attend_len].to(q.device, torch.bool)
+        ok = ok & valid[:, None, None, None, :]
+    scores = torch.where(ok, scores, NEG_INF)
+    v = v.to(torch.float32)
+    if deferred:
+        kn = new_kv[0].transpose(1, 2).to(q.dtype).to(torch.float32)
+        vn = new_kv[1].transpose(1, 2).to(q.dtype).to(torch.float32)
+        with full_f32_matmul():
+            s_new = torch.einsum("bthgd,bhsd->bhgts", qf, kn) * scale
+        scores = torch.cat([scores, s_new], dim=-1)
+        v = torch.cat([v, vn], dim=2)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype).to(torch.float32)
+    with full_f32_matmul():
+        out = torch.einsum("bhgts,bhsd->bthgd", probs, v)
+    if q.device.type == "cuda":
+        count_launch(attend_xla, mode)
+    return out.reshape(b, t, h, d).to(q.dtype)
+
+
+init_launch_counters(attend_xla)
+
+
 # ------------------------------------------------------------- K3's paths
 
 KEY_TILE = 64            # keys per staged tile of K3; a split is a multiple
@@ -340,14 +430,7 @@ def split_plan(items: int, attend_len: int, sms: int) -> tuple[int, int]:
     return -(-attend_len // chunk), chunk
 
 
-_SMS: dict = {}
 _SCRATCH: dict = {}
-
-
-def _sm_count(dev) -> int:
-    if dev not in _SMS:
-        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    return _SMS[dev]
 
 
 def _decode_scratch(dev, n_part: int, n_ticket: int):
@@ -378,8 +461,8 @@ def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
     b, t, h, d = q.shape
     mode = kv_mode(k_cache, d, k_scale)
     _, hkv, s_max, _ = k_cache.shape
-    if d not in (64, 128):
-        raise ValueError(f"flash_attn: head_dim {d}; takes 64 or 128")
+    if not flash_supported_head_dim(d):
+        raise ValueError(f"flash_attn: head_dim {d}; takes 64, 128 or 256")
     if h % hkv or k_cache.shape[0] != b or v_cache.shape != k_cache.shape:
         raise ValueError("flash_attn: q / cache shapes disagree")
     if not 0 < attend_len <= s_max:
@@ -420,11 +503,12 @@ def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
     nsplit = chunk = 0
     if rows is not None:
         groups = b * hkv * -(-t * (h // hkv) // rows)
-        nsplit, chunk = split_plan(groups, attend_len, _sm_count(q.device))
+        nsplit, chunk = split_plan(groups, attend_len, kernels.sm_count(q.device))
         part, ticket = _decode_scratch(
             q.device, groups * nsplit * rows * (d + 2), groups)
     out = torch.empty_like(q)
-    kernels.check(kernels.launcher("flash_attn")(
+    lib = "flash_attn_d256" if d == 256 else "flash_attn"
+    kernels.check(kernels.launcher(lib)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         kernels.ptr(k_scale if mode else None),
         kernels.ptr(v_scale if mode else None), past.data_ptr(),
@@ -433,7 +517,7 @@ def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
         b, t, h, hkv, d, s_max, attend_len,
         0 if mask is None else mask.shape[1], mode, rows or 0, nsplit, chunk,
         1.0 / math.sqrt(d), kernels.stream_of(q),
-    ), "flash_attn")
+    ), lib)
     count_launch(attend, mode)
     return out
 

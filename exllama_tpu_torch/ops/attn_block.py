@@ -39,7 +39,11 @@ from exllama_tpu_torch.ops.attention import (
     kv_mode,
 )
 from exllama_tpu_torch.ops.mlp import gemv_plain_of, q4_mlp_plain
-from exllama_tpu_torch.ops.quant import GEMV_MAX_M, check_qt_tensors
+from exllama_tpu_torch.ops.quant import (
+    GEMV_MAX_M,
+    check_qt_tensors,
+    fused_gemv_scratch,
+)
 from exllama_tpu_torch.ops.rope import apply_rope_sliced
 
 HEAD_DIM = 128         # K7's attention takes head_dim 128
@@ -236,6 +240,8 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
         total += -(-n // 256) * 256
     scratch = torch.empty((total,), dtype=torch.uint8, device=dev)
     ptrs = [scratch.data_ptr() + off for off in offs]
+    widest = max(hidden, 2 * inter, qkv.out_features if qkv is not None else 0)
+    gpart, gticket = fused_gemv_scratch(dev, b, widest)
     out = torch.empty_like(h2)
     P = kernels.ptr
 
@@ -250,7 +256,7 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
         P(v_scale if mode else None), past.data_ptr(), P(mask),
         h2.data_ptr(), *qw(o), P(input_norm), *qw(qkv), P(sin), P(cos),
         P(k_row), P(v_row), P(post_norm), *qw(gateup), *qw(down), *ptrs,
-        out.data_ptr(),
+        P(gpart), P(gticket), out.data_ptr(),
         b, heads, hkv, s_max, hidden, inter, o.groupsize,
         0 if mask is None else mask.shape[1],
         0 if sin is None or sin.shape[0] == 1 else d,

@@ -24,6 +24,7 @@ from exllama_tpu_torch.ops.quant import (
     GEMV_MAX_M,
     _check_qt,
     check_qt_tensors,
+    fused_gemv_scratch,
     q4_gemv_a8_plain,
     q4_gemv_plain,
 )
@@ -99,6 +100,7 @@ def q4_mlp(h: torch.Tensor, norm_w: torch.Tensor, gateup: QuantTensor,
     gu_bytes = -(-m * 2 * inter * 2 // 256) * 256
     scratch = torch.empty((gu_bytes + 256,), dtype=torch.uint8, device=h.device)
     base = scratch.data_ptr()
+    gpart, gticket = fused_gemv_scratch(h.device, m, 2 * inter)
     out = torch.empty_like(h2)
     lib = "q4_mlp" if not a8 else (
         "q4_mlp_a8x2" if impl == "pallas_a8x2" else "q4_mlp_a8")
@@ -106,7 +108,8 @@ def q4_mlp(h: torch.Tensor, norm_w: torch.Tensor, gateup: QuantTensor,
         h2.data_ptr(), norm_w.data_ptr(), gateup.qweight.data_ptr(),
         gateup.scales.data_ptr(), gateup.zscale.data_ptr(),
         down.qweight.data_ptr(), down.scales.data_ptr(),
-        down.zscale.data_ptr(), base, base + gu_bytes, out.data_ptr(),
+        down.zscale.data_ptr(), base, base + gu_bytes,
+        kernels.ptr(gpart), kernels.ptr(gticket), out.data_ptr(),
         m, hidden, inter, gateup.groupsize, float(eps), kernels.stream_of(h2),
     ), lib)
     (q4_mlp_a8 if a8 else q4_mlp).launches += 1

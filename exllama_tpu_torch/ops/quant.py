@@ -7,7 +7,10 @@ threshold measured on a TPU and kept for now):
 
   * M <= 32, exact ("auto" / "pallas"): K1 ``q4_gemv`` (csrc/q4_gemv.cu) --
     f32 group partial sums of exact nibbles, with the optional RMSNorm and
-    act-order gather in its prologue;
+    act-order gather in its prologue; one row at groupsize 32 / 64 / 128
+    takes its CUDA-core loop, 2..32 rows (or another groupsize) its
+    tensor-core route (csrc/q4_gemv_tc.cuh), K split across blocks as
+    ``gemv_split_plan`` says;
   * M <= 32, "pallas_a8" / "pallas_a8x2" / "pallas_a8t": K9 ``q4_gemv_a8``
     (the a8 builds of the same source) -- int8 activations per (row, group)
     against the nibbles in integer arithmetic; a8x2 adds a residual pass;
@@ -48,6 +51,10 @@ from exllama_tpu_torch.ops import full_f32_matmul
 from exllama_tpu_torch.ops.norms import rms_norm
 
 GEMV_MAX_M = 32   # the JAX package's decode/prefill switch (a TPU number)
+LOOP_GROUPSIZES = (32, 64, 128)   # the one-row CUDA-core loop's groupsizes
+GEMV_BN = 128     # columns of the tensor-core GEMV's block tile (q4_gemv_tc.cuh)
+GEMV_UNIT = 32    # k of its unit, the least split of K
+GEMV_MIN_SPLIT_UNITS = 8
 
 
 def _q4_matmul_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
@@ -59,9 +66,13 @@ def _q4_matmul_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
 
 
 def check_qt_tensors(qt: QuantTensor, device: torch.device):
-    """Raise unless qt's tensors are what the kernels read, on ``device``."""
-    if qt.groupsize not in (32, 64, 128):
-        raise ValueError(f"groupsize {qt.groupsize}: kernels take 32/64/128")
+    """Raise unless qt's tensors are what the kernels read, on ``device``:
+    any groupsize that is a multiple of 32 and divides K (the reference
+    takes any that divides K)."""
+    gs, k = qt.groupsize, qt.in_features
+    if gs <= 0 or gs % 32 or k % gs:
+        raise ValueError(f"groupsize {gs} with K = {k}: the kernels take a "
+                         f"multiple of 32 that divides K")
     for name, t, dt in (("qweight", qt.qweight, torch.int32),
                         ("scales", qt.scales, torch.bfloat16),
                         ("zscale", qt.zscale, torch.bfloat16)):
@@ -142,15 +153,73 @@ def _gemv_checks(name, x, qt, norm_w):
     return x.contiguous(), norm_w
 
 
+def gemv_tc_route(m: int, gs: int) -> bool:
+    """Whether K1 / K9 take the tensor-core route for m rows at groupsize
+    gs: 2..32 rows, or one row at a groupsize outside the loop's."""
+    return m > 1 or gs not in LOOP_GROUPSIZES
+
+
+def gemv_split_plan(n: int, k: int, sms: int) -> int:
+    """Splits of K for the tensor-core GEMV of an N-column, K-deep weight on
+    a card of ``sms`` SMs: as many (128-column tile, split) blocks as fit
+    in one wave of two an SM (the kernel's residency), each split at least
+    8 units of 32 k, none empty (the normalisation of
+    csrc/q4_gemv_tc.cuh:norm_splits)."""
+    units = k // GEMV_UNIT
+    tiles = -(-n // GEMV_BN)
+    nsplit = max(1, min(2 * sms // tiles,
+                        max(1, units // GEMV_MIN_SPLIT_UNITS)))
+    per = -(-units // nsplit)
+    return -(-units // per)
+
+
+def gemv_rows(m: int) -> int:
+    """Rows the tensor-core GEMV pads m to: one or two m16 tiles."""
+    return 16 if m <= 16 else 32
+
+
+_GEMV_SCRATCH: dict = {}
+
+
+def gemv_scratch(dev, n_part: int, n_ticket: int):
+    """The tensor-core GEMV's split partials (f32) and column-tile tickets
+    (int32, zero between launches: the last block of each tile resets its
+    own), grown per device and kept, as K3's decode scratch. K1, K9, K6 and
+    K7 run on one stream and share them."""
+    part, ticket = _GEMV_SCRATCH.get(dev, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty((max(n_part, 1),), dtype=torch.float32, device=dev)
+    if ticket is None or ticket.numel() < n_ticket:
+        ticket = torch.zeros((max(n_ticket, 1),), dtype=torch.int32, device=dev)
+    _GEMV_SCRATCH[dev] = (part, ticket)
+    return part, ticket
+
+
+def fused_gemv_scratch(dev, m: int, widest_n: int):
+    """The split scratch of the fused kernels K6 / K7 at m rows: partials
+    for a persistent grid of at most 4 blocks an SM, tickets for the
+    widest GEMV phase; (None, None) at one row."""
+    if m <= 1:
+        return None, None
+    return gemv_scratch(dev, 4 * kernels.sm_count(dev) * gemv_rows(m) * GEMV_BN,
+                        -(-widest_n // GEMV_BN))
+
+
 def _gemv_launch(lib, x, qt, norm_w, norm_eps):
     m, k = x.shape
-    out = torch.empty((m, qt.out_features), dtype=torch.bfloat16,
-                      device=x.device)
+    n = qt.out_features
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    nsplit, part, ticket = 1, None, None
+    if gemv_tc_route(m, qt.groupsize):
+        nsplit = gemv_split_plan(n, k, kernels.sm_count(x.device))
+        tiles = -(-n // GEMV_BN)
+        part, ticket = gemv_scratch(
+            x.device, tiles * nsplit * gemv_rows(m) * GEMV_BN, tiles)
     kernels.check(kernels.launcher(lib)(
         x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
         qt.zscale.data_ptr(), kernels.ptr(norm_w), kernels.ptr(qt.x_map),
-        out.data_ptr(), m, k, qt.out_features, qt.groupsize, float(norm_eps),
-        kernels.stream_of(x),
+        out.data_ptr(), kernels.ptr(part), kernels.ptr(ticket), m, k, n,
+        qt.groupsize, nsplit, float(norm_eps), kernels.stream_of(x),
     ), lib)
     return out
 

@@ -63,6 +63,17 @@ def _close(got, ref, rel):
     (3, 512, 200, 64, True, False),
     (7, 1024, 1000, 128, True, True),
     (32, 768, 96, 128, False, False),
+    # the tensor-core route: M = 2..32, groupsizes beyond 128 (gs = K too,
+    # one row included), N % 8 != 0 (plain loads), a K split over many
+    # blocks (two column tiles, 32 splits: the ticketed combine)
+    (2, 1024, 264, 256, False, True),
+    (16, 512, 136, 512, False, False),
+    (18, 2048, 200, 128, True, True),
+    (4, 256, 100, 32, False, False),
+    (1, 1024, 264, 256, False, True),
+    (1, 512, 264, 512, False, False),
+    (17, 2048, 384, 2048, False, True),
+    (18, 8192, 256, 128, False, False),
 ])
 def test_q4_gemv_matches_plain(gen, m, k, n, gs, act, norm):
     """1e-2 of the output scale: f32 group sums of exact nibbles vs a
@@ -93,6 +104,12 @@ def _outliers(gen, x, gs, factor=50.0):
     (7, 1024, 1000, 128, True, True),
     (32, 768, 96, 128, False, False),
     (18, 4096, 264, 128, False, False),
+    # the tensor-core route beyond groupsize 128 (a group over two staged
+    # chunks: gs = K = 2048 at 16 rows), one row at gs 256, N % 8 != 0
+    (2, 1024, 264, 256, False, True),
+    (5, 2048, 200, 2048, False, False),
+    (1, 1024, 264, 256, True, False),
+    (4, 256, 100, 32, False, False),
 ])
 def test_q4_gemv_a8_matches_plain(gen, m, k, n, gs, act, norm, two_pass):
     """K9 through K1's entry point. 5e-3 of the output scale against the
@@ -130,7 +147,7 @@ def test_q4_gemv_a8_matches_plain(gen, m, k, n, gs, act, norm, two_pass):
 
 @pytest.mark.parametrize("m,k,n,gs", [
     (33, 256, 520, 32), (130, 512, 136, 64), (257, 1024, 384, 128),
-    (1919, 384, 264, 128),
+    (1919, 384, 264, 128), (40, 512, 264, 256), (64, 1024, 136, 1024),
 ])
 def test_int8_prefill_kernels_match_plain(gen, m, k, n, gs):
     """K10 (in-kernel requant) and K11 (resident image). 5e-3 against the
@@ -165,6 +182,7 @@ def test_int8_prefill_kernels_match_plain(gen, m, k, n, gs):
 
 @pytest.mark.parametrize("m,ni,n,gs", [
     (33, 256, 520, 32), (130, 512, 136, 64), (257, 1024, 384, 128),
+    (40, 512, 264, 256), (64, 1024, 136, 1024),
 ])
 def test_q4_matmul_glu_matches_plain(gen, m, ni, n, gs):
     """K12. 1e-2, as K2: the same bf16 activation silu(gate)*up (same cast
@@ -192,6 +210,7 @@ def test_q4_matmul_glu_matches_plain(gen, m, ni, n, gs):
     (127, 256, 264, 128, False), (129, 96, 200, 32, False),
     (1919, 384, 264, 128, False), (64, 256, 100, 64, False),
     (40, 128, 130, 32, False), (200, 512, 136, 128, True),
+    (33, 512, 264, 256, False), (64, 1024, 136, 1024, False),
 ])
 def test_q4_dequant_matmul_matches_plain(gen, m, k, n, gs, act):
     """1e-2: the same bf16 weights, f32 sums in another order, bf16 out.
@@ -224,6 +243,11 @@ def test_q4_dequant_matmul_matches_plain(gen, m, k, n, gs, act):
     (2, 3, 8, 2, 64, [10, 100], False, True),   # 12 rows a kv head
     (1, 1, 32, 1, 64, 77, True, False),         # 32 rows: two row groups
     (3, 1, 8, 8, 128, [191, 0, 128], True, True),
+    # head_dim 256: decode (split-KV) and prefill (O split over two warps)
+    (2, 1, 8, 2, 256, [150, 9], True, True),
+    (1, 1, 4, 4, 256, 65, True, False),
+    (2, 37, 8, 2, 256, [5, 40], False, False),
+    (2, 19, 4, 1, 256, 0, False, True),
 ])
 def test_flash_attn_matches_plain(gen, b, t, h, hkv, d, past, deferred,
                                   masked):
@@ -252,6 +276,42 @@ def test_flash_attn_matches_plain(gen, b, t, h, hkv, d, past, deferred,
     if masked:        # rows whose visible keys are all padding average V
         _close(got[0, :6], ref[0, :6], 2e-2)
         assert got[0, :6].abs().max() > 0
+
+
+@pytest.mark.parametrize("d,kind", [(100, "bf16"), (100, "int4"),
+                                    (96, "int8")])
+def test_attend_xla_route_on_the_card(gen, d, kind):
+    """A head dim K3 does not take routes to the einsum attention
+    (attn_impl "auto"); on the card it is the same tensor code as on the
+    CPU, counted on its own launch counter. 1e-2: the two devices' f32
+    sums and softmax differ in their last bits, each rounded to bf16."""
+    b, t, h, hkv, s_max = 2, 5, 8, 2, 64
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda").bfloat16()
+    kv = torch.randn((2, b, hkv, s_max, d), generator=gen,
+                     device="cuda").bfloat16()
+    ks = vs = None
+    if kind == "bf16":
+        kc, vc = kv[0], kv[1]
+    else:
+        quant_rows = (attention.quantize_kv_rows4 if kind == "int4"
+                      else attention.quantize_kv_rows)
+        (kc, ks), (vc, vs) = quant_rows(kv[0]), quant_rows(kv[1])
+    past = torch.tensor([3, 40], dtype=torch.int32, device="cuda")
+    mask = torch.ones((b, s_max), dtype=torch.bool, device="cuda")
+    mask[0, :2] = False
+    assert attention.resolve_attn_impl("auto", d) == "xla"
+    fn = attention.attend_xla
+    attr = "launches" if kind == "bf16" else f"launches_{kind}"
+    before = getattr(attention.attend_xla, attr)
+    got = fn(q, kc, vc, past, 48, mask, k_scale=ks, v_scale=vs)
+    assert getattr(attention.attend_xla, attr) == before + 1
+    cpu = [x.cpu() if x is not None else None
+           for x in (q, kc, vc, past, mask, ks, vs)]
+    ref = attention.attend_xla(*cpu[:3], cpu[3], 48, cpu[4], k_scale=cpu[5],
+                               v_scale=cpu[6])
+    _close(got.cpu(), ref, 1e-2)
+    with pytest.raises(ValueError):
+        attention.resolve_attn_impl("flash", d)
 
 
 @pytest.mark.parametrize("m,k,v", [(1, 256, 1000), (5, 512, 130),
@@ -288,6 +348,7 @@ def test_head_argmax_matches_plain(gen, m, k, v):
 
 @pytest.mark.parametrize("m,hidden,inter,gs", [
     (1, 512, 384, 32), (5, 1024, 1152, 128), (18, 256, 640, 64),
+    (18, 1024, 2816, 128), (32, 512, 1408, 32),
 ])
 def test_q4_mlp_matches_plain(gen, m, hidden, inter, gs):
     """2e-2 of the output scale: K1's 1e-2 twice over (gate|up, then down),
@@ -308,6 +369,9 @@ def test_q4_mlp_matches_plain(gen, m, hidden, inter, gs):
     ("layer_tail", 3, 2, [0, 7, 133], False),
     ("layer_step", 2, 2, 200, True),
     ("layer_step", 3, 8, [20, 7, 133], False),
+    # 17..32 rows: the tensor-core GEMV phases at two m16 tiles
+    ("layer_tail", 18, 2, [150] * 9 + [3] * 9, False),
+    ("layer_step", 17, 8, 33, True),
 ])
 def test_layer_tail_matches_plain(gen, entry, b, hkv, past, masked):
     """2e-2 of the output scale: K3's bf16 rounding of p plus the GEMV
@@ -562,6 +626,8 @@ def _swap_int4_halves(c):
     (4, 1, 8, 2, 128, [1, 64, 127, 179], True, False),
     (2, 1, 8, 2, 64, [65, 150], True, True),
     (2, 2, 8, 2, 128, [30, 120], False, False),
+    (2, 1, 8, 2, 256, [65, 150], True, True),
+    (2, 37, 8, 2, 256, [5, 140], False, False),
 ])
 def test_flash_attn_quantized_matches_plain(gen, kind, b, t, h, hkv, d, past,
                                             deferred, masked):
