@@ -20,7 +20,12 @@ Phases, one line or block of output each; any failure exits non-zero:
      the W4A8 kernels K9-K11 are held to 5e-3 against their plain versions'
      unrounded values after the plain versions have shown that a dropped
      residual pass, zero-point term or nibble moves the output by more than
-     3x that (turbo_cases); K3, K7 and K8 over an int8 and an int4 KV
+     3x that, and K10 (on o and gate|up also at 33 and 127 rows) is timed
+     beside exact K2 on the same inputs and beside torch._int_mm on its own
+     int8 operands; K12 at 33, 127 and 1919 rows beside K2 alone and K2 +
+     the plain silu*up, after up negated and a dropped silu have each moved
+     the plain output by more than 3x its 1e-2 (turbo_cases); K3, K7 and K8
+     over an int8 and an int4 KV
      cache at the same shapes (2e-2 / 5e-2 as over bf16, K8 bit-equal),
      after an independent f32 reference has shown that per-key K or V
      scales replaced by their mean, the V scale also applied to the
@@ -186,24 +191,35 @@ def check_close(name, got, ref, rel_tol):
     return err, err / scale if scale else 0.0
 
 
+# timings a case may carry beside kernel / plain / library / bound
+EXTRA_TIMES = ("separate_ms", "k2_ms", "library_int8_ms")
+
+
 def make_recorder(timer, res):
+    """record(...) times kernel, plain, library (l_fn), the port's separate
+    chain (s_fn) and ``extra`` {name in EXTRA_TIMES: fn or None} in turns
+    and files the case under res[kernel]."""
     def record(kernel, label, err, rel, k_fn, p_fn, l_fn, nbytes, flops,
-               iters=15, s_fn=None, peak=BF16_FLOP_PER_S):
+               iters=15, s_fn=None, peak=BF16_FLOP_PER_S, extra=None):
         kms = timer(k_fn, iters)
         pms = timer(p_fn, max(3, iters // 3))
         lms = None if l_fn is None else timer(l_fn, iters)
-        sms = None if s_fn is None else timer(s_fn, iters)
+        extra = dict(extra or {})
+        if s_fn is not None:
+            extra["separate_ms"] = s_fn
+        more = {key: None if fn is None else timer(fn, iters)
+                for key, fn in extra.items()}
         b, by = bound_ms(nbytes, flops, peak)
         r = dict(case=label, max_abs_err=err, rel_err=rel, ms=kms,
-                 plain_ms=pms, library_ms=lms, bound_ms=b, bound_by=by)
-        if s_fn is not None:
-            r["separate_ms"] = sms
+                 plain_ms=pms, library_ms=lms, bound_ms=b, bound_by=by,
+                 **more)
         res.setdefault(kernel, []).append(r)
         log(f"  {kernel:18s} {label:34s} err {err:.3g} (rel {rel:.2g} <= "
             f"{TOL[kernel]:g})  "
             f"kernel_ms {kms:.4f}  plain_ms {pms:.4f}  library_ms "
             f"{'n/a' if lms is None else f'{lms:.4f}'}  "
-            + ("" if sms is None else f"separate_ms {sms:.4f}  ")
+            + "".join(f"{key} {'n/a' if v is None else f'{v:.4f}'}  "
+                      for key, v in more.items())
             + f"bound_ms {b:.4f} ({by})")
     return record
 
@@ -912,37 +928,45 @@ def turbo_cases(device, timer, res):
            4 * d * heads * b * (past + 1) + 2 * b * nq * hidden, iters=10)
     del q, kc, vc, new_kv, o
 
-    # ---- K10, K11: the int8 tensor-core prefill matmuls at M = 1919; the
-    # library yardstick of K11 is torch._int_mm on the same int8 operands
-    # plus the rescale (where this torch has it), of K10 the bf16 product
-    # that also stands beside K2
-    m = 1919
+    # ---- K10, K11: the int8 tensor-core prefill matmuls at M = 1919 (K10
+    # on o and gate|up also at 33 and 127 rows), each K10 case beside exact
+    # K2 on the same x and weight (separate_ms); the library yardsticks are
+    # the bf16 product that also stands beside K2 and, for both, torch._int_mm
+    # on the same int8 operands plus the rescale (K10: on its own
+    # re-quantized bytes), where this torch has it
     shapes = {"qkv": (hidden, 12288), "o": (hidden, hidden),
               "gateup": (hidden, 2 * inter), "down": (inter, hidden)}
     for nm, (k, n) in shapes.items():
         qt = down if nm == "down" else random_qt(gen, k, n, gs, False, device)
-        x = rnd(m, k)
-        ops = 2 * m * k * n
-        # K10 at every shape (what an image would save), K11 at all but o
         ws = w8_col_scale(qt)
-        ref = quant.q4_prefill_a8_plain(x, qt, ws, f32)
-        if nm == "o":
-            require_fault_moves(f"q4_prefill_a8 {nm}", ref, {
-                "even nibbles dropped": quant.q4_prefill_a8_plain(
-                    x, no_even_nibbles(qt), ws, f32)},
-                TOL["q4_prefill_a8"])
-        got = quant.q4_prefill_a8(x, qt, ws)
-        err, rel = check_close(f"q4_prefill_a8 {nm}", got, ref,
-                               TOL["q4_prefill_a8"])
         w = dequantize_t(qt)
-        record("q4_prefill_a8", f"{nm} g{gs} M={m}", err, rel,
-               lambda: quant.q4_prefill_a8(x, qt, ws),
-               lambda: quant.q4_prefill_a8_plain(x, qt, ws),
-               lambda: torch.matmul(x, w),
-               q4_bytes(k, n, gs) + n * 4 + m * k * 2 + m * n * 2, ops,
-               iters=8, peak=INT8_OP_PER_S)
-        del w
+        w8 = torch.round(w.float() * (1.0 / ws.clamp_min(1e-22)))
+        qt10 = dataclasses.replace(
+            qt, w8=w8.clamp_(-127, 127).to(torch.int8), w8_scale=ws)
+        for m in ((33, 127, 1919) if nm in ("o", "gateup") else (1919,)):
+            x = rnd(m, k)
+            ops = 2 * m * k * n
+            ref = quant.q4_prefill_a8_plain(x, qt, ws, f32)
+            if nm == "o" and m == 1919:
+                require_fault_moves(f"q4_prefill_a8 {nm}", ref, {
+                    "even nibbles dropped": quant.q4_prefill_a8_plain(
+                        x, no_even_nibbles(qt), ws, f32)},
+                    TOL["q4_prefill_a8"])
+            got = quant.q4_prefill_a8(x, qt, ws)
+            err, rel = check_close(f"q4_prefill_a8 {nm} M={m}", got, ref,
+                                   TOL["q4_prefill_a8"])
+            record("q4_prefill_a8", f"{nm} g{gs} M={m}", err, rel,
+                   lambda: quant.q4_prefill_a8(x, qt, ws),
+                   lambda: quant.q4_prefill_a8_plain(x, qt, ws),
+                   lambda: torch.matmul(x, w),
+                   q4_bytes(k, n, gs) + n * 4 + m * k * 2 + m * n * 2, ops,
+                   iters=8, peak=INT8_OP_PER_S,
+                   s_fn=lambda: quant.q4_dequant_matmul(x, qt),
+                   extra={"library_int8_ms": int_mm_library(x, qt10)})
+        del w, w8, qt10
         if nm != "o":
+            m = 1919
+            x = rnd(m, k)
             qt8 = with_w8(qt)
             ref = quant.w8_matmul_plain(x, qt8.w8, qt8.w8_scale, f32)
             got = quant.w8_matmul(x, qt8)
@@ -952,27 +976,41 @@ def turbo_cases(device, timer, res):
                    lambda: quant.w8_matmul(x, qt8),
                    lambda: quant.w8_matmul_plain(x, qt8.w8, qt8.w8_scale),
                    int_mm_library(x, qt8),
-                   k * n + n * 4 + m * k * 2 + m * n * 2, ops, iters=8,
-                   peak=INT8_OP_PER_S)
+                   k * n + n * 4 + m * k * 2 + m * n * 2, 2 * m * k * n,
+                   iters=8, peak=INT8_OP_PER_S)
             del qt8
         del qt
 
-    # ---- K12: the down projection with the GLU prologue, beside K2 plus
-    # the plain silu(gate)*up it replaces. 1e-2, as K2.
-    x = rnd(m, 2 * inter)
-    got = quant.q4_matmul_glu(x, down, inter, inter)
-    ref = quant.q4_matmul_glu_plain(x, down, inter, inter)
-    err, rel = check_close("q4_matmul_glu down", got, ref,
-                           TOL["q4_matmul_glu"])
+    # ---- K12: the down projection with the GLU prologue at 33, 127 and
+    # 1919 rows, beside K2 alone on the formed activation (k2_ms) and K2
+    # plus the plain silu(gate)*up it replaces (separate_ms). 1e-2, as K2;
+    # up negated and a dropped silu must each move the plain output by
+    # more than 3x that.
     w = dequantize_t(down)
-    record("q4_matmul_glu", f"down g{gs} M={m}", err, rel,
-           lambda: quant.q4_matmul_glu(x, down, inter, inter),
-           lambda: quant.q4_matmul_glu_plain(x, down, inter, inter),
-           lambda: torch.matmul(quant.glu_silu_mul(x, inter, inter), w),
-           q4_bytes(inter, hidden, gs) + m * 2 * inter * 2 + m * hidden * 2,
-           2 * m * inter * hidden, iters=8,
-           s_fn=lambda: quant.q4_dequant_matmul(
-               quant.glu_silu_mul(x, inter, inter), down))
+    for m in (33, 127, 1919):
+        x = rnd(m, 2 * inter)
+        ref = quant.q4_matmul_glu_plain(x, down, inter, inter)
+        if m == 1919:
+            require_fault_moves("q4_matmul_glu down", ref, {
+                "up negated": quant.q4_matmul_glu_plain(
+                    torch.cat([x[:, :inter], -x[:, inter:]], dim=1), down,
+                    inter, inter),
+                "silu dropped": quant._q4_matmul_plain(
+                    x[:, :inter] * x[:, inter:], down)},
+                TOL["q4_matmul_glu"])
+        got = quant.q4_matmul_glu(x, down, inter, inter)
+        err, rel = check_close(f"q4_matmul_glu down M={m}", got, ref,
+                               TOL["q4_matmul_glu"])
+        act = quant.glu_silu_mul(x, inter, inter)
+        record("q4_matmul_glu", f"down g{gs} M={m}", err, rel,
+               lambda: quant.q4_matmul_glu(x, down, inter, inter),
+               lambda: quant.q4_matmul_glu_plain(x, down, inter, inter),
+               lambda: torch.matmul(quant.glu_silu_mul(x, inter, inter), w),
+               q4_bytes(inter, hidden, gs) + m * 2 * inter * 2
+               + m * hidden * 2, 2 * m * inter * hidden, iters=8,
+               s_fn=lambda: quant.q4_dequant_matmul(
+                   quant.glu_silu_mul(x, inter, inter), down),
+               extra={"k2_ms": lambda: quant.q4_dequant_matmul(act, down)})
 
 
 def int_mm_library(x, qt8):
@@ -2449,8 +2487,7 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=lib, case=r["case"],
         )
-        if "separate_ms" in r:
-            entry["separate_ms"] = r["separate_ms"]
+        entry.update({key: r[key] for key in EXTRA_TIMES if key in r})
         if kname == "q4_gemv_a8":       # K9 inside the fused kernels
             entry["launches_in_q4_mlp"] = launches["q4_mlp_a8"]
             entry["launches_in_layer_tail"] = launches["layer_tail_a8"]

@@ -80,6 +80,17 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// The same on fragments as ldmatrix leaves them: a[0..3] from one x4 load
+// of the row-major A tile, b0 / b1 from two matrices of the n-major B tile.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // Two floats -> one register of two bf16 (lo in the low half), round to
 // nearest even.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -24,6 +24,9 @@ threshold measured on a TPU and kept for now):
   * ``glu=(ni, ou)`` at M > 32: K12 ``q4_matmul_glu`` (K2's GLU mode) forms
     silu(gate)*up from the raw fused gate|up output inside the kernel.
 
+K2, K12 and K10 are the exact, GLU and int8 modes of one pipelined
+tensor-core kernel (csrc/q4_ring.cuh).
+
 Act-order x is gathered, and at M > 32 the norm applied, before the
 prefill kernels. Each kernel wrapper runs its plain PyTorch version for CPU
 tensors only (the tests), launches the kernel for CUDA tensors and raises

@@ -148,14 +148,19 @@ def test_q4_gemv_a8_matches_plain(gen, m, k, n, gs, act, norm, two_pass):
 @pytest.mark.parametrize("m,k,n,gs", [
     (33, 256, 520, 32), (130, 512, 136, 64), (257, 1024, 384, 128),
     (1919, 384, 264, 128), (40, 512, 264, 256), (64, 1024, 136, 1024),
+    # K10's ring: a K that ends in half a 64-deep slab, N % 8 != 0 (the
+    # producers' plain loads, element-wise output), gs = K, M = 1919
+    (33, 288, 100, 32), (130, 512, 260, 256), (257, 768, 132, 768),
+    (1919, 320, 136, 32), (1919, 1024, 260, 128),
 ])
 def test_int8_prefill_kernels_match_plain(gen, m, k, n, gs):
-    """K10 (in-kernel requant) and K11 (resident image). 5e-3 against the
-    plain versions' unrounded f32 values: the same int8 operands and exact
-    integer sums on both sides, then the kernel's bf16 output rounding
-    (at most 0.39%). The even nibbles of every word dropped move the plain
-    output by more than 3x that. Shapes are ragged in M and N (M tails and
-    N tails of the 128 x 128 tile, a K that is not a multiple of the 64-deep
+    """K10 (in-kernel requant) and K11 (resident image; its launcher takes
+    N % 8 == 0 only). 5e-3 against the plain versions' unrounded f32
+    values: the same int8 operands and exact integer sums on both sides,
+    then the kernel's bf16 output rounding (at most 0.39%). The even
+    nibbles of every word dropped move the plain output by more than 3x
+    that. Shapes are ragged in M and N (M tails of the 256-row tile, N tails
+    of the 128-column tile, a K that is not a multiple of the 64-deep
     step)."""
     qt = _qt(gen, k, n, gs, False)
     x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
@@ -168,6 +173,9 @@ def test_int8_prefill_kernels_match_plain(gen, m, k, n, gs):
     got = quant.q4_prefill_a8(x, qt, ws)
     assert quant.q4_prefill_a8.launches == before + 1
     _close(got, ref, 5e-3)
+    assert torch.equal(quant.q4_matmul(x, qt, "pallas_a8t"), got)
+    if n % 8:
+        return
 
     qt8 = with_w8(qt)
     ref8 = quant.w8_matmul_plain(x, qt8.w8, qt8.w8_scale, torch.float32)
@@ -177,26 +185,37 @@ def test_int8_prefill_kernels_match_plain(gen, m, k, n, gs):
     _close(got8, ref8, 5e-3)
     # through the dispatcher: the image when there is one, else K10
     assert torch.equal(quant.q4_matmul(x, qt8, "pallas_a8t"), got8)
-    assert torch.equal(quant.q4_matmul(x, qt, "pallas_a8t"), got)
 
 
-@pytest.mark.parametrize("m,ni,n,gs", [
-    (33, 256, 520, 32), (130, 512, 136, 64), (257, 1024, 384, 128),
-    (40, 512, 264, 256), (64, 1024, 136, 1024),
+@pytest.mark.parametrize("m,ni,n,gs,gap,tail", [
+    (33, 256, 520, 32, 8, 0), (130, 512, 136, 64, 8, 0),
+    (257, 1024, 384, 128, 8, 0), (40, 512, 264, 256, 8, 0),
+    (64, 1024, 136, 1024, 8, 0),
+    # the 128-row ring: ou = ni, up not at the end of the row, a K that ends
+    # in half a 64-deep slab, N % 8 != 0, gs = K, M = 1919
+    (1919, 256, 264, 128, 0, 0), (33, 288, 100, 32, 24, 16),
+    (130, 512, 260, 512, 8, 0), (257, 768, 132, 256, 0, 8),
+    (1919, 320, 136, 32, 8, 8),
 ])
-def test_q4_matmul_glu_matches_plain(gen, m, ni, n, gs):
+def test_q4_matmul_glu_matches_plain(gen, m, ni, n, gs, gap, tail):
     """K12. 1e-2, as K2: the same bf16 activation silu(gate)*up (same cast
-    order) and the same bf16 weights on both sides; expf in the kernel vs
-    torch's sigmoid can move an activation by a bf16 step. up starts at a
-    column that is not a multiple of the width (ou = ni + 8)."""
+    order) and the same bf16 weights on both sides; the kernel's silu (one
+    tanh.approx) against torch's can move an activation by a bf16 step. up starts at ou = ni + gap, which need not be a multiple of
+    the width, and the row may hold ``tail`` more columns after it. A
+    dropped silu moves the plain output by more than 3x the limit."""
     qt = _qt(gen, ni, n, gs, False)
-    ou = ni + 8
-    x = torch.randn((m, ou + ni), generator=gen, device="cuda").bfloat16()
+    ou = ni + gap
+    x = torch.randn((m, ou + ni + tail), generator=gen,
+                    device="cuda").bfloat16()
+    ref = quant.q4_matmul_glu_plain(x, qt, ni, ou)
+    no_silu = quant._q4_matmul_plain(x[:, :ni] * x[:, ou:ou + ni], qt)
+    assert ((no_silu.float() - ref.float()).abs().max()
+            > 3 * 1e-2 * ref.float().abs().max())
     before = quant.q4_matmul_glu.launches, quant.q4_dequant_matmul.launches
     got = quant.q4_matmul(x, qt, glu=(ni, ou))
     assert (quant.q4_matmul_glu.launches,
             quant.q4_dequant_matmul.launches) == (before[0] + 1, before[1])
-    _close(got, quant.q4_matmul_glu_plain(x, qt, ni, ou), 1e-2)
+    _close(got, ref, 1e-2)
     # the other half of the input matters: up negated negates the output
     flipped = torch.cat([x[:, :ou], -x[:, ou:]], dim=1)
     assert torch.equal(quant.q4_matmul(flipped, qt, glu=(ni, ou)), -got)

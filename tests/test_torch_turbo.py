@@ -205,6 +205,24 @@ def test_turbo_prefill_matches_jax(image, gs, act_order):
                                                 "pallas_a8t"))
 
 
+@pytest.mark.parametrize("m,k,n,gs", [
+    (33, 288, 136, 32), (130, 512, 264, 256), (257, 768, 520, 768),
+])
+def test_turbo_prefill_plain_matches_jax_at_ragged_shapes(m, k, n, gs):
+    """K10's plain version, which the card holds K10 to, against the JAX
+    package's "pallas_a8t" (no image) at the shapes K10's tiles find hard:
+    M off the 256-row tile, N off the 128-column tile, a K that ends in
+    half a 64-deep slab, groupsizes 32 / 256 / K. 5e-3, as above."""
+    jqt, qt = _qt_pair(k, n, gs, 21 + m)
+    x = (np.random.default_rng(m).normal(size=(m, k)) * 0.5).astype(np.float32)
+    ref = jquant.q4_matmul(_jnp_bf16(x), jqt, impl="pallas_a8t_interpret")
+    got = quant.q4_matmul(_bf16(x), qt, "pallas_a8t")
+    assert got.shape == (m, n)
+    assert _rel(got, ref) <= 5e-3
+    assert torch.equal(got, quant.q4_prefill_a8_plain(
+        _bf16(x), qt, gptq.w8_col_scale(qt)))
+
+
 @pytest.mark.parametrize("impl", ["pallas_a8", "pallas_a8x2"])
 def test_a8_decode_modes_leave_prefill_exact(impl):
     """M > 32 under "pallas_a8" / "pallas_a8x2" is the exact K2 path, bit
@@ -238,6 +256,30 @@ def test_glu_fused_down_matches_jax(m):
     assert torch.equal(got, two_step)
     with pytest.raises(ValueError):
         quant.q4_matmul(ours, pdn, glu=(ni, ni + 8))
+
+
+@pytest.mark.parametrize("m,ni,n,gs", [
+    (33, 288, 136, 32), (130, 512, 264, 512), (257, 768, 520, 256),
+])
+def test_glu_fused_down_plain_matches_jax_at_ragged_shapes(m, ni, n, gs):
+    """K12's plain version against the JAX package's GLU down projection on
+    the JAX package's own raw gate|up layout (up at ou = padded_n(ni) != ni,
+    padding after each half) at ragged M, N off the 128-column tile, ni
+    ending in half a 64-deep slab, groupsizes 32 / K / 256. 5e-3, as
+    above."""
+    k = 256
+    jgu, _ = _fused_pair([(k, ni), (k, ni)], 17 + m, gs=32, scale=0.1)
+    jdn, pdn = _qt_pair(ni, n, gs, 19 + m, scale=0.1)
+    x = _jnp_bf16(np.random.default_rng(m).normal(size=(m, k)) * 0.3)
+    fused = jquant.q4_matmul(x, jgu, impl="pallas_interpret")
+    ou = jgptq.padded_n(ni)
+    assert ou != ni
+    ref = jquant.q4_matmul(fused, jdn, impl="pallas_interpret", glu=(ni, ou))
+    raw = _bf16(fused)
+    got = quant.q4_matmul(raw, pdn, glu=(ni, ou))
+    assert got.shape == (m, n)
+    assert _rel(got, ref) <= 5e-3
+    assert torch.equal(got, quant.q4_matmul_glu_plain(raw, pdn, ni, ou))
 
 
 def test_glu_goes_to_its_kernel_only_where_the_jax_gate_allows(monkeypatch):
