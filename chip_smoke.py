@@ -22,7 +22,14 @@ Phases, one line or block of output each; any failure exits non-zero:
      residual pass, zero-point term or nibble moves the output by more than
      3x that, and K10 (on o and gate|up also at 33 and 127 rows) is timed
      beside exact K2 on the same inputs and beside torch._int_mm on its own
-     int8 operands; K12 at 33, 127 and 1919 rows beside K2 alone and K2 +
+     int8 operands; K11 on its K-major image at 33, 127 and 1919 rows (and
+     at N = 4168 and 4100, off the 128-column tile and off a multiple of 8)
+     beside K10 on the same inputs and torch._int_mm, after the image read
+     as [K, N] and each column read as its neighbour's have moved the plain
+     output by more than 3x its limit (w8_cases); K4 at M = 1, 2, 8, 16, 32
+     and K5 at M = 1, 2 on the 4096 x 32000 lm_head and at V = 32001 (an
+     odd vocab), K4's two calls on the same inputs bit-equal; K12 at 33,
+     127 and 1919 rows beside K2 alone and K2 +
      the plain silu*up, after up negated and a dropped silu have each moved
      the plain output by more than 3x its 1e-2 (turbo_cases); K3, K7 and K8
      over an int8 and an int4 KV
@@ -386,20 +393,28 @@ def kernel_cases(device, timer, res):
                lib, nbytes, flops, iters=10)
 
     # K4: rel tol 1e-4 -- f32 output of the same bf16 inputs; only the
-    # order of the f32 sums differs
-    w = (torch.randn((4096, 32000), generator=gen, device=device)
-         * 0.02).bfloat16()
-    for m in (1, 2):
-        x = torch.randn((m, 4096), generator=gen, device=device).bfloat16()
-        got = dense.dense_gemv(x, w)
-        ref = dense.dense_gemv_plain(x, w)
-        err, rel = check_close(f"dense_gemv M={m}", got, ref,
-                               TOL["dense_gemv"])
-        record("dense_gemv", f"lm_head 4096->32000 M={m}", err, rel,
-               lambda: dense.dense_gemv(x, w),
-               lambda: dense.dense_gemv_plain(x, w),
-               lambda: torch.matmul(x, w), 4096 * 32000 * 2 + m * 4096 * 2
-               + m * 32000 * 4, 2 * m * 4096 * 32000)
+    # order of the f32 sums differs, and it is fixed: two calls on the same
+    # inputs give the same bits. V = 32001 (a vocab with one added token)
+    # runs the scalar loads
+    for v in (32000, 32001):
+        w = (torch.randn((4096, v), generator=gen, device=device)
+             * 0.02).bfloat16()
+        for m in (1, 2, 8, 16, 32):
+            x = torch.randn((m, 4096), generator=gen,
+                            device=device).bfloat16()
+            got = dense.dense_gemv(x, w)
+            ref = dense.dense_gemv_plain(x, w)
+            err, rel = check_close(f"dense_gemv V={v} M={m}", got, ref,
+                                   TOL["dense_gemv"])
+            if not torch.equal(got, dense.dense_gemv(x, w)):
+                raise AssertionError(f"dense_gemv V={v} M={m}: two calls "
+                                     f"on the same inputs differ")
+            record("dense_gemv", f"lm_head 4096->{v} M={m}", err, rel,
+                   lambda: dense.dense_gemv(x, w),
+                   lambda: dense.dense_gemv_plain(x, w),
+                   lambda: torch.matmul(x, w), 4096 * v * 2 + m * 4096 * 2
+                   + m * v * 4, 2 * m * 4096 * v)
+        del w
 
 
 def fused_cases(device, timer, res):
@@ -430,26 +445,29 @@ def fused_cases(device, timer, res):
     # K5: the kernel's token must be a maximum of the plain logits up to
     # their f32 sum-order noise (1e-4 of the logit scale, as K4); the
     # reported error is max logit - logit at the kernel's token
-    w = rnd(hidden, vocab, scale=0.02)
+    # (V = 32001, a vocab with one added token: the scalar loads)
     nw = norm_w()
-    for m in (1, 2):
-        x = rnd(m, hidden)
-        ids = dense.head_argmax(x, nw, w, eps)
-        xn = rms_norm(x, nw, eps)
-        logits = dense.dense_gemv_plain(xn, w)
-        gap = (logits.amax(1)
-               - logits.gather(1, ids.long()).reshape(-1)).max().item()
-        scale = logits.abs().max().item()
-        if not gap <= TOL["head_argmax"] * scale:
-            raise AssertionError(f"head_argmax M={m}: token logit {gap:.3g} "
-                                 f"below the max (scale {scale:.3g})")
-        record("head_argmax", f"lm_head 4096->32000 M={m}", gap, gap / scale,
-               lambda: dense.head_argmax(x, nw, w, eps),
-               lambda: dense.head_argmax_plain(x, nw, w, eps),
-               lambda: torch.argmax(torch.matmul(xn, w), dim=-1),
-               hidden * vocab * 2 + m * hidden * 2 + hidden * 2 + m * 4,
-               2 * m * hidden * vocab)
-    del w
+    for v, ms in ((vocab, (1, 2)), (vocab + 1, (1,))):
+        w = rnd(hidden, v, scale=0.02)
+        for m in ms:
+            x = rnd(m, hidden)
+            ids = dense.head_argmax(x, nw, w, eps)
+            xn = rms_norm(x, nw, eps)
+            logits = dense.dense_gemv_plain(xn, w)
+            gap = (logits.amax(1)
+                   - logits.gather(1, ids.long()).reshape(-1)).max().item()
+            scale = logits.abs().max().item()
+            if not gap <= TOL["head_argmax"] * scale:
+                raise AssertionError(f"head_argmax V={v} M={m}: token logit "
+                                     f"{gap:.3g} below the max (scale "
+                                     f"{scale:.3g})")
+            record("head_argmax", f"lm_head 4096->{v} M={m}", gap,
+                   gap / scale, lambda: dense.head_argmax(x, nw, w, eps),
+                   lambda: dense.head_argmax_plain(x, nw, w, eps),
+                   lambda: torch.argmax(torch.matmul(xn, w), dim=-1),
+                   hidden * v * 2 + m * hidden * 2 + hidden * 2 + m * 4,
+                   2 * m * hidden * v)
+        del w
 
     # K6: rel tol 2e-2 -- K1's 1e-2 twice over (gate|up, then down), the
     # same bf16 cast points on both sides
@@ -941,8 +959,9 @@ def turbo_cases(device, timer, res):
         ws = w8_col_scale(qt)
         w = dequantize_t(qt)
         w8 = torch.round(w.float() * (1.0 / ws.clamp_min(1e-22)))
-        qt10 = dataclasses.replace(
-            qt, w8=w8.clamp_(-127, 127).to(torch.int8), w8_scale=ws)
+        qt10 = dataclasses.replace(       # K10's bytes as a K-major image
+            qt, w8=w8.clamp_(-127, 127).to(torch.int8).t().contiguous(),
+            w8_scale=ws)
         for m in ((33, 127, 1919) if nm in ("o", "gateup") else (1919,)):
             x = rnd(m, k)
             ops = 2 * m * k * n
@@ -965,20 +984,13 @@ def turbo_cases(device, timer, res):
                    extra={"library_int8_ms": int_mm_library(x, qt10)})
         del w, w8, qt10
         if nm != "o":
-            m = 1919
-            x = rnd(m, k)
-            qt8 = with_w8(qt)
-            ref = quant.w8_matmul_plain(x, qt8.w8, qt8.w8_scale, f32)
-            got = quant.w8_matmul(x, qt8)
-            err, rel = check_close(f"w8_matmul {nm}", got, ref,
-                                   TOL["w8_matmul"])
-            record("w8_matmul", f"{nm} M={m}", err, rel,
-                   lambda: quant.w8_matmul(x, qt8),
-                   lambda: quant.w8_matmul_plain(x, qt8.w8, qt8.w8_scale),
-                   int_mm_library(x, qt8),
-                   k * n + n * 4 + m * k * 2 + m * n * 2, 2 * m * k * n,
-                   iters=8, peak=INT8_OP_PER_S)
-            del qt8
+            w8_cases(record, rnd, nm, qt, k, n,
+                     (1919,) if nm == "down" else (33, 127, 1919))
+        del qt
+    # K11 at N off the 128-column tile (4168) and off a multiple of 8 (4100)
+    for n in (4168, 4100):
+        qt = random_qt(gen, hidden, n, gs, False, device)
+        w8_cases(record, rnd, f"o+{n - hidden}", qt, hidden, n, (127, 1919))
         del qt
 
     # ---- K12: the down projection with the GLU prologue at 33, 127 and
@@ -1013,6 +1025,39 @@ def turbo_cases(device, timer, res):
                extra={"k2_ms": lambda: quant.q4_dequant_matmul(act, down)})
 
 
+def w8_cases(record, rnd, nm, qt, k, n, ms):
+    """K11 on qt's K-major image at M in ``ms``, held to 5e-3 against the
+    plain version's unrounded f32 values, timed beside K10 on the same x and
+    4-bit weight (separate_ms) and beside torch._int_mm + the rescale. At
+    the largest M, first: the image's bytes read as [K, N] (the old layout)
+    and each column read as its neighbour's must move the plain output by
+    more than 3x the limit."""
+    from exllama_tpu_torch.formats.gptq import with_w8
+    from exllama_tpu_torch.ops import quant
+
+    qt8 = with_w8(qt)
+    for m in ms:
+        x = rnd(m, k)
+        ref = quant.w8_matmul_plain(x, qt8.w8, qt8.w8_scale, torch.float32)
+        if m == max(ms):
+            require_fault_moves(f"w8_matmul {nm}", ref, {
+                "[K, N] read as [N, K]": quant.w8_matmul_plain(
+                    x, qt8.w8.reshape(k, n).t(), qt8.w8_scale, torch.float32),
+                "neighbour column": quant.w8_matmul_plain(
+                    x, qt8.w8.roll(1, 0), qt8.w8_scale, torch.float32)},
+                TOL["w8_matmul"])
+        got = quant.w8_matmul(x, qt8)
+        err, rel = check_close(f"w8_matmul {nm} M={m}", got, ref,
+                               TOL["w8_matmul"])
+        record("w8_matmul", f"{nm} M={m}", err, rel,
+               lambda: quant.w8_matmul(x, qt8),
+               lambda: quant.w8_matmul_plain(x, qt8.w8, qt8.w8_scale),
+               int_mm_library(x, qt8),
+               k * n + n * 4 + m * k * 2 + m * n * 2, 2 * m * k * n,
+               iters=8, peak=INT8_OP_PER_S,
+               s_fn=lambda: quant.q4_prefill_a8(x, qt, qt8.w8_scale))
+
+
 def int_mm_library(x, qt8):
     """One-call yardstick of K11: torch._int_mm on the row-quantized x and
     the image, plus the rescale. None where this torch cannot run it."""
@@ -1020,7 +1065,7 @@ def int_mm_library(x, qt8):
 
     xq, sx = quant._quant_rows(x.float())
     xq = xq.to(torch.int8)
-    w8_cm = qt8.w8.t().contiguous().t()        # column-major, as cuBLASLt asks
+    w8_cm = qt8.w8.t()            # the K-major image: column-major [K, N]
     ws = qt8.w8_scale
 
     def lib():

@@ -16,7 +16,9 @@
 // on a key whose high half is an order-preserving image of the f32 value and
 // whose low half is ~index, so the result is deterministic and the earliest
 // index wins ties. The launcher zeroes the keys first and a one-warp kernel
-// turns them into int32 ids.
+// turns them into int32 ids. An odd V (rows not 4-byte aligned) takes the
+// scalar instantiation: two 2-byte loads a row, the column past V masked
+// out of the loads and of the argmax.
 #include "common.cuh"
 
 namespace {
@@ -34,7 +36,7 @@ __device__ __forceinline__ unsigned long long argmax_key(float v, int idx) {
   return ((unsigned long long)u << 32) | (unsigned int)(~idx);
 }
 
-template <int MB>
+template <int MB, bool VEC>
 __global__ void __launch_bounds__(THREADS) head_argmax_kernel(
     const bf16* __restrict__ x, const bf16* __restrict__ norm_w, const bf16* __restrict__ w,
     unsigned long long* __restrict__ keys, int M, int K, int V, int kc, float eps) {
@@ -45,7 +47,7 @@ __global__ void __launch_bounds__(THREADS) head_argmax_kernel(
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n = blockIdx.x * BN + 2 * lane;     // first of this lane's two columns
-  const bool col_ok = n < V;                    // V is even, so n+1 < V too
+  const bool col_ok = n < V, col1_ok = n + 1 < V;
 
   for (int m = warp; m < MB; m += WARPS) {
     float ss = 0.f;
@@ -77,10 +79,18 @@ __global__ void __launch_bounds__(THREADS) head_argmax_kernel(
       for (int kk = warp * UNROLL; kk < klen; kk += WARPS * UNROLL) {
         __nv_bfloat162 wv[UNROLL];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u)
-          wv[u] = kk + u < klen
-                      ? *reinterpret_cast<const __nv_bfloat162*>(wp + (size_t)(kk + u) * V)
-                      : __floats2bfloat162_rn(0.f, 0.f);
+        for (int u = 0; u < UNROLL; ++u) {
+          if constexpr (VEC) {
+            wv[u] = kk + u < klen
+                        ? *reinterpret_cast<const __nv_bfloat162*>(wp + (size_t)(kk + u) * V)
+                        : __floats2bfloat162_rn(0.f, 0.f);
+          } else {
+            const bf16* row = wp + (size_t)(kk + u) * V;
+            const bf16 zero = f2bf(0.f);
+            wv[u] = kk + u < klen ? __halves2bfloat162(row[0], col1_ok ? row[1] : zero)
+                                  : __floats2bfloat162_rn(0.f, 0.f);
+          }
+        }
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u) {
           if (kk + u >= klen) break;
@@ -111,7 +121,7 @@ __global__ void __launch_bounds__(THREADS) head_argmax_kernel(
       }
       // the lane's best column, then the warp's (earliest index on ties)
       unsigned long long key = 0ull;
-      if (col_ok) key = s.y > s.x ? argmax_key(s.y, n + 1) : argmax_key(s.x, n);
+      if (col_ok) key = col1_ok && s.y > s.x ? argmax_key(s.y, n + 1) : argmax_key(s.x, n);
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) {
         const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, o);
@@ -138,7 +148,10 @@ cudaError_t launch(const bf16* x, const bf16* nw, const bf16* w, unsigned long l
   cudaError_t e = cudaMemsetAsync(keys, 0, (size_t)M * sizeof(unsigned long long), st);
   if (e != cudaSuccess) return e;
   dim3 grid((V + BN - 1) / BN);
-  head_argmax_kernel<MB><<<grid, THREADS, smem, st>>>(x, nw, w, keys, M, K, V, kc, eps);
+  if (V % 2 == 0 && (uintptr_t)w % 4 == 0)
+    head_argmax_kernel<MB, true><<<grid, THREADS, smem, st>>>(x, nw, w, keys, M, K, V, kc, eps);
+  else
+    head_argmax_kernel<MB, false><<<grid, THREADS, smem, st>>>(x, nw, w, keys, M, K, V, kc, eps);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   keys_to_ids<<<1, 32, 0, st>>>(keys, ids, M);
@@ -147,8 +160,8 @@ cudaError_t launch(const bf16* x, const bf16* nw, const bf16* w, unsigned long l
 
 }  // namespace
 
-// x [M, K] bf16 (pre-norm); norm_w [K] bf16; w [K, V] bf16 (V even, 4-byte
-// aligned); keys [M] uint64 scratch; ids [M] int32 out.
+// x [M, K] bf16 (pre-norm); norm_w [K] bf16; w [K, V] bf16 (any V >= 1);
+// keys [M] uint64 scratch; ids [M] int32 out.
 extern "C" int head_argmax_launch(const void* x, const void* norm_w, const void* w,
                                   void* keys, void* ids, int M, int K, int V, float eps,
                                   void* stream) {

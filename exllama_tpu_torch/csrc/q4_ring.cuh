@@ -1,7 +1,8 @@
 // The pipelined, warp-specialised tensor-core GEMM over a 4-bit GPTQ weight
 // (x [M, K] @ W, W given as packed nibbles [K/8, N] int32 with bf16 scale
-// and zero-scale rows [K/gs, N]), for prefill-sized M (M > 32). Three modes
-// of one kernel:
+// and zero-scale rows [K/gs, N]), for prefill-sized M (M > 32), and the
+// same product against a resident int8 image of such a weight. Four modes of
+// one kernel:
 //
 //   Exact (K2, q4_matmul.cu): out = bf16(x @ bf16(q*s - zs)), f32 sums.
 //   Glu   (K12, q4_matmul.cu): the same product over
@@ -11,6 +12,8 @@
 //         w8 = clip(rint((q*s - zs) * (1/ws[n])), +-127), times the
 //         row-quantized activation xq (row_quant_kernel, int8_mma.cuh);
 //         out = bf16(float(xq @ w8) * sx[m] * ws[n]), int32 sums.
+//   W8    (K11, w8_matmul.cu): Int8's product and epilogue against the
+//         resident image w8 [N, K] int8 (K-major), which needs no conversion.
 //
 // Bound on the H100: operations. At prefill M the 2*M*K*N products
 // outweigh the K*N/2 weight bytes far beyond the ridge, so the tensor cores
@@ -44,6 +47,16 @@
 // multicast of the A slab (which would halve the L2 traffic of the copies),
 // which would reach all three modes from here.
 //
+// W8 (K11) is bound by int8 operations: 2*M*K*N at 1,979 TOP/s, far above
+// the K*N image bytes at prefill M. Its image is K-major, so each ring slot
+// holds a 128 x 64-byte block of it copied by 16-byte cp.async straight
+// into the n-major layout ldmatrix reads (the B tile is the ring slot: no
+// conversion, no tables, no separate B tiles), and the producers only keep
+// the copies in flight. What is missing: TMA (the copies still cost the
+// producers an instruction per 16 bytes), cluster multicast of the xq slab
+// (each of the N/128 column blocks reads its rows of xq again from L2) and
+// wgmma (integer wgmma reads only K-major operands, which the image now is).
+//
 // Per mode:
 //   Exact  256-row tiles, 4 producer warps, a 4-slab ring (slack 2).
 //   Glu    128-row tiles, 8 producer warps (the 64 x 32 consumer tiles
@@ -59,6 +72,8 @@
 //          byte as clip(rint(v)), since the bounds are integers, with no
 //          float-to-int conversion. Each weight is still re-quantized once
 //          per 256-row tile (8 times at M = 1919).
+//   W8     256-row tiles, 4 producer warps, a 6-slab ring (slack 4) of xq
+//          and image slabs (80-byte rows both).
 #pragma once
 
 #include <type_traits>
@@ -67,7 +82,7 @@
 
 namespace ring {
 
-enum class Mode { Exact, Glu, Int8 };
+enum class Mode { Exact, Glu, Int8, W8 };
 
 constexpr int BN = 128, BK = 64;
 constexpr int CONSUMERS = 256;  // 8 warps multiply
@@ -77,16 +92,20 @@ constexpr int WS_BYTES = W_BYTES + SZ_BYTES;
 constexpr int C_LD = BN + 8;  // bf16 elements of an output row in the epilogue
 
 // Per-mode geometry. A_LD / B_LD are in elements of the staged type (bf16,
-// or bytes for Int8); every row stride is a multiple of 16 bytes, and the
-// 144- and 80-byte strides keep ldmatrix free of bank conflicts.
+// or bytes for Int8 and W8); every row stride is a multiple of 16 bytes, and
+// the 144- and 80-byte strides keep ldmatrix free of bank conflicts.
 template <Mode MODE>
 struct Tile {
-  static constexpr bool INT8 = MODE == Mode::Int8;
+  static constexpr bool W8 = MODE == Mode::W8;  // B copied from the image, not converted
+  static constexpr bool INT8 = MODE == Mode::Int8 || W8;
   static constexpr int BM = MODE == Mode::Glu ? 128 : 256;
   // RING slabs in the ring, AHEAD of them in flight ahead of the one being
-  // converted; the producers run at most SLACK = RING - AHEAD slabs ahead of
-  // the consumers, with one B tile and two named barriers per slab of slack
-  static constexpr int RING = INT8 ? 6 : 4, AHEAD = 2, SLACK = RING - AHEAD, NB = SLACK;
+  // converted (W8: handed over); the producers run at most SLACK = RING -
+  // AHEAD slabs ahead of the consumers, with two named barriers and (but in
+  // W8, whose B tile is its ring slot) one B tile per slab of slack
+  static constexpr int RING = INT8 ? 6 : 4;
+  static constexpr int AHEAD = 2;
+  static constexpr int SLACK = RING - AHEAD, NB = W8 ? 0 : SLACK;
   // threads that copy and convert
   static constexpr int PRODUCERS = MODE == Mode::Glu ? 256 : 128;
   static constexpr int THREADS = CONSUMERS + PRODUCERS;
@@ -98,9 +117,11 @@ struct Tile {
   static constexpr int A_BYTES = (MODE == Mode::Glu ? 2 : 1) * BM * A_LD * ESZ;
   static constexpr int B_LD = A_LD;                    // B tiles are n-major: Bt[n][k]
   static constexpr int B_BYTES = BN * B_LD * ESZ;
+  // a ring slot's weight part: packed words and scale rows, or the B tile
+  static constexpr int WS = W8 ? B_BYTES : WS_BYTES;
   static constexpr int W_OFF = RING * A_BYTES;
-  static constexpr int B_OFF = W_OFF + RING * WS_BYTES;
-  static constexpr int X_OFF = B_OFF + NB * B_BYTES;     // Int8: ws and 1/ws of the block's columns
+  static constexpr int B_OFF = W_OFF + RING * WS;
+  static constexpr int X_OFF = B_OFF + NB * B_BYTES;  // Int8, W8: ws and 1/ws of the block's columns
   static constexpr int SMEM = X_OFF + (INT8 ? 2 * BN * 4 : 0);
   static_assert(BM * C_LD * 2 <= B_OFF, "the epilogue tile fits over the ring");
   using Acc = std::conditional_t<INT8, int, float>;
@@ -116,6 +137,7 @@ struct Args {
   bf16* out;                // [M, N]
   int M, K, N, gs;
   int ldx, ou;              // Glu: row stride of x and the column where up starts
+  const int8_t* w8 = nullptr;  // W8: the image [N, K] (qweight, scales, zscale unused)
 };
 
 // Named barriers (0 is __syncthreads).
@@ -128,15 +150,17 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 
 // Producer thread t issues its share of the copies of slab kt (k0 = kt*BK)
 // into ring slot kt % RING: the A slab (16-byte chunks, each inside or
-// outside K since K % 32 == 0), the packed weights [BK/8][BN], then the
-// scale and zero-scale rows [2][BN] each. VEC: N % 8 == 0, so weight and
-// scale rows are 16-byte aligned; else plain loads.
+// outside K since K % 16 == 0), then the packed weights [BK/8][BN] and the
+// scale and zero-scale rows [2][BN] each, or (W8) the image's rows n0..n0 +
+// 127 at k0..k0 + 63 as the n-major B tile. VEC: N % 8 == 0, so weight and
+// scale rows are 16-byte aligned; else plain loads (the image's rows are
+// aligned at any N: K % 16 == 0).
 template <Mode MODE, bool VEC>
 __device__ __forceinline__ void load_slab(unsigned char* smem, const Args& p, int m0, int n0,
                                           int kt, int t) {
   using T = Tile<MODE>;
   unsigned char* As = smem + (kt % T::RING) * T::A_BYTES;
-  unsigned char* Wst = smem + T::W_OFF + (kt % T::RING) * WS_BYTES;
+  unsigned char* Wst = smem + T::W_OFF + (kt % T::RING) * T::WS;
   const int k0 = kt * BK;
   constexpr int CHUNKS = BK * T::ESZ / 16;  // 16-byte chunks of an A row
   constexpr int HALVES = MODE == Mode::Glu ? 2 : 1;
@@ -151,6 +175,17 @@ __device__ __forceinline__ void load_slab(unsigned char* smem, const Args& p, in
     const unsigned char* src =
         static_cast<const unsigned char*>(p.x) + ((size_t)gm * ldx + col) * T::ESZ;
     tc::cp_async16(As + (r * T::A_LD + c) * T::ESZ, ok ? src : p.x, ok ? 16 : 0);
+  }
+  if constexpr (T::W8) {
+#pragma unroll
+    for (int it = 0; it < BN * (BK / 16) / T::PRODUCERS; ++it) {
+      const int i = t + it * T::PRODUCERS;
+      const int r = i / (BK / 16), c = (i % (BK / 16)) * 16;
+      const bool ok = n0 + r < p.N && k0 + c < p.K;
+      tc::cp_async16(Wst + r * T::B_LD + c, ok ? p.w8 + (size_t)(n0 + r) * p.K + k0 + c : p.w8,
+                     ok ? 16 : 0);
+    }
+    return;
   }
   int32_t* Ws = reinterpret_cast<int32_t*>(Wst);
   bf16* Ss = reinterpret_cast<bf16*>(Wst + W_BYTES);
@@ -343,8 +378,13 @@ __global__ void __launch_bounds__(Tile<MODE>::THREADS, 1) q4_ring_kernel(const A
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * BN;
   const int ktiles = (p.K + BK - 1) / BK;
-  auto b_tile = [&](int kt) { return smem + T::B_OFF + (kt % T::NB) * T::B_BYTES; };
-  float* ws_s = reinterpret_cast<float*>(smem + T::X_OFF);  // Int8: ws, then 1/ws
+  auto b_tile = [&](int kt) -> unsigned char* {
+    if constexpr (T::W8)
+      return smem + T::W_OFF + (kt % RING) * T::WS;
+    else
+      return smem + T::B_OFF + (kt % T::NB) * T::B_BYTES;
+  };
+  float* ws_s = reinterpret_cast<float*>(smem + T::X_OFF);  // Int8, W8: ws, then 1/ws
   typename T::Acc c[MI][2 * NP][4];
 #pragma unroll
   for (int i = 0; i < MI; ++i)
@@ -373,9 +413,9 @@ __global__ void __launch_bounds__(Tile<MODE>::THREADS, 1) q4_ring_kernel(const A
       tc::cp_async_commit();
       tc::cp_async_wait<AHEAD>();
       bar_sync(PROD, PRODUCERS);
-      const unsigned char* Wst = smem + T::W_OFF + (kt % RING) * WS_BYTES;
+      const unsigned char* Wst = smem + T::W_OFF + (kt % RING) * T::WS;
       if constexpr (MODE == Mode::Glu) form_glu<T>(smem + (kt % RING) * T::A_BYTES, t);
-      cv.slab(b_tile(kt), Wst, kt * BK, p.gs);
+      if constexpr (!T::W8) cv.slab(b_tile(kt), Wst, kt * BK, p.gs);
       bar_arrive(FULL + kt % SLACK, THREADS);
     }
     tc::cp_async_wait<0>();

@@ -150,8 +150,9 @@ class QuantTensor:
     x_map: Optional[torch.Tensor]    # int32 [K] or None
     groupsize: int
     # turbo prefill (with_w8 / with_w8_scale): the weight re-quantized per
-    # column to int8, w ~ w8 * w8_scale; rows in the stored (sequential) order
-    w8: Optional[torch.Tensor] = None         # int8 [K, N]
+    # column to int8, w ~ w8.t() * w8_scale, K-major (row n of w8 is column n
+    # of the weight); k in the stored (sequential) order
+    w8: Optional[torch.Tensor] = None         # int8 [N, K]
     w8_scale: Optional[torch.Tensor] = None   # f32  [N]
 
     @property
@@ -277,17 +278,31 @@ def with_w8_scale(qt: QuantTensor) -> QuantTensor:
     return dataclasses.replace(qt, w8_scale=w8_col_scale(qt))
 
 
+W8_CHUNK = 2048     # columns dequantized at a time while an image is built
+
+
 def with_w8(qt: QuantTensor) -> QuantTensor:
     """Attach the resident int8 image for turbo prefill (K11): the f32
-    dequantized weight re-quantized per column, w8 = clip(round(w / scale),
-    +-127). Load-time plain tensor code, on qt's device; costs K*N bytes,
-    twice the packed 4-bit weight."""
+    dequantized weight re-quantized per column, clip(round(w / scale),
+    +-127), stored K-major as w8 [N, K] (the JAX image transposed), the
+    layout the kernel copies into its tensor-core tiles as it is. Load-time
+    plain tensor code on qt's device, W8_CHUNK columns at a time, so the f32
+    temporary stays K x W8_CHUNK; costs K*N bytes, twice the packed 4-bit
+    weight."""
     if qt.w8 is not None:
         return qt
-    w = dequantize_t(qt, torch.float32)
-    scale = w.abs().amax(dim=0).clamp_min(1e-20) * (1.0 / 127.0)
-    w8 = torch.round(w / scale).clamp_(-127, 127).to(torch.int8)
-    return dataclasses.replace(qt, w8=w8.contiguous(), w8_scale=scale)
+    k, n = qt.in_features, qt.out_features
+    w8 = torch.empty((n, k), dtype=torch.int8, device=qt.device)
+    scale = torch.empty((n,), dtype=torch.float32, device=qt.device)
+    for c0 in range(0, n, W8_CHUNK):
+        cols = slice(c0, min(c0 + W8_CHUNK, n))
+        w = dequantize_t(dataclasses.replace(
+            qt, qweight=qt.qweight[:, cols], scales=qt.scales[:, cols],
+            zscale=qt.zscale[:, cols]), torch.float32)
+        s = w.abs().amax(dim=0).clamp_min(1e-20) * (1.0 / 127.0)
+        w8[cols] = torch.round(w / s).clamp_(-127, 127).to(torch.int8).t()
+        scale[cols] = s
+    return dataclasses.replace(qt, w8=w8, w8_scale=scale)
 
 
 def concat_quant_tensors(qts: "list[QuantTensor]") -> QuantTensor:
@@ -296,8 +311,8 @@ def concat_quant_tensors(qts: "list[QuantTensor]") -> QuantTensor:
     The port's layout has no column padding, so part ``i`` starts at column
     ``sum(out_features of parts before it)``. Act-order tensors cannot be
     fused: their activations need different permutations. The int8 image
-    and its scales are per column, so they concatenate too, and are carried
-    only when every part has them.
+    (a row a column) and its scales are per column, so they concatenate
+    too, and are carried only when every part has them.
     """
     first = qts[0]
     for qt in qts:
@@ -314,7 +329,7 @@ def concat_quant_tensors(qts: "list[QuantTensor]") -> QuantTensor:
     return QuantTensor(
         qweight=cat("qweight", 1), scales=cat("scales", 1),
         zscale=cat("zscale", 1), x_map=None, groupsize=first.groupsize,
-        w8=cat("w8", 1), w8_scale=cat("w8_scale", 0),
+        w8=cat("w8", 0), w8_scale=cat("w8_scale", 0),
     )
 
 
@@ -326,7 +341,7 @@ def permute_out_columns(qt: QuantTensor, perm) -> QuantTensor:
         qweight=qt.qweight[:, perm].contiguous(),
         scales=qt.scales[:, perm].contiguous(),
         zscale=qt.zscale[:, perm].contiguous(),
-        w8=None if qt.w8 is None else qt.w8[:, perm].contiguous(),
+        w8=None if qt.w8 is None else qt.w8[perm].contiguous(),
         w8_scale=None if qt.w8_scale is None else qt.w8_scale[perm],
     )
 

@@ -70,7 +70,7 @@ _SIGNATURES = {
                    "p" * 12 + "i" * 12 + "f" + "p"),
     "flash_attn_d256": ("flash_attn_d256", "flash_attn_launch",
                         "p" * 12 + "i" * 12 + "f" + "p"),
-    "dense_gemv": ("dense_gemv", "dense_gemv_launch", "ppp" + "iii" + "p"),
+    "dense_gemv": ("dense_gemv", "dense_gemv_launch", "ppppp" + "iiii" + "p"),
     "head_argmax": ("head_argmax", "head_argmax_launch",
                     "ppppp" + "iii" + "f" + "p"),
     "q4_mlp": ("q4_mlp", "q4_mlp_launch", "p" * 13 + "iiii" + "f" + "p"),

@@ -5,6 +5,7 @@ of the TPU's ``dense.py:_kernel``; larger M stays a plain product, exactly
 where the JAX package leaves it to ``jnp.dot``. The greedy head
 ``head_argmax`` (final norm -> lm_head -> argmax, no logits kept) is kernel
 K5 (csrc/head_argmax.cu), the port of ``dense.py:_head_argmax_kernel``.
+Both take any vocabulary size (an odd one through their scalar loads).
 """
 
 from __future__ import annotations
@@ -14,14 +15,81 @@ import torch
 from exllama_tpu_torch import kernels
 from exllama_tpu_torch.ops import full_f32_matmul
 from exllama_tpu_torch.ops.norms import rms_norm
+from exllama_tpu_torch.ops.quant import gemv_scratch
 
 GEMV_MAX_M = 32   # the JAX package's switch (a TPU number)
+# K4's work (csrc/dense_stream.cuh): tiles of DENSE_BN columns, units of
+# DENSE_ROWS rows of k, shared out as contiguous ranges among one block an SM
+DENSE_BN, DENSE_ROWS = 256, 32
 
 
 def dense_gemv_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [M, K] bf16 @ w [K, V] bf16 -> f32 [M, V], f32 accumulation."""
     with full_f32_matmul():
         return x.to(torch.float32) @ w.to(torch.float32)
+
+
+def _pow2(m: int) -> int:
+    """The rows K4 pads m to (common.cuh:pick_mb): a power of two."""
+    return 1 << (m - 1).bit_length()
+
+
+def dense_grid(k: int, v: int, sms: int) -> "tuple[int, int]":
+    """K4's column tiles and its grid: one block an SM, fewer where there
+    are fewer (tile, unit) items."""
+    tiles = -(-v // DENSE_BN)
+    return tiles, min(sms, tiles * -(-k // DENSE_ROWS))
+
+
+def dense_stream_plan(k: int, v: int, grid: int):
+    """K4's work division (csrc/dense_stream.cuh) written out: for each
+    block, its ranges [(tile, first unit, end unit, slot)], units counted
+    within the tile; slot 0 / 1 is the scratch slot of a range that shares
+    its tile with other blocks (the block's first / last range), None for a
+    whole tile."""
+    ku = -(-k // DENSE_ROWS)
+    total = -(-v // DENSE_BN) * ku
+    plan = []
+    for b in range(grid):
+        u0, u1 = b * total // grid, (b + 1) * total // grid
+        ranges, u = [], u0
+        while u < u1:
+            t = u // ku
+            end = min(u1, (t + 1) * ku)
+            whole = u == t * ku and end == (t + 1) * ku
+            ranges.append((t, u - t * ku, end - t * ku,
+                           None if whole else (0 if u == u0 else 1)))
+            u = end
+        plan.append(ranges)
+    return plan
+
+
+def dense_gemv_split_plain(x: torch.Tensor, w: torch.Tensor,
+                           grid: int) -> torch.Tensor:
+    """K4's decomposition in plain tensor code, f32: each block's range sums
+    over its units, a tile shared among blocks then added in the order of
+    its blocks (of k), as the kernel's last block does."""
+    m, k = x.shape
+    v = w.shape[1]
+    xf, wf = x.to(torch.float32), w.to(torch.float32)
+    out = torch.empty((m, v), dtype=torch.float32)
+    parts: dict = {}
+    with full_f32_matmul():
+        for ranges in dense_stream_plan(k, v, grid):
+            for t, a, e, slot in ranges:
+                cols = slice(t * DENSE_BN, min((t + 1) * DENSE_BN, v))
+                rows = slice(a * DENSE_ROWS, min(e * DENSE_ROWS, k))
+                s = xf[:, rows] @ wf[rows, cols]
+                if slot is None:
+                    out[:, cols] = s
+                else:
+                    parts.setdefault(t, []).append(s)
+    for t, ps in parts.items():
+        total = torch.zeros_like(ps[0])
+        for s in ps:
+            total = total + s
+        out[:, t * DENSE_BN:min((t + 1) * DENSE_BN, v)] = total
+    return out
 
 
 def dense_gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -32,18 +100,20 @@ def dense_gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"dense_gemv: unsupported device {x.device}")
     m, k = x.shape
     v = w.shape[1]
-    if w.shape[0] != k or m > GEMV_MAX_M or v % 2:
+    if w.shape[0] != k or m > GEMV_MAX_M or 0 in (m, k, v):
         raise ValueError(f"dense_gemv: x {tuple(x.shape)}, w {tuple(w.shape)}")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError("dense_gemv takes bf16 x and w")
-    if not w.is_contiguous() or w.device != x.device or w.data_ptr() % 4:
-        raise ValueError(
-            "dense_gemv: w must be contiguous, 4-byte aligned, on x's device")
+    if not w.is_contiguous() or w.device != x.device:
+        raise ValueError("dense_gemv: w must be contiguous, on x's device")
     x = x.contiguous()
+    tiles, grid = dense_grid(k, v, kernels.sm_count(x.device))
+    part, ticket = gemv_scratch(x.device, grid * 2 * _pow2(m) * DENSE_BN,
+                                tiles)
     out = torch.empty((m, v), dtype=torch.float32, device=x.device)
     kernels.check(kernels.launcher("dense_gemv")(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), m, k, v,
-        kernels.stream_of(x),
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), part.data_ptr(),
+        ticket.data_ptr(), m, k, v, grid, kernels.stream_of(x),
     ), "dense_gemv")
     dense_gemv.launches += 1
     return out
@@ -75,13 +145,12 @@ def _head_argmax_rows(x: torch.Tensor, norm_w: torch.Tensor, w: torch.Tensor,
     """K5 on x [M <= 32, K] bf16 -> int32 [M]."""
     m, k = x.shape
     v = w.shape[1]
-    if w.shape[0] != k or v % 2 or norm_w.shape != (k,):
+    if w.shape[0] != k or norm_w.shape != (k,) or 0 in (m, k, v):
         raise ValueError(f"head_argmax: x {tuple(x.shape)}, w {tuple(w.shape)}")
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError("head_argmax takes bf16 x and w")
-    if not w.is_contiguous() or w.device != x.device or w.data_ptr() % 4:
-        raise ValueError(
-            "head_argmax: w must be contiguous, 4-byte aligned, on x's device")
+    if not w.is_contiguous() or w.device != x.device:
+        raise ValueError("head_argmax: w must be contiguous, on x's device")
     x = x.contiguous()
     norm_w = norm_w.to(torch.bfloat16).contiguous()
     keys = torch.empty((m,), dtype=torch.int64, device=x.device)

@@ -24,8 +24,8 @@ threshold measured on a TPU and kept for now):
   * ``glu=(ni, ou)`` at M > 32: K12 ``q4_matmul_glu`` (K2's GLU mode) forms
     silu(gate)*up from the raw fused gate|up output inside the kernel.
 
-K2, K12 and K10 are the exact, GLU and int8 modes of one pipelined
-tensor-core kernel (csrc/q4_ring.cuh).
+K2, K12, K10 and K11 are the exact, GLU, int8 and W8 modes of one
+pipelined tensor-core kernel (csrc/q4_ring.cuh).
 
 Act-order x is gathered, and at M > 32 the norm applied, before the
 prefill kernels. Each kernel wrapper runs its plain PyTorch version for CPU
@@ -340,12 +340,12 @@ q4_matmul_glu.launches = 0
 
 def w8_matmul_plain(x, w8, ws, out_dtype=None):
     """K11's arithmetic in plain tensor code (quant.py:_q4_matmul_w8):
-    float(xq @ w8) * sx * ws with xq, sx the per-row int8 quantization of
-    x; w8 integer-valued [K, N]. The product runs in f64, where it is
-    exact (|sum| <= 127*127*K < 2^53). ``out_dtype`` as in
+    float(xq @ w8.t()) * sx * ws with xq, sx the per-row int8 quantization
+    of x; w8 the integer-valued K-major image [N, K]. The product runs in
+    f64, where it is exact (|sum| <= 127*127*K < 2^53). ``out_dtype`` as in
     q4_gemv_a8_plain."""
     xq, sx = _quant_rows(x.to(torch.float32))
-    acc = xq.to(torch.float64) @ w8.to(torch.float64)
+    acc = xq.to(torch.float64) @ w8.to(torch.float64).t()
     out = acc.to(torch.float32) * sx * ws.to(torch.float32)
     return out.to(out_dtype or x.dtype)
 
@@ -356,7 +356,7 @@ def q4_prefill_a8_plain(x, qt, ws, out_dtype=None):
     per column as clip(round(w * (1/ws)), +-127), then K11's product."""
     w = dequantize_t(qt, torch.float32)
     inv = 1.0 / ws.to(torch.float32).clamp_min(1e-22)
-    return w8_matmul_plain(x, torch.round(w * inv).clamp_(-127, 127), ws,
+    return w8_matmul_plain(x, torch.round(w * inv).clamp_(-127, 127).t(), ws,
                            out_dtype)
 
 
@@ -387,10 +387,11 @@ def w8_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     x, xq, sx, out = _int8_operands("w8_matmul", x, qt, qt.w8_scale)
     m, k = x.shape
     w8 = qt.w8
-    if (w8.dtype != torch.int8 or w8.shape != (k, qt.out_features)
-            or w8.device != x.device or not w8.is_contiguous()):
-        raise ValueError(f"w8: need contiguous int8 [{k}, {qt.out_features}] "
-                         f"on {x.device}")
+    if (w8.dtype != torch.int8 or w8.shape != (qt.out_features, k)
+            or w8.device != x.device or not w8.is_contiguous()
+            or w8.data_ptr() % 16):
+        raise ValueError(f"w8: need contiguous, 16-byte aligned int8 "
+                         f"[{qt.out_features}, {k}] on {x.device}")
     kernels.check(kernels.launcher("w8_matmul")(
         x.data_ptr(), w8.data_ptr(), qt.w8_scale.data_ptr(), xq.data_ptr(),
         sx.data_ptr(), out.data_ptr(), m, k, qt.out_features,

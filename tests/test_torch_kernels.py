@@ -154,14 +154,14 @@ def test_q4_gemv_a8_matches_plain(gen, m, k, n, gs, act, norm, two_pass):
     (1919, 320, 136, 32), (1919, 1024, 260, 128),
 ])
 def test_int8_prefill_kernels_match_plain(gen, m, k, n, gs):
-    """K10 (in-kernel requant) and K11 (resident image; its launcher takes
-    N % 8 == 0 only). 5e-3 against the plain versions' unrounded f32
+    """K10 (in-kernel requant) and K11 (the resident K-major image; both
+    modes of the ring). 5e-3 against the plain versions' unrounded f32
     values: the same int8 operands and exact integer sums on both sides,
     then the kernel's bf16 output rounding (at most 0.39%). The even
-    nibbles of every word dropped move the plain output by more than 3x
-    that. Shapes are ragged in M and N (M tails of the 256-row tile, N tails
-    of the 128-column tile, a K that is not a multiple of the 64-deep
-    step)."""
+    nibbles of every word dropped, and the image's bytes read as [K, N],
+    move the plain output by more than 3x that. Shapes are ragged in M and
+    N (M tails of the 256-row tile, N tails of the 128-column tile and off
+    a multiple of 8, a K that is not a multiple of the 64-deep step)."""
     qt = _qt(gen, k, n, gs, False)
     x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
     ws = w8_col_scale(qt)
@@ -174,11 +174,12 @@ def test_int8_prefill_kernels_match_plain(gen, m, k, n, gs):
     assert quant.q4_prefill_a8.launches == before + 1
     _close(got, ref, 5e-3)
     assert torch.equal(quant.q4_matmul(x, qt, "pallas_a8t"), got)
-    if n % 8:
-        return
 
     qt8 = with_w8(qt)
     ref8 = quant.w8_matmul_plain(x, qt8.w8, qt8.w8_scale, torch.float32)
+    mistaken = quant.w8_matmul_plain(x, qt8.w8.reshape(k, n).t(),
+                                     qt8.w8_scale, torch.float32)
+    assert (mistaken - ref8).abs().max() > 3 * 5e-3 * ref8.abs().max()
     before = quant.w8_matmul.launches
     got8 = quant.w8_matmul(x, qt8)
     assert quant.w8_matmul.launches == before + 1
@@ -333,17 +334,29 @@ def test_attend_xla_route_on_the_card(gen, d, kind):
         attention.resolve_attn_impl("flash", d)
 
 
-@pytest.mark.parametrize("m,k,v", [(1, 256, 1000), (5, 512, 130),
-                                   (32, 128, 64)])
+@pytest.mark.parametrize("m,k,v", [
+    (1, 256, 1000), (5, 512, 130), (32, 128, 64),
+    # stream-K: tiles shared among blocks, more blocks than tiles, a K off
+    # the 32-row unit; odd vocabularies (the scalar loads)
+    (1, 4096, 32000), (2, 4096, 1000), (8, 200, 4096), (16, 1000, 520),
+    (1, 4096, 32001), (3, 512, 257), (32, 300, 1001), (2, 100, 1),
+])
 def test_dense_gemv_matches_plain(gen, m, k, v):
-    """1e-4: f32 output of the same bf16 inputs, sums in another order."""
+    """1e-4: f32 output of the same bf16 inputs, sums in another order;
+    the same bits from two calls (the split's combine has a fixed order)."""
     x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
     w = torch.randn((k, v), generator=gen, device="cuda").bfloat16()
-    _close(dense.dense_gemv(x, w), dense.dense_gemv_plain(x, w), 1e-4)
+    before = dense.dense_gemv.launches
+    got = dense.dense_gemv(x, w)
+    assert dense.dense_gemv.launches == before + 1
+    assert got.shape == (m, v) and got.dtype == torch.float32
+    _close(got, dense.dense_gemv_plain(x, w), 1e-4)
+    assert torch.equal(dense.dense_gemv(x, w), got)
 
 
 @pytest.mark.parametrize("m,k,v", [(1, 256, 1000), (5, 512, 130),
-                                   (32, 128, 64)])
+                                   (32, 128, 64), (1, 512, 1001),
+                                   (3, 256, 257), (2, 128, 1)])
 def test_head_argmax_matches_plain(gen, m, k, v):
     """The kernel's token is a maximum of the plain logits (within their
     f32 sum-order noise, 1e-4 of the scale); a duplicated maximum column
@@ -363,6 +376,17 @@ def test_head_argmax_matches_plain(gen, m, k, v):
     w[:, 0] = w[:, top]
     assert int(dense.head_argmax(x[:1], nw, w, 1e-6)[0, 0]) == 0
     assert int(dense.head_argmax_plain(x[:1], nw, w, 1e-6)[0]) == 0
+    if v % 2:
+        # every logit below 0: the lane that owns column V - 1 must not let
+        # its empty second column (0) win
+        neg = -w.abs()
+        got = dense.head_argmax(x.abs(), nw, neg, 1e-6)
+        ref = dense.head_argmax_plain(x.abs(), nw, neg, 1e-6)
+        logits = dense.dense_gemv_plain(norms.rms_norm(x.abs(), nw, 1e-6), neg)
+        assert (logits < 0).all() and (got[:, 0] < v).all()
+        picked = logits.gather(1, got.long())[:, 0]
+        assert (logits.amax(1) - picked).max() <= 1e-4 * logits.abs().max()
+        assert ref.shape == (m,)
 
 
 @pytest.mark.parametrize("m,hidden,inter,gs", [

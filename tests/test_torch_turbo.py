@@ -126,29 +126,40 @@ def test_a8_noise_contracts_of_the_jax_suite_hold_on_the_port(gs):
 
 @pytest.mark.parametrize("act_order", [False, True])
 def test_with_w8_matches_the_jax_image(act_order):
-    """The port's image against the JAX image on the true columns: equal
-    except +-1 on at most 0.1% of the entries (a product or a division
-    rounded the other way at a tie), scales within 1e-6 relative; the
-    image round-trips the dequantized weight within 0.51/127 of each
-    column's maximum (tests/test_q4_matmul.py:214-218)."""
+    """The port's K-major image [N, K] against the JAX image [K, N_pad]
+    transposed, on the true columns: equal except +-1 on at most 0.1% of the
+    entries (a product or a division rounded the other way at a tie), scales
+    within 1e-6 relative; the image round-trips the dequantized weight
+    within 0.51/127 of each column's maximum (tests/test_q4_matmul.py:
+    214-218). Built in chunks of columns, it equals the image built in one
+    piece."""
     k, n = 256, 520
     jqt, qt = _qt_pair(k, n, 32, 11, act_order)
     j8, p8 = jgptq.with_w8(jqt), gptq.with_w8(qt)
-    assert p8.w8.shape == (k, n) and p8.w8.dtype == torch.int8
+    assert p8.w8.shape == (n, k) and p8.w8.dtype == torch.int8
+    assert p8.w8.is_contiguous()
     assert p8.w8_scale.shape == (n,) and p8.w8_scale.dtype == torch.float32
-    ref8 = np.asarray(j8.w8)[:, :n].astype(np.int32)
+    ref8 = np.asarray(j8.w8)[:, :n].T.astype(np.int32)
     diff = np.abs(p8.w8.numpy().astype(np.int32) - ref8)
     assert diff.max() <= 1 and (diff != 0).mean() <= 1e-3
     np.testing.assert_allclose(p8.w8_scale.numpy(),
                                np.asarray(j8.w8_scale)[0, :n], rtol=1e-6)
     wd = gptq.dequantize(qt)
-    rt = p8.w8.numpy().astype(np.float32) * p8.w8_scale.numpy()
+    rt = p8.w8.t().numpy().astype(np.float32) * p8.w8_scale.numpy()
     colmax = np.abs(wd).max(axis=0) + 1e-9
     assert (np.abs(rt - wd).max(axis=0) / colmax).max() < 0.51 / 127
     assert gptq.with_w8(p8) is p8
+    whole = gptq.dequantize_t(qt, torch.float32)
+    scale = whole.abs().amax(dim=0).clamp_min(1e-20) * (1.0 / 127.0)
+    one_piece = torch.round(whole / scale).clamp_(-127, 127).to(torch.int8)
+    assert torch.equal(p8.w8, one_piece.t())
+    assert torch.equal(p8.w8_scale, scale)
 
 
 def test_w8_fields_are_carried_by_to_concat_and_permute():
+    """The K-major images of two parts concatenate along their rows (one a
+    column) into the image of the concatenated tensor, and a column
+    permutation permutes the image's rows."""
     _, a = _qt_pair(64, 16, 32, 1)
     _, b = _qt_pair(64, 24, 32, 2)
     s = gptq.with_w8_scale(a)
@@ -160,6 +171,7 @@ def test_w8_fields_are_carried_by_to_concat_and_permute():
     assert torch.equal(moved.w8_scale, a8.w8_scale)
     cat = gptq.concat_quant_tensors([a8, b8])
     whole = gptq.with_w8(gptq.concat_quant_tensors([a, b]))
+    assert cat.w8.shape == (40, 64) and cat.w8.is_contiguous()
     assert torch.equal(cat.w8, whole.w8)
     assert torch.equal(cat.w8_scale, whole.w8_scale)
     half = gptq.concat_quant_tensors([a8, b])        # one part without image
@@ -167,6 +179,7 @@ def test_w8_fields_are_carried_by_to_concat_and_permute():
     perm = np.arange(16)[::-1].copy()
     p = gptq.permute_out_columns(a8, perm)
     assert torch.equal(p.w8, gptq.with_w8(gptq.permute_out_columns(a, perm)).w8)
+    assert torch.equal(p.w8, a8.w8.flip(0)) and p.w8.is_contiguous()
 
 
 # ------------------------------------------------------- K10, K11 prefill
@@ -221,6 +234,35 @@ def test_turbo_prefill_plain_matches_jax_at_ragged_shapes(m, k, n, gs):
     assert _rel(got, ref) <= 5e-3
     assert torch.equal(got, quant.q4_prefill_a8_plain(
         _bf16(x), qt, gptq.w8_col_scale(qt)))
+
+
+@pytest.mark.parametrize("m,k,n,gs", [
+    (33, 256, 520, 32), (130, 512, 136, 128), (257, 288, 264, 32),
+])
+def test_w8_matmul_plain_on_the_k_major_image_matches_jax(m, k, n, gs):
+    """K11's plain version, which the card holds K11 to, on the port's
+    K-major image [N, K] against the JAX package's ``_q4_matmul_w8`` (its
+    Pallas kernel in interpret mode) on the JAX image [K, N_pad], at N off
+    the 128-column tile and M off the 256-row tile: 5e-3, as above. Fed the
+    JAX image transposed, the port's plain version gives the same values up
+    to the bf16 output rounding; fed that image's bytes read as [N, K] (the
+    layout mistaken), its output moves by far more than the tolerance."""
+    jqt, qt = _qt_pair(k, n, gs, 31 + m)
+    j8, p8 = jgptq.with_w8(jqt), gptq.with_w8(qt)
+    x = (np.random.default_rng(m).normal(size=(m, k)) * 0.5).astype(np.float32)
+    ref = np.asarray(jquant._q4_matmul_w8(
+        _jnp_bf16(x), j8.w8, j8.w8_scale, jnp.bfloat16, interpret=True))[:, :n]
+    got = quant.w8_matmul_plain(_bf16(x), p8.w8, p8.w8_scale)
+    assert got.shape == (m, n) and got.dtype == torch.bfloat16
+    assert _rel(got, ref) <= 5e-3
+    assert torch.equal(got, quant.w8_matmul(_bf16(x), p8))
+    jimg = np.ascontiguousarray(np.asarray(j8.w8)[:, :n])          # [K, N]
+    ws = torch.from_numpy(np.asarray(j8.w8_scale)[0, :n].copy())
+    same = quant.w8_matmul_plain(_bf16(x), torch.from_numpy(jimg.T.copy()), ws)
+    assert _rel(same, ref) <= 2 ** -8
+    mistaken = quant.w8_matmul_plain(
+        _bf16(x), torch.from_numpy(jimg.reshape(n, k)), ws)
+    assert _rel(mistaken, ref) > 3 * 5e-3
 
 
 @pytest.mark.parametrize("impl", ["pallas_a8", "pallas_a8x2"])
