@@ -16,7 +16,11 @@ Phases, one line or block of output each; any failure exits non-zero:
      (timed here only; the port never calls it), the least time the card
      could take and, for the fused kernels K6/K7, the port's own chain of
      separate kernels for the same work; K7's attention is also held at
-     its own scale, with no residual and planted keys (k7_attention_cases);
+     its own scale, with no residual and planted keys, after the faults of
+     its last-block merge of the key splits (a split dropped or counted
+     twice) have moved the plain output by more than 3x its limit
+     (k7_attention_cases), and at B = 1, 2, 8 in each GEMV mode over each
+     cache format with two calls bit-equal (k7_sweep_cases);
      the W4A8 kernels K9-K11 are held to 5e-3 against their plain versions'
      unrounded values after the plain versions have shown that a dropped
      residual pass, zero-point term or nibble moves the output by more than
@@ -27,8 +31,8 @@ Phases, one line or block of output each; any failure exits non-zero:
      beside K10 on the same inputs and torch._int_mm, after the image read
      as [K, N] and each column read as its neighbour's have moved the plain
      output by more than 3x its limit (w8_cases); K4 at M = 1, 2, 8, 16, 32
-     and K5 at M = 1, 2 on the 4096 x 32000 lm_head and at V = 32001 (an
-     odd vocab), K4's two calls on the same inputs bit-equal; K12 at 33,
+     and K5 at M = 1, 2, 8, 32 on the 4096 x 32000 lm_head and at V = 32001
+     (an odd vocab), two calls on the same inputs bit-equal; K12 at 33,
      127 and 1919 rows beside K2 alone and K2 +
      the plain silu*up, after up negated and a dropped silu have each moved
      the plain output by more than 3x its 1e-2 (turbo_cases); K3, K7 and K8
@@ -445,13 +449,17 @@ def fused_cases(device, timer, res):
     # K5: the kernel's token must be a maximum of the plain logits up to
     # their f32 sum-order noise (1e-4 of the logit scale, as K4); the
     # reported error is max logit - logit at the kernel's token
-    # (V = 32001, a vocab with one added token: the scalar loads)
+    # (V = 32001, a vocab with one added token: K4's unaligned loads); two
+    # calls on the same inputs give the same tokens
     nw = norm_w()
-    for v, ms in ((vocab, (1, 2)), (vocab + 1, (1,))):
+    for v in (vocab, vocab + 1):
         w = rnd(hidden, v, scale=0.02)
-        for m in ms:
+        for m in (1, 2, 8, 32):
             x = rnd(m, hidden)
             ids = dense.head_argmax(x, nw, w, eps)
+            if not torch.equal(ids, dense.head_argmax(x, nw, w, eps)):
+                raise AssertionError(f"head_argmax V={v} M={m}: two calls "
+                                     f"on the same inputs differ")
             xn = rms_norm(x, nw, eps)
             logits = dense.dense_gemv_plain(xn, w)
             gap = (logits.amax(1)
@@ -658,9 +666,10 @@ def k7_attention_cases(device, timer, res):
     planted_attention's inputs. Each case first shows on the plain version
     that every fault it guards against moves the output by more than 3x
     the tolerance: the in-flight row dropped (its K row negated, so it
-    scores far below every key), the pad bias left out (no mask), and one
-    key split lost (keys 256-511, K7's second split at 8 splits, given the
-    pad bias)."""
+    scores far below every key), the pad bias left out (no mask), one key
+    split lost (keys 256-511, K7's second split at 8 splits, given the pad
+    bias), and the two faults the last block's merge of the splits could
+    have: a split dropped, or counted twice (attention_split_plain)."""
     from exllama_tpu_torch.ops import attn_block
 
     gen = torch.Generator(device=device).manual_seed(SEED + 2)
@@ -689,10 +698,20 @@ def k7_attention_cases(device, timer, res):
         if mask is not None:
             faults["pad bias left out"] = (h, q, kc, vc, past, s_max, o,
                                            new_kv, None)
+        # the last block's merge of the key splits (8 splits: K7's at B = 1
+        # on two blocks an SM): each head's heaviest split dropped, or
+        # counted twice
+        split = (h, q, kc, vc, past, s_max, o, None, None, None, 1e-6,
+                 new_kv, mask)
+        for fault in ("drop", "twice"):
+            faults[f"merge: heaviest split {fault}"] = (split, fault)
         margins = {}
         for fault, fargs in faults.items():
-            moved = (attn_block.attn_block_o_plain(*fargs).float()
-                     - ref.float()).abs().max().item()
+            out = (attn_block.layer_tail_split_plain(
+                *fargs[0], blocks=264, nsplit=8, fault=fargs[1])
+                if fault.startswith("merge") else
+                attn_block.attn_block_o_plain(*fargs))
+            moved = (out.float() - ref.float()).abs().max().item()
             margins[fault] = round(moved / (tol * scale), 1)
             if not moved > 3 * tol * scale:
                 raise AssertionError(f"{label}: '{fault}' moves the plain "
@@ -711,6 +730,78 @@ def k7_attention_cases(device, timer, res):
                lambda: attn_block.attn_block_o(*args),
                lambda: attn_block.attn_block_o_plain(*args), None, nbytes,
                flops, iters=10)
+
+
+def k7_sweep_cases(device):
+    """K7 at B = 1, 2 and 8 (GQA 8 beyond one row, each row its own cursor)
+    in each GEMV mode over each cache format at Llama-7B widths, held
+    against its plain version at the usual limits (exact and a8x2 2e-2, a8
+    5e-2, the K/V rows 1e-2): layer_step (every phase) in the exact and
+    a8x2 modes, layer_tail in one-pass a8 (whose q from an int8-activation
+    GEMV moves a peaked softmax beyond a8's limit: tests/test_torch_kernels
+    .py); two calls on the same inputs give the same bits (every split is
+    combined in a fixed order)."""
+    from exllama_tpu_torch.ops import attn_block
+    from exllama_tpu_torch.ops.rope import rope_tables, slice_tables
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    hidden, inter, heads, d, s_max, gs, eps = 4096, 11008, 32, 128, 2048, 128, 1e-6
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=device).bfloat16()
+
+    o = random_qt(gen, heads * d, hidden, gs, False, device)
+    gateup = random_qt(gen, hidden, 2 * inter, gs, False, device)
+    down = random_qt(gen, inter, hidden, gs, False, device)
+    iw, nw = ((torch.rand(hidden, generator=gen, device=device) + 0.5)
+              .bfloat16() for _ in range(2))
+    sin, cos = rope_tables(s_max, d, device=device)
+    for b in (1, 2, 8):
+        hkv = 32 if b == 1 else 8
+        qkv = random_qt(gen, hidden, (heads + 2 * hkv) * d, gs, False, device)
+        past = torch.tensor([2000 - 37 * i for i in range(b)],
+                            dtype=torch.int32, device=device)
+        sin_t, cos_t = slice_tables(sin, cos, past, 1)
+        h = rnd(b, 1, hidden)
+        errs = {}
+        for kind in ("bf16", "int8", "int4"):
+            if kind == "bf16":
+                kc, vc, ks, vs = rnd(b, hkv, s_max, d), rnd(b, hkv, s_max, d), \
+                    None, None
+            else:
+                kc, vc, ks, vs = quantized_cache(gen, kind, b, hkv, s_max, d,
+                                                 device, spread=False)
+            for impl in ("auto", "pallas_a8", "pallas_a8x2"):
+                mode = {"auto": "", "pallas_a8": "_a8",
+                        "pallas_a8x2": "_a8x2"}[impl]
+                if impl == "pallas_a8":
+                    q = rnd(b, 1, heads, d)
+                    new_kv = (rnd(b, 1, hkv, d), rnd(b, 1, hkv, d))
+                    args = (h, q, kc, vc, past, s_max, o, nw, gateup, down,
+                            eps, new_kv, None, impl, ks, vs)
+                    fn, plain = attn_block.layer_tail, attn_block.layer_tail_plain
+                else:
+                    args = (h, qkv, iw, sin_t, cos_t, kc, vc, past, s_max, o,
+                            nw, gateup, down, eps, heads, hkv, d, None, impl,
+                            ks, vs)
+                    fn, plain = attn_block.layer_step, attn_block.layer_step_plain
+                got, again, ref = fn(*args), fn(*args), plain(*args)
+                label = f"{fn.__name__}{mode} {kind} B={b}"
+                if fn is attn_block.layer_step:
+                    for i, nm in ((1, "k_row"), (2, "v_row")):
+                        check_close(f"{label} {nm}", got[i], ref[i], 1e-2)
+                else:
+                    got, again, ref = (got,), (again,), (ref,)
+                _, rel = check_close(label, got[0], ref[0],
+                                     TOL[f"layer_tail{mode}"])
+                if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                    raise AssertionError(f"{label}: two calls on the same "
+                                         f"inputs differ")
+                errs[f"{kind}{mode or ' exact'}"] = round(rel, 5)
+            del kc, vc, ks, vs
+        log(f"  layer_tail sweep B={b}: rel err (limits 2e-2, a8 5e-2), "
+            f"bit-equal on two calls: {errs}")
+        del qkv
 
 
 def with_outliers(gen, x, gs, factor=50.0):
@@ -2361,7 +2452,7 @@ SOURCES = {
                    "layer_tail B=1 past=2000"),
     "kv_commit": ("exllama_tpu_torch/csrc/kv_commit.cu",
                   "exllama_tpu/ops/attention.py:173", "L=32 B=1"),
-    "q4_gemv_a8": ("exllama_tpu_torch/csrc/q4_gemv.cuh",
+    "q4_gemv_a8": ("exllama_tpu_torch/csrc/q4_gemv.cu",
                    "exllama_tpu/ops/quant.py:333", "a8 qkv g128 M=1 norm"),
     "q4_prefill_a8": ("exllama_tpu_torch/csrc/q4_prefill_a8.cu",
                       "exllama_tpu/ops/quant.py:776", "o g128 M=1919"),
@@ -2409,6 +2500,7 @@ def main() -> int:
     fused_cases(device, timer, res)
     turbo_cases(device, timer, res)
     kv_cases(device, timer, res)
+    k7_sweep_cases(device)
     crossover = {}
     gemv_tc_cases(device, timer, res, crossover)
     groupsize_cases(device, timer, res)

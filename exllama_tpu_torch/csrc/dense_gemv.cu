@@ -50,7 +50,7 @@ cudaError_t launch(const Args& p, float* out, int grid, cudaStream_t st) {
 // scratch; grid <= ceil(V / 256) * ceil(K / 32) blocks (one an SM).
 extern "C" int dense_gemv_launch(const void* x, const void* w, void* out, void* part,
                                  void* ticket, int M, int K, int V, int grid, void* stream) {
-  const Args p{(const bf16*)x, (const bf16*)w, (float*)part, (int*)ticket, M, K, V};
+  const Args p{(const bf16*)x, (const bf16*)w, (float*)part, (unsigned int*)ticket, M, K, V};
   auto o = (float*)out;
   auto st = (cudaStream_t)stream;
   switch (pick_mb(M)) {

@@ -1,5 +1,5 @@
 // K5 head_argmax: the greedy decode head, M <= 32 rows:
-//   ids[m] = argmax_v ( rms_norm(x[m]) * w_norm ) @ W[:, v]
+//   ids[m] = argmax_v ( bf16(rms_norm(x[m]) * w_norm) @ W[:, v] )
 // with the earliest index winning ties; no logits are materialized.
 //
 // Replaces the TPU kernel exllama_tpu/ops/dense.py:_head_argmax_kernel
@@ -7,27 +7,26 @@
 // the normed row rounded to bf16, f32 dot products.
 //
 // Bound on the H100: bytes. The lm_head W [K, V] bf16 is read once (262 MB
-// at Llama-7B, 78 us at 3.35 TB/s) for 2*M*K*V flops. Design: K4's column
-// streaming -- each lane owns two adjacent columns (one 4-byte load per
-// row, 128 contiguous bytes per warp), a block's eight warps split the rows
-// of its 64 columns -- with the norm applied while x is staged (each block
-// recomputes the f32 row norms, a few KB from L2). Each block reduces its
-// tile to a (max, index) per row and combines it with one 64-bit atomicMax
-// on a key whose high half is an order-preserving image of the f32 value and
-// whose low half is ~index, so the result is deterministic and the earliest
-// index wins ties. The launcher zeroes the keys first and a one-warp kernel
-// turns them into int32 ids. An odd V (rows not 4-byte aligned) takes the
-// scalar instantiation: two 2-byte loads a row, the column past V masked
-// out of the loads and of the argmax.
-#include "common.cuh"
+// at Llama-7B, 78 us at 3.35 TB/s) for 2*M*K*V flops. Design: K4's loop
+// (dense_stream.cuh: stream-K over 256-column tiles x 32-row units on one
+// block an SM, a 5-slab cp.async ring, mma.sync products, split tiles
+// combined by their last block in a fixed order), with the norm applied as
+// x is staged (NORM: each block computes the rows' RMS scales first, a few
+// KB from L2) and an Emit that keeps, per thread and row, the largest
+// 64-bit key over the columns it is handed: an order-preserving image of
+// the f32 sum in the high half (-0 as +0), ~index in the low half, so the
+// earliest index wins ties. gemv_stream hands each column's final sum to
+// exactly one thread once, so the result does not depend on the split. At
+// the block's end the keys of each row are reduced over the block and
+// combined by one 64-bit atomicMax; the last block to finish (a grid
+// ticket) turns the keys into int32 ids and resets them and the ticket to
+// 0, so one launch does it all and the scratch is left as it was found.
+// Columns >= V are never emitted; an odd V takes dstream's unaligned loads.
+#include "dense_stream.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int BN = 64;                   // columns per block, two per lane
-constexpr int X_SMEM_BYTES = 40 * 1024;
-constexpr int UNROLL = 4;
+using dstream::Args;
 
 __device__ __forceinline__ unsigned long long argmax_key(float v, int idx) {
   if (v == 0.f) v = 0.f;                 // -0 and +0 tie, as in a float compare
@@ -36,147 +35,123 @@ __device__ __forceinline__ unsigned long long argmax_key(float v, int idx) {
   return ((unsigned long long)u << 32) | (unsigned int)(~idx);
 }
 
-template <int MB, bool VEC>
-__global__ void __launch_bounds__(THREADS) head_argmax_kernel(
-    const bf16* __restrict__ x, const bf16* __restrict__ norm_w, const bf16* __restrict__ w,
-    unsigned long long* __restrict__ keys, int M, int K, int V, int kc, float eps) {
+// Each thread's best key per row over the columns handed to it.
+template <int MB>
+struct KeepMax {
+  unsigned long long* best;  // [MB], in registers once inlined
+  __device__ __forceinline__ void operator()(int m, int n, float v) const {
+    const unsigned long long k = argmax_key(v, n);
+    if (k > best[m]) best[m] = k;
+  }
+};
+
+template <int MB, bool ALIGNED, bool WHOLE>
+__global__ void __launch_bounds__(dstream::THREADS, 1)
+    head_argmax_kernel(const Args p, unsigned long long* keys, int32_t* ids) {
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);                             // [MB][kc]
-  float2* red = reinterpret_cast<float2*>(smem + (size_t)MB * kc * 2);  // [WARPS][32]
-  float* rs = reinterpret_cast<float*>(red + WARPS * 32);               // [MB]
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n = blockIdx.x * BN + 2 * lane;     // first of this lane's two columns
-  const bool col_ok = n < V, col1_ok = n + 1 < V;
-
-  for (int m = warp; m < MB; m += WARPS) {
-    float ss = 0.f;
-    if (m < M)
-      for (int k = lane; k < K; k += 32) {
-        const float v = bf2f(x[(size_t)m * K + k]);
-        ss += v * v;
-      }
-    ss = warp_sum(ss);
-    if (lane == 0) rs[m] = 1.0f / sqrtf(ss / (float)K + eps);
-  }
-
-  float acc0[MB], acc1[MB];
+  unsigned long long best[MB];
 #pragma unroll
-  for (int m = 0; m < MB; ++m) acc0[m] = acc1[m] = 0.f;
+  for (int m = 0; m < MB; ++m) best[m] = 0ull;
+  dstream::gemv_stream<MB, ALIGNED, true, WHOLE>(p, smem, KeepMax<MB>{best});
 
-  for (int k0 = 0; k0 < K; k0 += kc) {
-    const int klen = min(kc, K - k0);
-    __syncthreads();
-    for (int i = threadIdx.x; i < MB * klen; i += THREADS) {
-      const int m = i / klen, kk = i - m * klen;
-      float v = 0.f;
-      if (m < M) v = bf2f(x[(size_t)m * K + k0 + kk]) * rs[m] * bf2f(norm_w[k0 + kk]);
-      xs[m * kc + kk] = f2bf(v);
-    }
-    __syncthreads();
-    if (col_ok) {
-      const bf16* wp = w + (size_t)k0 * V + n;
-      for (int kk = warp * UNROLL; kk < klen; kk += WARPS * UNROLL) {
-        __nv_bfloat162 wv[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          if constexpr (VEC) {
-            wv[u] = kk + u < klen
-                        ? *reinterpret_cast<const __nv_bfloat162*>(wp + (size_t)(kk + u) * V)
-                        : __floats2bfloat162_rn(0.f, 0.f);
-          } else {
-            const bf16* row = wp + (size_t)(kk + u) * V;
-            const bf16 zero = f2bf(0.f);
-            wv[u] = kk + u < klen ? __halves2bfloat162(row[0], col1_ok ? row[1] : zero)
-                                  : __floats2bfloat162_rn(0.f, 0.f);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          if (kk + u >= klen) break;
-          const float2 wf = __bfloat1622float2(wv[u]);
-#pragma unroll
-          for (int m = 0; m < MB; ++m) {
-            const float xv = bf2f(xs[m * kc + kk + u]);
-            acc0[m] = fmaf(xv, wf.x, acc0[m]);
-            acc1[m] = fmaf(xv, wf.y, acc1[m]);
-          }
-        }
-      }
-    }
-  }
-
+  // the block's best key per row: the warp's, then the block's, one atomic
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  auto* red = reinterpret_cast<unsigned long long*>(smem + dstream::Geo<MB>::RED_OFF);
+  __syncthreads();  // every thread is done with gemv_stream's shared memory
 #pragma unroll
   for (int m = 0; m < MB; ++m) {
-    if (m >= M) break;
-    __syncthreads();
-    red[warp * 32 + lane] = make_float2(acc0[m], acc1[m]);
-    __syncthreads();
-    if (warp == 0) {
-      float2 s = make_float2(0.f, 0.f);
-      for (int wi = 0; wi < WARPS; ++wi) {
-        const float2 r = red[wi * 32 + lane];
-        s.x += r.x;
-        s.y += r.y;
-      }
-      // the lane's best column, then the warp's (earliest index on ties)
-      unsigned long long key = 0ull;
-      if (col_ok) key = col1_ok && s.y > s.x ? argmax_key(s.y, n + 1) : argmax_key(s.x, n);
+    unsigned long long k = best[m];
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, o);
-        key = other > key ? other : key;
-      }
-      if (lane == 0) atomicMax(keys + m, key);
+    for (int o = 16; o > 0; o >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, k, o);
+      k = other > k ? other : k;
     }
+    if (lane == 0) red[warp * MB + m] = k;
   }
+  __syncthreads();
+  if (tid < p.M) {
+    unsigned long long k = 0ull;
+#pragma unroll
+    for (int w = 0; w < dstream::WARPS; ++w) {
+      const unsigned long long r = red[w * MB + tid];
+      k = r > k ? r : k;
+    }
+    if (k) atomicMax(keys + tid, k);
+  }
+  // the last block turns the keys into ids and leaves the scratch at 0
+  __shared__ bool last;
+  __syncthreads();
+  unsigned int* grid_ticket = reinterpret_cast<unsigned int*>(keys + 32);
+  if (tid == 0) {
+    __threadfence();
+    last = atomicAdd(grid_ticket, 1u) == gridDim.x - 1;
+    __threadfence();
+  }
+  __syncthreads();
+  if (!last) return;
+  if (tid < p.M) {
+    const unsigned long long k = atomicExch(keys + tid, 0ull);
+    ids[tid] = (int32_t)(~(unsigned int)(k & 0xffffffffull));
+  }
+  if (tid == 0) *grid_ticket = 0u;
 }
 
-__global__ void keys_to_ids(const unsigned long long* __restrict__ keys,
-                            int32_t* __restrict__ ids, int M) {
-  const int m = threadIdx.x;
-  if (m < M) ids[m] = (int32_t)(~(unsigned int)(keys[m] & 0xffffffffull));
-}
+// dynamic shared memory a block may take: the H100's 227 KB, less this
+// kernel's static few bytes
+constexpr int SMEM_MAX = 226 * 1024;
 
-template <int MB>
-cudaError_t launch(const bf16* x, const bf16* nw, const bf16* w, unsigned long long* keys,
-                   int32_t* ids, int M, int K, int V, float eps, cudaStream_t st) {
-  int kc = X_SMEM_BYTES / (2 * MB);
-  kc -= kc % UNROLL;
-  if (kc > K) kc = K;
-  const size_t smem = (size_t)MB * kc * 2 + WARPS * 32 * sizeof(float2) + MB * 4;
-  cudaError_t e = cudaMemsetAsync(keys, 0, (size_t)M * sizeof(unsigned long long), st);
-  if (e != cudaSuccess) return e;
-  dim3 grid((V + BN - 1) / BN);
-  if (V % 2 == 0 && (uintptr_t)w % 4 == 0)
-    head_argmax_kernel<MB, true><<<grid, THREADS, smem, st>>>(x, nw, w, keys, M, K, V, kc, eps);
-  else
-    head_argmax_kernel<MB, false><<<grid, THREADS, smem, st>>>(x, nw, w, keys, M, K, V, kc, eps);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  keys_to_ids<<<1, 32, 0, st>>>(keys, ids, M);
+template <int MB, bool ALIGNED, bool WHOLE>
+cudaError_t go(const Args& p, unsigned long long* keys, int32_t* ids, int grid, int smem,
+               cudaStream_t st) {
+  static const cudaError_t ok = cudaFuncSetAttribute(
+      head_argmax_kernel<MB, ALIGNED, WHOLE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_MAX);
+  if (ok != cudaSuccess) return ok;
+  head_argmax_kernel<MB, ALIGNED, WHOLE><<<grid, dstream::THREADS, smem, st>>>(p, keys, ids);
   return cudaGetLastError();
+}
+
+// At <= 8 rows the normed x is formed once a block where it fits beside
+// the ring (WHOLE: K <= 64K at one row, ~8K at eight); else unit by unit.
+template <int MB>
+cudaError_t launch(const Args& p, unsigned long long* keys, int32_t* ids, int grid,
+                   cudaStream_t st) {
+  static_assert(dstream::WARPS * MB * 8 <= MB * dstream::BN * 4, "keys fit the red area");
+  // every row of w on a 16-byte boundary: V % 8 == 0, w aligned
+  const bool aligned = p.V % 8 == 0 && (uintptr_t)p.w % 16 == 0;
+  if constexpr (MB <= 8) {
+    const int smem = dstream::whole_smem<MB>(p.K);
+    if (smem <= SMEM_MAX)
+      return aligned ? go<MB, true, true>(p, keys, ids, grid, smem, st)
+                     : go<MB, false, true>(p, keys, ids, grid, smem, st);
+  }
+  constexpr int smem = dstream::Geo<MB>::SMEM;
+  return aligned ? go<MB, true, false>(p, keys, ids, grid, smem, st)
+                 : go<MB, false, false>(p, keys, ids, grid, smem, st);
 }
 
 }  // namespace
 
 // x [M, K] bf16 (pre-norm); norm_w [K] bf16; w [K, V] bf16 (any V >= 1);
-// keys [M] uint64 scratch; ids [M] int32 out.
+// keys uint64 [33] of scratch (32 keys, then the grid ticket in the low 32
+// bits of the last), zero between launches; ids [M] int32 out; part f32
+// [grid][2][pick_mb(M)][256] and ticket int32 [ceil(V / 256)] (zero): K4's
+// scratch; grid <= ceil(V / 256) * ceil(K / 32) blocks (one an SM).
 extern "C" int head_argmax_launch(const void* x, const void* norm_w, const void* w,
-                                  void* keys, void* ids, int M, int K, int V, float eps,
-                                  void* stream) {
-  auto bx = (const bf16*)x;
-  auto nw = (const bf16*)norm_w;
-  auto bw = (const bf16*)w;
+                                  void* keys, void* ids, void* part, void* ticket, int M,
+                                  int K, int V, int grid, float eps, void* stream) {
+  if (M < 1 || M > 32 || grid < 1) return cudaErrorInvalidValue;
+  const Args p{(const bf16*)x, (const bf16*)w, (float*)part, (unsigned int*)ticket, M, K, V,
+               (const bf16*)norm_w, eps};
   auto ks = (unsigned long long*)keys;
   auto out = (int32_t*)ids;
   auto st = (cudaStream_t)stream;
   switch (pick_mb(M)) {
-    case 1: return launch<1>(bx, nw, bw, ks, out, M, K, V, eps, st);
-    case 2: return launch<2>(bx, nw, bw, ks, out, M, K, V, eps, st);
-    case 4: return launch<4>(bx, nw, bw, ks, out, M, K, V, eps, st);
-    case 8: return launch<8>(bx, nw, bw, ks, out, M, K, V, eps, st);
-    case 16: return launch<16>(bx, nw, bw, ks, out, M, K, V, eps, st);
-    default: return launch<32>(bx, nw, bw, ks, out, M, K, V, eps, st);
+    case 1: return launch<1>(p, ks, out, grid, st);
+    case 2: return launch<2>(p, ks, out, grid, st);
+    case 4: return launch<4>(p, ks, out, grid, st);
+    case 8: return launch<8>(p, ks, out, grid, st);
+    case 16: return launch<16>(p, ks, out, grid, st);
+    default: return launch<32>(p, ks, out, grid, st);
   }
 }

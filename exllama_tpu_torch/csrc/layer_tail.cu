@@ -40,18 +40,28 @@
 // element. Design: a
 // cooperative launch (every block co-resident, at most 4 to an SM) whose
 // phases are separated by grid barriers, where the TPU grid runs them in
-// order. The GEMV phases take the shared GEMV (fused_layer.cuh:
-// gemv_phase): 32-column tiles of the CUDA-core loop at B = 1, the
-// tensor-core GEMV with K split across the grid at B >= 2. Attention has only B*Hkv (batch row, kv head) pairs --
-// 32 at 7B, B=1, which is why the separate K3 decode reached 2% of its
-// bound -- so each pair's keys are split across blocks (split-KV): a block
-// owns a key range, its 8 warps each keep an online softmax over 32-key
-// chunks (one key per lane for the scores, four head dims per lane for PV),
-// the block merges its warps, and writes (m, l, acc) partials to scratch; a
-// combine step after the next barrier merges the splits into the bf16
-// attention row. Rope is applied as q and the in-flight k are loaded, so
-// phase B needs one barrier only. Scratch (qkv, partials, attention row,
-// h', gate|up, the barrier counter) is allocated by the wrapper.
+// order. The GEMV phases take the shared GEMVs (fused_layer.cuh:
+// gemv_phase): at B = 1 the weights stream through a cp.async ring,
+// stream-K over (256-column tile, 128-k unit) items shared evenly among
+// the grid (q4_stream.cuh: a GEMV that split no K left the o and down
+// projections of Llama-7B, 128 tiles of 32 columns, to 128 of the grid's
+// blocks); at B >= 2 the tensor-core GEMV, its (128-column tile, K split)
+// items planned to fill one wave of the grid (q4tc::plan_splits). The
+// next phase's first weight slabs are put in flight before each grid
+// barrier (fused::gemv_prefetch). Attention has only B*Hkv (batch row, kv
+// head) pairs -- 32 at 7B, B=1, which is why the separate K3 decode
+// reached 2% of its bound -- so each pair's keys are split across blocks
+// (split-KV): a block owns a
+// key range, its 8 warps each keep an online softmax over 32-key chunks
+// (one key per lane for the scores, four head dims per lane for PV), the
+// block merges its warps and writes (m, l, acc) partials to scratch; the
+// last block of a pair to finish (an atomic ticket, which it resets)
+// merges the pair's splits in split order into the bf16 attention row, so
+// no barrier of its own is needed. Rope is applied as q and the in-flight
+// k are loaded, so phase B needs one barrier only. Scratch (qkv, partials,
+// attention row, h', gate|up, the barrier counter) is allocated by the
+// wrapper; the GEMV splits' partials and the tickets are the per-device
+// scratch of ops/quant.py:fused_gemv_scratch.
 //
 // Built with -DGEMV_MODE=1 or 2 every GEMV phase (qkv, o-proj, gate|up,
 // down) runs the W4A8 arithmetic of K9 (attn_block.py's a8 / a8x2 kernels);
@@ -106,7 +116,8 @@ struct TailParams {
   bf16* h1_scr;           // [B, hidden]
   bf16* gu_scr;           // [B, 2*inter]
   unsigned int* bar;
-  fused::SplitScratch gsc;  // the tensor-core GEMV phases' split partials, tickets
+  fused::SplitScratch gsc;  // the GEMV phases' split partials; their tickets and
+                            // the (batch row, kv head) pairs' ([B*Hkv])
   int B, H, Hkv, S, hidden, inter, gs, nsplit, mask_stride, rope_stride, attend_len;
   int kv_mode;            // 0 bf16, 1 int8, 2 int4
   float eps, scale;
@@ -141,10 +152,56 @@ __device__ __forceinline__ float kv_raw(uint32_t w, int e, bool hi) {
   return (float)(hi ? b >> 4 : (b & 15) - 8);
 }
 
-// Phase C: one work item = (batch row b, kv head hk, key split). KV: the
-// cache format (TailParams::kv_mode).
+// The last split block of pair (b, hk): merge the pair's G heads' splits,
+// in split order, into the bf16 attention row. A function of its own, out
+// of line, so that its registers do not add to the attention phase's.
+// (Its operands are passed by value: a reference to the kernel's parameter
+// block would copy it to local memory.)
+__device__ __noinline__ void merge_splits(const float* part, bf16* attn_scr, float* sm,
+                                          int nsplit, int G, int H, int b, int hk, int bh) {
+  __threadfence();
+  // each split's m and l (one load each, all in flight), then per head the
+  // weights exp(m - max m) and the merged l, then the sums of acc over the
+  // splits in order, their loads unrolled
+  const float* base = part + (size_t)bh * nsplit * G * (D + 2);
+  const size_t stride = (size_t)G * (D + 2);
+  float* wt = sm + ATT_WA;              // [G][nsplit]: the splits' m, then weights
+  float* lw = wt + G * nsplit;          // [G][nsplit]: the splits' l
+  float* lsum = lw + G * nsplit;        // [G]: the merged l
+  for (int i = threadIdx.x; i < 2 * G * nsplit; i += THREADS) {
+    const int r = i % (G * nsplit);
+    wt[i] = __ldcg(base + (r % nsplit) * stride + (r / nsplit) * (D + 2) + D +
+                   (i >= G * nsplit ? 1 : 0));
+  }
+  __syncthreads();
+  if (threadIdx.x < G) {
+    const int j = threadIdx.x;
+    float mm = MASK_VALUE;
+    for (int sp = 0; sp < nsplit; ++sp) mm = fmaxf(mm, wt[j * nsplit + sp]);
+    float ll = 0.f;
+    for (int sp = 0; sp < nsplit; ++sp) {
+      const float f = expf(wt[j * nsplit + sp] - mm);
+      wt[j * nsplit + sp] = f;
+      ll += f * lw[j * nsplit + sp];
+    }
+    lsum[j] = ll == 0.f ? 1.f : ll;
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < G * D; i += THREADS) {
+    const int j = i / D, d = i - j * D;
+    const float* pj = base + j * (D + 2) + d;
+    float aa = 0.f;
+#pragma unroll 8
+    for (int sp = 0; sp < nsplit; ++sp) aa += wt[j * nsplit + sp] * __ldcg(pj + sp * stride);
+    attn_scr[(size_t)b * H * D + (size_t)(hk * G + j) * D + d] = f2bf(aa / lsum[j]);
+  }
+}
+
+// Phase C: one work item = (batch row b, kv head hk, key split); the last
+// split of a pair merges them. KV: the cache format (TailParams::kv_mode).
 template <int KV>
 __device__ void attention_phase(const TailParams& p, float* sm) {
+  __shared__ int last_split;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int G = p.H / p.Hkv;
   const int nqkv = p.qkv.N;
@@ -342,34 +399,18 @@ __device__ void attention_phase(const TailParams& p, float* sm) {
         out[j * (D + 2) + D + 1] = ll;
       }
     }
-  }
-}
-
-// Merge the splits of every (b, query head) into the bf16 attention row;
-// one warp per pair, four head dims per lane.
-__device__ void combine_phase(const TailParams& p) {
-  const int lane = threadIdx.x & 31;
-  const int G = p.H / p.Hkv;
-  const int gw = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  for (int it = gw; it < p.B * p.H; it += gridDim.x * WARPS) {
-    const int b = it / p.H, head = it - b * p.H;
-    const int hk = head / G, j = head - hk * G;
-    const float* base = p.part + ((size_t)(b * p.Hkv + hk) * p.nsplit * G + j) * (D + 2);
-    const size_t stride = (size_t)G * (D + 2);
-    float mm = MASK_VALUE;
-    for (int sp = 0; sp < p.nsplit; ++sp) mm = fmaxf(mm, __ldcg(base + sp * stride + D));
-    float ll = 0.f, a[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int sp = 0; sp < p.nsplit; ++sp) {
-      const float* ps = base + sp * stride;
-      const float f = expf(__ldcg(ps + D) - mm);
-      ll += f * __ldcg(ps + D + 1);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[e] += f * __ldcg(ps + lane * 4 + e);
-    }
-    if (ll == 0.f) ll = 1.f;
-    bf16* dst = p.attn_scr + (size_t)b * p.H * D + (size_t)head * D + lane * 4;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dst[e] = f2bf(a[e] / ll);
+    // the last split of (b, hk) to finish merges its G heads, splits in
+    // order, into the bf16 attention row (a fault that drops a split or
+    // counts one twice is held against the plain merge:
+    // ops/attn_block.py:attention_split_plain)
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      last_split = atomicAdd(p.gsc.ticket + bh, 1u) == (unsigned)(p.nsplit - 1);
+    __syncthreads();
+    if (!last_split) continue;
+    merge_splits(p.part, p.attn_scr, sm, p.nsplit, G, p.H, b, hk, bh);
+    if (threadIdx.x == 0) p.gsc.ticket[bh] = 0u;  // ready for the next phase or launch
   }
 }
 
@@ -396,33 +437,30 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams
 #else
   attention_phase<0>(p, reinterpret_cast<float*>(smem));
 #endif
-  fused::grid_sync(p.bar, epoch);
-  combine_phase(p);
+  fused::gemv_prefetch<MB>(p.o, p.H * D, p.gs, smem);
   fused::grid_sync(p.bar, epoch);
   // phase D: o-projection + residual, into h' (MLP) or the output
   const int hid = p.hidden;
   bf16* hdst = p.post_norm ? p.h1_scr : p.out;
   const XSrc xo{p.attn_scr, p.H * D, nullptr, 0.f, nullptr, 0};
-  fused::gemv_phase<MB, GEMV_MODE>(xo, p.o, M, p.H * D, p.gs, p.gsc, smem,
-                        [&](int m, int n, float v) {
-                          const size_t i = (size_t)m * hid + n;
-                          hdst[i] = f2bf(bf2f(p.h[i]) + bf2f(f2bf(v)));
-                        });
+  fused::gemv_phase<MB, GEMV_MODE>(
+      xo, p.o, M, p.H * D, p.gs, p.gsc, smem,
+      [&](int m, int n, float v) {
+        const size_t i = (size_t)m * hid + n;
+        hdst[i] = f2bf(bf2f(p.h[i]) + bf2f(f2bf(v)));
+      },
+      true);
   if (!p.post_norm) return;
+  fused::gemv_prefetch<MB>(p.gu, hid, p.gs, smem);
   fused::grid_sync(p.bar, epoch);
-  fused::mlp_phases<MB, GEMV_MODE>(p.h1_scr, p.post_norm, p.eps, p.gu, p.dn, M, hid, p.inter, p.gs,
-                        p.gu_scr, p.out, p.gsc, p.bar, epoch, smem);
+  fused::mlp_phases<MB, GEMV_MODE>(p.h1_scr, p.post_norm, p.eps, p.gu, p.dn, M, hid, p.inter,
+                                   p.gs, p.gu_scr, p.out, p.gsc, p.bar, epoch, smem, true);
 }
 
 template <int MB>
 cudaError_t launch(TailParams p, int nsplit_cap, cudaStream_t st) {
   size_t smem = (size_t)ATT_FLOATS * 4;
-  const int ks[4] = {p.hidden, p.H * D, p.inter, p.hidden};
-  for (int i = 0; i < 4; ++i) {
-    if (ks[i] <= 0) continue;
-    const size_t s = fused::gemv_smem(MB, ks[i], p.gs, GEMV_MODE);
-    if (s > smem) smem = s;
-  }
+  if (fused::gemv_smem(MB, GEMV_MODE) > smem) smem = fused::gemv_smem(MB, GEMV_MODE);
   const int grid = fused::coop_grid(layer_tail_kernel<MB>, smem);
   // splits per (b, kv head): enough work items to cover the grid
   int nsplit = grid / (p.B * p.Hkv);
@@ -447,7 +485,7 @@ cudaError_t launch(TailParams p, int nsplit_cap, cudaStream_t st) {
 //   scratch: qkv_scr [B, (H+2*Hkv)*D] bf16, part [B*Hkv*nsplit_cap*G*(D+2)]
 //   f32, attn_scr [B, H*D], h1_scr [B, hidden], gu_scr [B, 2*inter] bf16,
 //   bar one uint32; gpart, gticket the split scratch of fused::SplitScratch
-//   (B >= 2; MB = fused::fused_mb(B)); out [B, hidden]. D = 128, H / Hkv <= 8; keys at
+//   (ticket >= B*Hkv entries too); out [B, hidden]. D = 128, H / Hkv <= 8; keys at
 //   s >= min(past_b, attend_len) are not read.
 extern "C" int layer_tail_launch(
     const void* q, const void* k_new, const void* v_new, const void* k_cache,
@@ -509,8 +547,7 @@ extern "C" int layer_tail_launch(
   p.eps = eps;
   p.scale = scale;
   auto st = (cudaStream_t)stream;
-  if (B < 1 || B > 32 || (B > 1 && (gpart == nullptr || gticket == nullptr)))
-    return cudaErrorInvalidValue;
+  if (B < 1 || B > 32 || gpart == nullptr || gticket == nullptr) return cudaErrorInvalidValue;
   switch (fused::fused_mb(B)) {
     case 1: return launch<1>(p, nsplit_cap, st);
     case 16: return launch<16>(p, nsplit_cap, st);

@@ -1,9 +1,8 @@
 // The 4-bit GPTQ GEMV at 2 <= M <= 32 rows on tensor cores, as a
 // block-level device function shared by K1 / K9 (q4_gemv.cu), K6
-// (q4_mlp.cu) and K7 (layer_tail.cu). It computes what the CUDA-core loop
-// q4::q4_gemv_tiles computes (q4_gemv.cuh), with the same staging
-// prologues (RMSNorm, act-order gather, silu(gate)*up) and the same
-// arithmetic modes:
+// (q4_mlp.cu) and K7 (layer_tail.cu), with the staging prologues (RMSNorm,
+// act-order gather, silu(gate)*up) and the arithmetic modes of
+// q4_gemv.cuh:
 //
 //   EXACT: out = sum_g s[g,n] * (x_g . q_g) - zs[g,n] * sum(x_g)
 //          the group products on mma.sync.m16n8k16 bf16 -> f32, the nibbles
@@ -12,7 +11,7 @@
 //          mma.sync.m16n8k32 s8 -> s32, rescaled by s * sx (A8X2: plus the
 //          residual rows at sx / 254), minus zs * sum(x_g) in f32.
 //
-// Replaces, at M >= 2, the CUDA-core loop that stood for the TPU kernels
+// Replaced, at M >= 2, a CUDA-core loop that stood for the TPU kernels
 // exllama_tpu/ops/quant.py:_q4_gemv_kernel_npair (K1),
 // _q4_gemv_kernel_npair_a8 (K9) and the GEMVs of ops/mlp.py:_q4_mlp_kernel
 // (K6) and ops/attn_block.py:_layer_tail_kernel (K7). That loop gave each
@@ -39,7 +38,7 @@
 //   a lane's A operand of both steps is one 16-byte shared-memory load a
 //   row. In the a8 modes `w & 0x0F0F0F0F` / `(w >> 4) & 0x0F0F0F0F` (the
 //   even / odd nibbles) are the two B registers of one mma k32 step, against
-//   int8 rows staged evens-then-odds (q4::a8_pos): 8 bytes a row.
+//   int8 rows staged evens-then-odds (q4_gemv.cuh): 8 bytes a row.
 // * Groups. Each unit's product goes into a fresh fragment (f32 or s32),
 //   folded into the f32 accumulator at the end of its group, or at the end
 //   of a warp's share of units, with that group's scales and this share's
@@ -55,7 +54,8 @@
 //   chunk is issued before the chunk is staged; the chunk's scale rows come
 //   by cp.async beside the staging of x, so a fold never waits on device
 //   memory. K is split across blocks (ops/quant.py:gemv_split_plan: about
-//   two blocks an SM); the last block of a column tile to
+//   two blocks an SM; in K6 / K7 plan_splits below, to cover their
+//   persistent grid); the last block of a column tile to
 //   finish (an atomic ticket, which it resets) adds the splits' partials in
 //   split order -- deterministic, no f32 atomics -- and calls the epilogue.
 #pragma once
@@ -112,15 +112,28 @@ __host__ __device__ inline size_t smem_bytes(int mp, int mode) {
   return (size_t)Layout(mp, mode).bytes;
 }
 
-// Splits of K the launch takes: the caller's (> 0), else as many as fill
-// `blocks` (the fused kernels' persistent grid) -- normalised so that no
-// split is empty.
-__host__ __device__ inline int norm_splits(int nsplit, int N, int K, int blocks) {
+// Splits of K the launch takes, and the units (of UK k) of each.
+struct Splits {
+  int n, ups;
+};
+
+// The caller's splits (nsplit > 0), normalised so that no split is empty;
+// else (nsplit <= 0, the persistent grids of K6 / K7: `blocks` blocks) as
+// many splits as keep every item in one wave of the grid, at group
+// boundaries (so that each (row, group) is quantized within one split in
+// the a8 modes). ops/quant.py:fused_split_plan is the same plan.
+__host__ __device__ inline Splits plan_splits(int nsplit, int N, int K, int gs, int blocks) {
   const int units = K / UK, ncb = (N + BN - 1) / BN;
-  if (nsplit <= 0) nsplit = blocks / ncb;  // every item in one wave of the grid
-  nsplit = max(1, min(nsplit, max(1, units / MIN_SPLIT_UNITS)));
-  const int ups = (units + nsplit - 1) / nsplit;
-  return (units + ups - 1) / ups;
+  const int most = max(1, units / MIN_SPLIT_UNITS);
+  if (nsplit > 0) {
+    nsplit = max(1, min(nsplit, most));
+    const int ups = (units + nsplit - 1) / nsplit;
+    return {(units + ups - 1) / ups, ups};
+  }
+  const int gu = max(1, gs / UK), groups = max(1, units / gu);
+  const int s = max(1, min(blocks / ncb, most));
+  const int ups = (groups + s - 1) / s * gu;
+  return {(units + ups - 1) / ups, ups};
 }
 
 // Whether x's rows can be read as 16-byte vectors (no act-order gather).
@@ -383,7 +396,7 @@ __device__ void stage(const XSrc& src, const QW& w, int M, int k0, int klen, int
       const float v = bf2f(xs[m * LD + p]);
       const float sx = sxu[m * KCU + p / UK];
       const int q = q4::quant8(v, sx);
-      const int dst = m * LD8 + blk + ((e & 1) << 2) + (e >> 1);  // q4::a8_pos
+      const int dst = m * LD8 + blk + ((e & 1) << 2) + (e >> 1);  // evens, then odds
       x8[dst] = (signed char)q;
       if constexpr (MODE == q4::A8X2)
         r8[dst] = (signed char)q4::quant8(__fsub_rn(v, __fmul_rn((float)q, sx)),
@@ -403,7 +416,7 @@ __device__ __forceinline__ uint32_t nib_pair(uint32_t w, int j) {
 
 // x [M, K] (formed by src) @ w, M <= MP rows: the work items (128-column
 // tile, K split) item0, item0 + istep, ... ; nsplit > 0 the splits of K (as
-// norm_splits), 0 to derive them from istep. part holds the splits'
+// plan_splits), 0 to plan them for istep blocks. part holds the splits'
 // partials (items * MP * BN f32) and ticket one zero int per column tile,
 // both unused with one split. epi(m, n, value) receives each finished f32
 // output, from any thread. Every thread of the block calls this together.
@@ -423,8 +436,9 @@ __device__ void q4_gemv_tc(const XSrc& src, const QW& w, int M, int K, int gs, i
   const int g = lane >> 2, q = lane & 3;
   const int wc = warp % WC, wk = warp / WC;
   const int N = w.N, units = K / UK, ncb = (N + BN - 1) / BN;
-  nsplit = norm_splits(nsplit, N, K, istep);
-  const int ups = (units + nsplit - 1) / nsplit;
+  const Splits plan = plan_splits(nsplit, N, K, gs, istep);
+  nsplit = plan.n;
+  const int ups = plan.ups;
   const int items = ncb * nsplit;
   const bool vec = w_vec(w);
   const bf16* xs = reinterpret_cast<const bf16*>(smem);

@@ -13,14 +13,15 @@
 // (down) simply follows phase A (gate/up); on Hopper down needs every
 // gate/up column, a dependency across blocks. So the launch is cooperative
 // (every block co-resident, at most 4 to an SM) and one grid barrier
-// separates the phases. Each block walks its share of the column tiles (and,
-// at M >= 2, of the K splits) with the shared GEMV (fused_layer.cuh:
-// gemv_phase); gate|up goes to an L2-sized
-// scratch [M, 2*inter] bf16 that the wrapper allocates; at one row the
-// down phase applies silu(gate)*up while it stages its activation chunks,
-// so the intermediate [M, inter] never exists in memory; at 2..32 rows,
-// where each of the down GEMV's column tiles would recompute it, the grid
-// forms it once over the gate half between two barriers.
+// separates the phases. Each block takes its share of the items with the
+// shared GEMV (fused_layer.cuh: gemv_phase: at one row the streaming GEMV,
+// down's first weights put in flight before the barrier; else the
+// tensor-core GEMV, its splits filling one wave of the grid); gate|up goes
+// to an L2-sized scratch [M, 2*inter] bf16 that the wrapper allocates; at one
+// row the down phase applies silu(gate)*up while it stages its activation
+// chunks, so the intermediate [M, inter] never exists in memory; at 2..32
+// rows, where each of the down GEMV's column tiles would recompute it, the
+// grid forms it once over the gate half between two barriers.
 //
 // Built with -DGEMV_MODE=1 or 2 both GEMVs run the W4A8 arithmetic of K9
 // (mlp.py:_q4_mlp_kernel with a8 / a8x2), one library per mode.
@@ -47,15 +48,13 @@ template <int MB>
 __global__ void __launch_bounds__(q4::THREADS, 2) q4_mlp_kernel(const MlpParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned int epoch = 0;
-  fused::mlp_phases<MB, GEMV_MODE>(p.h, p.norm_w, p.eps, p.gu, p.dn, p.M, p.hidden, p.inter, p.gs,
-                        p.gu_scr, p.out, p.sc, p.bar, epoch, smem);
+  fused::mlp_phases<MB, GEMV_MODE>(p.h, p.norm_w, p.eps, p.gu, p.dn, p.M, p.hidden, p.inter,
+                                   p.gs, p.gu_scr, p.out, p.sc, p.bar, epoch, smem, false);
 }
 
 template <int MB>
 cudaError_t launch(const MlpParams& p, cudaStream_t st) {
-  size_t smem = fused::gemv_smem(MB, p.hidden, p.gs, GEMV_MODE);
-  const size_t s2 = fused::gemv_smem(MB, p.inter, p.gs, GEMV_MODE);
-  if (s2 > smem) smem = s2;
+  const size_t smem = fused::gemv_smem(MB, GEMV_MODE);
   const int grid = fused::coop_grid(q4_mlp_kernel<MB>, smem);
   return fused::coop_launch(q4_mlp_kernel<MB>, grid, p, smem, p.bar, st);
 }
@@ -66,8 +65,8 @@ cudaError_t launch(const MlpParams& p, cudaStream_t st) {
 // 2*inter] int32, scales / zscale [hidden/gs, 2*inter] bf16; down: qweight
 // [inter/8, hidden], scales / zscale [inter/gs, hidden]; gu_scr [M, 2*inter]
 // bf16 scratch; bar one uint32 scratch; part, ticket the split scratch of
-// fused::SplitScratch (at M >= 2; MB = fused::fused_mb(M), the grid at
-// most 4 blocks an SM); out [M, hidden] bf16.
+// fused::SplitScratch (the grid at most 4 blocks an SM); out [M, hidden]
+// bf16.
 extern "C" int q4_mlp_launch(const void* h, const void* norm_w, const void* gu_q,
                              const void* gu_s, const void* gu_z, const void* dn_q,
                              const void* dn_s, const void* dn_z, void* gu_scr, void* bar,
@@ -88,8 +87,7 @@ extern "C" int q4_mlp_launch(const void* h, const void* norm_w, const void* gu_q
   p.gs = gs;
   p.eps = eps;
   auto st = (cudaStream_t)stream;
-  if (M < 1 || M > 32) return cudaErrorInvalidValue;
-  if (M > 1 && (part == nullptr || ticket == nullptr)) return cudaErrorInvalidValue;
+  if (M < 1 || M > 32 || part == nullptr || ticket == nullptr) return cudaErrorInvalidValue;
   switch (fused::fused_mb(M)) {
     case 1: return launch<1>(p, st);
     case 16: return launch<16>(p, st);

@@ -53,7 +53,7 @@ LIBRARIES = {
     "q4_prefill_a8": ("q4_prefill_a8", []),
     "w8_matmul": ("w8_matmul", []),
 }
-# the W4A8 builds of the shared GEMV loop; see csrc/q4_gemv.cuh
+# the W4A8 builds of the shared GEMVs; see csrc/q4_gemv.cuh
 GEMV_MODES = {"a8": 1, "a8x2": 2}
 for _stem in ("q4_gemv", "q4_mlp", "layer_tail"):
     for _mode, _n in GEMV_MODES.items():
@@ -72,7 +72,7 @@ _SIGNATURES = {
                         "p" * 12 + "i" * 12 + "f" + "p"),
     "dense_gemv": ("dense_gemv", "dense_gemv_launch", "ppppp" + "iiii" + "p"),
     "head_argmax": ("head_argmax", "head_argmax_launch",
-                    "ppppp" + "iii" + "f" + "p"),
+                    "p" * 7 + "iiii" + "f" + "p"),
     "q4_mlp": ("q4_mlp", "q4_mlp_launch", "p" * 13 + "iiii" + "f" + "p"),
     "layer_tail": ("layer_tail", "layer_tail_launch",
                    "p" * 37 + "i" * 12 + "ff" + "p"),

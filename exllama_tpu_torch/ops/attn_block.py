@@ -19,7 +19,11 @@ function instead. The attention arithmetic is K3's in every case. The
 composition (``attend_plain`` and the q4 plain products), which CPU tensors
 take. The caller checks ``attn_o_applicable`` (and, for the MLP and qkv
 phases, ``ops.mlp.fused_mlp_applicable``, ``layer_step_applicable`` and
-``same_groupsize``) first.
+``same_groupsize``) first. ``layer_tail_split_plain`` and
+``layer_step_split_plain`` write out the kernel's own decomposition: its
+GEMV phases as ``ops.quant.fused_gemv_split_plain`` (one row: stream-K
+ranges; more rows: K splits) and its key splits merged by the last block of
+each (batch row, kv head) pair (``attention_split_plain``).
 """
 
 from __future__ import annotations
@@ -32,17 +36,21 @@ import torch
 from exllama_tpu_torch import kernels
 from exllama_tpu_torch.config import A8_IMPLS, check_matmul_impl
 from exllama_tpu_torch.ops.attention import (
+    MASK_VALUE,
+    _in_flight,
+    _masked_scores,
     _past_tensor,
     attend_plain,
     count_launch,
     init_launch_counters,
     kv_mode,
 )
-from exllama_tpu_torch.ops.mlp import gemv_plain_of, q4_mlp_plain
+from exllama_tpu_torch.ops.mlp import gemv_plain_of, q4_mlp_plain, silu_mul
 from exllama_tpu_torch.ops.quant import (
     GEMV_MAX_M,
     check_qt_tensors,
     fused_gemv_scratch,
+    fused_gemv_split_plain,
 )
 from exllama_tpu_torch.ops.rope import apply_rope_sliced
 
@@ -108,10 +116,11 @@ def layer_tail_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
 
 
 def _qkv_rows_plain(h, qkv, input_norm, rope_sin, rope_cos, heads, kv_heads,
-                    head_dim, eps, impl="auto"):
+                    head_dim, eps, impl="auto", gemv=None):
     b = h.shape[0]
     nq, nkv = heads * head_dim, kv_heads * head_dim
-    fused = gemv_plain_of(impl)(h.reshape(b, -1), qkv, input_norm, eps)
+    fused = (gemv or gemv_plain_of(impl))(h.reshape(b, -1), qkv, input_norm,
+                                          eps)
     q = fused[:, :nq].reshape(b, 1, heads, head_dim)
     k = fused[:, nq:nq + nkv].reshape(b, 1, kv_heads, head_dim)
     v = fused[:, nq + nkv:].reshape(b, 1, kv_heads, head_dim)
@@ -129,6 +138,111 @@ def layer_step_plain(h, qkv, input_norm, rope_sin, rope_cos, k_cache, v_cache,
                          post_norm, gateup, down, eps, (k, v), input_mask,
                          impl, k_scale, v_scale)
     return h, k, v
+
+
+# ------------------------------------ K7's decomposition in plain code
+
+def key_splits(past_b: int, nsplit: int):
+    """K7's key ranges for one batch row: [0, past_b) in ``nsplit`` splits
+    of a whole number of 32-key chunks (csrc/layer_tail.cu:attention_phase),
+    the last ones possibly empty."""
+    cs = (-(-past_b // nsplit) + 31) // 32 * 32
+    return [(min(past_b, i * cs), min(past_b, (i + 1) * cs))
+            for i in range(nsplit)]
+
+
+def attention_split_plain(q, k_cache, v_cache, past_len, attend_len: int,
+                          new_kv, input_mask=None, k_scale=None, v_scale=None,
+                          *, nsplit: int, fault=None):
+    """K7's attention phase in plain tensor code: per (batch row, kv head)
+    the keys [0, min(past_b, attend_len)) in ``key_splits``, per split an
+    f32 (m, l, acc) partial (p rounded to bf16 after the V scale, l over
+    the unscaled p), the in-flight row folded into split 0's, then the
+    merge that the pair's last block does: the splits in order, rescaled
+    to their common max, l == 0 -> 1, rounded to bf16. ``fault`` plants
+    what the merge must not do: "drop" leaves out, "twice" counts twice,
+    each head's heaviest split. Returns [B, 1, H, D] bf16."""
+    b, t, h, d = q.shape
+    scores, _, qf, v, vs = _masked_scores(q, k_cache, v_cache, past_len,
+                                          attend_len, input_mask, True,
+                                          k_scale, v_scale)
+    s_new, v_new = _in_flight(qf, new_kv, d)          # [B,Hkv,G,1,1], [B,Hkv,1,D]
+    past = _past_tensor(past_len, b, q.device).tolist()
+    rows = []
+    for bi in range(b):
+        ms, ls, accs = [], [], []
+        for sp, (lo, hi) in enumerate(key_splits(min(past[bi], attend_len),
+                                                 nsplit)):
+            sc = scores[bi, ..., lo:hi]                # [Hkv, G, 1, n]
+            m = (sc.amax(dim=-1, keepdim=True) if hi > lo else
+                 torch.full(sc.shape[:-1] + (1,), MASK_VALUE,
+                            device=sc.device))
+            p = torch.exp(sc - m)
+            l = p.sum(dim=-1, keepdim=True)
+            if vs is not None:
+                p = p * vs[bi, ..., lo:hi]
+            acc = torch.einsum("hgts,hsd->hgtd",
+                               p.to(torch.bfloat16).to(torch.float32),
+                               v[bi, :, lo:hi])
+            if sp == 0:                                # the in-flight row
+                m_fin = torch.maximum(m, s_new[bi])
+                alpha, p_new = torch.exp(m - m_fin), torch.exp(s_new[bi] - m_fin)
+                l = alpha * l + p_new
+                acc = alpha * acc + p_new * v_new[bi][:, None]
+                m = m_fin
+            ms.append(m)
+            ls.append(l)
+            accs.append(acc)
+        m_all = torch.stack(ms)                        # [nsplit, Hkv, G, 1, 1]
+        f = torch.exp(m_all - m_all.amax(dim=0))
+        if fault is not None:
+            heavy = torch.nn.functional.one_hot(
+                m_all.argmax(dim=0)[..., 0, 0], len(ms)).movedim(-1, 0)
+            f = f * (1 - heavy if fault == "drop" else 1 + heavy)[..., None, None]
+        l = (f * torch.stack(ls)).sum(dim=0)
+        acc = (f * torch.stack(accs)).sum(dim=0)       # [Hkv, G, 1, D]
+        l = torch.where(l == 0.0, 1.0, l)
+        rows.append((acc / l).reshape(1, h, d))
+    return torch.stack(rows).to(torch.bfloat16)
+
+
+def layer_tail_split_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
+                           post_norm, gateup, down, eps, new_kv,
+                           input_mask=None, impl="auto", k_scale=None,
+                           v_scale=None, *, blocks: int, nsplit: int,
+                           fault=None):
+    """``layer_tail`` as K7 decomposes it on a grid of ``blocks`` blocks
+    with ``nsplit`` key splits (``post_norm=None``: ``attn_block_o``)."""
+    b, _, hidden = h.shape
+    attn = attention_split_plain(q, k_cache, v_cache, past_len, attend_len,
+                                 new_kv, input_mask, k_scale, v_scale,
+                                 nsplit=nsplit, fault=fault)
+    h2 = h.reshape(b, hidden)
+    h1 = h2 + fused_gemv_split_plain(attn.reshape(b, -1), o, blocks, impl=impl)
+    if post_norm is not None:
+        gu = fused_gemv_split_plain(h1, gateup, blocks, post_norm, eps, impl)
+        h1 = h1 + fused_gemv_split_plain(silu_mul(gu, down.in_features), down,
+                                         blocks, impl=impl)
+    return h1.reshape(b, 1, hidden)
+
+
+def layer_step_split_plain(h, qkv, input_norm, rope_sin, rope_cos, k_cache,
+                           v_cache, past_len, attend_len, o, post_norm,
+                           gateup, down, eps, heads, kv_heads, head_dim,
+                           input_mask=None, impl="auto", k_scale=None,
+                           v_scale=None, *, blocks: int, nsplit: int):
+    """``layer_step`` as K7 decomposes it: the qkv phase split as planned,
+    then ``layer_tail_split_plain``."""
+    def gemv(x, qt, norm_w, e):
+        return fused_gemv_split_plain(x, qt, blocks, norm_w, e, impl)
+
+    q, k, v = _qkv_rows_plain(h, qkv, input_norm, rope_sin, rope_cos, heads,
+                              kv_heads, head_dim, eps, gemv=gemv)
+    out = layer_tail_split_plain(h, q, k_cache, v_cache, past_len, attend_len,
+                                 o, post_norm, gateup, down, eps, (k, v),
+                                 input_mask, impl, k_scale, v_scale,
+                                 blocks=blocks, nsplit=nsplit)
+    return out, k, v
 
 
 # -------------------------------------------------------------------- K7
@@ -241,7 +355,7 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
     scratch = torch.empty((total,), dtype=torch.uint8, device=dev)
     ptrs = [scratch.data_ptr() + off for off in offs]
     widest = max(hidden, 2 * inter, qkv.out_features if qkv is not None else 0)
-    gpart, gticket = fused_gemv_scratch(dev, b, widest)
+    gpart, gticket = fused_gemv_scratch(dev, b, widest, tickets=b * hkv)
     out = torch.empty_like(h2)
     P = kernels.ptr
 

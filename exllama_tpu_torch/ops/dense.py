@@ -4,8 +4,9 @@ M <= 32 rows go to kernel K4 ``dense_gemv`` (csrc/dense_gemv.cu), the port
 of the TPU's ``dense.py:_kernel``; larger M stays a plain product, exactly
 where the JAX package leaves it to ``jnp.dot``. The greedy head
 ``head_argmax`` (final norm -> lm_head -> argmax, no logits kept) is kernel
-K5 (csrc/head_argmax.cu), the port of ``dense.py:_head_argmax_kernel``.
-Both take any vocabulary size (an odd one through their scalar loads).
+K5 (csrc/head_argmax.cu), the port of ``dense.py:_head_argmax_kernel``,
+on K4's loop with the norm applied as x is staged. Both take any vocabulary
+size (an odd one through K4's unaligned loads).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 from exllama_tpu_torch import kernels
 from exllama_tpu_torch.ops import full_f32_matmul
 from exllama_tpu_torch.ops.norms import rms_norm
-from exllama_tpu_torch.ops.quant import gemv_scratch
+from exllama_tpu_torch.ops.quant import gemv_scratch, stream_k_ranges
 
 GEMV_MAX_M = 32   # the JAX package's switch (a TPU number)
 # K4's work (csrc/dense_stream.cuh): tiles of DENSE_BN columns, units of
@@ -47,21 +48,7 @@ def dense_stream_plan(k: int, v: int, grid: int):
     within the tile; slot 0 / 1 is the scratch slot of a range that shares
     its tile with other blocks (the block's first / last range), None for a
     whole tile."""
-    ku = -(-k // DENSE_ROWS)
-    total = -(-v // DENSE_BN) * ku
-    plan = []
-    for b in range(grid):
-        u0, u1 = b * total // grid, (b + 1) * total // grid
-        ranges, u = [], u0
-        while u < u1:
-            t = u // ku
-            end = min(u1, (t + 1) * ku)
-            whole = u == t * ku and end == (t + 1) * ku
-            ranges.append((t, u - t * ku, end - t * ku,
-                           None if whole else (0 if u == u0 else 1)))
-            u = end
-        plan.append(ranges)
-    return plan
+    return stream_k_ranges(-(-v // DENSE_BN), -(-k // DENSE_ROWS), grid)
 
 
 def dense_gemv_split_plain(x: torch.Tensor, w: torch.Tensor,
@@ -140,6 +127,64 @@ def head_argmax_plain(h: torch.Tensor, norm_w: torch.Tensor, w: torch.Tensor,
     return torch.argmax(dense_gemv_plain(x, w), dim=-1).to(torch.int32)
 
 
+def argmax_keys(logits: torch.Tensor) -> torch.Tensor:
+    """K5's 64-bit key of every f32 logit [M, V] (csrc/head_argmax.cu:
+    argmax_key), as int64 shifted by 2^63 so that signed order is the
+    kernel's unsigned order: an order-preserving image of the value in the
+    high half (-0 as +0), ~index in the low half (the earliest index of
+    equal values is the largest key)."""
+    v = torch.where(logits == 0, torch.zeros_like(logits), logits)
+    bits = v.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    img = torch.where(bits >= 1 << 31, 0xFFFFFFFF - bits, bits | 1 << 31)
+    idx = torch.arange(logits.shape[-1], dtype=torch.int64,
+                       device=logits.device)
+    return (img - (1 << 31)) * (1 << 32) + (0xFFFFFFFF - idx)
+
+
+def ids_of_keys(keys: torch.Tensor) -> torch.Tensor:
+    """The token ids of K5's keys: the low half inverted."""
+    return (0xFFFFFFFF - (keys & 0xFFFFFFFF)).to(torch.int32)
+
+
+def head_argmax_split_plain(h: torch.Tensor, norm_w: torch.Tensor,
+                            w: torch.Tensor, eps: float,
+                            grid: int) -> torch.Tensor:
+    """K5's decomposition in plain tensor code: K4's split sums of the
+    normed rows (``dense_gemv_split_plain``), each block's best key per row
+    over the columns it emits (the whole tiles of its ranges, and the
+    tiles whose last block it is), and the max of the blocks' keys, as the
+    kernel's atomicMax combines them. int32 ids [M]."""
+    x = rms_norm(h.reshape(-1, h.shape[-1]), norm_w, eps)
+    k, v = w.shape
+    logits = dense_gemv_split_plain(x, w, grid)
+    keys = argmax_keys(logits)
+    best = torch.full((x.shape[0],), -(1 << 63), dtype=torch.int64,
+                      device=x.device)
+    finisher: dict = {}
+    for b, ranges in enumerate(dense_stream_plan(k, v, grid)):
+        for t, *_ in ranges:
+            finisher[t] = b    # the last block of a shared tile combines it
+    for b in sorted(set(finisher.values())):
+        cols = [t for t, fb in finisher.items() if fb == b]
+        block = torch.cat([keys[:, t * DENSE_BN:min((t + 1) * DENSE_BN, v)]
+                           for t in cols], dim=1)
+        best = torch.maximum(best, block.amax(dim=1))
+    return ids_of_keys(best)
+
+
+_HEAD_KEYS: dict = {}
+
+
+def head_argmax_scratch(dev) -> torch.Tensor:
+    """K5's keys (32) and grid ticket, int64 [33] zeros, per device: every
+    launch leaves them zero (its last block resets them)."""
+    keys = _HEAD_KEYS.get(dev)
+    if keys is None:
+        keys = _HEAD_KEYS[dev] = torch.zeros((GEMV_MAX_M + 1,),
+                                             dtype=torch.int64, device=dev)
+    return keys
+
+
 def _head_argmax_rows(x: torch.Tensor, norm_w: torch.Tensor, w: torch.Tensor,
                       eps: float) -> torch.Tensor:
     """K5 on x [M <= 32, K] bf16 -> int32 [M]."""
@@ -153,11 +198,15 @@ def _head_argmax_rows(x: torch.Tensor, norm_w: torch.Tensor, w: torch.Tensor,
         raise ValueError("head_argmax: w must be contiguous, on x's device")
     x = x.contiguous()
     norm_w = norm_w.to(torch.bfloat16).contiguous()
-    keys = torch.empty((m,), dtype=torch.int64, device=x.device)
+    tiles, grid = dense_grid(k, v, kernels.sm_count(x.device))
+    part, ticket = gemv_scratch(x.device, grid * 2 * _pow2(m) * DENSE_BN,
+                                tiles)
     ids = torch.empty((m,), dtype=torch.int32, device=x.device)
     kernels.check(kernels.launcher("head_argmax")(
-        x.data_ptr(), norm_w.data_ptr(), w.data_ptr(), keys.data_ptr(),
-        ids.data_ptr(), m, k, v, float(eps), kernels.stream_of(x),
+        x.data_ptr(), norm_w.data_ptr(), w.data_ptr(),
+        head_argmax_scratch(x.device).data_ptr(), ids.data_ptr(),
+        part.data_ptr(), ticket.data_ptr(), m, k, v, grid, float(eps),
+        kernels.stream_of(x),
     ), "head_argmax")
     head_argmax.launches += 1
     return ids

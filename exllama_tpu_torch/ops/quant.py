@@ -8,9 +8,10 @@ threshold measured on a TPU and kept for now):
   * M <= 32, exact ("auto" / "pallas"): K1 ``q4_gemv`` (csrc/q4_gemv.cu) --
     f32 group partial sums of exact nibbles, with the optional RMSNorm and
     act-order gather in its prologue; one row at groupsize 32 / 64 / 128
-    takes its CUDA-core loop, 2..32 rows (or another groupsize) its
-    tensor-core route (csrc/q4_gemv_tc.cuh), K split across blocks as
-    ``gemv_split_plan`` says;
+    takes the streaming GEMV (csrc/q4_stream.cuh, stream-K over the grid),
+    2..32 rows (or another groupsize) the tensor-core route
+    (csrc/q4_gemv_tc.cuh), K split across blocks as ``gemv_split_plan``
+    says;
   * M <= 32, "pallas_a8" / "pallas_a8x2" / "pallas_a8t": K9 ``q4_gemv_a8``
     (the a8 builds of the same source) -- int8 activations per (row, group)
     against the nibbles in integer arithmetic; a8x2 adds a residual pass;
@@ -54,10 +55,13 @@ from exllama_tpu_torch.ops import full_f32_matmul
 from exllama_tpu_torch.ops.norms import rms_norm
 
 GEMV_MAX_M = 32   # the JAX package's decode/prefill switch (a TPU number)
-LOOP_GROUPSIZES = (32, 64, 128)   # the one-row CUDA-core loop's groupsizes
+STREAM_GROUPSIZES = (32, 64, 128)   # the one-row streaming GEMV's groupsizes
 GEMV_BN = 128     # columns of the tensor-core GEMV's block tile (q4_gemv_tc.cuh)
 GEMV_UNIT = 32    # k of its unit, the least split of K
 GEMV_MIN_SPLIT_UNITS = 8
+# the one-row GEMV of K1 / K9, K6 and K7 (q4_stream.cuh): tiles of
+# STREAM_BN columns, units of STREAM_UNIT k, shared out stream-K
+STREAM_BN, STREAM_UNIT = 256, 128
 
 
 def _q4_matmul_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
@@ -158,8 +162,9 @@ def _gemv_checks(name, x, qt, norm_w):
 
 def gemv_tc_route(m: int, gs: int) -> bool:
     """Whether K1 / K9 take the tensor-core route for m rows at groupsize
-    gs: 2..32 rows, or one row at a groupsize outside the loop's."""
-    return m > 1 or gs not in LOOP_GROUPSIZES
+    gs: 2..32 rows, or one row at a groupsize outside the streaming
+    GEMV's."""
+    return m > 1 or gs not in STREAM_GROUPSIZES
 
 
 def gemv_split_plan(n: int, k: int, sms: int) -> int:
@@ -167,7 +172,7 @@ def gemv_split_plan(n: int, k: int, sms: int) -> int:
     a card of ``sms`` SMs: as many (128-column tile, split) blocks as fit
     in one wave of two an SM (the kernel's residency), each split at least
     8 units of 32 k, none empty (the normalisation of
-    csrc/q4_gemv_tc.cuh:norm_splits)."""
+    csrc/q4_gemv_tc.cuh:plan_splits, its nsplit > 0 branch)."""
     units = k // GEMV_UNIT
     tiles = -(-n // GEMV_BN)
     nsplit = max(1, min(2 * sms // tiles,
@@ -198,14 +203,132 @@ def gemv_scratch(dev, n_part: int, n_ticket: int):
     return part, ticket
 
 
-def fused_gemv_scratch(dev, m: int, widest_n: int):
-    """The split scratch of the fused kernels K6 / K7 at m rows: partials
-    for a persistent grid of at most 4 blocks an SM, tickets for the
-    widest GEMV phase; (None, None) at one row."""
-    if m <= 1:
-        return None, None
-    return gemv_scratch(dev, 4 * kernels.sm_count(dev) * gemv_rows(m) * GEMV_BN,
-                        -(-widest_n // GEMV_BN))
+def fused_split_plan(n: int, k: int, gs: int, blocks: int) -> tuple[int, int]:
+    """The splits of K, and the units of 32 k in each, that the fused
+    kernels K6 / K7 give an N-column, K-deep GEMV phase at 2..32 rows on a
+    persistent grid of ``blocks`` blocks (csrc/q4_gemv_tc.cuh:plan_splits):
+    as many splits as keep every (column tile, split) item in one wave of
+    the grid, each at least 8 units, at group boundaries."""
+    units, tiles = k // GEMV_UNIT, -(-n // GEMV_BN)
+    most = max(1, units // GEMV_MIN_SPLIT_UNITS)
+    gu = max(1, gs // GEMV_UNIT)
+    groups = max(1, units // gu)
+    s = max(1, min(blocks // tiles, most))
+    ups = -(-groups // s) * gu
+    return -(-units // ups), ups
+
+
+def fused_gemv_items(n: int, k: int, gs: int, blocks: int):
+    """The plan written out: for each block, its items [(column tile, first
+    unit, end unit)] in the order it takes them (item i = tile i // nsplit,
+    split i % nsplit)."""
+    ns, ups = fused_split_plan(n, k, gs, blocks)
+    units, tiles = k // GEMV_UNIT, -(-n // GEMV_BN)
+    plan = [[] for _ in range(blocks)]
+    for item in range(tiles * ns):
+        t, sp = divmod(item, ns)
+        plan[item % blocks].append((t, sp * ups, min(units, (sp + 1) * ups)))
+    return plan
+
+
+def stream_k_ranges(tiles: int, ku: int, grid: int):
+    """Stream-K's work division (csrc/dense_stream.cuh, csrc/q4_stream.cuh):
+    the tiles x ku (tile, unit) items, tile after tile, shared out as
+    contiguous ranges among ``grid`` blocks. For each block its ranges
+    [(tile, first unit, end unit, slot)], units counted within the tile;
+    slot 0 / 1 is the scratch slot of a range that shares its tile with
+    other blocks (the block's first / last range), None for a whole tile."""
+    total = tiles * ku
+    plan = []
+    for b in range(grid):
+        u0, u1 = b * total // grid, (b + 1) * total // grid
+        ranges, u = [], u0
+        while u < u1:
+            t = u // ku
+            end = min(u1, (t + 1) * ku)
+            whole = u == t * ku and end == (t + 1) * ku
+            ranges.append((t, u - t * ku, end - t * ku,
+                           None if whole else (0 if u == u0 else 1)))
+            u = end
+        plan.append(ranges)
+    return plan
+
+
+def q4_stream_plan(n: int, k: int, grid: int):
+    """The one-row GEMV's ranges (``stream_k_ranges`` over STREAM_BN-column
+    tiles and STREAM_UNIT-deep units) on a grid of ``grid`` blocks, of
+    which the first min(grid, units) share the units (the others have
+    none)."""
+    tiles, ku = -(-n // STREAM_BN), -(-k // STREAM_UNIT)
+    g = min(grid, tiles * ku)
+    return stream_k_ranges(tiles, ku, g) + [[] for _ in range(grid - g)]
+
+
+def fused_gemv_split_plain(x, qt, blocks: int, norm_w=None, eps=1e-6,
+                           impl: str = "auto"):
+    """A fused GEMV phase's decomposition on a grid of ``blocks`` blocks in
+    plain tensor code: f32 partials of K9's integer arithmetic per (row,
+    group) under the a8 values of ``impl``, else of the exact group sums
+    s * (x . q) - z * sum(x); at one row each block's ranges of 128-k units
+    (``q4_stream_plan``), a tile shared among blocks added in block order
+    (of k), at 2..32 rows each item's split (``fused_split_plan``), a tile's
+    splits added in split order -- as the last block of a tile adds them;
+    rounded to x.dtype."""
+    x = _prologue_plain(x, qt, norm_w, eps)
+    a8 = check_matmul_impl(impl) in A8_IMPLS
+    m, k = x.shape
+    gs, n = qt.groupsize, qt.out_features
+    xf = x.to(torch.float32).reshape(m, k // gs, gs)
+    q = unpack_qweight(qt.qweight).to(torch.float32).reshape(k // gs, gs, n)
+    with full_f32_matmul():
+        if a8:
+            xq, sx = _quant_rows(xf)
+            d = torch.einsum("mgk,gkn->mgn", xq, q) * sx
+            if impl == "pallas_a8x2":
+                sx2 = sx * (1.0 / 254.0)
+                xq2 = torch.round((xf - xq * sx) / sx2).clamp_(-127, 127)
+                d = d + torch.einsum("mgk,gkn->mgn", xq2, q) * sx2
+        else:
+            d = torch.einsum("mgk,gkn->mgn", xf, q)
+    per_group = (d * qt.scales.to(torch.float32)
+                 - xf.sum(dim=-1, keepdim=True) * qt.zscale.to(torch.float32))
+    out = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    if m == 1:
+        gpu = STREAM_UNIT // gs                       # groups a unit
+        parts: dict = {}
+        for ranges in q4_stream_plan(n, k, blocks):
+            for t, a, e, slot in ranges:
+                cols = slice(t * STREAM_BN, min((t + 1) * STREAM_BN, n))
+                s = per_group[:, a * gpu:e * gpu, cols].sum(dim=1)
+                if slot is None:
+                    out[:, cols] = s
+                else:
+                    parts.setdefault(t, []).append(s)
+        for t, ps in parts.items():                   # in block order
+            total = torch.zeros_like(ps[0])
+            for s in ps:
+                total = total + s
+            out[:, t * STREAM_BN:min((t + 1) * STREAM_BN, n)] = total
+    else:
+        ns, ups = fused_split_plan(n, k, gs, blocks)
+        gpu = GEMV_UNIT * ups // gs                   # groups a split
+        for sp in range(ns):                          # in split order
+            out = out + per_group[:, sp * gpu:(sp + 1) * gpu].sum(dim=1)
+    return out.to(x.dtype)
+
+
+def fused_gemv_scratch(dev, m: int, widest_n: int, tickets: int = 0):
+    """The split scratch of the fused kernels K6 / K7 at m rows (and of K1
+    / K9 at one row), for a grid of at most 4 blocks an SM: partials for
+    two ranges a block at one row (the streaming GEMV), one item a block
+    at 2..32 rows;
+    tickets for the widest GEMV phase or ``tickets`` (K7's (batch row, kv
+    head) pairs), whichever is more."""
+    blocks = 4 * kernels.sm_count(dev)
+    n_part = (2 * blocks * STREAM_BN if m <= 1
+              else blocks * gemv_rows(m) * GEMV_BN)
+    return gemv_scratch(dev, n_part,
+                        max(tickets, -(-widest_n // GEMV_BN)))
 
 
 def _gemv_launch(lib, x, qt, norm_w, norm_eps):
@@ -218,6 +341,8 @@ def _gemv_launch(lib, x, qt, norm_w, norm_eps):
         tiles = -(-n // GEMV_BN)
         part, ticket = gemv_scratch(
             x.device, tiles * nsplit * gemv_rows(m) * GEMV_BN, tiles)
+    else:
+        part, ticket = fused_gemv_scratch(x.device, 1, n)
     kernels.check(kernels.launcher(lib)(
         x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
         qt.zscale.data_ptr(), kernels.ptr(norm_w), kernels.ptr(qt.x_map),

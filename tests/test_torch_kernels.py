@@ -356,17 +356,21 @@ def test_dense_gemv_matches_plain(gen, m, k, v):
 
 @pytest.mark.parametrize("m,k,v", [(1, 256, 1000), (5, 512, 130),
                                    (32, 128, 64), (1, 512, 1001),
-                                   (3, 256, 257), (2, 128, 1)])
+                                   (3, 256, 257), (2, 128, 1),
+                                   (32, 256, 2048)])
 def test_head_argmax_matches_plain(gen, m, k, v):
     """The kernel's token is a maximum of the plain logits (within their
-    f32 sum-order noise, 1e-4 of the scale); a duplicated maximum column
-    resolves to the earlier index on both sides."""
+    f32 sum-order noise, 1e-4 of the scale); two calls give the same
+    tokens; a duplicated maximum column resolves to the earlier index on
+    both sides (at these shapes every tile's K splits at the same points,
+    so the two columns' sums are the same f32 operations)."""
     x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
     nw = (torch.rand(k, generator=gen, device="cuda") + 0.5).bfloat16()
     w = torch.randn((k, v), generator=gen, device="cuda").bfloat16()
     before = dense.head_argmax.launches
     got = dense.head_argmax(x, nw, w, 1e-6)
     assert dense.head_argmax.launches == before + 1
+    assert torch.equal(got, dense.head_argmax(x, nw, w, 1e-6))
     assert got.shape == (m, 1) and got.dtype == torch.int32
     logits = dense.dense_gemv_plain(norms.rms_norm(x, nw, 1e-6), w)
     picked = logits.gather(1, got.long())[:, 0]
@@ -387,6 +391,27 @@ def test_head_argmax_matches_plain(gen, m, k, v):
         picked = logits.gather(1, got.long())[:, 0]
         assert (logits.amax(1) - picked).max() <= 1e-4 * logits.abs().max()
         assert ref.shape == (m,)
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 32])
+@pytest.mark.parametrize("v", [32000, 32001])
+def test_head_argmax_exact_ties_at_llama_widths(gen, m, v):
+    """K = 4096 at Llama-7B's vocab (and one token more): rows of +-1 with
+    norm weights 1 normalize to +-1 exactly and integer weights give
+    integer logits, so every path's sums are exact: the kernel's tokens
+    equal the plain argmax, ties included -- row 0's maximum planted in
+    columns 255 and 256 (two tiles, split at other points) goes to 255 --
+    and two calls give the same tokens."""
+    k = 4096
+    x = torch.sign(torch.randn((m, k), generator=gen, device="cuda")).bfloat16()
+    x[x == 0] = 1
+    nw = torch.ones(k, dtype=torch.bfloat16, device="cuda")
+    w = torch.randint(-3, 4, (k, v), generator=gen, device="cuda").bfloat16()
+    w[:, 255] = w[:, 256] = 4 * x[0]
+    got = dense.head_argmax(x, nw, w, 1e-6)
+    assert torch.equal(got, dense.head_argmax(x, nw, w, 1e-6))
+    assert int(got[0, 0]) == 255
+    assert torch.equal(got[:, 0], dense.head_argmax_plain(x, nw, w, 1e-6))
 
 
 @pytest.mark.parametrize("m,hidden,inter,gs", [
@@ -626,10 +651,11 @@ def test_kv_commit_matches_plain(gen):
 
 # ------------------------------------------------ quantized KV caches
 
-def _quantized_cache(gen, kind, b, hkv, s_max, d, filled):
+def _quantized_cache(gen, kind, b, hkv, s_max, d, filled, spread=True):
     """int8 / int4 caches and their scales, written by the plain
-    update_kv_cache from rows whose magnitudes differ by up to x8 (so the
-    per-key scales matter); positions from ``filled`` on stay zero."""
+    update_kv_cache from rows whose magnitudes differ by up to x8 with
+    ``spread`` (so the per-key scales matter); positions from ``filled`` on
+    stay zero."""
     dc = d // 2 if kind == "int4" else d
     kc = torch.zeros((b, hkv, s_max, dc), dtype=torch.int8, device="cuda")
     vc = torch.zeros_like(kc)
@@ -637,7 +663,8 @@ def _quantized_cache(gen, kind, b, hkv, s_max, d, filled):
     vs = torch.zeros_like(ks)
 
     def rows():
-        mag = 2.0 ** torch.randint(-2, 2, (b, filled, hkv, 1), generator=gen,
+        mag = 2.0 ** torch.randint(-2 if spread else 0, 2 if spread else 1,
+                                   (b, filled, hkv, 1), generator=gen,
                                    device="cuda")
         return (torch.randn((b, filled, hkv, d), generator=gen, device="cuda")
                 * mag).bfloat16()
@@ -779,6 +806,49 @@ def test_layer_tail_quantized_matches_plain(gen, entry, b, hkv, past, masked,
         _close(vr, vr_ref, 1e-2)
     assert (getattr(fn, attr), fn.launches) == (before[0] + 1, before[1])
     _close(got, ref, tol)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("impl", ["auto", "pallas_a8", "pallas_a8x2"])
+@pytest.mark.parametrize("b", [1, 2, 8])
+def test_layer_tail_rows_modes_caches_bits(gen, b, impl, kind):
+    """K7 (layer_tail, each row its own cursor) at B = 1 -- the streaming
+    GEMV phases and the last-block merge of the key splits -- and at B = 2
+    and 8 (the tensor-core GEMV phases), in each GEMV mode over each cache
+    format: the limits above (2e-2; one-pass a8 5e-2), and two calls on the
+    same inputs give the same bits (every split is combined in a fixed
+    order). One-pass a8 over an int8 / int4 cache is held to 1e-1: its
+    error there is a8's own noise through a quantized attention row -- a
+    bf16 step of difference in the o-projection's input draws other int8
+    roundings -- which puts two correct a8 implementations 5-10% apart
+    (CHANGES.md, slice 3); on these inputs at B = 8 the kernel before the
+    K split sat at the same 6.3% (scripts/k7_a8_parent_check.py). The
+    caches' rows are N(0, 1), as in chip_smoke's K7 cases."""
+    hidden, heads, d, inter, s_max, gs, hkv = 1024, 8, 128, 1152, 256, 128, 2
+    tol = 2e-2 if impl != "pallas_a8" else 5e-2 if kind == "bf16" else 1e-1
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.5).bfloat16()
+
+    o = _qt(gen, hidden, hidden, gs, False)
+    gateup = _qt(gen, hidden, 2 * inter, gs, False)
+    down = _qt(gen, inter, hidden, gs, False)
+    h, q = rnd(b, 1, hidden), rnd(b, 1, heads, d)
+    if kind == "bf16":
+        kc, vc, ks, vs = rnd(b, hkv, s_max, d), rnd(b, hkv, s_max, d), None, None
+    else:
+        kc, vc, ks, vs = _quantized_cache(gen, kind, b, hkv, s_max, d, 220,
+                                          spread=False)
+    new_kv = (rnd(b, 1, hkv, d), rnd(b, 1, hkv, d))
+    nw = (torch.rand(hidden, generator=gen, device="cuda") + 0.5).bfloat16()
+    past = torch.tensor([200 - 23 * i for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+    args = (h, q, kc, vc, past, s_max, o, nw, gateup, down, 1e-6, new_kv,
+            None, impl, ks, vs)
+    got = attn_block.layer_tail(*args)
+    assert torch.equal(got, attn_block.layer_tail(*args))
+    _close(got, attn_block.layer_tail_plain(*args), tol)
 
 
 @pytest.mark.parametrize("kind", ["int8", "int4"])

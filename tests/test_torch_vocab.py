@@ -43,7 +43,7 @@ def _rel(got, ref) -> float:
 # ------------------------------------------------- K4's work division
 
 def _block_of(u, total, grid):
-    """csrc/dense_stream.cuh:block_of -- the block whose range holds u."""
+    """csrc/stream_k.cuh:block_of -- the block whose range holds u."""
     return ((u + 1) * grid + total - 1) // total - 1
 
 
