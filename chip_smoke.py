@@ -203,7 +203,7 @@ def check_close(name, got, ref, rel_tol):
 
 
 # timings a case may carry beside kernel / plain / library / bound
-EXTRA_TIMES = ("separate_ms", "k2_ms", "library_int8_ms")
+EXTRA_TIMES = ("separate_ms", "k2_ms", "library_int8_ms", "floor_ms")
 
 
 def make_recorder(timer, res):
@@ -478,12 +478,14 @@ def fused_cases(device, timer, res):
         del w
 
     # K6: rel tol 2e-2 -- K1's 1e-2 twice over (gate|up, then down), the
-    # same bf16 cast points on both sides
-    for gs in (128, 32):
+    # same bf16 cast points on both sides; one row and the row tiles 8 /
+    # 16 (M = 18: three n8 tiles of a 32-row tile) / 32 of the streaming
+    # GEMV
+    for gs, ms in ((128, (1, 2, 8, 18, 32)), (32, (1, 18))):
         gateup = random_qt(gen, hidden, 2 * inter, gs, False, device)
         down = random_qt(gen, inter, hidden, gs, False, device)
         nw = norm_w()
-        for m in (1, 18):
+        for m in ms:
             h = rnd(m, 1, hidden)
             got = mlp.q4_mlp(h, nw, gateup, down, eps)
             ref = mlp.q4_mlp_plain(h, nw, gateup, down, eps)
@@ -595,31 +597,6 @@ def fused_cases(device, timer, res):
                iters=10, s_fn=separate)
     del o, gateup, down, qkvs
     k7_attention_cases(device, timer, res)
-
-    # K8: exact -- a copy of bf16 rows; one launch for all 32 layers, with
-    # the caches' pointer array built once, as ExLlamaCache does
-    n_layers, b, hkv, past = 32, 1, 32, 1919
-    caches = [rnd(b, hkv, s_max, d) for _ in range(2 * n_layers)]
-    plain = [c.clone() for c in caches]
-    nk, nv = rnd(n_layers, b, 1, hkv, d), rnd(n_layers, b, 1, hkv, d)
-    kcs, vcs = caches[:n_layers], caches[n_layers:]
-    ptrs = attention.kv_ptr_array(kcs, vcs)
-    attention.commit_kv_cache(kcs, vcs, nk, nv, past, impl="pallas",
-                              ptrs=ptrs)
-    attention.commit_kv_cache(plain[:n_layers], plain[n_layers:], nk, nv,
-                              past, impl="xla")
-    err = max((g.float() - r.float()).abs().max().item()
-              for g, r in zip(caches, plain))
-    if err != 0.0:
-        raise AssertionError(f"kv_commit: differs from the plain writes by "
-                             f"{err}")
-    rows = 2 * n_layers * b * hkv * d * 2
-    record("kv_commit", f"L={n_layers} B={b} Hkv={hkv}", err, 0.0,
-           lambda: attention.commit_kv_cache(kcs, vcs, nk, nv, past,
-                                             impl="pallas", ptrs=ptrs),
-           lambda: attention.commit_kv_cache(kcs, vcs, nk, nv, past,
-                                             impl="xla"),
-           None, 2 * rows, 0)
 
 
 def planted_attention(gen, b, heads, hkv, s_max, past, n_pad, device):
@@ -925,6 +902,7 @@ def turbo_cases(device, timer, res):
     for m, impl, gu, dn in ((1, "pallas_a8", gateup, down),
                             (1, "pallas_a8x2", gateup, down),
                             (18, "pallas_a8", gateup, down),
+                            (18, "pallas_a8x2", gateup, down),
                             (1, "pallas_a8", gu32, dn32)):
         h = rnd(m, 1, hidden)
         got = mlp.q4_mlp(h, nw, gu, dn, eps, impl)
@@ -1422,42 +1400,79 @@ def kv_cases(device, timer, res):
                 record(name, tag, err, rel, k_fn, p_fn, None, nbytes, flops,
                        iters=10)
 
-        # ---- K8: bytes and scales bit-equal to the plain quantized writes;
-        # an all-zero row and half-way values among the rows
-        n_layers, b, hkv, cur = 32, 1, 32, 1919
-        caches = [quantized_cache(gen, kind, b, hkv, s_max, d, device)
-                  for _ in range(n_layers)]
-        lists = [[c[i] for c in caches] for i in range(4)]   # k, v, ks, vs
-        plain = [[t.clone() for t in ts] for ts in lists]
-        nk, nv = rnd(n_layers, b, 1, hkv, d), rnd(n_layers, b, 1, hkv, d)
-        nk[0, 0, 0, 0] = 0
-        nk[0, 0, 0, 1] = ((torch.arange(d, device=device) % 14 - 7) + 0.5) * 0.5
-        nk[0, 0, 0, 1, 0] = 63.5 if kind == "int8" else 3.5   # the scale: 0.5
-        ptrs = attention.kv_ptr_array(*lists)
-        attention.commit_kv_cache(lists[0], lists[1], nk, nv, cur, lists[2],
-                                  lists[3], impl="pallas", ptrs=ptrs)
-        attention.commit_kv_cache(plain[0], plain[1], nk, nv, cur, plain[2],
-                                  plain[3], impl="xla")
-        n_diff = sum(int((g != r).sum()) for gs_, rs_ in zip(lists, plain)
-                     for g, r in zip(gs_, rs_))
-        if n_diff:
-            raise AssertionError(f"kv_commit_{kind}: {n_diff} bytes / scales "
-                                 f"differ from the plain quantized writes")
-        if not (lists[2][0][:, :, cur] > 0).all():
-            raise AssertionError(f"kv_commit_{kind}: no scale written")
-        rows = 2 * n_layers * b * hkv
-        nbytes = (rows * d * 2 + rows * (d // 2 if kind == "int4" else d)
-                  + rows * 4)
-        record(f"kv_commit_{kind}", f"{kind} L={n_layers} B={b} Hkv={hkv}",
-               0.0, 0.0,
-               lambda: attention.commit_kv_cache(
-                   lists[0], lists[1], nk, nv, cur, lists[2], lists[3],
-                   impl="pallas", ptrs=ptrs),
-               lambda: attention.commit_kv_cache(
-                   lists[0], lists[1], nk, nv, cur, lists[2], lists[3],
-                   impl="xla"),
-               None, nbytes, 0)
-        del caches, lists, plain
+
+def kv_commit_cases(device, timer, res):
+    """K8 in each cache format, its cursor in device memory as the model
+    passes it -- a [1] cursor shared by a B = 1 batch, and a [B] cursor of
+    a B = 2 batch, one position a row -- and its rows in one staged [2, L,
+    B, 1, Hkv, D] buffer: bytes and scales bit-equal to the plain writes
+    (an all-zero row and half-way values among the rows of a quantized
+    cache), timed beside an empty launch (the floor, ``floor_ms``)."""
+    from exllama_tpu_torch.ops import attention
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    record = make_recorder(timer, res)
+    n_layers, hkv, s_max, d = 32, 32, 2048, 128
+    for kind in ("bf16", *KV_KINDS):
+        name = "kv_commit" if kind == "bf16" else f"kv_commit_{kind}"
+        for b, cursor in ((1, [1919]), (2, [1919, 1000])):
+            if kind == "bf16":
+                caches = [(torch.randn((b, hkv, s_max, d), generator=gen,
+                                       device=device).bfloat16(),
+                           torch.randn((b, hkv, s_max, d), generator=gen,
+                                       device=device).bfloat16())
+                          for _ in range(n_layers)]
+                lists = [[c[0] for c in caches], [c[1] for c in caches],
+                         None, None]
+            else:
+                caches = [quantized_cache(gen, kind, b, hkv, s_max, d, device)
+                          for _ in range(n_layers)]
+                lists = [[c[i] for c in caches] for i in range(4)]
+            plain = [None if ts is None else [t.clone() for t in ts]
+                     for ts in lists]
+            rows = torch.randn((2, n_layers, b, 1, hkv, d), generator=gen,
+                               device=device).bfloat16()
+            if kind != "bf16":
+                rows[0, 0, 0, 0, 0] = 0
+                rows[0, 0, 0, 0, 1] = ((torch.arange(d, device=device) % 14
+                                        - 7) + 0.5) * 0.5
+                rows[0, 0, 0, 0, 1, 0] = 63.5 if kind == "int8" else 3.5
+            past = torch.tensor(cursor, dtype=torch.int32, device=device)
+            ptrs = attention.kv_ptr_array(*[ts for ts in lists
+                                            if ts is not None])
+            attention.kv_commit(lists[0], lists[1], rows[0], rows[1], past,
+                                lists[2], lists[3], ptrs)
+            attention.commit_kv_cache(
+                plain[0], plain[1], rows[0], rows[1],
+                cursor[0] if b == 1 else past, plain[2], plain[3],
+                impl="xla")
+            n_diff = sum(int((g != r).sum())
+                         for gs_, rs_ in zip(lists, plain) if gs_ is not None
+                         for g, r in zip(gs_, rs_))
+            label = (("" if kind == "bf16" else f"{kind} ")
+                     + f"L={n_layers} B={b} Hkv={hkv} "
+                     + ("[1]" if b == 1 else "[B]") + " cursor")
+            if n_diff:
+                raise AssertionError(f"{name} {label}: {n_diff} bytes / "
+                                     f"scales differ from the plain writes")
+            if kind != "bf16" and not all(
+                    (lists[2][0][i, :, p] > 0).all()
+                    for i, p in enumerate(cursor)):
+                raise AssertionError(f"{name} {label}: no scale written")
+            # each bf16 row read once, each written row (and scale) once
+            written = {"bf16": 2 * d, "int8": d + 4, "int4": d // 2 + 4}[kind]
+            nbytes = 2 * n_layers * b * hkv * (2 * d + written) + 4 * b
+            record(name, label, 0.0, 0.0,
+                   lambda: attention.kv_commit(
+                       lists[0], lists[1], rows[0], rows[1], past, lists[2],
+                       lists[3], ptrs),
+                   lambda: attention.commit_kv_cache(
+                       lists[0], lists[1], rows[0], rows[1],
+                       cursor[0] if b == 1 else past, lists[2], lists[3],
+                       impl="xla"),
+                   None, nbytes, 0,
+                   extra={"floor_ms": lambda: attention.launch_floor(device)})
+            del caches, lists, plain
 
 
 # ------------------------------- phase 3: the tensor-core GEMV, new shapes
@@ -2126,10 +2141,30 @@ def main_path(mp):
     return r1
 
 
-def greedy(mp, label, **knobs):
+def step_kernels(step):
+    """The device's kernel and memset launches in one call of ``step``, by
+    name, from a torch.profiler trace of the card (None where the trace
+    shows no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return names or None
+
+
+def greedy(mp, label, profile=False, **knobs):
     """Phase 6: bench.py's greedy decode -- the prompt prefilled, then 128
     tokens through forward_chunk(head_mode="argmax") at attend_len
-    max_seq_len, each token fed back on the card without a host sync."""
+    max_seq_len, each token fed back on the card without a host sync; with
+    ``profile``, one more step traced by torch.profiler (its launches by
+    kernel)."""
     from exllama_tpu_torch.models.llama import forward_chunk
 
     cfg, model, cache = mp.cfg, mp.model, mp.cache
@@ -2159,7 +2194,17 @@ def greedy(mp, label, **knobs):
     log(f"  greedy {label}: 128 tokens in {dt:.3f} s = {128 / dt:.2f} tok/s "
         f"(the host returned from its last call after {t_host:.3f} s); "
         f"launches per step {per_step}")
-    return dict(decode_tps=128 / dt, host_s=t_host, per_decode_step=per_step)
+    out = dict(decode_tps=128 / dt, host_s=t_host, per_decode_step=per_step)
+    if profile:
+        traced = step_kernels(lambda: forward_chunk(
+            model.params, cache, tok, past + 128, None, **kw))
+        cache.current_seq_len = past + 129
+        out["step_kernels"] = traced
+        log(f"  greedy {label}: one step traced by torch.profiler: "
+            + ("no device activity in the trace (not measured)"
+               if traced is None else
+               f"{sum(traced.values())} device launches: {traced}"))
+    return out
 
 
 def turbo_path(mp, exact, launches):
@@ -2451,7 +2496,7 @@ SOURCES = {
                    "exllama_tpu/ops/attn_block.py:91",
                    "layer_tail B=1 past=2000"),
     "kv_commit": ("exllama_tpu_torch/csrc/kv_commit.cu",
-                  "exllama_tpu/ops/attention.py:173", "L=32 B=1"),
+                  "exllama_tpu/ops/attention.py:173", "L=32 B=1 Hkv=32 [1]"),
     "q4_gemv_a8": ("exllama_tpu_torch/csrc/q4_gemv.cu",
                    "exllama_tpu/ops/quant.py:333", "a8 qkv g128 M=1 norm"),
     "q4_prefill_a8": ("exllama_tpu_torch/csrc/q4_prefill_a8.cu",
@@ -2465,7 +2510,7 @@ SOURCES = {
 for _kind in KV_KINDS:
     for _name, _case in (("flash_attn", "decode past=2000"),
                          ("layer_tail", "layer_tail B=1 past=2000"),
-                         ("kv_commit", "L=32 B=1")):
+                         ("kv_commit", "L=32 B=1 Hkv=32 [1]")):
         SOURCES[f"{_name}_{_kind}"] = (*SOURCES[_name][:2], f"{_kind} {_case}")
 
 
@@ -2500,6 +2545,7 @@ def main() -> int:
     fused_cases(device, timer, res)
     turbo_cases(device, timer, res)
     kv_cases(device, timer, res)
+    kv_commit_cases(device, timer, res)
     k7_sweep_cases(device)
     crossover = {}
     gemv_tc_cases(device, timer, res, crossover)
@@ -2559,7 +2605,7 @@ def main() -> int:
              {"q4_gemv": 0, "layer_tail": 32, "head_argmax": 1,
               "kv_commit": 1, "dense_gemv": 0})):
         zero_counts()
-        runs[label] = greedy(mp, label, **knobs)
+        runs[label] = greedy(mp, label, profile=True, **knobs)
         c6 = counts()
         require(f"phase 6 {label}", runs[label]["per_decode_step"], want)
         require(f"phase 6 {label}", c6, {

@@ -16,7 +16,13 @@ step, the port updates these tensors IN PLACE (ops/attention.update_kv_cache,
 and commit_kv_cache for the deferred rows of a decode step; ``roll_left``
 and ``copy_states`` here too); ``clone`` copies them. Since they never move,
 ``kv_ptrs`` -- the device array of their base pointers that the batched
-commit kernel K8 reads -- is built once, here.
+commit kernel K8 reads -- is built once, here, with K8's other operands:
+``rows``, a bf16 [2, L, B, 1, Hkv, D] buffer into which a decode step's
+layers write their K (``rows[0, l]``) and V (``rows[1, l]``) rows for the
+commit (D: the width attended, head_dim or the padded one), and
+``cursor``, an int32 [1] device buffer that ``forward_chunk`` fills with a
+decode step's int cursor, once, for every kernel of the step (K3 / K7 and
+K8) to read.
 """
 
 from __future__ import annotations
@@ -59,6 +65,8 @@ class ExLlamaCache:
                 self.v_scale = [t.clone() for t in copy_from.v_scale]
             self.kv_ptrs = kv_ptr_array(self.k, self.v, self.k_scale,
                                         self.v_scale)
+            self.rows = torch.empty_like(copy_from.rows)
+            self.cursor = torch.zeros_like(copy_from.cursor)
             self.current_seq_len = copy_from.current_seq_len
             return
 
@@ -94,6 +102,10 @@ class ExLlamaCache:
             self.k_scale = layers(layer_shape[:3], torch.float32)
             self.v_scale = layers(layer_shape[:3], torch.float32)
         self.kv_ptrs = kv_ptr_array(self.k, self.v, self.k_scale, self.v_scale)
+        d_rows = shape[4] if tune.kv_cache_dtype == "int4" else d_store
+        self.rows = torch.empty((2, shape[0], shape[1], 1, shape[3], d_rows),
+                                dtype=torch.bfloat16, device=self.device)
+        self.cursor = torch.zeros((1,), dtype=torch.int32, device=self.device)
         self.current_seq_len = 0
 
     def _tensor_lists(self):

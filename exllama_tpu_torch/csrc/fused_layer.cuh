@@ -2,12 +2,11 @@
 // (layer_tail.cu): the grid barrier that stands in for the TPU kernels'
 // sequential grid phases, rope on one head, the MLP phases, and the
 // cooperative launch. The norm prologue and the silu(gate)*up boundary are
-// staging modes of the shared GEMVs (q4_gemv.cuh: XSrc.norm_w,
-// XSrc.glu_off). At one row their GEMV phases stream the weights on a
-// cp.async ring, stream-K over (256-column tile, 128-k unit) items
-// (q4_stream.cuh); at 2..32 rows they take the tensor-core GEMV
-// (q4_gemv_tc.cuh), its (128-column tile, K split) items planned to cover
-// the persistent grid (q4tc::plan_splits).
+// staging modes of the shared GEMV (q4_gemv.cuh: XSrc.norm_w,
+// XSrc.glu_off). Their GEMV phases stream the weights on a cp.async ring,
+// stream-K over (256-column tile, 128-k unit) items, at every row count
+// (q4_stream.cuh, row tiles of 1, 8, 16, 24 and 32); at one row the next
+// phase's first weight slabs are put in flight before each grid barrier.
 #pragma once
 
 #include "q4_stream.cuh"
@@ -22,46 +21,44 @@ using q4::XSrc;
 // loads in flight, but every barrier waits for all of them).
 constexpr int MAX_BLOCKS_PER_SM = 4;
 
-// Row tile of a fused kernel's instantiation: 1 (the streaming GEMV) or the
-// tensor-core GEMV's 16 / 32 padded rows.
-static inline int fused_mb(int m) { return m <= 1 ? 1 : m <= 16 ? 16 : 32; }
+// Row tile of a fused kernel's instantiation: 1, 8, 16, 24 or 32 rows.
+static inline int fused_mb(int m) { return q4s::row_tile(m); }
 
 // The split partials and the tickets of the GEMV phases (and of K7's key
-// splits): part >= 2 * gridDim.x * q4s::BN f32 at one row, else
-// gridDim.x * MB * q4tc::BN; ticket >= ceil(N / 128)
-// uint32 zeros for the widest phase (each phase leaves its tickets zero
-// before the next barrier, so phases share them).
+// splits): part >= 2 * gridDim.x * M * q4s::BN f32; ticket >= ceil(N /
+// 128) uint32 zeros for the widest phase and K7's pairs (each phase leaves
+// its tickets zero before the next barrier, so phases share them).
 struct SplitScratch {
   float* part;
   unsigned int* ticket;
 };
 
-// One GEMV phase of the persistent grid: x [M, K] (src) @ w, each finished
-// output to epi(m, n, value).
-// prefetched: at one row, gemv_prefetch of the same w and K went before
-// (and, typically, the grid barrier between them).
-template <int MB, int MODE, class Epi>
+// One GEMV phase of the persistent grid: out (q4s::Out: rounded to bf16,
+// a residual added where it has one) = x [M, K] (src) @ w.
+// prefetched: gemv_prefetch of the same w, K and M went before (and,
+// typically, the grid barrier between them; it puts nothing in flight at
+// 2..32 rows).
+template <int MB, int MODE>
 __device__ void gemv_phase(const XSrc& src, const QW& w, int M, int K, int gs,
-                           const SplitScratch& sc, unsigned char* smem, Epi epi,
+                           const SplitScratch& sc, unsigned char* smem, const q4s::Out& out,
                            bool prefetched = false) {
-  if constexpr (MB == 1)
-    q4s::gemv_stream<MODE>(src, w, K, gs, sc.part, sc.ticket, smem, epi, prefetched);
-  else
-    q4tc::q4_gemv_tc<MB, MODE>(src, w, M, K, gs, blockIdx.x, gridDim.x, 0, sc.part, sc.ticket,
-                               smem, epi);
+  q4s::gemv_stream<MB, MODE>(src, w, M, K, gs, sc.part, sc.ticket, smem, out,
+                             MB == 1 && prefetched);
 }
 
-// At one row: put the first weight slabs of the next GEMV phase in flight
+// At one row, put the first weight slabs of the next GEMV phase in flight
 // before the grid barrier that precedes it (the weights do not depend on
-// the phases before); nothing at 2..32 rows.
-template <int MB>
-__device__ __forceinline__ void gemv_prefetch(const QW& w, int K, int gs, unsigned char* smem) {
-  if constexpr (MB == 1) q4s::prefetch(w, K, gs, smem);
+// the phases before); at 2..32 rows this measured 3-6% slower
+// (scripts/ring_ablation.py k7_no_prefetch), so nothing.
+template <int MB, int MODE>
+__device__ __forceinline__ void gemv_prefetch(const QW& w, int M, int K, int gs,
+                                              unsigned char* smem) {
+  if constexpr (MB == 1) q4s::prefetch<MB, MODE>(w, M, K, gs, smem);
 }
 
-// Shared memory of gemv_phase.
-static inline size_t gemv_smem(int mb, int mode) {
-  return mb == 1 ? (size_t)q4s::SMEM : q4tc::smem_bytes(mb, mode);
+// Shared memory of gemv_phase at m rows.
+static inline size_t gemv_smem(int mb, int mode, int m) {
+  return (size_t)q4s::Geo(mb, mode, m).smem;
 }
 
 // Grid-wide barrier for a cooperative launch (every block co-resident).
@@ -93,12 +90,14 @@ __device__ __forceinline__ float rope_elem(const bf16* head, int d, const float*
 }
 
 // The MLP block of rows h [M, hidden]: gu = bf16(rms_norm(h) @ gateup)
-// into scratch, barrier, out = bf16(h + bf16(silu(gate)*up @ down)); at
-// 2..32 rows silu(gate)*up is formed once between two barriers, at one row
-// the down phase forms it as it stages x (a barrier costs more there).
-// gateup holds gate in columns [0, inter) and up in [inter, 2*inter). MODE
-// is the arithmetic of both GEMVs (q4_gemv.cuh).
-// prefetched: gemv_prefetch<MB>(gu, hidden, ...) went before.
+// into scratch, barrier, out = bf16(h + bf16(silu(gate)*up @ down)). At
+// one row the down phase forms silu(gate)*up as it stages each unit of x;
+// at 2..32 rows the grid forms it once, in place over gate, between two
+// barriers (the same bf16 values; staged by the down phase it measured
+// 6-12% slower in K6, PERF.md §6). gateup holds gate in columns [0,
+// inter) and up in
+// [inter, 2*inter). MODE is the arithmetic of both GEMVs (q4_gemv.cuh).
+// prefetched: gemv_prefetch<MB, MODE>(gu, M, hidden, ...) went before.
 template <int MB, int MODE>
 __device__ void mlp_phases(const bf16* h, const bf16* norm_w, float eps, const QW& gu,
                            const QW& dn, int M, int hidden, int inter, int gs, bf16* gu_scr,
@@ -106,16 +105,13 @@ __device__ void mlp_phases(const bf16* h, const bf16* norm_w, float eps, const Q
                            unsigned int& epoch, unsigned char* smem, bool prefetched) {
   const int ngu = gu.N;
   const XSrc xa{h, hidden, norm_w, eps, nullptr, 0};
-  gemv_phase<MB, MODE>(
-      xa, gu, M, hidden, gs, sc, smem,
-      [&](int m, int n, float v) { gu_scr[(size_t)m * ngu + n] = f2bf(v); }, prefetched);
-  gemv_prefetch<MB>(dn, inter, gs, smem);
+  gemv_phase<MB, MODE>(xa, gu, M, hidden, gs, sc, smem, q4s::Out{gu_scr, nullptr, ngu},
+                       prefetched);
+  gemv_prefetch<MB, MODE>(dn, M, inter, gs, smem);
   grid_sync(bar, epoch);
-  int glu_off = inter;  // the down GEMV stages silu(gate) * up ...
+  int glu_off = inter;  // the down phase stages silu(gate) * up ...
   if constexpr (MB > 1) {
-    // ... except at 2..32 rows, where every column tile of the tensor-core
-    // GEMV would recompute it for every row: formed once, in place over
-    // gate, the same bf16 value the staging forms
+    // ... but at 2..32 rows it is formed once, the same bf16 values
     for (int i = blockIdx.x * THREADS + threadIdx.x; i < M * inter; i += gridDim.x * THREADS) {
       bf16* g = gu_scr + (size_t)(i / inter) * ngu + i % inter;
       *g = f2bf(silu_mul(q4::ld_cg(g), q4::ld_cg(g + inter)));
@@ -124,13 +120,7 @@ __device__ void mlp_phases(const bf16* h, const bf16* norm_w, float eps, const Q
     glu_off = 0;
   }
   const XSrc xb{gu_scr, ngu, nullptr, 0.f, nullptr, glu_off};
-  gemv_phase<MB, MODE>(
-      xb, dn, M, inter, gs, sc, smem,
-      [&](int m, int n, float v) {
-        const size_t i = (size_t)m * hidden + n;
-        out[i] = f2bf(q4::ld_cg(h + i) + bf2f(f2bf(v)));
-      },
-      true);
+  gemv_phase<MB, MODE>(xb, dn, M, inter, gs, sc, smem, q4s::Out{out, h, hidden}, true);
 }
 
 static inline int num_sms() {

@@ -41,15 +41,14 @@
 // cooperative launch (every block co-resident, at most 4 to an SM) whose
 // phases are separated by grid barriers, where the TPU grid runs them in
 // order. The GEMV phases take the shared GEMVs (fused_layer.cuh:
-// gemv_phase): at B = 1 the weights stream through a cp.async ring,
-// stream-K over (256-column tile, 128-k unit) items shared evenly among
-// the grid (q4_stream.cuh: a GEMV that split no K left the o and down
-// projections of Llama-7B, 128 tiles of 32 columns, to 128 of the grid's
-// blocks); at B >= 2 the tensor-core GEMV, its (128-column tile, K split)
-// items planned to fill one wave of the grid (q4tc::plan_splits). The
-// next phase's first weight slabs are put in flight before each grid
-// barrier (fused::gemv_prefetch). Attention has only B*Hkv (batch row, kv
-// head) pairs -- 32 at 7B, B=1, which is why the separate K3 decode
+// gemv_phase): the weights stream through a cp.async ring, stream-K over
+// (256-column tile, 128-k unit) items shared evenly among the grid, the B
+// rows in one row tile of 1, 8, 16, 24 or 32 (q4_stream.cuh: a GEMV that
+// split no K left the o and down projections of Llama-7B, 128 tiles of 32
+// columns, to 128 of the grid's blocks). At one row the next phase's first
+// weight slabs are put in flight before each grid barrier
+// (fused::gemv_prefetch). Attention has only
+// B*Hkv (batch row, kv head) pairs -- 32 at 7B, B=1, which is why the separate K3 decode
 // reached 2% of its bound -- so each pair's keys are split across blocks
 // (split-KV): a block owns a
 // key range, its 8 warps each keep an online softmax over 32-key chunks
@@ -415,7 +414,8 @@ __device__ void attention_phase(const TailParams& p, float* sm) {
 }
 
 template <int MB>
-__global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams p) {
+__global__ void __launch_bounds__(THREADS, q4s::min_blocks(MB))
+    layer_tail_kernel(const TailParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned int epoch = 0;
   const int M = p.B;
@@ -423,9 +423,7 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams
     const int nqkv = p.qkv.N;
     const XSrc x{p.h, p.hidden, p.in_norm, p.eps, nullptr, 0};
     fused::gemv_phase<MB, GEMV_MODE>(x, p.qkv, M, p.hidden, p.gs, p.gsc, smem,
-                          [&](int m, int n, float v) {
-                            p.qkv_scr[(size_t)m * nqkv + n] = f2bf(v);
-                          });
+                                     q4s::Out{p.qkv_scr, nullptr, nqkv});
     fused::grid_sync(p.bar, epoch);
   }
   __syncthreads();
@@ -437,21 +435,16 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams
 #else
   attention_phase<0>(p, reinterpret_cast<float*>(smem));
 #endif
-  fused::gemv_prefetch<MB>(p.o, p.H * D, p.gs, smem);
+  fused::gemv_prefetch<MB, GEMV_MODE>(p.o, M, p.H * D, p.gs, smem);
   fused::grid_sync(p.bar, epoch);
   // phase D: o-projection + residual, into h' (MLP) or the output
   const int hid = p.hidden;
   bf16* hdst = p.post_norm ? p.h1_scr : p.out;
   const XSrc xo{p.attn_scr, p.H * D, nullptr, 0.f, nullptr, 0};
-  fused::gemv_phase<MB, GEMV_MODE>(
-      xo, p.o, M, p.H * D, p.gs, p.gsc, smem,
-      [&](int m, int n, float v) {
-        const size_t i = (size_t)m * hid + n;
-        hdst[i] = f2bf(bf2f(p.h[i]) + bf2f(f2bf(v)));
-      },
-      true);
+  fused::gemv_phase<MB, GEMV_MODE>(xo, p.o, M, p.H * D, p.gs, p.gsc, smem,
+                                   q4s::Out{hdst, p.h, hid}, true);
   if (!p.post_norm) return;
-  fused::gemv_prefetch<MB>(p.gu, hid, p.gs, smem);
+  fused::gemv_prefetch<MB, GEMV_MODE>(p.gu, M, hid, p.gs, smem);
   fused::grid_sync(p.bar, epoch);
   fused::mlp_phases<MB, GEMV_MODE>(p.h1_scr, p.post_norm, p.eps, p.gu, p.dn, M, hid, p.inter,
                                    p.gs, p.gu_scr, p.out, p.gsc, p.bar, epoch, smem, true);
@@ -460,7 +453,7 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(const TailParams
 template <int MB>
 cudaError_t launch(TailParams p, int nsplit_cap, cudaStream_t st) {
   size_t smem = (size_t)ATT_FLOATS * 4;
-  if (fused::gemv_smem(MB, GEMV_MODE) > smem) smem = fused::gemv_smem(MB, GEMV_MODE);
+  if (fused::gemv_smem(MB, GEMV_MODE, p.B) > smem) smem = fused::gemv_smem(MB, GEMV_MODE, p.B);
   const int grid = fused::coop_grid(layer_tail_kernel<MB>, smem);
   // splits per (b, kv head): enough work items to cover the grid
   int nsplit = grid / (p.B * p.Hkv);
@@ -550,7 +543,9 @@ extern "C" int layer_tail_launch(
   if (B < 1 || B > 32 || gpart == nullptr || gticket == nullptr) return cudaErrorInvalidValue;
   switch (fused::fused_mb(B)) {
     case 1: return launch<1>(p, nsplit_cap, st);
+    case 8: return launch<8>(p, nsplit_cap, st);
     case 16: return launch<16>(p, nsplit_cap, st);
+    case 24: return launch<24>(p, nsplit_cap, st);
     default: return launch<32>(p, nsplit_cap, st);
   }
 }

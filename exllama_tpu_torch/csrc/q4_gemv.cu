@@ -3,12 +3,14 @@
 // Two routes by shape, both one K1 launch: one row at groupsize 32 / 64 /
 // 128 takes the streaming GEMV q4s::gemv_stream (q4_stream.cuh: the
 // weights stream-K over the grid on a cp.async ring, products on tensor
-// cores, split tiles added by their last block in the order of k), the
-// GEMV phases of the fused kernels K6 and K7 at one row; 2 <= M <= 32, and
-// one row at any other groupsize (gs % 32 == 0 dividing K, gs = K
-// included), take the tensor-core GEMV q4tc::q4_gemv_tc (q4_gemv_tc.cuh),
-// its K split across blocks as the wrapper plans
-// (ops/quant.gemv_split_plan).
+// cores, split tiles added by their last block in the order of k; the
+// GEMV phases of the fused kernels K6 and K7, at every row count there);
+// 2 <= M <= 32, and one row at any other groupsize (gs % 32 == 0 dividing
+// K, gs = K included), take the tensor-core GEMV q4tc::q4_gemv_tc
+// (q4_gemv_tc.cuh), its K split across blocks as the wrapper plans
+// (ops/quant.gemv_split_plan). At 2..32 rows the streaming GEMV loses to
+// the tensor-core one on the o and down projections of Llama-7B
+// (scripts/ring_ablation.py k1_stream_rows, PERF.md §6).
 //
 // Replaces the TPU kernel exllama_tpu/ops/quant.py:_q4_gemv_kernel_npair
 // (and its kgroup twin _q4_gemv_kernel, act-order prologue
@@ -50,8 +52,7 @@ __global__ void __launch_bounds__(THREADS, 2) q4_gemv_stream_kernel(
   extern __shared__ __align__(16) unsigned char smem[];
   const XSrc src{x, K, norm_w, eps, x_map, 0};
   const QW w{qweight, scales, zscale, N};
-  q4s::gemv_stream<GEMV_MODE>(src, w, K, gs, part, ticket, smem,
-                              [&](int, int n, float v) { out[n] = f2bf(v); });
+  q4s::gemv_stream<1, GEMV_MODE>(src, w, 1, K, gs, part, ticket, smem, q4s::Out{out, nullptr, N});
 }
 
 cudaError_t launch_stream(const bf16* x, const int32_t* qw, const bf16* s, const bf16* z,
@@ -59,22 +60,23 @@ cudaError_t launch_stream(const bf16* x, const int32_t* qw, const bf16* s, const
                           unsigned int* ticket, int K, int N, int gs, float eps,
                           cudaStream_t st) {
   static int blocks = 0;  // resident blocks of the card (once per process)
+  const int smem = q4s::Geo(1, GEMV_MODE, 1).smem;
   if (blocks == 0) {
-    cudaError_t e = allow_smem(q4_gemv_stream_kernel, q4s::SMEM);
+    cudaError_t e = allow_smem(q4_gemv_stream_kernel, smem);
     int dev = 0, sms = 0, per_sm = 0;
     if (e == cudaSuccess) e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, q4_gemv_stream_kernel,
-                                                        THREADS, q4s::SMEM);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, q4_gemv_stream_kernel, THREADS,
+                                                        smem);
     if (e != cudaSuccess) return e;
     blocks = sms * (per_sm < STREAM_BLOCKS_PER_SM ? per_sm : STREAM_BLOCKS_PER_SM);
   }
   const long long units = (long long)q4s::tiles_of(N) * q4s::units_of(K);
   const int grid = units < blocks ? (int)units : blocks;
   if (grid < 1 || part == nullptr || ticket == nullptr) return cudaErrorInvalidValue;
-  q4_gemv_stream_kernel<<<grid, THREADS, q4s::SMEM, st>>>(x, qw, s, z, nw, xmap, out, part,
-                                                          ticket, K, N, gs, eps);
+  q4_gemv_stream_kernel<<<grid, THREADS, smem, st>>>(x, qw, s, z, nw, xmap, out, part, ticket,
+                                                     K, N, gs, eps);
   return cudaGetLastError();
 }
 
@@ -103,7 +105,7 @@ cudaError_t launch_tc(const bf16* x, const int32_t* qw, const bf16* s, const bf1
   const size_t smem = q4tc::smem_bytes(MP, GEMV_MODE);
   static const cudaError_t ok = allow_smem(q4_gemv_tc_kernel<MP>, (int)smem);
   if (ok != cudaSuccess) return ok;
-  nsplit = q4tc::plan_splits(nsplit, N, K, gs, 1).n;
+  nsplit = q4tc::plan_splits(nsplit, K).n;
   if (nsplit > 1 && (part == nullptr || ticket == nullptr)) return cudaErrorInvalidValue;
   dim3 grid((N + q4tc::BN - 1) / q4tc::BN * nsplit);
   q4_gemv_tc_kernel<MP><<<grid, THREADS, smem, st>>>(x, qw, s, z, nw, xmap, out, part, ticket,

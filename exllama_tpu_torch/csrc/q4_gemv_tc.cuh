@@ -1,8 +1,8 @@
 // The 4-bit GPTQ GEMV at 2 <= M <= 32 rows on tensor cores, as a
-// block-level device function shared by K1 / K9 (q4_gemv.cu), K6
-// (q4_mlp.cu) and K7 (layer_tail.cu), with the staging prologues (RMSNorm,
-// act-order gather, silu(gate)*up) and the arithmetic modes of
-// q4_gemv.cuh:
+// block-level device function of K1 / K9 (q4_gemv.cu; until the streaming
+// GEMV took them, q4_stream.cuh, also the 2..32-row GEMV phases of K6 and
+// K7), with the staging prologues (RMSNorm, act-order gather,
+// silu(gate)*up) and the arithmetic modes of q4_gemv.cuh:
 //
 //   EXACT: out = sum_g s[g,n] * (x_g . q_g) - zs[g,n] * sum(x_g)
 //          the group products on mma.sync.m16n8k16 bf16 -> f32, the nibbles
@@ -54,8 +54,7 @@
 //   chunk is issued before the chunk is staged; the chunk's scale rows come
 //   by cp.async beside the staging of x, so a fold never waits on device
 //   memory. K is split across blocks (ops/quant.py:gemv_split_plan: about
-//   two blocks an SM; in K6 / K7 plan_splits below, to cover their
-//   persistent grid); the last block of a column tile to
+//   two blocks an SM); the last block of a column tile to
 //   finish (an atomic ticket, which it resets) adds the splits' partials in
 //   split order -- deterministic, no f32 atomics -- and calls the epilogue.
 #pragma once
@@ -117,22 +116,12 @@ struct Splits {
   int n, ups;
 };
 
-// The caller's splits (nsplit > 0), normalised so that no split is empty;
-// else (nsplit <= 0, the persistent grids of K6 / K7: `blocks` blocks) as
-// many splits as keep every item in one wave of the grid, at group
-// boundaries (so that each (row, group) is quantized within one split in
-// the a8 modes). ops/quant.py:fused_split_plan is the same plan.
-__host__ __device__ inline Splits plan_splits(int nsplit, int N, int K, int gs, int blocks) {
-  const int units = K / UK, ncb = (N + BN - 1) / BN;
-  const int most = max(1, units / MIN_SPLIT_UNITS);
-  if (nsplit > 0) {
-    nsplit = max(1, min(nsplit, most));
-    const int ups = (units + nsplit - 1) / nsplit;
-    return {(units + ups - 1) / ups, ups};
-  }
-  const int gu = max(1, gs / UK), groups = max(1, units / gu);
-  const int s = max(1, min(blocks / ncb, most));
-  const int ups = (groups + s - 1) / s * gu;
+// The caller's splits (ops/quant.py:gemv_split_plan), normalised so that
+// no split is empty.
+__host__ __device__ inline Splits plan_splits(int nsplit, int K) {
+  const int units = K / UK;
+  nsplit = max(1, min(nsplit, max(1, units / MIN_SPLIT_UNITS)));
+  const int ups = (units + nsplit - 1) / nsplit;
   return {(units + ups - 1) / ups, ups};
 }
 
@@ -415,8 +404,8 @@ __device__ __forceinline__ uint32_t nib_pair(uint32_t w, int j) {
 }
 
 // x [M, K] (formed by src) @ w, M <= MP rows: the work items (128-column
-// tile, K split) item0, item0 + istep, ... ; nsplit > 0 the splits of K (as
-// plan_splits), 0 to plan them for istep blocks. part holds the splits'
+// tile, K split) item0, item0 + istep, ... ; nsplit the splits of K (as
+// plan_splits normalises them). part holds the splits'
 // partials (items * MP * BN f32) and ticket one zero int per column tile,
 // both unused with one split. epi(m, n, value) receives each finished f32
 // output, from any thread. Every thread of the block calls this together.
@@ -436,7 +425,7 @@ __device__ void q4_gemv_tc(const XSrc& src, const QW& w, int M, int K, int gs, i
   const int g = lane >> 2, q = lane & 3;
   const int wc = warp % WC, wk = warp / WC;
   const int N = w.N, units = K / UK, ncb = (N + BN - 1) / BN;
-  const Splits plan = plan_splits(nsplit, N, K, gs, istep);
+  const Splits plan = plan_splits(nsplit, K);
   nsplit = plan.n;
   const int ups = plan.ups;
   const int items = ncb * nsplit;

@@ -13,15 +13,14 @@
 // (down) simply follows phase A (gate/up); on Hopper down needs every
 // gate/up column, a dependency across blocks. So the launch is cooperative
 // (every block co-resident, at most 4 to an SM) and one grid barrier
-// separates the phases. Each block takes its share of the items with the
-// shared GEMV (fused_layer.cuh: gemv_phase: at one row the streaming GEMV,
-// down's first weights put in flight before the barrier; else the
-// tensor-core GEMV, its splits filling one wave of the grid); gate|up goes
-// to an L2-sized scratch [M, 2*inter] bf16 that the wrapper allocates; at one
-// row the down phase applies silu(gate)*up while it stages its activation
-// chunks, so the intermediate [M, inter] never exists in memory; at 2..32
-// rows, where each of the down GEMV's column tiles would recompute it, the
-// grid forms it once over the gate half between two barriers.
+// separates the phases. Each block takes its share of the (256-column
+// tile, 128-k unit) items with the streaming GEMV (fused_layer.cuh:
+// gemv_phase, q4_stream.cuh; row tiles of 1, 8, 16, 24 or 32), down's first
+// weights put in flight before the barrier; gate|up goes to an L2-sized
+// scratch [M, 2*inter] bf16 that the wrapper allocates; at one row the
+// down phase applies silu(gate)*up while it stages each unit of its
+// activation, at 2..32 rows the grid forms it once over the gate half
+// between two barriers (fused_layer.cuh: mlp_phases).
 //
 // Built with -DGEMV_MODE=1 or 2 both GEMVs run the W4A8 arithmetic of K9
 // (mlp.py:_q4_mlp_kernel with a8 / a8x2), one library per mode.
@@ -37,7 +36,7 @@ struct MlpParams {
   QW gu;                // hidden -> 2*inter
   QW dn;                // inter -> hidden
   bf16* gu_scr;         // [M, 2*inter]
-  fused::SplitScratch sc;  // the tensor-core GEMV's split partials and tickets
+  fused::SplitScratch sc;  // the GEMV phases' split partials and tickets
   bf16* out;            // [M, hidden]
   unsigned int* bar;    // barrier counter
   int M, hidden, inter, gs;
@@ -45,7 +44,8 @@ struct MlpParams {
 };
 
 template <int MB>
-__global__ void __launch_bounds__(q4::THREADS, 2) q4_mlp_kernel(const MlpParams p) {
+__global__ void __launch_bounds__(q4::THREADS, q4s::min_blocks(MB))
+    q4_mlp_kernel(const MlpParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned int epoch = 0;
   fused::mlp_phases<MB, GEMV_MODE>(p.h, p.norm_w, p.eps, p.gu, p.dn, p.M, p.hidden, p.inter,
@@ -54,7 +54,7 @@ __global__ void __launch_bounds__(q4::THREADS, 2) q4_mlp_kernel(const MlpParams 
 
 template <int MB>
 cudaError_t launch(const MlpParams& p, cudaStream_t st) {
-  const size_t smem = fused::gemv_smem(MB, GEMV_MODE);
+  const size_t smem = fused::gemv_smem(MB, GEMV_MODE, p.M);
   const int grid = fused::coop_grid(q4_mlp_kernel<MB>, smem);
   return fused::coop_launch(q4_mlp_kernel<MB>, grid, p, smem, p.bar, st);
 }
@@ -90,7 +90,9 @@ extern "C" int q4_mlp_launch(const void* h, const void* norm_w, const void* gu_q
   if (M < 1 || M > 32 || part == nullptr || ticket == nullptr) return cudaErrorInvalidValue;
   switch (fused::fused_mb(M)) {
     case 1: return launch<1>(p, st);
+    case 8: return launch<8>(p, st);
     case 16: return launch<16>(p, st);
+    case 24: return launch<24>(p, st);
     default: return launch<32>(p, st);
   }
 }

@@ -76,7 +76,8 @@ _SIGNATURES = {
     "q4_mlp": ("q4_mlp", "q4_mlp_launch", "p" * 13 + "iiii" + "f" + "p"),
     "layer_tail": ("layer_tail", "layer_tail_launch",
                    "p" * 37 + "i" * 12 + "ff" + "p"),
-    "kv_commit": ("kv_commit", "kv_commit_launch", "ppp" + "i" * 7 + "p"),
+    "kv_commit": ("kv_commit", "kv_commit_launch", "pppp" + "i" * 7 + "p"),
+    "kv_launch_floor": ("kv_commit", "kv_launch_floor", "p"),
     "q4_prefill_a8": ("q4_prefill_a8", "q4_prefill_a8_launch",
                       "p" * 8 + "iiii" + "p"),
     "w8_matmul": ("w8_matmul", "w8_matmul_launch", "p" * 6 + "iii" + "p"),

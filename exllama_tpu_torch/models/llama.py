@@ -155,10 +155,16 @@ def _decoder_layer(
     qkv_fuse: bool = False,
     matmul_impl: str = "auto",
     attn_impl: str = "auto",
+    rows_out=None,
 ):
     """One decoder layer (exllama_tpu/models/llama.py:_decoder_layer, single
     device, no LoRA). Returns (h, k_row, v_row); the rows are the new K/V of
-    a deferred (T=1) step, which the caller commits. ``attn_impl`` routes
+    a deferred (T=1) step, which the caller commits. ``rows_out`` (the
+    layer's views of ``ExLlamaCache.rows``): where the whole layer is one K7
+    launch, the kernel writes the rows there and they are returned; the
+    other paths return rows of their own (their V row is a slice of the qkv
+    output, which a copy into the buffer would cost a launch a layer to
+    stage). ``attn_impl`` routes
     the attention of the width the cache stores (``resolve_attn_impl``):
     K3, or the einsum route, which also keeps the fused K7 off, as the JAX
     package keeps its megakernels to "flash"."""
@@ -185,7 +191,7 @@ def _decoder_layer(
             h, lp.qkv, lp.input_norm, rope_sin, rope_cos, kc, vc, past_len,
             attend_len, lp.o, lp.post_norm, lp.gateup, lp.down, eps, heads,
             kv_heads, head_dim, input_mask=input_mask, impl=impl,
-            k_scale=ksc, v_scale=vsc,
+            k_scale=ksc, v_scale=vsc, rows_out=rows_out,
         )
 
     if lp.qkv is not None:
@@ -308,25 +314,46 @@ def forward_chunk(
     defer = t == 1
     if not isinstance(past_len, int):
         past_len = past_len.to(device=h.device, dtype=torch.int32)
+    cursor = past_len       # what the layers' kernels and K8 read
+    if defer and isinstance(past_len, int):
+        # the kernels skip a row whose cursor is outside the cache, so an
+        # int is checked here
+        if not 0 <= past_len < cache.k[0].shape[2]:
+            raise ValueError(f"forward_chunk: cursor {past_len} outside the "
+                             f"cache")
+        if h.device.type == "cuda":
+            # from device memory: one fill of the cache's buffer a step, not
+            # one tensor a layer (the plain per-layer commit keeps the int:
+            # a slice copy a tensor)
+            cursor = cache.cursor.fill_(past_len)
     k_rows, v_rows = [], []
+    # only K7's whole-layer launch (qkv_fuse) writes into the cache's rows
+    staged = defer and qkv_fuse
     quantized = cache.k_scale is not None
     for li, lp in enumerate(params.layers):
+        rows = (cache.rows[0, li], cache.rows[1, li]) if staged else None
         h, k_row, v_row = _decoder_layer(
             h, lp, cache.k[li], cache.v[li],
             cache.k_scale[li] if quantized else None,
             cache.v_scale[li] if quantized else None,
             heads=heads, kv_heads=kv_heads, head_dim=head_dim, eps=eps,
-            rope_sin=sin_t, rope_cos=cos_t, past_len=past_len,
+            rope_sin=sin_t, rope_cos=cos_t, past_len=cursor,
             attend_len=attend_len, input_mask=input_mask, defer_kv=defer,
             mlp_fuse=mlp_fuse, attn_fuse=attn_fuse, qkv_fuse=qkv_fuse,
-            matmul_impl=matmul_impl, attn_impl=attn_impl,
+            matmul_impl=matmul_impl, attn_impl=attn_impl, rows_out=rows,
         )
         k_rows.append(k_row)
         v_rows.append(v_row)
+        staged = staged and k_row is rows[0] and v_row is rows[1]
     if defer:
         # the step's rows were attended in bf16; they are quantized here,
-        # so the next step sees them quantized (llama.py:546-556)
-        commit_kv_cache(cache.k, cache.v, k_rows, v_rows, past_len,
+        # so the next step sees them quantized (llama.py:546-556); where
+        # every layer wrote its rows into the cache's buffer, the commit
+        # reads the buffer as it is (else it stacks the rows)
+        if staged:
+            k_rows, v_rows = cache.rows[0], cache.rows[1]
+        commit_kv_cache(cache.k, cache.v, k_rows, v_rows,
+                        cursor if commit_impl == "pallas" else past_len,
                         cache.k_scale, cache.v_scale, impl=commit_impl,
                         ptrs=cache.kv_ptrs)
 

@@ -40,9 +40,10 @@ their own keys quantized) and ``commit_kv_cache`` (decode: the query
 attended to its own row in bf16; the next step sees it quantized).
 ``commit_kv_cache`` writes the deferred K/V rows of a decode step into
 every layer's cache: one launch of kernel K8 ``kv_commit``
-(csrc/kv_commit.cu, which quantizes in the kernel; counted on
-``kv_commit.launches`` / ``launches_int8`` / ``launches_int4``) under
-``impl="pallas"``, one plain write per layer otherwise.
+(csrc/kv_commit.cu, which quantizes in the kernel and reads its cursor, [1]
+or [B], from device memory; counted on ``kv_commit.launches`` /
+``launches_int8`` / ``launches_int4``) under ``impl="pallas"``, one plain
+write per layer otherwise.
 """
 
 from __future__ import annotations
@@ -143,21 +144,30 @@ def unpack_kv4(packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
 
 
 def _write_at(cache, new, past_len):
-    """new [B, T, Hkv, ...] into cache [B, Hkv, S, ...] at ``past_len`` (an
-    int, or a [B] tensor of per-row cursors), in place."""
-    t = new.shape[1]
+    """new [B, T, Hkv, ...] into cache [B, Hkv, S, ...] at ``past_len``, in
+    place. An int cursor is one slice write, and one outside the cache
+    raises. A [1] / [B] tensor cursor is one indexed write that reads it on
+    the device (no host sync); a row whose T positions do not lie in
+    [0, S) is left as it was, as K8 (``kv_commit``) leaves it."""
+    b, t, hkv = new.shape[:3]
     new = new.transpose(1, 2)
     if isinstance(past_len, int):
         cache[:, :, past_len : past_len + t] = new
-    else:
-        for i, p in enumerate(past_len.tolist()):
-            cache[i, :, p : p + t] = new[i]
+        return
+    dev = cache.device
+    p = past_len.to(device=dev, dtype=torch.long).reshape(-1, 1, 1)
+    inside = (p >= 0) & (p + t <= cache.shape[2])             # [1|B, 1, 1]
+    pos = torch.where(inside, p, 0) + torch.arange(t, device=dev)
+    rows = torch.arange(b, device=dev).reshape(b, 1, 1)
+    heads = torch.arange(hkv, device=dev).reshape(1, hkv, 1)
+    keep = inside.reshape(*inside.shape, *[1] * (new.dim() - 3))
+    cache[rows, heads, pos] = torch.where(keep, new, cache[rows, heads, pos])
 
 
 def update_kv_cache(k_cache, v_cache, new_k, new_v, past_len, k_scale=None,
                     v_scale=None):
     """Write T new rows [B, T, Hkv, D] at position ``past_len`` (an int or a
-    [B] tensor). For a quantized cache (``k_scale`` / ``v_scale`` given; int4
+    [1] / [B] tensor: ``_write_at``). For a quantized cache (``k_scale`` / ``v_scale`` given; int4
     where the cache is narrower than the rows) the rows are quantized per
     (token, head) and the scales written alongside. Updates the tensors IN
     PLACE (the JAX version is functional and relies on buffer donation) and
@@ -556,20 +566,22 @@ def kv_ptr_array(k_caches, v_caches, k_scales=None,
                         dtype=torch.int64).to(dev)
 
 
-def kv_commit(k_caches, v_caches, new_k, new_v, past_len: int, k_scales=None,
-              v_scales=None, ptrs=None):
+def kv_commit(k_caches, v_caches, new_k, new_v, past: torch.Tensor,
+              k_scales=None, v_scales=None, ptrs=None):
     """K8: every layer's bf16 rows new_k / new_v [L, B, 1, Hkv, D] written
-    into k_caches[l] / v_caches[l] [B, Hkv, S, D] at the shared cursor
-    ``past_len``, in place, in one launch; for a quantized cache the kernel
-    quantizes each row (:func:`quantize_kv_rows` / ``quantize_kv_rows4``)
-    and writes its scale into k_scales[l] / v_scales[l] [B, Hkv, S] too.
-    CPU caches take the plain per-layer writes. ``ptrs`` is
-    :func:`kv_ptr_array` of these tensors, built here when not given."""
+    into k_caches[l] / v_caches[l] [B, Hkv, S, D] at the cursor ``past``, an
+    int32 tensor [1] (shared) or [B] (one a row) on the caches' device that
+    the kernel reads (a row whose cursor is outside [0, S) is not written,
+    as the plain writes at a tensor cursor leave it), in place, in one launch; for a quantized cache the kernel quantizes
+    each row (:func:`quantize_kv_rows` / ``quantize_kv_rows4``) and writes
+    its scale into k_scales[l] / v_scales[l] [B, Hkv, S] too. CPU caches
+    take the plain per-layer writes. ``ptrs`` is :func:`kv_ptr_array` of
+    these tensors, built here when not given."""
     quantized = k_scales is not None
     if k_caches[0].device.type == "cpu":
         for li in range(len(k_caches)):
             update_kv_cache(k_caches[li], v_caches[li], new_k[li], new_v[li],
-                            past_len, k_scales[li] if quantized else None,
+                            past, k_scales[li] if quantized else None,
                             v_scales[li] if quantized else None)
         return
     if k_caches[0].device.type != "cuda":
@@ -584,8 +596,13 @@ def kv_commit(k_caches, v_caches, new_k, new_v, past_len: int, k_scales=None,
     if new_k.shape != (n_layers, b, 1, hkv, d) or new_v.shape != new_k.shape:
         raise ValueError(f"kv_commit: rows {tuple(new_k.shape)} vs caches "
                          f"{n_layers} x {tuple(k_caches[0].shape)}")
-    if d % 8 or not 0 <= past_len < s_max:
-        raise ValueError(f"kv_commit: head_dim {d}, cursor {past_len}")
+    if d % 8:
+        raise ValueError(f"kv_commit: head_dim {d}")
+    if (not torch.is_tensor(past) or past.dtype != torch.int32
+            or past.device != new_k.device or not past.is_contiguous()
+            or past.numel() not in (1, b)):
+        raise ValueError("kv_commit: the cursor is a contiguous int32 [1] or "
+                         "[B] tensor on the caches' device")
     if ptrs is None:
         ptrs = kv_ptr_array(k_caches, v_caches, k_scales, v_scales)
     if ptrs.shape != ((4 if quantized else 2) * n_layers,) \
@@ -596,10 +613,19 @@ def kv_commit(k_caches, v_caches, new_k, new_v, past_len: int, k_scales=None,
             raise ValueError("kv_commit: rows must be 16-byte aligned, on "
                              "the caches' device")
     kernels.check(kernels.launcher("kv_commit")(
-        ptrs.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), n_layers, b,
-        hkv, s_max, d, past_len, mode, kernels.stream_of(new_k),
+        ptrs.data_ptr(), new_k.data_ptr(), new_v.data_ptr(), past.data_ptr(),
+        past.numel(), n_layers, b, hkv, s_max, d, mode,
+        kernels.stream_of(new_k),
     ), "kv_commit")
     count_launch(kv_commit, mode)
+
+
+def launch_floor(device):
+    """One launch of an empty kernel on ``device`` (csrc/kv_commit.cu:
+    kv_launch_floor): the floor below which no launch, K8 included, can
+    go; phase 3 of chip_smoke.py times it with the kernels' timer."""
+    kernels.check(kernels.launcher("kv_launch_floor")(
+        torch.cuda.current_stream(device).cuda_stream), "kv_launch_floor")
 
 
 init_launch_counters(kv_commit)
@@ -610,24 +636,39 @@ def commit_kv_cache(k_caches, v_caches, new_k, new_v, past_len,
                     ptrs=None):
     """Deferred commit of a decode step (port of attention.py:284): the
     bf16 rows new_k[l] / new_v[l] ([B, 1, Hkv, D]; a stacked [L, ...] tensor
-    or a list) go into every layer's cache at ``past_len``, in place,
+    -- ``ExLlamaCache.rows`` -- or a list) go into every layer's cache at
+    ``past_len`` (an int, or a [1] / [B] tensor of cursors), in place,
     quantized on the way into an int8 / int4 cache (``k_scales`` /
     ``v_scales``: the layers' [B, Hkv, S] f32 scale tensors). Returns
     (k_caches, v_caches, k_scales, v_scales).
 
-    ``impl="pallas"`` with an int cursor takes :func:`kv_commit`, K8 (the
-    JAX value name, kept so call sites port unchanged), with the caches'
-    pointer array ``ptrs`` (``ExLlamaCache.kv_ptrs``); ``"xla"`` and
-    ``"auto"`` -- which resolves to the plain writes, as in the JAX
-    package -- write one layer at a time with :func:`update_kv_cache`, as
-    does a per-row cursor under any impl (attention.py:309-319)."""
+    ``impl="pallas"`` takes :func:`kv_commit`, K8 (the JAX value name, kept
+    so call sites port unchanged), with the caches' pointer array ``ptrs``
+    (``ExLlamaCache.kv_ptrs``) and a device cursor: a tensor ``past_len`` as
+    it is, an int (which must lie in [0, S)) as a new [1] tensor. The JAX
+    package sends a per-row cursor to its plain writes instead
+    (attention.py:309-319); K8 computes the same function. A list of rows
+    is stacked first, the plain route for a caller that does not stage
+    them. ``"xla"`` and ``"auto"`` -- which resolves to the plain writes,
+    as in the JAX package -- write one layer at a time with
+    :func:`update_kv_cache`."""
     if impl not in COMMIT_IMPLS:
         raise ValueError(f"commit_impl {impl!r}")
     quantized = k_scales is not None
-    if impl == "pallas" and isinstance(past_len, int):
+    if impl == "pallas":
         if not torch.is_tensor(new_k):
             new_k, new_v = torch.stack(list(new_k)), torch.stack(list(new_v))
-        kv_commit(k_caches, v_caches, new_k, new_v, past_len, k_scales,
+        if (not torch.is_tensor(past_len)
+                and not 0 <= past_len < k_caches[0].shape[2]):
+            raise ValueError(f"commit_kv_cache: cursor {past_len} outside "
+                             f"the cache")
+        past = past_len
+        if k_caches[0].device.type == "cuda":
+            dev = k_caches[0].device
+            past = (past_len.to(device=dev, dtype=torch.int32).reshape(-1)
+                    .contiguous() if torch.is_tensor(past_len) else
+                    torch.full((1,), past_len, dtype=torch.int32, device=dev))
+        kv_commit(k_caches, v_caches, new_k, new_v, past, k_scales,
                   v_scales, ptrs)
     elif quantized:
         # every layer's rows quantized in one pass (a row's bytes and scale

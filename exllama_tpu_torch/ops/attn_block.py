@@ -21,9 +21,12 @@ take. The caller checks ``attn_o_applicable`` (and, for the MLP and qkv
 phases, ``ops.mlp.fused_mlp_applicable``, ``layer_step_applicable`` and
 ``same_groupsize``) first. ``layer_tail_split_plain`` and
 ``layer_step_split_plain`` write out the kernel's own decomposition: its
-GEMV phases as ``ops.quant.fused_gemv_split_plain`` (one row: stream-K
-ranges; more rows: K splits) and its key splits merged by the last block of
-each (batch row, kv head) pair (``attention_split_plain``).
+GEMV phases as ``ops.quant.fused_gemv_split_plain`` (stream-K ranges at
+every row count, silu(gate)*up formed as the down phase stages x) and its
+key splits merged by the last block of each (batch row, kv head) pair
+(``attention_split_plain``). ``layer_step(..., rows_out=)`` writes the
+step's K/V rows into the caller's tensors (``ExLlamaCache.rows``, which
+the batched commit K8 reads) instead of new ones.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from exllama_tpu_torch.ops.attention import (
     init_launch_counters,
     kv_mode,
 )
-from exllama_tpu_torch.ops.mlp import gemv_plain_of, q4_mlp_plain, silu_mul
+from exllama_tpu_torch.ops.mlp import gemv_plain_of, q4_mlp_plain
 from exllama_tpu_torch.ops.quant import (
     GEMV_MAX_M,
     check_qt_tensors,
@@ -221,8 +224,8 @@ def layer_tail_split_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
     h1 = h2 + fused_gemv_split_plain(attn.reshape(b, -1), o, blocks, impl=impl)
     if post_norm is not None:
         gu = fused_gemv_split_plain(h1, gateup, blocks, post_norm, eps, impl)
-        h1 = h1 + fused_gemv_split_plain(silu_mul(gu, down.in_features), down,
-                                         blocks, impl=impl)
+        h1 = h1 + fused_gemv_split_plain(gu, down, blocks, impl=impl,
+                                         glu=down.in_features)
     return h1.reshape(b, 1, hidden)
 
 
@@ -264,7 +267,7 @@ def _aligned(name, x, dtype):
 def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
             q=None, new_kv=None, qkv=None, input_norm=None, rope=None,
             post_norm=None, gateup=None, down=None, eps=1e-6, impl="auto",
-            k_scale=None, v_scale=None):
+            k_scale=None, v_scale=None, rows_out=None):
     """One K7 launch; returns (out [B, 1, hidden], k_row, v_row)."""
     a8 = impl in A8_IMPLS
     lib = "layer_tail" if not a8 else (
@@ -320,8 +323,17 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
         sin, cos = (r.to(torch.float32).reshape(-1, d).contiguous() for r in rope)
         if sin.shape[0] not in (1, b) or cos.shape != sin.shape:
             raise ValueError("layer_step: rope rows must be [1 | B, ..., D]")
-        k_row = torch.empty((b, 1, hkv, d), dtype=torch.bfloat16, device=dev)
-        v_row = torch.empty_like(k_row)
+        if rows_out is None:
+            k_row = torch.empty((b, 1, hkv, d), dtype=torch.bfloat16,
+                                device=dev)
+            v_row = torch.empty_like(k_row)
+        else:
+            k_row, v_row = rows_out
+            for r in rows_out:
+                if (r.shape != (b, 1, hkv, d) or r.dtype != torch.bfloat16
+                        or not r.is_contiguous() or r.device != dev):
+                    raise ValueError("layer_step: rows_out must be contiguous "
+                                     "bf16 [B, 1, Hkv, D] on h's device")
     else:
         q = _aligned("q", q.to(torch.bfloat16).contiguous(), torch.bfloat16)
         kn, vn = (x.to(torch.bfloat16).contiguous() for x in new_kv)
@@ -430,17 +442,24 @@ def layer_step(h, qkv, input_norm, rope_sin, rope_cos, k_cache, v_cache,
                past_len, attend_len: int, o, post_norm, gateup, down,
                eps: float, heads: int, kv_heads: int, head_dim: int,
                input_mask=None, impl: str = "auto", k_scale=None,
-               v_scale=None):
+               v_scale=None, rows_out=None):
     """The whole decode layer in one K7 launch: input norm, fused qkv GEMV
     and rope (rope_sin / rope_cos [1 | B, 1, 1, D], pre-sliced), then
     ``layer_tail``. Returns (h [B, 1, hidden], k_row, v_row [B, 1, Hkv, D])
-    -- the rows feed the caller's deferred commit."""
+    -- the rows feed the caller's deferred commit; with ``rows_out`` (two
+    contiguous bf16 [B, 1, Hkv, D] tensors) they are written there and
+    returned."""
     check_matmul_impl(impl)
     if h.device.type == "cpu":
-        return layer_step_plain(h, qkv, input_norm, rope_sin, rope_cos,
-                                k_cache, v_cache, past_len, attend_len, o,
-                                post_norm, gateup, down, eps, heads, kv_heads,
-                                head_dim, input_mask, impl, k_scale, v_scale)
+        out = layer_step_plain(h, qkv, input_norm, rope_sin, rope_cos,
+                               k_cache, v_cache, past_len, attend_len, o,
+                               post_norm, gateup, down, eps, heads, kv_heads,
+                               head_dim, input_mask, impl, k_scale, v_scale)
+        if rows_out is None:
+            return out
+        rows_out[0].copy_(out[1])
+        rows_out[1].copy_(out[2])
+        return out[0], rows_out[0], rows_out[1]
     if h.device.type != "cuda":
         raise RuntimeError(f"layer_step: unsupported device {h.device}")
     if (head_dim != HEAD_DIM or heads * head_dim != o.in_features
@@ -449,7 +468,8 @@ def layer_step(h, qkv, input_norm, rope_sin, rope_cos, k_cache, v_cache,
     return _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask,
                    qkv=qkv, input_norm=input_norm, rope=(rope_sin, rope_cos),
                    post_norm=post_norm, gateup=gateup, down=down, eps=eps,
-                   impl=impl, k_scale=k_scale, v_scale=v_scale)
+                   impl=impl, k_scale=k_scale, v_scale=v_scale,
+                   rows_out=rows_out)
 
 
 init_launch_counters(layer_tail)

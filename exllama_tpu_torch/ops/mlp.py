@@ -4,7 +4,9 @@
 
 in one launch of kernel K6 ``q4_mlp`` (csrc/q4_mlp.cu) for M = B*T <= 32
 rows on CUDA tensors; ``q4_mlp_plain`` is its plain PyTorch version, the
-separate-kernel path's composition with the same cast points. Under the
+separate-kernel path's composition with the same cast points, and
+``q4_mlp_split_plain`` writes out the kernel's decomposition (two streaming
+GEMV phases around silu(gate)*up). Under the
 W4A8 values of ``impl`` ("pallas_a8", "pallas_a8x2", "pallas_a8t") both
 GEMVs run K9's integer arithmetic (the a8 builds of the same source;
 launches count on ``q4_mlp_a8``). The caller checks
@@ -25,6 +27,7 @@ from exllama_tpu_torch.ops.quant import (
     _check_qt,
     check_qt_tensors,
     fused_gemv_scratch,
+    fused_gemv_split_plain,
     q4_gemv_a8_plain,
     q4_gemv_plain,
 )
@@ -76,6 +79,22 @@ def q4_mlp_plain(h, norm_w, gateup: QuantTensor, down: QuantTensor, eps,
     a = rms_norm(h2, norm_w, eps)
     mid = silu_mul(gemv(a, gateup), down.in_features)
     return (h2 + gemv(mid, down)).reshape(*lead, k)
+
+
+def q4_mlp_split_plain(h, norm_w, gateup: QuantTensor, down: QuantTensor,
+                       eps, blocks: int, impl: str = "auto", fault=None):
+    """K6's decomposition on a grid of ``blocks`` blocks: the gate|up phase
+    (norm prologue) and, after a grid barrier, the down phase over silu(gate)
+    * up of the bf16 gate|up rows (formed as the down phase stages each unit
+    at one row, in a pass of its own between two barriers at 2..32 rows:
+    the same values); each phase stream-K (``quant.fused_gemv_split_plain``,
+    with ``fault`` planted in the down phase); out = bf16(h + bf16(down))."""
+    *lead, k = h.shape
+    h2 = h.reshape(-1, k)
+    gu = fused_gemv_split_plain(h2, gateup, blocks, norm_w, eps, impl)
+    dn = fused_gemv_split_plain(gu, down, blocks, impl=impl,
+                                glu=down.in_features, fault=fault)
+    return (h2 + dn).reshape(*lead, k)
 
 
 def q4_mlp(h: torch.Tensor, norm_w: torch.Tensor, gateup: QuantTensor,

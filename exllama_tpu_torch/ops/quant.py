@@ -7,11 +7,11 @@ threshold measured on a TPU and kept for now):
 
   * M <= 32, exact ("auto" / "pallas"): K1 ``q4_gemv`` (csrc/q4_gemv.cu) --
     f32 group partial sums of exact nibbles, with the optional RMSNorm and
-    act-order gather in its prologue; one row at groupsize 32 / 64 / 128
-    takes the streaming GEMV (csrc/q4_stream.cuh, stream-K over the grid),
-    2..32 rows (or another groupsize) the tensor-core route
-    (csrc/q4_gemv_tc.cuh), K split across blocks as ``gemv_split_plan``
-    says;
+    act-order gather in its prologue; by ``gemv_tc_route``, one row at
+    groupsize 32 / 64 / 128 takes the streaming GEMV (csrc/q4_stream.cuh,
+    stream-K over the grid; K6 and K7 run it at every row count), 2..32
+    rows (or another groupsize) the tensor-core route (csrc/q4_gemv_tc.cuh),
+    K split across blocks as ``gemv_split_plan`` says;
   * M <= 32, "pallas_a8" / "pallas_a8x2" / "pallas_a8t": K9 ``q4_gemv_a8``
     (the a8 builds of the same source) -- int8 activations per (row, group)
     against the nibbles in integer arithmetic; a8x2 adds a residual pass;
@@ -55,12 +55,13 @@ from exllama_tpu_torch.ops import full_f32_matmul
 from exllama_tpu_torch.ops.norms import rms_norm
 
 GEMV_MAX_M = 32   # the JAX package's decode/prefill switch (a TPU number)
-STREAM_GROUPSIZES = (32, 64, 128)   # the one-row streaming GEMV's groupsizes
+STREAM_GROUPSIZES = (32, 64, 128)   # the streaming GEMV's groupsizes
 GEMV_BN = 128     # columns of the tensor-core GEMV's block tile (q4_gemv_tc.cuh)
 GEMV_UNIT = 32    # k of its unit, the least split of K
 GEMV_MIN_SPLIT_UNITS = 8
-# the one-row GEMV of K1 / K9, K6 and K7 (q4_stream.cuh): tiles of
-# STREAM_BN columns, units of STREAM_UNIT k, shared out stream-K
+# the streaming GEMV of K1 / K9 (one row), K6 and K7 (q4_stream.cuh): tiles
+# of STREAM_BN columns, units of STREAM_UNIT k, shared out stream-K; rows
+# in one row tile of 1, 8, 16, 24 or 32
 STREAM_BN, STREAM_UNIT = 256, 128
 
 
@@ -162,9 +163,18 @@ def _gemv_checks(name, x, qt, norm_w):
 
 def gemv_tc_route(m: int, gs: int) -> bool:
     """Whether K1 / K9 take the tensor-core route for m rows at groupsize
-    gs: 2..32 rows, or one row at a groupsize outside the streaming
-    GEMV's."""
+    gs (else the streaming GEMV): 2..32 rows, or one row at a groupsize
+    outside the streaming GEMV's (csrc/q4_gemv.cu makes the same choice;
+    PERF.md §6 says why K1 / K9 keep the tensor-core route at 2..32 rows,
+    where K6 and K7 run the streaming GEMV)."""
     return m > 1 or gs not in STREAM_GROUPSIZES
+
+
+def stream_row_tile(m: int) -> int:
+    """The streaming GEMV's row tile for m rows (csrc/q4_stream.cuh:
+    row_tile): 1, 8, 16, 24 or 32; its mma tiles 8 rows at a time, so m
+    rows are staged padded to a multiple of 8."""
+    return next(t for t in (1, 8, 16, 24, 32) if m <= t)
 
 
 def gemv_split_plan(n: int, k: int, sms: int) -> int:
@@ -203,34 +213,6 @@ def gemv_scratch(dev, n_part: int, n_ticket: int):
     return part, ticket
 
 
-def fused_split_plan(n: int, k: int, gs: int, blocks: int) -> tuple[int, int]:
-    """The splits of K, and the units of 32 k in each, that the fused
-    kernels K6 / K7 give an N-column, K-deep GEMV phase at 2..32 rows on a
-    persistent grid of ``blocks`` blocks (csrc/q4_gemv_tc.cuh:plan_splits):
-    as many splits as keep every (column tile, split) item in one wave of
-    the grid, each at least 8 units, at group boundaries."""
-    units, tiles = k // GEMV_UNIT, -(-n // GEMV_BN)
-    most = max(1, units // GEMV_MIN_SPLIT_UNITS)
-    gu = max(1, gs // GEMV_UNIT)
-    groups = max(1, units // gu)
-    s = max(1, min(blocks // tiles, most))
-    ups = -(-groups // s) * gu
-    return -(-units // ups), ups
-
-
-def fused_gemv_items(n: int, k: int, gs: int, blocks: int):
-    """The plan written out: for each block, its items [(column tile, first
-    unit, end unit)] in the order it takes them (item i = tile i // nsplit,
-    split i % nsplit)."""
-    ns, ups = fused_split_plan(n, k, gs, blocks)
-    units, tiles = k // GEMV_UNIT, -(-n // GEMV_BN)
-    plan = [[] for _ in range(blocks)]
-    for item in range(tiles * ns):
-        t, sp = divmod(item, ns)
-        plan[item % blocks].append((t, sp * ups, min(units, (sp + 1) * ups)))
-    return plan
-
-
 def stream_k_ranges(tiles: int, ku: int, grid: int):
     """Stream-K's work division (csrc/dense_stream.cuh, csrc/q4_stream.cuh):
     the tiles x ku (tile, unit) items, tile after tile, shared out as
@@ -255,25 +237,36 @@ def stream_k_ranges(tiles: int, ku: int, grid: int):
 
 
 def q4_stream_plan(n: int, k: int, grid: int):
-    """The one-row GEMV's ranges (``stream_k_ranges`` over STREAM_BN-column
+    """The streaming GEMV's ranges (``stream_k_ranges`` over STREAM_BN-column
     tiles and STREAM_UNIT-deep units) on a grid of ``grid`` blocks, of
     which the first min(grid, units) share the units (the others have
-    none)."""
+    none). The units do not depend on the row count: every row of x rides
+    in each unit's slab."""
     tiles, ku = -(-n // STREAM_BN), -(-k // STREAM_UNIT)
     g = min(grid, tiles * ku)
     return stream_k_ranges(tiles, ku, g) + [[] for _ in range(grid - g)]
 
 
 def fused_gemv_split_plain(x, qt, blocks: int, norm_w=None, eps=1e-6,
-                           impl: str = "auto"):
-    """A fused GEMV phase's decomposition on a grid of ``blocks`` blocks in
-    plain tensor code: f32 partials of K9's integer arithmetic per (row,
-    group) under the a8 values of ``impl``, else of the exact group sums
-    s * (x . q) - z * sum(x); at one row each block's ranges of 128-k units
-    (``q4_stream_plan``), a tile shared among blocks added in block order
-    (of k), at 2..32 rows each item's split (``fused_split_plan``), a tile's
-    splits added in split order -- as the last block of a tile adds them;
-    rounded to x.dtype."""
+                           impl: str = "auto", glu: int = 0, fault=None):
+    """A streaming GEMV phase's decomposition (K1 / K9 at one row, K6 and
+    K7 at every row count) on a grid of ``blocks`` blocks in plain tensor
+    code: f32 partials of K9's integer arithmetic per (row, group) under the
+    a8 values of ``impl``, else of the exact group sums s * (x . q) - z *
+    sum(x); each block's ranges of 128-k units (``q4_stream_plan``, the
+    same at every M: all rows ride in each unit), a tile shared among
+    blocks added in block order (of k), as the last block of a tile adds
+    them; rounded to x.dtype. ``glu`` > 0: x is a gate|up [M, >= 2 * glu]
+    and the phase's x is silu(gate) * up (``mlp.silu_mul``'s bf16 values),
+    which K6 / K7 form as the down phase stages each unit at one row and in
+    a pass of their own at 2..32 rows -- elementwise, the same values either
+    way. ``fault`` plants a fault the card tests
+    must catch: "drop" leaves out the last unit of the first range whose
+    tile is shared among blocks; "swap" swaps x's rows 0 and 1 (two rows of
+    the mma's B operand) in the first unit."""
+    if glu:
+        g, u = x[:, :glu], x[:, glu:2 * glu]
+        x = (F.silu(g.to(torch.float32)).to(u.dtype) * u)
     x = _prologue_plain(x, qt, norm_w, eps)
     a8 = check_matmul_impl(impl) in A8_IMPLS
     m, k = x.shape
@@ -292,42 +285,39 @@ def fused_gemv_split_plain(x, qt, blocks: int, norm_w=None, eps=1e-6,
             d = torch.einsum("mgk,gkn->mgn", xf, q)
     per_group = (d * qt.scales.to(torch.float32)
                  - xf.sum(dim=-1, keepdim=True) * qt.zscale.to(torch.float32))
+    gpu = STREAM_UNIT // gs                           # groups a unit
+    if fault == "swap":                               # rows 0, 1 of unit 0
+        cols = slice(0, min(STREAM_BN, n))
+        per_group[[0, 1], :gpu, cols] = per_group[[1, 0], :gpu, cols]
     out = torch.zeros((m, n), dtype=torch.float32, device=x.device)
-    if m == 1:
-        gpu = STREAM_UNIT // gs                       # groups a unit
-        parts: dict = {}
-        for ranges in q4_stream_plan(n, k, blocks):
-            for t, a, e, slot in ranges:
-                cols = slice(t * STREAM_BN, min((t + 1) * STREAM_BN, n))
-                s = per_group[:, a * gpu:e * gpu, cols].sum(dim=1)
-                if slot is None:
-                    out[:, cols] = s
-                else:
-                    parts.setdefault(t, []).append(s)
-        for t, ps in parts.items():                   # in block order
-            total = torch.zeros_like(ps[0])
-            for s in ps:
-                total = total + s
-            out[:, t * STREAM_BN:min((t + 1) * STREAM_BN, n)] = total
-    else:
-        ns, ups = fused_split_plan(n, k, gs, blocks)
-        gpu = GEMV_UNIT * ups // gs                   # groups a split
-        for sp in range(ns):                          # in split order
-            out = out + per_group[:, sp * gpu:(sp + 1) * gpu].sum(dim=1)
+    parts: dict = {}
+    dropped = fault != "drop"
+    for ranges in q4_stream_plan(n, k, blocks):
+        for t, a, e, slot in ranges:
+            if not dropped and slot is not None:
+                e, dropped = e - 1, True
+            cols = slice(t * STREAM_BN, min((t + 1) * STREAM_BN, n))
+            s = per_group[:, a * gpu:e * gpu, cols].sum(dim=1)
+            if slot is None:
+                out[:, cols] = s
+            else:
+                parts.setdefault(t, []).append(s)
+    for t, ps in parts.items():                       # in block order
+        total = torch.zeros_like(ps[0])
+        for s in ps:
+            total = total + s
+        out[:, t * STREAM_BN:min((t + 1) * STREAM_BN, n)] = total
     return out.to(x.dtype)
 
 
 def fused_gemv_scratch(dev, m: int, widest_n: int, tickets: int = 0):
-    """The split scratch of the fused kernels K6 / K7 at m rows (and of K1
-    / K9 at one row), for a grid of at most 4 blocks an SM: partials for
-    two ranges a block at one row (the streaming GEMV), one item a block
-    at 2..32 rows;
-    tickets for the widest GEMV phase or ``tickets`` (K7's (batch row, kv
-    head) pairs), whichever is more."""
+    """The split scratch of the streaming GEMV at m rows (K6 / K7, and K1 /
+    K9 at one row), for a grid of at most 4 blocks an SM: partials for two
+    ranges a block, m x STREAM_BN f32 each; tickets for the widest GEMV
+    phase or ``tickets`` (K7's (batch row, kv head) pairs), whichever is
+    more."""
     blocks = 4 * kernels.sm_count(dev)
-    n_part = (2 * blocks * STREAM_BN if m <= 1
-              else blocks * gemv_rows(m) * GEMV_BN)
-    return gemv_scratch(dev, n_part,
+    return gemv_scratch(dev, blocks * max(m, 1) * 2 * STREAM_BN,
                         max(tickets, -(-widest_n // GEMV_BN)))
 
 
@@ -335,7 +325,7 @@ def _gemv_launch(lib, x, qt, norm_w, norm_eps):
     m, k = x.shape
     n = qt.out_features
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    nsplit, part, ticket = 1, None, None
+    nsplit = 1
     if gemv_tc_route(m, qt.groupsize):
         nsplit = gemv_split_plan(n, k, kernels.sm_count(x.device))
         tiles = -(-n // GEMV_BN)

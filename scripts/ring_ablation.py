@@ -44,9 +44,6 @@ whole kernels first and last):
   k7_no_grid_sync
                  K7 with each grid barrier replaced by a block barrier (its
                  results are wrong; its time is read);
-  k7_tc_rows1    K7 and K6 with their one-row GEMV phases on the
-                 tensor-core GEMV (as they are: the streaming GEMV,
-                 csrc/q4_stream.cuh);
   k7_stream_stages4, k7_one_block_an_sm, k7_occ3
                  the streaming GEMV with a 4-slab ring (as it is: 3); K7
                  and K6 on one block an SM (as they are: up to four, two
@@ -54,20 +51,38 @@ whole kernels first and last):
                  (__launch_bounds__ 3: fewer registers);
   k7_stream_no_x, k7_stream_no_products, k7_no_prefetch
                  the streaming GEMV without forming x (garbage x), without
-                 its products, or without putting a phase's first weights
-                 in flight before the grid barrier;
+                 its products, or (one row) without putting a phase's
+                 first weights in flight before the grid barrier;
   k1_tc_rows1    K1 at one row on the tensor-core route (as it is: the
                  streaming GEMV);
-  tc_part_m_stride, tc_plan_ungrouped, mlp_glu_runtime, k7_combine_phase
-                 the 2..32-row paths of K1, K6 and K7 with one change each:
-                 the tensor-core GEMV's split partials strided by M rows
-                 (as it is: by the padded MP); its splits in K6 / K7
-                 planned without regard to groups (timing only: the a8
-                 modes then quantize a cut group in parts; as it is: at
-                 group boundaries); the MLP's silu(gate)*up choice made at
-                 run time (as it is: at compile time, per row tile); K7's
-                 key splits merged in a phase of their own after a grid
-                 barrier (as it is: by each pair's last block);
+  k1_stream_rows K1 at 2..32 rows on the streaming GEMV, built at row
+                 tiles 8, 16, 24 and 32 (as it is: the tensor-core route;
+                 the streaming GEMV at one row only);
+  mlp_glu_staged, rows16_at_2, rows32_two_blocks, rows_prefetch,
+  rows_no_combine
+                 K6 and K7 at 2..32 rows with silu(gate)*up formed as the
+                 down phase stages each unit (as it is: once, in a pass of
+                 its own between two grid barriers), with 2..8 rows in the
+                 16-row tile (as it is: 8), with the 32-row tile built for
+                 two blocks an SM (as it is: one), with the next phase's
+                 weights put in flight before each barrier (as it is: at
+                 one row only), or with split tiles not added up at all
+                 (timing only: they are not written);
+  rows32_bb2, rows32_bb2_two_blocks, rows_bb1, rows_bb1_16_24
+                 the last block's combine of a split tile at 16..32 rows
+                 reading BB blocks' partials at a time (as it is: one in
+                 the exact mode, two at 16 / 24 and four at 32 rows in the
+                 a8 modes): two at 16..32 rows in every mode (with the
+                 32-row tile at two blocks an SM too), one in every mode,
+                 or one at 16 / 24 and two at 32;
+  tc_part_m_stride, k7_combine_phase
+                 K1's tensor-core GEMV with its split partials strided by M
+                 rows (as it is: by the padded MP); K7's key splits merged
+                 in a phase of their own after a grid barrier (as it is: by
+                 each pair's last block);
+  k8_vec2, k8_vec4
+                 K8's bf16 copy with two 16-byte vectors a thread in blocks
+                 of 128, or four in blocks of 64 (as it is: one, 256);
   sk_tid_guard, sk_uncapped, sk_noinline
                  the stream-K header shared by K4, K5 and the one-row GEMV
                  (csrc/stream_k.cuh) with its tile combine's stores and
@@ -81,21 +96,27 @@ whole kernels first and last):
                  rows); K5 without its end (the block's key reduction, the
                  atomics, the last block's ids).
 
---parent DIR adds the variant "parent": the decode kernels (K1, K4-K7)
+--parent DIR adds the variant "parent": the decode kernels (K1, K4-K8)
 built from DIR, another checkout's exllama_tpu_torch/csrc, and timed
 through this tree's wrappers (their C signatures must agree; K5's older
-one, without K4's scratch, is called as it is), so that a change is timed
-against its parent in the same call.
+one, without K4's scratch, and K8's, with the cursor by value, are called
+as they are), so that a change is timed against its parent in the same
+call.
 
 The "full" and "parent" runs also time K5 (head_argmax) at M = 1, 2, 8, 32
 and V = 32000 / 32001 beside torch.argmax(torch.matmul(...)), K7 over int8
-and int4 caches, in a8, at B = 2 beside its separate chain (K1, K3 and
-plain tensor code), and K1 / K6 at one row and at 18 (K6 also in a8). K4 is also timed through its C launcher alone ("launcher": the output and
-scratch allocated once, no Python checks), to tell the kernel's time from
-the wrapper's.
+and int4 caches, in a8, at B = 2 and 8 beside its separate chain (K1, K3
+and plain tensor code), K1 on the four Llama-7B projections and K6 at 1,
+2, 8, 18 and 32 rows (K6 also in a8 and a8x2 at 18, and beside its
+separate chain -- K1 gate|up, silu(gate)*up, K1 down -- at 18, 24 and 32
+rows), and K8 in each cache
+format beside an empty launch. K4 is also timed through its C launcher
+alone ("launcher": the output and scratch allocated once, no Python
+checks), to tell the kernel's time from the wrapper's.
 
 A cut-out copy computes garbage; only its time is read. One JSON line per
-copy: {"variant": ..., "ms": {case: median ms}}. Times are chip_smoke's
+copy: {"variant": ..., "card": the card's name and power limit (nvidia-smi),
+"ms": {case: median ms}}. Times are chip_smoke's
 Timer (L2 flushed, fenced, the card spun first).
 """
 
@@ -117,6 +138,7 @@ from exllama_tpu_torch import kernels  # noqa: E402
 RING, DENSE, SK = "q4_ring.cuh", "dense_stream.cuh", "stream_k.cuh"
 TAIL, FUSED, GEMV = "layer_tail.cu", "fused_layer.cuh", "q4_gemv.cu"
 STREAM, TC, HEAD = "q4_stream.cuh", "q4_gemv_tc.cuh", "head_argmax.cu"
+K8 = "kv_commit.cu"
 RING_STEMS = ("q4_matmul", "q4_prefill_a8", "w8_matmul")
 _NO_CONVERSION = [
     (RING, "if constexpr (!T::W8) cv.slab(", "if constexpr (false) cv.slab("),
@@ -152,15 +174,17 @@ _K7_CUT = {
              "    if (false) fused::gemv_phase<MB, GEMV_MODE>(x, p.qkv,")],
     "attention": [(TAIL, "  attention_phase<0>(p, reinterpret_cast<float*>(smem));",
                    "  if (false) attention_phase<0>(p, reinterpret_cast<float*>(smem));")],
-    "o": [(TAIL, "  fused::gemv_phase<MB, GEMV_MODE>(\n      xo, p.o,",
-           "  if (false) fused::gemv_phase<MB, GEMV_MODE>(\n      xo, p.o,"),
-          (TAIL, "  fused::gemv_prefetch<MB>(p.o,", "  if (false) fused::gemv_prefetch<MB>(p.o,")],
-    "gateup": [(FUSED, "  gemv_phase<MB, MODE>(\n      xa, gu,",
-                "  if (false) gemv_phase<MB, MODE>(\n      xa, gu,"),
-               (TAIL, "  fused::gemv_prefetch<MB>(p.gu,", "  if (false) fused::gemv_prefetch<MB>(p.gu,")],
-    "down": [(FUSED, "  gemv_phase<MB, MODE>(\n      xb, dn,",
-              "  if (false) gemv_phase<MB, MODE>(\n      xb, dn,"),
-             (FUSED, "  gemv_prefetch<MB>(dn,", "  if (false) gemv_prefetch<MB>(dn,")],
+    "o": [(TAIL, "  fused::gemv_phase<MB, GEMV_MODE>(xo, p.o,",
+           "  if (false) fused::gemv_phase<MB, GEMV_MODE>(xo, p.o,"),
+          (TAIL, "  fused::gemv_prefetch<MB, GEMV_MODE>(p.o,",
+           "  if (false) fused::gemv_prefetch<MB, GEMV_MODE>(p.o,")],
+    "gateup": [(FUSED, "  gemv_phase<MB, MODE>(xa, gu,",
+                "  if (false) gemv_phase<MB, MODE>(xa, gu,"),
+               (TAIL, "  fused::gemv_prefetch<MB, GEMV_MODE>(p.gu,",
+                "  if (false) fused::gemv_prefetch<MB, GEMV_MODE>(p.gu,")],
+    "down": [(FUSED, "  gemv_phase<MB, MODE>(xb, dn,",
+              "  if (false) gemv_phase<MB, MODE>(xb, dn,"),
+             (FUSED, "  gemv_prefetch<MB, MODE>(dn,", "  if (false) gemv_prefetch<MB, MODE>(dn,")],
 }
 
 
@@ -175,7 +199,8 @@ def _stream(old, new):
 
 K7_STEMS = ("layer_tail",)
 DECODE_STEMS = ("q4_gemv", "dense_gemv", "head_argmax", "q4_mlp", "q4_mlp_a8",
-                "layer_tail", "layer_tail_kvq", "layer_tail_a8", "flash_attn")
+                "q4_mlp_a8x2", "layer_tail", "layer_tail_kvq", "layer_tail_a8",
+                "flash_attn", "kv_commit")
 SK_STEMS = ("dense_gemv", "head_argmax", "q4_gemv")
 ROWS_STEMS = ("q4_gemv", "q4_mlp", "q4_mlp_a8", "layer_tail", "flash_attn")
 # K7's key splits merged as before PR 9's last-block merge: a phase of
@@ -186,7 +211,8 @@ _K7_COMBINE_PHASE = [
      """    if (threadIdx.x == 0)
       last_split = 0;"""),
     (TAIL, """template <int MB>
-__global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(""",
+__global__ void __launch_bounds__(THREADS, q4s::min_blocks(MB))
+    layer_tail_kernel(""",
      """__device__ void combine_phase(const TailParams& p) {
   const int lane = threadIdx.x & 31;
   const int G = p.H / p.Hkv;
@@ -214,11 +240,12 @@ __global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel(""",
 }
 
 template <int MB>
-__global__ void __launch_bounds__(THREADS, 2) layer_tail_kernel("""),
-    (TAIL, """  fused::gemv_prefetch<MB>(p.o, p.H * D, p.gs, smem);
+__global__ void __launch_bounds__(THREADS, q4s::min_blocks(MB))
+    layer_tail_kernel("""),
+    (TAIL, """  fused::gemv_prefetch<MB, GEMV_MODE>(p.o, M, p.H * D, p.gs, smem);
   fused::grid_sync(p.bar, epoch);""", """  fused::grid_sync(p.bar, epoch);
   combine_phase(p);
-  fused::gemv_prefetch<MB>(p.o, p.H * D, p.gs, smem);
+  fused::gemv_prefetch<MB, GEMV_MODE>(p.o, M, p.H * D, p.gs, smem);
   fused::grid_sync(p.bar, epoch);"""),
 ]
 _TC_PART_M_STRIDE = [
@@ -229,16 +256,70 @@ _TC_PART_M_STRIDE = [
     (TC, "__ldcg(reinterpret_cast<const float4*>(base + (size_t)s * MP * BN + i));",
      "__ldcg(reinterpret_cast<const float4*>(base + (size_t)s * M * BN + i));"),
 ]
-_TC_PLAN_UNGROUPED = [
-    (TC, "  const int ups = (groups + s - 1) / s * gu;",
-     "  const int ups = (units + s - 1) / s;"),
+# the MLP's silu(gate)*up formed as the down phase stages each unit at
+# 2..32 rows too (as it is: once, between two grid barriers): the slab
+# keeps up's rows, and the loader and the forming read them
+_MLP_GLU_STAGED = [
+    (FUSED, "  if constexpr (MB > 1) {\n    // ... but at 2..32 rows it is formed once",
+     "  if constexpr (false) {\n    // ... but at 2..32 rows it is formed once"),
+    (STREAM, "    xsum_off = y_off + 2 * UR;", "    xsum_off = y_off + mp * 2 * UR;"),
+    (STREAM, "  const int nx = rows * CH, ny = src.norm_w ? CH : 0;",
+     "  const int nx = rows * CH, ny = glu ? nx : src.norm_w ? CH : 0;"),
+    (STREAM, "    const bf16* sp = second ? src.norm_w + k : src.x + (size_t)m * src.ld + k;\n"
+     "    unsigned char* dst = slab + (second ? G.y_off : X_OFF + m * G.xld) + 2 * c;",
+     "    const bf16* sp = !second ? src.x + (size_t)m * src.ld + k\n"
+     "                     : glu   ? src.x + (size_t)m * src.ld + src.glu_off + k\n"
+     "                             : src.norm_w + k;\n"
+     "    unsigned char* dst = slab + (second ? G.y_off + (glu ? m * 2 * UR : 0)\n"
+     "                                        : X_OFF + m * G.xld) + 2 * c;"),
+    (STREAM, "      const uint2 b = *reinterpret_cast<const uint2*>(slab + G.y_off + 2 * e0);",
+     "      const uint2 b = *reinterpret_cast<const uint2*>(\n"
+     "          slab + G.y_off + (src.glu_off > 0 ? m * 2 * UR : 0) + 2 * e0);"),
 ]
-_MLP_GLU_RUNTIME = [
-    (FUSED, "  if constexpr (MB > 1) {\n    // ... except at 2..32 rows",
-     "  if (M > 1) {\n    // ... except at 2..32 rows"),
+
+# K1's streaming kernel built at every row tile and routed by M (as it is:
+# one row only, 2..32 rows on the tensor-core GEMV)
+_K1_STREAM_ROWS = [
+    (GEMV, "__global__ void __launch_bounds__(THREADS, 2) q4_gemv_stream_kernel(",
+     "template <int MB>\n__global__ void __launch_bounds__(THREADS, q4s::min_blocks(MB))"
+     " q4_gemv_stream_kernel("),
+    (GEMV, "unsigned int* ticket, int K, int N, int gs,\n    float eps) {",
+     "unsigned int* ticket, int M, int K, int N, int gs,\n    float eps) {"),
+    (GEMV, "q4s::gemv_stream<1, GEMV_MODE>(src, w, 1, K, gs,",
+     "q4s::gemv_stream<MB, GEMV_MODE>(src, w, M, K, gs,"),
+    (GEMV, "cudaError_t launch_stream(", "template <int MB>\ncudaError_t launch_stream("),
+    (GEMV, "unsigned int* ticket, int K, int N, int gs, float eps,\n"
+     "                          cudaStream_t st) {",
+     "unsigned int* ticket, int M, int K, int N, int gs, float eps,\n"
+     "                          cudaStream_t st) {"),
+    (GEMV, "const int smem = q4s::Geo(1, GEMV_MODE, 1).smem;",
+     "const int smem = q4s::Geo(MB, GEMV_MODE, MB).smem;"),
+    (GEMV, "allow_smem(q4_gemv_stream_kernel, smem)",
+     "allow_smem(q4_gemv_stream_kernel<MB>, smem)"),
+    (GEMV, "(&per_sm, q4_gemv_stream_kernel, THREADS,",
+     "(&per_sm, q4_gemv_stream_kernel<MB>, THREADS,"),
+    (GEMV, "q4_gemv_stream_kernel<<<grid, THREADS, smem, st>>>(x, qw, s, z, nw, xmap, out, "
+     "part, ticket,\n                                                     K, N, gs, eps);",
+     "q4_gemv_stream_kernel<MB><<<grid, THREADS, smem, st>>>(x, qw, s, z, nw, xmap, out, "
+     "part, ticket, M, K, N, gs, eps);"),
+    (GEMV, "  if (M == 1 && gs <= 128 && (gs & (gs - 1)) == 0)\n"
+     "    return launch_stream(bx, qw, s, z, nw, xm, o, pt, tk, K, N, gs, eps, st);",
+     "  if (gs <= 128 && (gs & (gs - 1)) == 0) switch (q4s::row_tile(M)) {\n"
+     + "".join(f"    case {t}: return launch_stream<{t}>(bx, qw, s, z, nw, xm, o, pt, tk, M, K, "
+               f"N, gs, eps, st);\n" for t in (1, 8, 16, 24))
+     + "    default: return launch_stream<32>(bx, qw, s, z, nw, xm, o, pt, tk, M, K, N, gs, "
+     "eps, st);\n  }"),
 ]
-_K7_TC_ROWS1 = [(FUSED, "static inline int fused_mb(int m) { return m <= 1 ? 1 : m <= 16 ? 16 : 32; }",
-                 "static inline int fused_mb(int m) { return m <= 16 ? 16 : 32; }")]
+
+
+def _scratch_of_32_rows(dev, m, widest_n, tickets=0):
+    """quant.fused_gemv_scratch at 32 rows, whatever m: K1's wrapper asks
+    for one row's, which k1_stream_rows overruns at 2..32 rows."""
+    from exllama_tpu_torch.ops import quant
+
+    blocks = 4 * kernels.sm_count(dev)
+    return quant.gemv_scratch(dev, blocks * 32 * 2 * quant.STREAM_BN,
+                              max(tickets, -(-widest_n // quant.GEMV_BN)))
 
 
 # variant -> (libraries it builds and times, patches (header, old, new),
@@ -273,29 +354,60 @@ VARIANTS = {
     "k7_barriers_only": (K7_STEMS, _k7_only(), {}),
     "k7_no_grid_sync": (K7_STEMS, [(FUSED, "  __threadfence();\n  __syncthreads();\n  epoch += 1;",
                                     "  __syncthreads();\n  return;\n  epoch += 1;")], {}),
-    "k7_tc_rows1": (("layer_tail", "q4_mlp"), _K7_TC_ROWS1, {}),
     "k7_stream_stages4": (("layer_tail", "q4_mlp"), _stream(
         "constexpr int STAGES = 3;", "constexpr int STAGES = 4;"), {}),
     "k7_stream_no_x": (("layer_tail", "q4_mlp"), _stream(
-        "    if (warp == 0 && u + 1 < u1)  // unit u + 1's x, read after the next barrier",
+        "    if (u + 1 < u1)  // unit u + 1's x, read after the next barrier",
         "    if (false)"), {}),
-    "k7_no_prefetch": (("layer_tail", "q4_mlp"), [
-        (FUSED, "  if constexpr (MB == 1) q4s::prefetch(w, K, gs, smem);", ""),
-        (FUSED, "    q4s::gemv_stream<MODE>(src, w, K, gs, sc.part, sc.ticket, smem, epi, prefetched);",
-         "    q4s::gemv_stream<MODE>(src, w, K, gs, sc.part, sc.ticket, smem, epi, false);")], {}),
+    "k7_no_prefetch": (("layer_tail", "q4_mlp", "q4_mlp_a8"), [
+        (FUSED, "  if constexpr (MB == 1) q4s::prefetch<MB, MODE>(w, M, K, gs, smem);", ""),
+        (FUSED, "MB == 1 && prefetched);", "false);")], {}),
+    "rows_prefetch": (("layer_tail", "q4_mlp", "q4_mlp_a8"), [
+        (FUSED, "  if constexpr (MB == 1) q4s::prefetch<MB, MODE>(w, M, K, gs, smem);",
+         "  q4s::prefetch<MB, MODE>(w, M, K, gs, smem);"),
+        (FUSED, "MB == 1 && prefetched);", "prefetched);")], {}),
     "k7_stream_no_products": (("layer_tail", "q4_mlp"), _stream(
-        "    unit_products<MODE>(acc,", "    if (u < 0) unit_products<MODE>(acc,"), {}),
+        "    unit_products<MB, MODE>(acc,", "    if (u < 0) unit_products<MB, MODE>(acc,"), {}),
+    "mlp_glu_staged": (("layer_tail", "q4_mlp", "q4_mlp_a8"), _MLP_GLU_STAGED, {}),
+    "rows32_two_blocks": (("layer_tail", "q4_mlp"), _stream(
+        "return mb == 32 ? 1 : 2;", "return 2;"), {}),
+    "rows32_bb2": (("layer_tail", "q4_mlp"), _stream(
+        "constexpr int BB = MODE == q4::EXACT && MB >= 16 ? 1 : MB == 32 ? 4 : MB >= 16 ? 2 : 4;",
+        "constexpr int BB = MB >= 16 ? 2 : 4;"), {}),
+    "rows_bb1": (("layer_tail", "q4_mlp", "q4_mlp_a8"), _stream(
+        "constexpr int BB = MODE == q4::EXACT && MB >= 16 ? 1 : MB == 32 ? 4 : MB >= 16 ? 2 : 4;",
+        "constexpr int BB = MB >= 16 ? 1 : 4;"), {}),
+    "rows_bb1_16_24": (("layer_tail", "q4_mlp", "q4_mlp_a8"), _stream(
+        "constexpr int BB = MODE == q4::EXACT && MB >= 16 ? 1 : MB == 32 ? 4 : MB >= 16 ? 2 : 4;",
+        "constexpr int BB = MB == 32 ? 2 : MB >= 16 ? 1 : 4;"), {}),
+    "rows32_bb2_two_blocks": (("layer_tail", "q4_mlp"), [
+        (STREAM, "constexpr int BB = MODE == q4::EXACT && MB >= 16 ? 1 : MB == 32 ? 4 : MB >= 16 ? 2 : 4;",
+         "constexpr int BB = MB >= 16 ? 2 : 4;"),
+        (STREAM, "return mb == 32 ? 1 : 2;", "return 2;")], {}),
+    "rows_no_combine": (("layer_tail", "q4_mlp"), _stream(
+        "        if (*answer != last - first) continue;  // another block finishes tile t",
+        "        continue;"), {}),
+    "rows16_at_2": (("layer_tail", "q4_mlp"), _stream(
+        "m <= 1 ? 1 : m <= 8 ? 8 : m", "m <= 1 ? 1 : m"),
+        {}),
     "k7_one_block_an_sm": (("layer_tail", "q4_mlp"), [
         (FUSED, "constexpr int MAX_BLOCKS_PER_SM = 4;", "constexpr int MAX_BLOCKS_PER_SM = 1;")], {}),
     "k7_occ3": (("layer_tail", "q4_mlp"), [
-        (TAIL, "__launch_bounds__(THREADS, 2)", "__launch_bounds__(THREADS, 3)"),
-        ("q4_mlp.cu", "__launch_bounds__(q4::THREADS, 2)", "__launch_bounds__(q4::THREADS, 3)")],
+        (TAIL, "__launch_bounds__(THREADS, q4s::min_blocks(MB))", "__launch_bounds__(THREADS, 3)"),
+        ("q4_mlp.cu", "__launch_bounds__(q4::THREADS, q4s::min_blocks(MB))",
+         "__launch_bounds__(q4::THREADS, 3)")],
         {}),
-    "k1_tc_rows1": (("q4_gemv",), [(GEMV, "  if (M == 1 && gs <= 128", "  if (false && gs <= 128")],
-                    {"quant.gemv_tc_route": lambda m, gs: True}),
-    "tc_part_m_stride": (ROWS_STEMS, _TC_PART_M_STRIDE, {}),
-    "tc_plan_ungrouped": (ROWS_STEMS, _TC_PLAN_UNGROUPED, {}),
-    "mlp_glu_runtime": (ROWS_STEMS, _MLP_GLU_RUNTIME, {}),
+    "k8_vec2": (("kv_commit",), [
+        (K8, "constexpr int COPY_THREADS = 256;", "constexpr int COPY_THREADS = 128;"),
+        (K8, "constexpr int VEC = 1;", "constexpr int VEC = 2;")], {}),
+    "k8_vec4": (("kv_commit",), [
+        (K8, "constexpr int COPY_THREADS = 256;", "constexpr int COPY_THREADS = 64;"),
+        (K8, "constexpr int VEC = 1;", "constexpr int VEC = 4;")], {}),
+    "k1_tc_rows1": (("q4_gemv",), [], {"quant.gemv_tc_route": lambda m, gs: True}),
+    "k1_stream_rows": (("q4_gemv",), _K1_STREAM_ROWS, {
+        "quant.gemv_tc_route": lambda m, gs: gs not in (32, 64, 128),
+        "quant.fused_gemv_scratch": _scratch_of_32_rows}),
+    "tc_part_m_stride": (("q4_gemv",), _TC_PART_M_STRIDE, {}),
     "k7_combine_phase": (ROWS_STEMS, _K7_COMBINE_PHASE, {}),
     "sk_tid_guard": (SK_STEMS, [
         (SK, "    if (m < M) mine[m * BN] = v[m];", "    if (m < M && tid < BN) mine[m * BN] = v[m];"),
@@ -463,7 +575,7 @@ def time_tail(timer, gen, dev, stems, ms):
     nw = (torch.rand(hidden, generator=gen, device=dev) + 0.5).bfloat16()
     sin, cos = rope_tables(s_max, d, device=dev)
     sin_t, cos_t = slice_tables(sin, cos, past, 1)
-    for b, hkv in ((1, 32), (2, 8)):
+    for b, hkv in ((1, 32), (2, 8), (8, 8)):
         qkv = cs.random_qt(gen, hidden, (heads + 2 * hkv) * d, 128, False, dev)
         h, q = rnd(b, 1, hidden), rnd(b, 1, heads, d)
         kc, vc = rnd(b, hkv, s_max, d), rnd(b, hkv, s_max, d)
@@ -498,28 +610,86 @@ def time_tail(timer, gen, dev, stems, ms):
 
 
 def time_rows(timer, gen, dev, stems, ms):
-    """K1 (qkv 4096 -> 12288, norm) and K6 at one row and at 18 rows (K6
-    also in a8)."""
+    """K1 on the four Llama-7B projections (qkv with the norm) at 1, 2, 8,
+    18 and 32 rows, and K6 at the same rows (a8 and a8x2 at 18)."""
     import chip_smoke as cs
     from exllama_tpu_torch.ops import mlp, quant
 
     nw = (torch.rand(4096, generator=gen, device=dev) + 0.5).bfloat16()
     if "q4_gemv" in stems:
-        qkv = cs.random_qt(gen, 4096, 12288, 128, False, dev)
-        for m in (1, 18):
-            x = torch.randn((m, 4096), generator=gen, device=dev).bfloat16()
-            ms[f"K1 qkv M={m}"] = timer(
-                lambda: quant.q4_gemv(x, qkv, nw, 1e-6), 15)
+        for nm, k, n in (("qkv", 4096, 12288), ("o", 4096, 4096),
+                         ("gateup", 4096, 22016), ("down", 11008, 4096)):
+            qt = cs.random_qt(gen, k, n, 128, False, dev)
+            w = nw if nm == "qkv" else None
+            for m in ((1, 2, 8, 18, 32) if nm == "qkv" else (2, 8, 18, 32)):
+                x = torch.randn((m, k), generator=gen, device=dev).bfloat16()
+                ms[f"K1 {nm} M={m}"] = timer(
+                    lambda: quant.q4_gemv(x, qt, w, 1e-6), 15)
+            del qt
     if "q4_mlp" in stems:
         gu = cs.random_qt(gen, 4096, 22016, 128, False, dev)
         dn = cs.random_qt(gen, 11008, 4096, 128, False, dev)
-        for m in (1, 18):
+        for m in (1, 2, 8, 18, 32):
             h = torch.randn((1, m, 4096), generator=gen, device=dev).bfloat16()
             ms[f"K6 M={m}"] = timer(
                 lambda: mlp.q4_mlp(h, nw, gu, dn, 1e-6), 15)
-            if m > 1 and "q4_mlp_a8" in stems:
-                ms[f"K6 a8 M={m}"] = timer(lambda: mlp.q4_mlp(
-                    h, nw, gu, dn, 1e-6, impl="pallas_a8"), 15)
+            for impl in ("pallas_a8", "pallas_a8x2"):
+                if m == 18 and f"q4_mlp_{impl[7:]}" in stems:
+                    ms[f"K6 {impl[7:]} M={m}"] = timer(lambda: mlp.q4_mlp(
+                        h, nw, gu, dn, 1e-6, impl=impl), 15)
+        for m in (18, 24, 32):
+            h = torch.randn((1, m, 4096), generator=gen, device=dev).bfloat16()
+            if m == 24:
+                ms[f"K6 M={m}"] = timer(
+                    lambda: mlp.q4_mlp(h, nw, gu, dn, 1e-6), 15)
+            if "q4_gemv" in stems:
+                ms[f"K6 chain M={m}"] = timer(lambda: h + quant.q4_gemv(
+                    mlp.silu_mul(quant.q4_gemv(h[0], gu, nw, 1e-6), 11008),
+                    dn), 15)
+
+
+def time_commit(timer, gen, dev, variant, ms):
+    """K8 over 32 layers of Llama-7B caches (Hkv 32, S 2048) in each format:
+    B = 1 with a [1] cursor, B = 2 with a [B] cursor (a source from before
+    the device cursor takes a shared cursor by value, B = 1 only); and an
+    empty launch (the floor) where the source has one."""
+    import ctypes
+
+    import chip_smoke as cs
+    from exllama_tpu_torch.ops import attention
+
+    old = "const void* past" not in (OUT_DIR / variant / "kv_commit.cu").read_text()
+    for kind in ("bf16", *cs.KV_KINDS):
+        for b in ((1,) if old else (1, 2)):
+            if kind == "bf16":
+                lists = [[torch.randn((b, 32, 2048, 128), generator=gen,
+                                      device=dev).bfloat16()
+                          for _ in range(32)] for _ in range(2)] + [None, None]
+            else:
+                cs_ = [cs.quantized_cache(gen, kind, b, 32, 2048, 128, dev)
+                       for _ in range(32)]
+                lists = [[c[i] for c in cs_] for i in range(4)]
+            rows = torch.randn((2, 32, b, 1, 32, 128), generator=gen,
+                               device=dev).bfloat16()
+            ptrs = attention.kv_ptr_array(*[t for t in lists if t is not None])
+            mode = ("bf16", *cs.KV_KINDS).index(kind)
+            if old:
+                fn = kernels.launcher("kv_commit")
+                fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+                    ctypes.c_void_p]
+                args = (ptrs.data_ptr(), rows[0].data_ptr(), rows[1].data_ptr(),
+                        32, b, 32, 2048, 128, 1919, mode,
+                        kernels.stream_of(rows))
+                ms[f"K8 {kind} B={b}"] = timer(lambda: fn(*args), 20)
+            else:
+                past = torch.tensor([1919, 1000][:b], dtype=torch.int32,
+                                    device=dev)
+                ms[f"K8 {kind} B={b}"] = timer(lambda: attention.kv_commit(
+                    lists[0], lists[1], rows[0], rows[1], past, lists[2],
+                    lists[3], ptrs), 20)
+            del lists, rows
+    if not old:
+        ms["launch floor"] = timer(lambda: attention.launch_floor(dev), 20)
 
 
 def time_variant(v):
@@ -528,6 +698,8 @@ def time_variant(v):
     import chip_smoke as cs
 
     point_at(v)
+    if "kv_launch_floor" not in (OUT_DIR / v / "kv_commit.cu").read_text():
+        kernels._SIGNATURES.pop("kv_launch_floor")   # a source from before it
     stems, _, names = VARIANTS[v]
     for name, value in names.items():
         mod, attr = name.split(".")
@@ -545,8 +717,13 @@ def time_variant(v):
         time_head(timer, gen, dev, v, ms)
     if "layer_tail" in stems:
         time_tail(timer, gen, dev, stems, ms)
+    if "kv_commit" in stems:
+        time_commit(timer, gen, dev, v, ms)
     time_rows(timer, gen, dev, stems, ms)
-    print(json.dumps({"variant": v, "ms": ms}), flush=True)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    print(json.dumps({"variant": v, "card": card, "ms": ms}), flush=True)
 
 
 def main():
@@ -581,7 +758,7 @@ def main():
     for v in ["full", *chosen, "full"]:
         extra = ["--parent", args.parent] if v == "parent" else []
         r = subprocess.run([sys.executable, __file__, "--time", v, *extra],
-                           capture_output=True, text=True, timeout=300)
+                           capture_output=True, text=True, timeout=600)
         if r.returncode != 0:
             print(r.stdout + r.stderr[-3000:], file=sys.stderr)
             return 1

@@ -322,6 +322,8 @@ KNOBS = {
     "fuse_qkv": dict(fuse_qkv=True),
     "commit_pallas": dict(commit_impl="pallas"),
     "mlp_only": dict(fuse_attn=False),
+    # the whole layer in K7, its K/V rows staged in the cache for K8
+    "fuse_qkv_commit_pallas": dict(fuse_qkv=True, commit_impl="pallas"),
 }
 
 

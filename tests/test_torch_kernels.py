@@ -417,6 +417,8 @@ def test_head_argmax_exact_ties_at_llama_widths(gen, m, v):
 @pytest.mark.parametrize("m,hidden,inter,gs", [
     (1, 512, 384, 32), (5, 1024, 1152, 128), (18, 256, 640, 64),
     (18, 1024, 2816, 128), (32, 512, 1408, 32),
+    # the streaming GEMV's row tiles 8 (M = 2, 8) and 16
+    (2, 1024, 1152, 128), (8, 512, 1408, 64), (13, 768, 1056, 32),
 ])
 def test_q4_mlp_matches_plain(gen, m, hidden, inter, gs):
     """2e-2 of the output scale: K1's 1e-2 twice over (gate|up, then down),
@@ -628,6 +630,49 @@ def test_attn_block_o_attention_at_its_own_scale(gen, b, hkv, n_pad):
     got = attn_block.attn_block_o(h, q, kc, vc, past, s_max, o, new_kv, mask)
     assert attn_block.layer_tail.launches == before + 1
     _close(got, ref, 2e-2)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+def test_kv_commit_per_row_cursor_matches_plain(gen, kind):
+    """Bit-equal: K8 with a [B] cursor in device memory -- one launch, no
+    host sync -- against the plain writes at the same cursor tensor; a row
+    whose cursor is outside [0, S) is left as it was by both."""
+    n_layers, b, hkv, s_max, d = 3, 4, 4, 64, 128
+    dc = d // 2 if kind == "int4" else d
+    if kind == "bf16":
+        caches = [torch.randn((b, hkv, s_max, d), generator=gen,
+                              device="cuda").bfloat16()
+                  for _ in range(2 * n_layers)]
+        scales = []
+    else:
+        caches = [torch.randint(-128, 128, (b, hkv, s_max, dc), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(2 * n_layers)]
+        scales = [torch.rand((b, hkv, s_max), generator=gen, device="cuda")
+                  for _ in range(2 * n_layers)]
+    ref = [t.clone() for t in caches + scales]
+    before_all = [t.clone() for t in caches + scales]
+    rows = torch.randn((2, n_layers, b, 1, hkv, d), generator=gen,
+                       device="cuda").bfloat16()
+    past = torch.tensor([5, 63, s_max, -1], dtype=torch.int32, device="cuda")
+    before = attention.kv_commit.launches + (
+        0 if kind == "bf16" else getattr(attention.kv_commit,
+                                         f"launches_{kind}"))
+    attention.commit_kv_cache(
+        caches[:n_layers], caches[n_layers:], rows[0], rows[1], past,
+        scales[:n_layers] or None, scales[n_layers:] or None, impl="pallas")
+    after = attention.kv_commit.launches + (
+        0 if kind == "bf16" else getattr(attention.kv_commit,
+                                         f"launches_{kind}"))
+    assert after == before + 1
+    attention.commit_kv_cache(
+        ref[:n_layers], ref[n_layers:2 * n_layers], rows[0], rows[1], past,
+        ref[2 * n_layers:3 * n_layers] or None, ref[3 * n_layers:] or None,
+        impl="xla")
+    for got, want, old in zip(caches + scales, ref, before_all):
+        assert torch.equal(got, want)
+        assert torch.equal(got[2:], old[2:])   # rows 2, 3: outside, kept
+        assert not torch.equal(got[:2], old[:2])
 
 
 def test_kv_commit_matches_plain(gen):

@@ -1,7 +1,8 @@
 """The decompositions of the greedy head K5 (csrc/head_argmax.cu on K4's
 stream-K loop) and of the decode layer kernel K7 (csrc/layer_tail.cu: its
-GEMV phases split across the persistent grid, its key splits merged by the
-last block of each (batch row, kv head) pair), written out in plain tensor
+GEMV phases streamed stream-K across the persistent grid at every row
+count, its key splits merged by the last block of each (batch row, kv
+head) pair), written out in plain tensor
 code and held against the JAX package on the same numpy inputs; the JAX side
 runs its Pallas kernels in interpret mode (or, at an odd vocab, its plain
 head). Tolerances are stated per test."""
@@ -167,34 +168,36 @@ def test_q4_stream_plan_covers_each_unit_once(n, k, grid):
             assert slot == (0 if b * total // grid >= t * ku else 1)
 
 
-@pytest.mark.parametrize("n,k,gs,blocks", [
-    (4096, 4096, 128, 264), (22016, 4096, 128, 264), (4096, 11008, 128, 264),
-    (12288, 4096, 128, 396), (4096, 4096, 32, 132), (1152, 1024, 64, 5),
-    (2304, 1024, 128, 528),
-])
-def test_fused_split_plan_covers_each_unit_once(n, k, gs, blocks):
-    """The tensor-core GEMV phases' plan (2..32 rows): each (column tile,
-    unit of 32 k) in exactly one item; splits start at group boundaries
-    (the a8 modes quantize whole groups); once K is split every item fits
-    one wave of the grid (one item a block: the partials' scratch); and
-    the plan is the kernel's arithmetic: block i takes items i, i + blocks,
-    ... of tile-major order."""
-    ns, ups = quant.fused_split_plan(n, k, gs, blocks)
-    units, tiles = k // quant.GEMV_UNIT, -(-n // quant.GEMV_BN)
-    assert 1 <= ns and ups * quant.GEMV_UNIT % gs == 0
-    assert (ns - 1) * ups < units <= ns * ups
-    plan = quant.fused_gemv_items(n, k, gs, blocks)
-    seen = np.zeros((tiles, units), int)
-    for b, items in enumerate(plan):
-        if ns > 1:
-            assert len(items) <= 1
-        for t, u0, u1 in items:
-            assert u0 * quant.GEMV_UNIT % gs == 0 and u0 < u1
-            seen[t, u0:u1] += 1
+@pytest.mark.parametrize("grid", [5, 7, 264, 528])
+@pytest.mark.parametrize("m", [2, 8, 18, 32])
+def test_multi_row_stream_plan_covers_each_unit_once(m, grid):
+    """The streaming GEMV at 2..32 rows (K6 and K7 since they left the
+    tensor-core GEMV): its row tile holds the m rows padded to a multiple
+    of 8 (the mma's n8 tiles); its (tile, unit) ranges are the one-row
+    plan's, each unit once over; every slot a range publishes lies inside
+    the scratch the wrapper sizes (two m x 256 slots a block); and the
+    decomposition on that grid stays within 1e-2 of the output scale of the
+    undivided product (K1's limit)."""
+    tile = quant.stream_row_tile(m)
+    assert tile in (8, 16, 24, 32) and m <= tile and -(-m // 8) * 8 <= tile
+    n, k = 1152, 1024
+    tiles, ku = -(-n // quant.STREAM_BN), -(-k // quant.STREAM_UNIT)
+    plan = quant.q4_stream_plan(n, k, grid)
+    seen = np.zeros((tiles, ku), int)
+    for b, ranges in enumerate(plan):
+        for t, a, e, slot in ranges:
+            seen[t, a:e] += 1
+            if slot is not None:
+                end = ((2 * b + slot) + 1) * m * quant.STREAM_BN
+                assert end <= 2 * grid * m * quant.STREAM_BN
     assert (seen == 1).all()
-    flat = sorted((i, t, u0) for b, items in enumerate(plan)
-                  for i, (t, u0, _) in enumerate(items))
-    assert len(flat) == tiles * ns
+    _, pqt = _qt_pair(k, n, 128, 40 + m)
+    rng = np.random.default_rng(m * grid)
+    x = _bf16(rng.normal(size=(m, k)))
+    got = quant.fused_gemv_split_plain(x, pqt, grid)
+    ref = quant.q4_gemv_plain(x, pqt)
+    assert (got.float() - ref.float()).abs().max() <= (
+        1e-2 * ref.float().abs().max())
 
 
 @pytest.mark.parametrize("past,nsplit", [(2000, 8), (0, 8), (31, 3),
@@ -224,12 +227,14 @@ def _fused_pair(parts, seed, gs=128):
 
 
 @pytest.mark.parametrize("impl", ["pallas", "pallas_a8", "pallas_a8x2"])
-@pytest.mark.parametrize("m,blocks", [(1, 5), (3, 264)])
+@pytest.mark.parametrize("m,blocks", [(1, 5), (3, 264), (2, 7), (8, 5),
+                                      (18, 264), (32, 528)])
 def test_fused_gemv_split_plain_matches_jax(impl, m, blocks):
-    """A GEMV phase's split decomposition (norm prologue on) against the
-    JAX GEMV kernel in interpret mode: 1e-2 of the output scale in every
-    mode, K1's and K9's own limits (the bf16 output rounding, and for the
-    exact mode the JAX kernel's f32 sums of bf16-rounded weights)."""
+    """A GEMV phase's stream-K decomposition (norm prologue on) at 1..32
+    rows against the JAX GEMV kernel in interpret mode: 1e-2 of the output
+    scale in every mode, K1's and K9's own limits (the bf16 output
+    rounding, and for the exact mode the JAX kernel's f32 sums of
+    bf16-rounded weights)."""
     jqt, pqt = _qt_pair(HIDDEN, INTER, 128, 9)
     rng = np.random.default_rng(m + blocks)
     x = rng.normal(size=(m, HIDDEN)).astype(np.float32)
