@@ -47,6 +47,9 @@ Phases, one line or block of output each; any failure exits non-zero:
      K10 and K12 at groupsize 256 and groupsize = K (groupsize_cases); K3
      at head_dim 256, decode and prefill, over bf16 / int8 / int4 caches,
      and head_dim 100 on the einsum route's own counter (head_dim_cases);
+     the f32-scale builds of K1, K2, K6, K7, K9, K10 and K12 at the bf16
+     limits, timed beside their bf16 builds, and K1 / K2 on a 4-bit lm_head
+     at V = 32000 and 32001, M = 1 and 2047 (f32_scale_cases);
   4. a 2-layer model at full 7B width built from one seed on the card and on
      the CPU: teacher-forced prefill + decode logits compared, in the default
      configuration and with fuse_qkv + commit_impl="pallas", and the greedy
@@ -55,6 +58,8 @@ Phases, one line or block of output each; any failure exits non-zero:
      and an int4 KV cache in both configurations; then 2-layer full-width
      models at groupsize 256, at head_dim 256 and at head_dim 100
      (OpenLlama-3B, attn_impl "auto": the einsum route) against the CPU;
+     then with f32 scales, with a 4-bit lm_head at V = 32001 and with
+     act-order layers left unfolded (fold_act_order=False);
   5. the main path at full width, in the default configuration (the JAX
      package's: fuse_mlp, fuse_attn, commit_impl="auto"): a 32-layer
      Llama-7B-shape model (random weights from a seed) answering three
@@ -79,10 +84,21 @@ Phases, one line or block of output each; any failure exits non-zero:
      flags (a config.json written to a temporary directory): request 1
      under --kv_int8, --kv_int4, --turbo and --turbo --turbo_prefill, then
      phase 6's fuse_qkv + K8 greedy decode under int8, int4 and --turbo,
-     with prompt and decode tokens/s, peak memory and the cache's bytes.
+     with prompt and decode tokens/s, peak memory and the cache's bytes;
+ 10. the port's benchmark (python -m exllama_tpu_torch.benchmark) on the
+     32-layer 7B-shape model: -p (prompt tok/s, best / worst decode tok/s
+     fitted and raw, the greedy fuse_qkv + K8 line, memory); -ppl under
+     --matmul_impl xla (the plain path: none of K1, K2, K4-K7, K9-K12
+     launches); -ppl -vv (plain vs kernels within 0.01 + 0.01 ppl, the
+     completion, 4 identical batched rows); --scale_f32 -ppl -v with
+     EXL_GLU_FUSE=1 (the f32-scale builds only); --ppl_turbo -l 256 with
+     bf16 and f32 scales (the certificate); and a checkpoint written by the
+     port's fabricate (7B width, act-order g128, 4 layers) through -d -v
+     with the act-order fold on and off (K1 on the unfolded down
+     projection, no K6 / K7).
 
-Each of phases 5-9 sets every launch counter to 0 just before it drives its
-path and reads them just after; a kernel its path must run that shows no
+Each of phases 5-10 sets every launch counter to 0 just before it drives
+its path (phase 10: each benchmark run) and reads them just after; a kernel its path must run that shows no
 launch fails the run. The line before the last is a JSON summary of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. Needs exactly
 one visible CUDA device.
@@ -123,6 +139,11 @@ KV_KINDS = ("int8", "int4")
 for _kind in KV_KINDS:
     for _name in ("flash_attn", "layer_tail", "layer_tail_a8", "kv_commit"):
         TOL[f"{_name}_{_kind}"] = TOL[_name]
+# the f32-scale builds (scale_dtype="f32") keep their bf16 builds' limits
+F32_KERNELS = ("q4_gemv", "q4_dequant_matmul", "q4_mlp", "layer_tail",
+               "q4_gemv_a8", "q4_prefill_a8", "q4_matmul_glu")
+for _name in F32_KERNELS:
+    TOL[f"{_name}_f32"] = TOL[_name]
 
 
 def log(*a):
@@ -169,9 +190,10 @@ def bound_ms(nbytes, flops, peak=BF16_FLOP_PER_S):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def q4_bytes(k, n, gs):
-    """Packed nibbles plus bf16 scales and zero-scales of a K x N tensor."""
-    return k * n // 2 + 2 * (k // gs) * n * 2
+def q4_bytes(k, n, gs, scale_bytes=2):
+    """Packed nibbles plus the scales and zero-scales (bf16, or f32 with
+    ``scale_bytes`` 4) of a K x N tensor."""
+    return k * n // 2 + 2 * (k // gs) * n * scale_bytes
 
 
 # ------------------------------------------------------------ phase 3 cases
@@ -203,7 +225,8 @@ def check_close(name, got, ref, rel_tol):
 
 
 # timings a case may carry beside kernel / plain / library / bound
-EXTRA_TIMES = ("separate_ms", "k2_ms", "library_int8_ms", "floor_ms")
+EXTRA_TIMES = ("separate_ms", "k2_ms", "library_int8_ms", "floor_ms",
+               "bf16_ms")
 
 
 def make_recorder(timer, res):
@@ -1726,6 +1749,202 @@ def head_dim_cases(device, timer, res):
     return moved[0]
 
 
+def with_f32_scales(qt, gen):
+    """qt with f32 scales carrying bits below bf16's (the bf16 values
+    times 1 + u, |u| < 2^-9), zscale likewise: what scale_dtype="f32"
+    stores; the plain versions read the same f32 values."""
+    def widen(t):
+        u = (torch.rand(t.shape, generator=gen, device=t.device) - 0.5)
+        return t.float() * (1.0 + u * 2.0 ** -8)
+    return dataclasses.replace(qt, scales=widen(qt.scales),
+                               zscale=widen(qt.zscale))
+
+
+def f32_scale_cases(device, timer, res):
+    """The f32-scale builds (-DSCALE_F32=1, scale_dtype="f32") of K1, K2,
+    K6, K7, K9, K10 and K12 at the Llama-7B shapes of the bf16 cases, each
+    against its plain version on the same f32 scales at its bf16 build's
+    limit, each timed beside its bf16 build on the same weights with the
+    scales rounded to bf16 (bf16_ms); each launch counts on
+    ``launches_f32``, never on ``launches``. Then K1 and K2 on a 4-bit
+    lm_head (quantize_lm_head): 4096 -> 32000 and 32001 (an odd vocab: the
+    kernels' plain loads) at M = 1 and 2047."""
+    from exllama_tpu_torch.formats.gptq import dequantize_t, w8_col_scale
+    from exllama_tpu_torch.ops import attn_block, mlp, quant
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    record = make_recorder(timer, res)
+    hidden, inter, heads, d, s_max, gs = 4096, 11008, 32, 128, 2048, 128
+    eps = 1e-6
+    f32 = torch.float32
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=device)
+                * scale).bfloat16()
+
+    def norm_w():
+        return (torch.rand(hidden, generator=gen, device=device)
+                + 0.5).bfloat16()
+
+    def pair(k, n):
+        """(f32-scale tensor, the same with bf16-rounded scales)."""
+        q32 = with_f32_scales(random_qt(gen, k, n, gs, False, device), gen)
+        return q32, dataclasses.replace(q32, scales=q32.scales.bfloat16(),
+                                        zscale=q32.zscale.bfloat16())
+
+    def counted(fn, kernel, f):
+        """Call fn once: exactly one launch on fn's launches_f32 and none
+        on its launches."""
+        before = (f.launches, f.launches_f32)
+        out = fn()
+        if (f.launches, f.launches_f32) != (before[0], before[1] + 1):
+            raise AssertionError(f"{kernel}: launch counts {before} -> "
+                                 f"{(f.launches, f.launches_f32)}")
+        return out
+
+    # K1 and K9 (a8 / a8x2) on qkv with the norm
+    qt, qb = pair(hidden, 12288)
+    nw = norm_w()
+    w = dequantize_t(qt)
+    for m in (1, 18):
+        x = rnd(m, hidden)
+        nbytes = (q4_bytes(hidden, 12288, gs, 4) + hidden * 2 + m * hidden * 2
+                  + m * 12288 * 2)
+        got = counted(lambda: quant.q4_gemv(x, qt, nw, eps), "q4_gemv_f32",
+                      quant.q4_gemv)
+        err, rel = check_close(f"q4_gemv_f32 qkv M={m}", got,
+                               quant.q4_gemv_plain(x, qt, nw, eps),
+                               TOL["q4_gemv_f32"])
+        record("q4_gemv_f32", f"qkv g{gs} M={m} norm", err, rel,
+               lambda: quant.q4_gemv(x, qt, nw, eps),
+               lambda: quant.q4_gemv_plain(x, qt, nw, eps),
+               lambda: torch.matmul(x, w), nbytes, 2 * m * hidden * 12288,
+               extra={"bf16_ms": lambda: quant.q4_gemv(x, qb, nw, eps)})
+        if m != 1:
+            continue
+        x = with_outliers(gen, x, gs)
+        for two_pass in (False, True):
+            mode = "a8x2" if two_pass else "a8"
+            got = counted(lambda: quant.q4_gemv_a8(x, qt, nw, eps, two_pass),
+                          "q4_gemv_a8_f32", quant.q4_gemv_a8)
+            err, rel = check_close(
+                f"q4_gemv_a8_f32 {mode}", got,
+                quant.q4_gemv_a8_plain(x, qt, nw, eps, two_pass, f32),
+                TOL["q4_gemv_a8_f32"])
+            record("q4_gemv_a8_f32", f"{mode} qkv g{gs} M=1 norm", err, rel,
+                   lambda: quant.q4_gemv_a8(x, qt, nw, eps, two_pass),
+                   lambda: quant.q4_gemv_a8_plain(x, qt, nw, eps, two_pass),
+                   lambda: torch.matmul(x, w), nbytes,
+                   2 * hidden * 12288,
+                   extra={"bf16_ms": lambda: quant.q4_gemv_a8(
+                       x, qb, nw, eps, two_pass)})
+    del w, qt, qb
+
+    # K2 on gate|up, K10 on o, K12 on down, at M = 1919
+    for kernel, k, n in (("q4_dequant_matmul_f32", hidden, 2 * inter),
+                         ("q4_prefill_a8_f32", hidden, hidden),
+                         ("q4_matmul_glu_f32", inter, hidden)):
+        qt, qb = pair(k, n)
+        m = 1919
+        if kernel == "q4_dequant_matmul_f32":
+            x = rnd(m, k)
+            k_fn = lambda: quant.q4_dequant_matmul(x, qt)  # noqa: E731
+            b_fn = lambda: quant.q4_dequant_matmul(x, qb)  # noqa: E731
+            p_fn = lambda: quant._q4_matmul_plain(x, qt)  # noqa: E731
+            ref, f, peak = p_fn(), quant.q4_dequant_matmul, BF16_FLOP_PER_S
+            nbytes = q4_bytes(k, n, gs, 4) + m * k * 2 + m * n * 2
+        elif kernel == "q4_prefill_a8_f32":
+            x = rnd(m, k)
+            ws, wsb = w8_col_scale(qt), w8_col_scale(qb)
+            k_fn = lambda: quant.q4_prefill_a8(x, qt, ws)  # noqa: E731
+            b_fn = lambda: quant.q4_prefill_a8(x, qb, wsb)  # noqa: E731
+            p_fn = lambda: quant.q4_prefill_a8_plain(x, qt, ws)  # noqa: E731
+            ref = quant.q4_prefill_a8_plain(x, qt, ws, f32)
+            f, peak = quant.q4_prefill_a8, INT8_OP_PER_S
+            nbytes = q4_bytes(k, n, gs, 4) + n * 4 + m * k * 2 + m * n * 2
+        else:
+            x = rnd(m, 2 * k)
+            k_fn = lambda: quant.q4_matmul_glu(x, qt, k, k)  # noqa: E731
+            b_fn = lambda: quant.q4_matmul_glu(x, qb, k, k)  # noqa: E731
+            p_fn = lambda: quant.q4_matmul_glu_plain(x, qt, k, k)  # noqa: E731
+            ref, f, peak = p_fn(), quant.q4_matmul_glu, BF16_FLOP_PER_S
+            nbytes = q4_bytes(k, n, gs, 4) + m * 2 * k * 2 + m * n * 2
+        got = counted(k_fn, kernel, f)
+        err, rel = check_close(f"{kernel} M={m}", got, ref, TOL[kernel])
+        w = dequantize_t(qt)
+        xw = quant.glu_silu_mul(x, k, k) if x.shape[1] != k else x
+        record(kernel, f"{k}->{n} g{gs} M={m}", err, rel, k_fn, p_fn,
+               lambda: torch.matmul(xw, w), nbytes, 2 * m * k * n, iters=8,
+               peak=peak, extra={"bf16_ms": b_fn})
+        del w, qt, qb
+
+    # K6 at M = 1 and 18, K7's layer tail at B = 1, past 2000
+    gateup, gub = pair(hidden, 2 * inter)
+    down, dnb = pair(inter, hidden)
+    nw = norm_w()
+    nbytes_mlp = (q4_bytes(hidden, 2 * inter, gs, 4)
+                  + q4_bytes(inter, hidden, gs, 4) + hidden * 2)
+    for m in (1, 18):
+        h = rnd(m, 1, hidden)
+        got = counted(lambda: mlp.q4_mlp(h, nw, gateup, down, eps),
+                      "q4_mlp_f32", mlp.q4_mlp)
+        err, rel = check_close(f"q4_mlp_f32 M={m}", got,
+                               mlp.q4_mlp_plain(h, nw, gateup, down, eps),
+                               TOL["q4_mlp_f32"])
+        record("q4_mlp_f32", f"g{gs} M={m}", err, rel,
+               lambda: mlp.q4_mlp(h, nw, gateup, down, eps),
+               lambda: mlp.q4_mlp_plain(h, nw, gateup, down, eps), None,
+               nbytes_mlp + 2 * m * hidden * 2, 2 * m * 3 * hidden * inter,
+               extra={"bf16_ms": lambda: mlp.q4_mlp(h, nw, gub, dnb, eps)})
+    o, ob = pair(heads * d, hidden)
+    b, hkv, past = 1, 32, 2000
+    h, q = rnd(b, 1, hidden), rnd(b, 1, heads, d)
+    kc, vc = rnd(b, hkv, s_max, d), rnd(b, hkv, s_max, d)
+    new_kv = (rnd(b, 1, hkv, d), rnd(b, 1, hkv, d))
+    args = (h, q, kc, vc, past, s_max, o, nw, gateup, down, eps, new_kv)
+    argb = (h, q, kc, vc, past, s_max, ob, nw, gub, dnb, eps, new_kv)
+    got = counted(lambda: attn_block.layer_tail(*args), "layer_tail_f32",
+                  attn_block.layer_tail)
+    err, rel = check_close("layer_tail_f32", got,
+                           attn_block.layer_tail_plain(*args),
+                           TOL["layer_tail_f32"])
+    nq = nkv = heads * d
+    record("layer_tail_f32", f"layer_tail B=1 past={past}", err, rel,
+           lambda: attn_block.layer_tail(*args),
+           lambda: attn_block.layer_tail_plain(*args), None,
+           q4_bytes(nq, hidden, gs, 4) + 2 * past * nkv * 2
+           + 2 * hidden * 2 + nq * 2 + 2 * nkv * 2 + nbytes_mlp,
+           4 * d * heads * (past + 1) + 2 * nq * hidden
+           + 2 * 3 * hidden * inter, iters=10,
+           extra={"bf16_ms": lambda: attn_block.layer_tail(*argb)})
+    del gateup, gub, down, dnb, o, ob, kc, vc
+
+    # K1 / K2 on a 4-bit lm_head (bf16 scales, as the default scale dtype
+    # stores it), an even and an odd vocab
+    for v in (32000, 32001):
+        head = random_qt(gen, hidden, v, gs, False, device)
+        w = dequantize_t(head)
+        for m in (1, 2047):
+            x = rnd(m, hidden)
+            kernel = "q4_gemv" if m <= 32 else "q4_dequant_matmul"
+            k_fn = ((lambda: quant.q4_gemv(x, head)) if m <= 32 else
+                    (lambda: quant.q4_dequant_matmul(x, head)))
+            before = quant.q4_gemv.launches + quant.q4_dequant_matmul.launches
+            got = quant.q4_matmul(x, head)
+            if (quant.q4_gemv.launches + quant.q4_dequant_matmul.launches
+                    != before + 1):
+                raise AssertionError(f"lm_head V={v} M={m}: no kernel launch")
+            err, rel = check_close(f"{kernel} lm_head V={v} M={m}", got,
+                                   quant._q4_matmul_plain(x, head),
+                                   TOL[kernel])
+            record(kernel, f"lm_head 4096->{v} g{gs} M={m}", err, rel, k_fn,
+                   lambda: quant._q4_matmul_plain(x, head),
+                   lambda: torch.matmul(x, w),
+                   q4_bytes(hidden, v, gs) + m * hidden * 2 + m * v * 2,
+                   2 * m * hidden * v, iters=8)
+        del head, w
+
+
 # --------------------------------------------------------------- phase 4
 
 def model_vs_cpu(device):
@@ -1853,6 +2072,103 @@ def shapes_model_vs_cpu(device):
     return out
 
 
+# the knobs of scale dtype, lm_head and act-order fold: (label, tuning
+# values, groupsize, act-order, vocab). Full 7B width, 2 layers: f32 scales;
+# a 4-bit lm_head at an odd vocab (one added token); act-order with the
+# down projection's gather kept (fold_act_order=False)
+KNOB_MODELS = (
+    ("scale_dtype f32", dict(scale_dtype="f32"), 128, False, 32000),
+    ("quantize_lm_head V=32001", dict(quantize_lm_head=True), 128, False,
+     32001),
+    ("act-order unfolded", dict(fold_act_order=False), 128, True, 32000),
+)
+
+
+def centered(params):
+    """params with every 4-bit tensor's zero-point at its nibbles' mean
+    (zscale = 7.5 * scales): zero-mean weights. make_synthetic_params(fast)
+    puts it at 8, so every weight carries -s/2; through two layers at 7B
+    width that common mode grows the residual stream by two orders of
+    magnitude and leaves some rows' logits ill-conditioned (on the act-order
+    model below, 1e-3 of noise on the embeddings moves the CPU's own logits
+    by 35% of their scale; centered, by 1.2%), so no comparison of two
+    implementations can hold there."""
+    from exllama_tpu_torch.formats.gptq import QuantTensor
+
+    def c(qt):
+        if not isinstance(qt, QuantTensor):
+            return qt
+        return dataclasses.replace(qt, zscale=(qt.scales.float() * 7.5).to(
+            qt.scales.dtype))
+
+    layers = [dataclasses.replace(lp, **{
+        f.name: c(getattr(lp, f.name)) for f in dataclasses.fields(lp)
+        if isinstance(getattr(lp, f.name), QuantTensor)})
+        for lp in params.layers]
+    return dataclasses.replace(params, layers=layers,
+                               lm_head=c(params.lm_head))
+
+
+def knob_models_vs_cpu(device):
+    """Phase 4's comparison (64-token prefill, then 4 teacher-forced decode
+    steps, card vs CPU logits within 3% of the logit scale) for each of
+    KNOB_MODELS in the default configuration, on zero-mean weights
+    (``centered``). Returns {label: (worst rel, {counter: launches})}: f32
+    scales launch the f32-scale builds only, the 4-bit head K1 / K2 and
+    never K4, the unfolded act-order layers K1 (the down projection's
+    gather in its prologue) and never K6 / K7."""
+    import exllama_tpu_torch as port
+
+    counters = launch_counters()
+    out = {}
+    rng = np.random.default_rng(SEED + 2)
+    for label, knobs, gs, act, vocab in KNOB_MODELS:
+        cfg = port.ExLlamaConfig()
+        cfg.num_hidden_layers = 2
+        cfg.max_seq_len = 128
+        cfg.vocab_size = vocab
+        for k, v in knobs.items():
+            setattr(cfg.tuning, k, v)
+        cpu_params = centered(port.make_synthetic_params(
+            cfg, gs, act, seed=5, device="cpu", fast=True))
+        cpu_model = port.ExLlama(cfg, params=cpu_params, device="cpu")
+        gpu_model = port.ExLlama(cfg, params=cpu_params.to(device),
+                                 device=device)
+        lp = gpu_model.params
+        if act and lp.layers[0].down.x_map is None:
+            raise AssertionError(f"{label}: the down projection was folded")
+        ids = rng.integers(0, vocab, size=(1, 64)).astype(np.int32)
+        steps = [ids] + [rng.integers(0, vocab, size=(1, 1)).astype(
+            np.int32) for _ in range(4)]
+        c_cpu, c_gpu = port.ExLlamaCache(cpu_model), port.ExLlamaCache(gpu_model)
+        before = {k: getattr(f, a) for k, (f, a) in counters.items()}
+        worst = 0.0
+        for i, tok in enumerate(steps):
+            ref = cpu_model.forward(tok, c_cpu, last_id_only=i > 0)
+            got = gpu_model.forward(tok, c_gpu, last_id_only=i > 0).cpu()
+            rel = ((got - ref).abs().max() / ref.abs().max()).item()
+            if (got.shape[-1] != vocab or not torch.isfinite(got).all()
+                    or rel > 0.03):
+                raise AssertionError(f"{label} step {i}: card vs CPU logits "
+                                     f"rel {rel:.4f}, shape {got.shape}")
+            worst = max(worst, rel)
+        moved = {k: getattr(f, a) - before[k] for k, (f, a) in counters.items()}
+        want = {
+            "scale_dtype f32": {"q4_gemv_f32": None,
+                                "q4_dequant_matmul_f32": None,
+                                "q4_gemv": 0, "q4_dequant_matmul": 0},
+            "quantize_lm_head V=32001": {"q4_gemv": None,
+                                         "q4_dequant_matmul": None,
+                                         "dense_gemv": 0},
+            "act-order unfolded": {"q4_gemv": None, "q4_mlp": 0,
+                                   "layer_tail": 0},
+        }[label]
+        require(f"phase 4 {label}", moved, want)
+        out[label] = (worst, {k: v for k, v in moved.items() if v})
+        del cpu_model, gpu_model, cpu_params, c_cpu, c_gpu
+    return out
+
+
 # card vs CPU logits over the logit scale under a quantized cache: (prefill,
 # decode), the bf16 cache's 3%. Each decode step starts from the CPU's cache
 # bytes and scales, so it is held on its own arithmetic: a quantizer
@@ -1976,6 +2292,9 @@ def launch_counters():
     for name in ("flash_attn", "layer_tail", "layer_tail_a8", "kv_commit"):
         for kind in KV_KINDS:
             out[f"{name}_{kind}"] = (fns[name], f"launches_{kind}")
+    # and those of the f32-scale builds apart from both
+    for name in F32_KERNELS + ("q4_mlp_a8", "layer_tail_a8"):
+        out[f"{name}_f32"] = (fns[name], "launches_f32")
     return out
 
 
@@ -2477,6 +2796,151 @@ def kv_path(mp, bf16, launches):
     return out
 
 
+# -------------------------------------------------------------- phase 10
+
+# the kernels (and their a8 / f32 builds) that the plain path must not run
+NOT_UNDER_XLA = ("q4_gemv", "q4_dequant_matmul", "dense_gemv", "head_argmax",
+                 "q4_mlp", "layer_tail", "q4_gemv_a8", "q4_prefill_a8",
+                 "w8_matmul", "q4_matmul_glu", "q4_mlp_a8", "layer_tail_a8")
+BENCH_STEPS = (
+    # label, benchmark argv, environment, launches wanted (None: at least one)
+    ("-p", ["--synthetic", "7b", "-p"], {},
+     {k: None for k in ("q4_gemv", "q4_dequant_matmul", "flash_attn",
+                        "dense_gemv", "layer_tail", "head_argmax",
+                        "kv_commit")}),
+    ("--matmul_impl xla -ppl", ["--synthetic", "7b", "-ppl",
+                                "--matmul_impl", "xla"], {},
+     {**{k: 0 for k in NOT_UNDER_XLA},
+      **{f"{k}_f32": 0 for k in F32_KERNELS}, "flash_attn": None}),
+    ("-ppl -vv", ["--synthetic", "7b", "-ppl", "-vv"], {},
+     {k: None for k in ("q4_gemv", "q4_dequant_matmul", "flash_attn",
+                        "dense_gemv", "q4_mlp", "layer_tail")}),
+    ("--scale_f32 -ppl -v, EXL_GLU_FUSE=1",
+     ["--synthetic", "7b", "--scale_f32", "-ppl", "-v"],
+     {"EXL_GLU_FUSE": "1"},
+     {**{f"{k}_f32": None for k in ("q4_gemv", "q4_dequant_matmul", "q4_mlp",
+                                     "layer_tail", "q4_matmul_glu")},
+      **{k: 0 for k in ("q4_gemv", "q4_dequant_matmul", "q4_mlp",
+                        "layer_tail", "q4_matmul_glu")}}),
+    ("--ppl_turbo -l 256", ["--synthetic", "7b", "--ppl_turbo", "-l", "256",
+                            "--ppl_chunks", "4"], {},
+     {k: None for k in ("q4_dequant_matmul", "w8_matmul", "q4_prefill_a8",
+                        "q4_gemv_a8", "layer_tail_a8")}),
+    ("--scale_f32 --ppl_turbo -l 256",
+     ["--synthetic", "7b", "--scale_f32", "--ppl_turbo", "-l", "256",
+      "--ppl_chunks", "4"], {},
+     {**{f"{k}_f32": None for k in ("q4_dequant_matmul", "q4_prefill_a8",
+                                     "q4_gemv_a8", "layer_tail_a8")},
+      "w8_matmul": None, "q4_gemv_a8": 0, "q4_prefill_a8": 0}),
+)
+# the act-order checkpoint on disk: Llama-7B width, depth cut to this
+CKPT_LAYERS = 4
+
+
+def finite(name, values):
+    bad = {k: v for k, v in values.items()
+           if isinstance(v, float) and not math.isfinite(v)}
+    if bad:
+        raise AssertionError(f"{name}: non-finite {bad}")
+
+
+def bench_step(label, argv, env, want, launches, inspect=None):
+    """One run of the port's benchmark (``benchmark.load`` + ``run``, as
+    ``python -m exllama_tpu_torch.benchmark ARGV`` runs it), every launch
+    counter zeroed just before and read just after; ``inspect(model)`` runs
+    inside the window. Returns the benchmark's numbers."""
+    import gc
+
+    from exllama_tpu_torch import benchmark
+
+    log(f"  [10] benchmark {' '.join(argv)}"
+        + (f" ({', '.join(f'{k}={v}' for k, v in env.items())})"
+           if env else ""))
+    t0 = time.time()
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        zero_counts()
+        args = benchmark.parse_args(argv)
+        model, tok = benchmark.load(args)
+        out = benchmark.run(args, model, tok)
+        if inspect is not None:
+            out["inspect"] = inspect(model, tok)
+        c = counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    require(f"phase 10 {label}", c, want)
+    launches.update({k: launches.get(k, 0) + v for k, v in c.items()})
+    log(f"  [10] {label}: launches {({k: v for k, v in c.items() if v})} "
+        f"({time.time() - t0:.1f} s)")
+    del model, tok
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def benchmark_path(launches):
+    """Phase 10: the port's benchmark on the card at Llama-7B width (full
+    depth for the synthetic model; the act-order checkpoint cut to
+    CKPT_LAYERS layers): -p (prompt, best / worst decode fitted and raw,
+    the greedy fuse_qkv + K8 line, memory); the plain path alone (no 4-bit,
+    lm_head or fused kernel launched; K3 still attends); -ppl -vv; f32
+    scales with -ppl -v and the GLU-fused down projection; --ppl_turbo with
+    bf16 and f32 scales; then a checkpoint written by the port's fabricate
+    (act-order, g128) loaded through -d and validated (-v) with the
+    act-order fold on and off."""
+    from exllama_tpu_torch.generator import ExLlamaGenerator
+    from exllama_tpu_torch.utils.fabricate import fabricate
+
+    res = {}
+    for label, argv, env, want in BENCH_STEPS:
+        inspect = None
+        if "xla" in argv:
+            # the plain path's decode too: a short greedy completion
+            def inspect(model, tok):
+                from exllama_tpu_torch.cache import ExLlamaCache
+
+                gen = ExLlamaGenerator(model, tok, ExLlamaCache(model))
+                gen.settings.top_k = 1
+                return gen.generate_simple("To be or not to be",
+                                           max_new_tokens=8)
+        out = bench_step(label, argv, env, want, launches, inspect)
+        for part in out.values():
+            if isinstance(part, dict):
+                finite(label, part)
+        v = out.get("validate", {})
+        if "ppl_delta" in v and not v["ppl_delta"] < v["ppl_limit"]:
+            raise AssertionError(f"{label}: ppl delta {v['ppl_delta']}")
+        res[label] = out
+    with tempfile.TemporaryDirectory() as ckpt:
+        t0 = time.time()
+        _, nbytes = fabricate(ckpt, "7b", 128, act_order=True,
+                              layers=CKPT_LAYERS, verbose=False)
+        log(f"  [10] fabricate 7b g128 act-order, {CKPT_LAYERS} layers: "
+            f"{nbytes / 2**30:.2f} GiB in {time.time() - t0:.1f} s")
+        for fold in (True, False):
+            label = f"-d (act-order) -v, fold_act_order={fold}"
+            argv = ["-d", ckpt, "-v", "-l", "512"] + (
+                [] if fold else ["--no_fold_act_order"])
+
+            def inspect(model, tok, fold=fold):
+                down = model.params.layers[0].down
+                if (down.x_map is None) != fold:
+                    raise AssertionError(f"{label}: down.x_map "
+                                         f"{'kept' if fold else 'folded'}")
+                return "x_map kept" if down.x_map is not None else "folded"
+
+            res[label] = bench_step(
+                label, argv, {}, {"q4_gemv": None, "q4_dequant_matmul": None,
+                                  "flash_attn": None, "q4_mlp": 0,
+                                  "layer_tail": 0}, launches, inspect)
+    return res
+
+
 # ------------------------------------------------------------------- main
 
 SOURCES = {
@@ -2512,6 +2976,15 @@ for _kind in KV_KINDS:
                          ("layer_tail", "layer_tail B=1 past=2000"),
                          ("kv_commit", "L=32 B=1 Hkv=32 [1]")):
         SOURCES[f"{_name}_{_kind}"] = (*SOURCES[_name][:2], f"{_kind} {_case}")
+# and their f32-scale builds (-DSCALE_F32=1), the cases of f32_scale_cases
+for _name, _case in (("q4_gemv", "qkv g128 M=1 norm"),
+                     ("q4_dequant_matmul", "4096->22016 g128 M=1919"),
+                     ("q4_mlp", "g128 M=1"),
+                     ("layer_tail", "layer_tail B=1 past=2000"),
+                     ("q4_gemv_a8", "a8 qkv g128 M=1 norm"),
+                     ("q4_prefill_a8", "4096->4096 g128 M=1919"),
+                     ("q4_matmul_glu", "11008->4096 g128 M=1919")):
+    SOURCES[f"{_name}_f32"] = (*SOURCES[_name][:2], _case)
 
 
 def main() -> int:
@@ -2534,8 +3007,8 @@ def main() -> int:
     secs = kernels.build()
     log(f"[2 build] {len(kernels.LIBRARIES)} libraries (12 kernels; K1, K6, "
         f"K7 once per GEMV mode, K7 again for the quantized KV caches, K3 "
-        f"again for head_dim 256) built "
-        f"and loaded in {secs:.1f} s")
+        f"again for head_dim 256, and every 4-bit kernel once more for f32 "
+        f"scales) built and loaded in {secs:.1f} s")
 
     log("[3 kernels] kernel vs plain on the card, medians of L2-cold runs")
     t0 = time.time()
@@ -2551,6 +3024,10 @@ def main() -> int:
     gemv_tc_cases(device, timer, res, crossover)
     groupsize_cases(device, timer, res)
     xla_route = head_dim_cases(device, timer, res)
+    f32_scale_cases(device, timer, res)
+    log("  f32-scale builds beside their bf16 builds (kernel_ms / bf16_ms): "
+        + "; ".join(f"{k} {c['case']} {c['ms']:.4f} / {c['bf16_ms']:.4f}"
+                    for k in F32_KERNELS for c in res[f"{k}_f32"]))
     log(f"[3 kernels] all agree ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
@@ -2574,6 +3051,12 @@ def main() -> int:
             f"{k} within {w:.4f} (limit 0.03; launches {c})"
             for k, (w, c) in shaped.items()) + f" ({time.time() - t0:.1f} s)")
     xla_route += shaped["head_dim 100"][1]["attend_xla"]
+    t0 = time.time()
+    knobbed = knob_models_vs_cpu(device)
+    log("[4 model] 2 layers at full width, 64-token prefill + 4 decode "
+        "steps, card vs CPU logits: " + "; ".join(
+            f"{k} within {w:.4f} (limit 0.03; launches {c})"
+            for k, (w, c) in knobbed.items()) + f" ({time.time() - t0:.1f} s)")
 
     log("[5 main path] Llama-7B shapes, 32 layers, g128, bf16 KV, "
         "max_seq_len 2048, default configuration")
@@ -2648,6 +3131,14 @@ def main() -> int:
         "fuse_qkv, commit_impl=pallas, pallas_a8"]["decode_tps"]
     kv_path(mp, fused, launches)
     log(f"[9 quantized KV cache] done ({time.time() - t0:.1f} s)")
+    del mp
+
+    log("[10 benchmark] python -m exllama_tpu_torch.benchmark on the card, "
+        "each run between a zeroing and a reading of the launch counters")
+    t0 = time.time()
+    bench = benchmark_path(launches)
+    log("  phase 10 results: " + json.dumps(bench, default=str))
+    log(f"[10 benchmark] done ({time.time() - t0:.1f} s)")
 
     # K3's prefill path beside its decode path (the summary names decode)
     log("  flash_attn prefill T=1919: " + "; ".join(

@@ -18,10 +18,14 @@ False (any ``commit_impl``) gives the separate-kernel configuration of the
 port's first slice. ``matmul_impl`` opts into the W4A8 turbo modes: int8
 activations at decode M (``"pallas_a8"``, with a residual pass
 ``"pallas_a8x2"``) and int8 tensor-core prefill too (``"pallas_a8t"``,
-against a resident int8 image of the weights where ``prefill_w8`` allows).
-A knob whose other values belong to a later slice is still accepted at its
-one implemented value, so call sites written for the JAX package keep
-working, and raises for any other value.
+against a resident int8 image of the weights where ``prefill_w8`` allows);
+``"xla"`` is the plain path (dequantize + product, no 4-bit or lm_head
+kernel), an oracle reached only by its name. ``scale_dtype="f32"`` stores
+the scales in f32 (each kernel then runs its f32-scale build),
+``quantize_lm_head`` quantizes the lm_head to 4 bits, and
+``fold_act_order=False`` keeps the act-order down projection's gather.
+Every value the JAX package takes is taken, except its TPU-only
+``*_interpret`` matmul strings.
 """
 
 from __future__ import annotations
@@ -31,35 +35,30 @@ import json
 import os
 from typing import Optional
 
-# knob -> the only value the port implements so far
-_SLICE_ONLY = {
-    "quantize_lm_head": False,
-    "scale_dtype": "bf16",
-    "fold_act_order": True,
-}
-
-
 COMMIT_IMPLS = ("auto", "xla", "pallas")
 # attention routes (the JAX value names): "flash" = kernel K3 (and the fused
 # decode kernels), "xla" = the plain einsum attention the reference runs
 # outside its flash kernel, "auto" = "flash" where K3 takes the head dim
 ATTN_IMPLS = ("auto", "flash", "xla")
 # The JAX value names are kept so call sites port unchanged: "auto" and
-# "pallas" are the exact kernels, the others the W4A8 modes.
-MATMUL_IMPLS = ("auto", "pallas", "pallas_a8", "pallas_a8x2", "pallas_a8t")
-A8_IMPLS = MATMUL_IMPLS[2:]
+# "pallas" are the exact kernels, the "pallas_a8*" ones the W4A8 modes and
+# "xla" the plain path ("auto" never resolves to it).
+MATMUL_IMPLS = ("auto", "pallas", "pallas_a8", "pallas_a8x2", "pallas_a8t",
+                "xla")
+A8_IMPLS = ("pallas_a8", "pallas_a8x2", "pallas_a8t")
+SCALE_DTYPES = ("bf16", "f32")
 PREFILL_W8 = ("auto", "on", "off")
 # bytes per stored element, as exllama_tpu/models/llama.py:777
 KV_CACHE_DTYPES = {"bf16": 2, "int8": 1, "int4": 0.5}
 
 
 def check_matmul_impl(impl: str) -> str:
-    """``impl`` if the port implements it. The JAX package's plain-XLA
-    path and its interpret-mode strings raise NotImplementedError, anything
-    else ValueError."""
+    """``impl`` if the port implements it. The JAX package's TPU-only
+    interpret-mode strings raise NotImplementedError, anything else
+    ValueError."""
     if impl in MATMUL_IMPLS:
         return impl
-    if impl == "xla" or impl.removesuffix("_interpret") in MATMUL_IMPLS:
+    if impl.removesuffix("_interpret") in MATMUL_IMPLS:
         raise NotImplementedError(
             f"matmul_impl {impl!r}: the port runs its kernels (or, on CPU "
             f"tensors, their plain versions) under {MATMUL_IMPLS}")
@@ -75,7 +74,9 @@ class TuningParams:
     # against the nibbles at M <= 32 (K9), exact above; "pallas_a8x2" = K9
     # with a second int8 pass over the residual; "pallas_a8t" = K9 at
     # M <= 32 and int8 tensor-core products above (K11 against a resident
-    # int8 image, K10 re-quantizing the 4-bit tile in the kernel).
+    # int8 image, K10 re-quantizing the 4-bit tile in the kernel); "xla" =
+    # the plain path (dequantize + product, ops/quant._q4_matmul_plain) and
+    # the plain lm_head, with K6 / K7 refused: an oracle, never a fallback.
     matmul_impl: str = "auto"
     # Turbo prefill ("pallas_a8t") weight strategy: "auto" keeps a
     # load-time int8 image of as many layer weights as the budget below
@@ -104,7 +105,9 @@ class TuningParams:
     # elements a byte, dims d and d + D/2 paired), each with one f32 scale
     # per (token, kv head), quantized as the rows are written.
     kv_cache_dtype: str = "bf16"
-    # Storage dtype of the per-group scales; "f32" belongs to a later slice.
+    # Storage dtype of the per-group scales and zero-scales: "bf16" (the
+    # JAX package's default) or "f32" (zscale = (z+1)*s rounded once, to
+    # f32; every 4-bit kernel has an f32-scale build).
     scale_dtype: str = "bf16"
     # Decode MLP block (post-norm -> gate/up -> silu*up -> down -> +h) in
     # one launch of kernel K6 (ops/mlp.q4_mlp) where fused_mlp_applicable
@@ -121,26 +124,25 @@ class TuningParams:
     # Deferred K/V commit of a decode step: "pallas" writes every layer's
     # rows in one launch of the port's CUDA kernel K8 (the JAX value name is
     # kept so call sites port unchanged); "xla" and "auto" write them with
-    # one plain tensor write per layer, as the JAX package's "auto" does. A
-    # per-row cursor always takes the plain writes.
+    # one plain tensor write per layer, as the JAX package's "auto" does.
+    # Either route takes an int cursor or a per-row [B] tensor cursor.
     commit_impl: str = "auto"
     # Store bf16 / int8 K and V rows zero-padded to a head width the
     # attention kernel K3 takes (64, or the next multiple of 128), so that a
     # model with another head_dim (100) runs K3; q is pre-scaled so the
     # softmax scale stays 1/sqrt(head_dim). No effect on an int4 cache.
     pad_head_dim: bool = False
-    # Knobs fixed at their one implemented value (see _SLICE_ONLY). The
-    # loader always folds the act-order down-proj permutation into the
-    # gate/up output columns (a pure weight transform).
+    # The loaders fold the act-order down projection's input permutation
+    # into the gate/up output columns (a pure weight transform); False keeps
+    # down's x_map, gathered in K1's prologue.
     fold_act_order: bool = True
+    # Quantize the lm_head to 4 bits at load (the checkpoint's groupsize,
+    # else 128): logits through q4_matmul (K1 / K2), argmax after them.
     quantize_lm_head: bool = False
 
     def __setattr__(self, name, value):
-        if name in _SLICE_ONLY and value != _SLICE_ONLY[name]:
-            raise NotImplementedError(
-                f"TuningParams.{name}={value!r}: this port implements only "
-                f"{_SLICE_ONLY[name]!r} so far"
-            )
+        if name == "scale_dtype" and value not in SCALE_DTYPES:
+            raise ValueError(f"scale_dtype {value!r} not in {SCALE_DTYPES}")
         if name == "commit_impl" and value not in COMMIT_IMPLS:
             raise ValueError(f"commit_impl {value!r} not in {COMMIT_IMPLS}")
         if name == "matmul_impl":

@@ -18,7 +18,9 @@
 // [B] (one per row, as the JAX commit_kv_cache takes, attention.py:284-300),
 // read by the kernel, which writes no row whose cursor is outside [0, S),
 // as the plain writes at a tensor cursor leave it (ops/attention.py:
-// _write_at; the callers that hold an int cursor check it on the host).
+// _write_at; the callers that hold an int cursor check it on the host). A
+// stated deviation: the JAX package's vmapped dynamic_update_slice lands
+// such a row on a valid one (S or beyond at S - 1; -1 counted from the end).
 // So a decode step that commits through K8 passes no cursor by value and
 // makes no host sync for a per-row cursor.
 //

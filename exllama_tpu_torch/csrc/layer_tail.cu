@@ -507,17 +507,17 @@ extern "C" int layer_tail_launch(
   p.past = (const int32_t*)past;
   p.mask = (const uint8_t*)mask;
   p.h = (const bf16*)h;
-  p.o = QW{(const int32_t*)o_q, (const bf16*)o_s, (const bf16*)o_z, hidden};
+  p.o = QW{(const int32_t*)o_q, (const scale_t*)o_s, (const scale_t*)o_z, hidden};
   p.in_norm = (const bf16*)in_norm;
-  p.qkv = QW{(const int32_t*)qkv_q, (const bf16*)qkv_s, (const bf16*)qkv_z,
+  p.qkv = QW{(const int32_t*)qkv_q, (const scale_t*)qkv_s, (const scale_t*)qkv_z,
              (H + 2 * Hkv) * D};
   p.sin = (const float*)sin;
   p.cos = (const float*)cos;
   p.k_row = (bf16*)k_row;
   p.v_row = (bf16*)v_row;
   p.post_norm = (const bf16*)post_norm;
-  p.gu = QW{(const int32_t*)gu_q, (const bf16*)gu_s, (const bf16*)gu_z, 2 * inter};
-  p.dn = QW{(const int32_t*)dn_q, (const bf16*)dn_s, (const bf16*)dn_z, hidden};
+  p.gu = QW{(const int32_t*)gu_q, (const scale_t*)gu_s, (const scale_t*)gu_z, 2 * inter};
+  p.dn = QW{(const int32_t*)dn_q, (const scale_t*)dn_s, (const scale_t*)dn_z, hidden};
   p.out = (bf16*)out;
   p.qkv_scr = (bf16*)qkv_scr;
   p.part = (float*)part;

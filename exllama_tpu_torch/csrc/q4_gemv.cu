@@ -45,7 +45,7 @@ constexpr int STREAM_BLOCKS_PER_SM = 4;
 // one row: the streaming GEMV, its units shared out among the grid
 __global__ void __launch_bounds__(THREADS, 2) q4_gemv_stream_kernel(
     const bf16* __restrict__ x, const int32_t* __restrict__ qweight,
-    const bf16* __restrict__ scales, const bf16* __restrict__ zscale,
+    const scale_t* __restrict__ scales, const scale_t* __restrict__ zscale,
     const bf16* __restrict__ norm_w, const int32_t* __restrict__ x_map,
     bf16* __restrict__ out, float* part, unsigned int* ticket, int K, int N, int gs,
     float eps) {
@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(THREADS, 2) q4_gemv_stream_kernel(
   q4s::gemv_stream<1, GEMV_MODE>(src, w, 1, K, gs, part, ticket, smem, q4s::Out{out, nullptr, N});
 }
 
-cudaError_t launch_stream(const bf16* x, const int32_t* qw, const bf16* s, const bf16* z,
+cudaError_t launch_stream(const bf16* x, const int32_t* qw, const scale_t* s, const scale_t* z,
                           const bf16* nw, const int32_t* xmap, bf16* out, float* part,
                           unsigned int* ticket, int K, int N, int gs, float eps,
                           cudaStream_t st) {
@@ -85,7 +85,7 @@ cudaError_t launch_stream(const bf16* x, const int32_t* qw, const bf16* s, const
 template <int MP>
 __global__ void __launch_bounds__(THREADS, 2) q4_gemv_tc_kernel(
     const bf16* __restrict__ x, const int32_t* __restrict__ qweight,
-    const bf16* __restrict__ scales, const bf16* __restrict__ zscale,
+    const scale_t* __restrict__ scales, const scale_t* __restrict__ zscale,
     const bf16* __restrict__ norm_w, const int32_t* __restrict__ x_map,
     bf16* __restrict__ out, float* part, unsigned int* ticket, int M, int K, int N, int gs,
     int nsplit, float eps) {
@@ -98,7 +98,7 @@ __global__ void __launch_bounds__(THREADS, 2) q4_gemv_tc_kernel(
 }
 
 template <int MP>
-cudaError_t launch_tc(const bf16* x, const int32_t* qw, const bf16* s, const bf16* z,
+cudaError_t launch_tc(const bf16* x, const int32_t* qw, const scale_t* s, const scale_t* z,
                       const bf16* nw, const int32_t* xmap, bf16* out, float* part,
                       unsigned int* ticket, int M, int K, int N, int gs, int nsplit, float eps,
                       cudaStream_t st) {
@@ -115,7 +115,7 @@ cudaError_t launch_tc(const bf16* x, const int32_t* qw, const bf16* s, const bf1
 
 }  // namespace
 
-// x [M, K] bf16; qweight [K/8, N] int32; scales, zscale [K/gs, N] bf16;
+// x [M, K] bf16; qweight [K/8, N] int32; scales, zscale [K/gs, N] scale_t;
 // norm_w [K] bf16 or NULL; x_map [K] int32 or NULL; out [M, N] bf16.
 // Streaming route (one row, gs 32 / 64 / 128): part >= 2 * 4 * SMs * 256
 // f32 and ticket ceil(N/256) uint32 zeros; nsplit is not read.
@@ -131,8 +131,8 @@ extern "C" int q4_gemv_launch(const void* x, const void* qweight, const void* sc
   if (M < 1 || M > 32 || gs < 32 || gs % 32 || K % gs) return cudaErrorInvalidValue;
   auto bx = (const bf16*)x;
   auto qw = (const int32_t*)qweight;
-  auto s = (const bf16*)scales;
-  auto z = (const bf16*)zscale;
+  auto s = (const scale_t*)scales;
+  auto z = (const scale_t*)zscale;
   auto nw = (const bf16*)norm_w;
   auto xm = (const int32_t*)x_map;
   auto o = (bf16*)out;

@@ -57,11 +57,12 @@ struct XSrc {
   int glu_off;            // > 0: x[m, k] = silu_mul(x[m, k], x[m, glu_off + k])
 };
 
-// One packed weight matrix: qweight [K/8, N] int32, scales / zscale [K/gs, N].
+// One packed weight matrix: qweight [K/8, N] int32, scales / zscale [K/gs, N]
+// (scale_t: bf16, or f32 under -DSCALE_F32=1).
 struct QW {
   const int32_t* qweight;
-  const bf16* scales;
-  const bf16* zscale;
+  const scale_t* scales;
+  const scale_t* zscale;
   int N;
 };
 

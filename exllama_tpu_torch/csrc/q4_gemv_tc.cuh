@@ -89,7 +89,7 @@ __host__ __device__ constexpr int x8_ld(int mp, int mode) { return chunk_k(mp, m
 
 // Shared memory: xs [MP][XS_LD] bf16 | x8, r8 [MP][X8_LD] int8 (a8, a8x2) |
 // usum [MP][KC/32] f32 | sxu [MP][KC/32] f32 (a8) | sz [KC/32 + 1][2][BN]
-// bf16 (the scale and zero-scale rows of the chunk's groups) | rs [MP] f32
+// scale_t (the scale and zero-scale rows of the chunk's groups) | rs [MP] f32
 // | red [WARPS][MP] f32 (the norm's partial sums). The block partials
 // [KW][MP][BN] f32 of the epilogue reuse xs.
 struct Layout {
@@ -101,7 +101,7 @@ struct Layout {
     usum = r8 + (mode == q4::A8X2 ? mp * x8_ld(mp, mode) : 0);
     sxu = usum + mp * kcu * 4;
     sz = sxu + (mode != q4::EXACT ? mp * kcu * 4 : 0);
-    rs = sz + (kcu + 1) * 2 * BN * 2;
+    rs = sz + (kcu + 1) * 2 * BN * SC_BYTES;
     red = rs + mp * 4;
     bytes = red + WARPS * mp * 4;
   }
@@ -259,14 +259,15 @@ __device__ void stage(const XSrc& src, const QW& w, int M, int k0, int klen, int
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   bf16* xs = reinterpret_cast<bf16*>(smem);
   float* usum = reinterpret_cast<float*>(smem + L.usum);
-  bf16* sz = reinterpret_cast<bf16*>(smem + L.sz);
+  scale_t* sz = reinterpret_cast<scale_t*>(smem + L.sz);
   const int n8 = klen / 8, nu = klen / UK;
   const int g0 = k0 / gs, ng = (k0 + klen - 1) / gs - g0 + 1;
   __syncthreads();  // the previous chunk (or epilogue) is done with smem
   if (w_vec(w)) {
-    for (int i = threadIdx.x; i < ng * 2 * (BN / 8); i += THREADS) {
-      const int row = i / (BN / 8), c = (i - row * (BN / 8)) * 8;
-      const bf16* p = (row & 1 ? w.zscale : w.scales) + (size_t)(g0 + (row >> 1)) * w.N + n_base + c;
+    for (int i = threadIdx.x; i < ng * 2 * (BN / SC_VEC); i += THREADS) {
+      const int row = i / (BN / SC_VEC), c = (i - row * (BN / SC_VEC)) * SC_VEC;
+      const scale_t* p =
+          (row & 1 ? w.zscale : w.scales) + (size_t)(g0 + (row >> 1)) * w.N + n_base + c;
       const bool ok = n_base + c < w.N;
       tc::cp_async16(sz + row * BN + c, ok ? p : w.scales, ok ? 16 : 0);
     }
@@ -274,9 +275,9 @@ __device__ void stage(const XSrc& src, const QW& w, int M, int k0, int klen, int
   } else {
     for (int i = threadIdx.x; i < ng * 2 * BN; i += THREADS) {
       const int row = i / BN, c = i - row * BN;
-      const bf16* p = row & 1 ? w.zscale : w.scales;
+      const scale_t* p = row & 1 ? w.zscale : w.scales;
       sz[row * BN + c] =
-          n_base + c < w.N ? p[(size_t)(g0 + (row >> 1)) * w.N + n_base + c] : f2bf(0.f);
+          n_base + c < w.N ? p[(size_t)(g0 + (row >> 1)) * w.N + n_base + c] : scale_t(0.f);
     }
   }
   // x rows m < M (rows >= M are never staged: they reach only output rows
@@ -435,7 +436,7 @@ __device__ void q4_gemv_tc(const XSrc& src, const QW& w, int M, int K, int gs, i
   const signed char* r8 = reinterpret_cast<const signed char*>(smem + L.r8);
   const float* usum = reinterpret_cast<const float*>(smem + L.usum);
   const float* sxu = reinterpret_cast<const float*>(smem + L.sxu);
-  const bf16* sz = reinterpret_cast<const bf16*>(smem + L.sz);
+  const scale_t* sz = reinterpret_cast<const scale_t*>(smem + L.sz);
   float* rs = reinterpret_cast<float*>(smem + L.rs);
   if (item0 >= items) return;  // block-uniform
   __syncthreads();             // the caller's previous use of smem is over
@@ -540,11 +541,8 @@ __device__ void q4_gemv_tc(const XSrc& src, const QW& w, int M, int K, int gs, i
           }
           // fold at the end of a group or of this warp's share
           if (u + 1 == ub || ((u + 1) * UK) % gs == 0) {
-            const bf16* srow = sz + (u * UK / gs - gc0) * 2 * BN + wc * 32 + 8 * q;
-            const uint4 sv = *reinterpret_cast<const uint4*>(srow);
-            const uint4 zv = *reinterpret_cast<const uint4*>(srow + BN);
-            const bf16* s8 = reinterpret_cast<const bf16*>(&sv);
-            const bf16* z8 = reinterpret_cast<const bf16*>(&zv);
+            const scale_t* srow = sz + (u * UK / gs - gc0) * 2 * BN + wc * 32 + 8 * q;
+            const ScaleRow<8> s8(srow), z8(srow + BN);
 #pragma unroll
             for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -564,10 +562,9 @@ __device__ void q4_gemv_tc(const XSrc& src, const QW& w, int M, int K, int gs, i
                       if constexpr (MODE == q4::A8X2)
                         d += (float)d2[mt][t][j2] * (sx * (1.0f / 254.0f));
                     }
-                    const float sc = bf2f(s8[col]);
+                    const float sc = s8[col];
                     // EXACT: d sums x * (128 + q), so 128 * s joins zs
-                    const float zc = MODE == q4::EXACT ? fmaf(128.f, sc, bf2f(z8[col]))
-                                                       : bf2f(z8[col]);
+                    const float zc = MODE == q4::EXACT ? fmaf(128.f, sc, z8[col]) : z8[col];
                     acc[mt][t][j2] += sc * d - zc * xsp[mt][h];
                     d1[mt][t][j2] = 0;
                     d2[mt][t][j2] = 0;

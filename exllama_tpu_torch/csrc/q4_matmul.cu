@@ -20,13 +20,13 @@
 #include "q4_ring.cuh"
 
 // x [M, K] bf16 (K % 32 == 0, 16-byte aligned rows); qweight [K/8, N] int32;
-// scales, zscale [K/gs, N] bf16 (gs a multiple of 32 dividing K); out [M, N]
+// scales, zscale [K/gs, N] scale_t (gs a multiple of 32 dividing K); out [M, N]
 // bf16.
 extern "C" int q4_matmul_launch(const void* x, const void* qweight, const void* scales,
                                 const void* zscale, void* out, int M, int K, int N, int gs,
                                 void* stream) {
   if (K % 32 || gs % 32 || K % gs) return cudaErrorInvalidValue;
-  const ring::Args p{x, (const int32_t*)qweight, (const bf16*)scales, (const bf16*)zscale,
+  const ring::Args p{x, (const int32_t*)qweight, (const scale_t*)scales, (const scale_t*)zscale,
                      /*sx=*/nullptr, /*ws=*/nullptr, (bf16*)out, M, K, N, gs, /*ldx=*/K, /*ou=*/0};
   return ring::launch<ring::Mode::Exact>(p, (cudaStream_t)stream);
 }
@@ -38,7 +38,7 @@ extern "C" int q4_matmul_glu_launch(const void* x, const void* qweight, const vo
                                     const void* zscale, void* out, int M, int K, int N,
                                     int gs, int W, int ou, void* stream) {
   if (K % 32 || gs % 32 || K % gs || W % 8 || ou % 8 || ou + K > W) return cudaErrorInvalidValue;
-  const ring::Args p{x, (const int32_t*)qweight, (const bf16*)scales, (const bf16*)zscale,
+  const ring::Args p{x, (const int32_t*)qweight, (const scale_t*)scales, (const scale_t*)zscale,
                      /*sx=*/nullptr, /*ws=*/nullptr, (bf16*)out, M, K, N, gs, /*ldx=*/W, ou};
   return ring::launch<ring::Mode::Glu>(p, (cudaStream_t)stream);
 }

@@ -62,7 +62,7 @@ cudaError_t launch(const MlpParams& p, cudaStream_t st) {
 }  // namespace
 
 // h [M, hidden] bf16; norm_w [hidden] bf16; gate|up: qweight [hidden/8,
-// 2*inter] int32, scales / zscale [hidden/gs, 2*inter] bf16; down: qweight
+// 2*inter] int32, scales / zscale [hidden/gs, 2*inter] scale_t; down: qweight
 // [inter/8, hidden], scales / zscale [inter/gs, hidden]; gu_scr [M, 2*inter]
 // bf16 scratch; bar one uint32 scratch; part, ticket the split scratch of
 // fused::SplitScratch (the grid at most 4 blocks an SM); out [M, hidden]
@@ -75,8 +75,8 @@ extern "C" int q4_mlp_launch(const void* h, const void* norm_w, const void* gu_q
   MlpParams p;
   p.h = (const bf16*)h;
   p.norm_w = (const bf16*)norm_w;
-  p.gu = QW{(const int32_t*)gu_q, (const bf16*)gu_s, (const bf16*)gu_z, 2 * inter};
-  p.dn = QW{(const int32_t*)dn_q, (const bf16*)dn_s, (const bf16*)dn_z, hidden};
+  p.gu = QW{(const int32_t*)gu_q, (const scale_t*)gu_s, (const scale_t*)gu_z, 2 * inter};
+  p.dn = QW{(const int32_t*)dn_q, (const scale_t*)dn_s, (const scale_t*)dn_z, hidden};
   p.gu_scr = (bf16*)gu_scr;
   p.sc = fused::SplitScratch{(float*)part, (unsigned int*)ticket};
   p.out = (bf16*)out;

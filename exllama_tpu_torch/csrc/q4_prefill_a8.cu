@@ -21,7 +21,7 @@
 #include "q4_ring.cuh"
 
 // x [M, K] bf16 (already normed and in the weight's row order); qweight
-// [K/8, N] int32; scales, zscale [K/gs, N] bf16 (gs a multiple of 32
+// [K/8, N] int32; scales, zscale [K/gs, N] scale_t (gs a multiple of 32
 // dividing K); ws [N] f32 column scales; scratch xq [M, K] int8 and sx [M]
 // f32; out [M, N] bf16.
 extern "C" int q4_prefill_a8_launch(const void* x, const void* qweight, const void* scales,
@@ -32,7 +32,7 @@ extern "C" int q4_prefill_a8_launch(const void* x, const void* qweight, const vo
   i8::row_quant_kernel<<<M, i8::THREADS, 0, st>>>((const bf16*)x, (int8_t*)xq, (float*)sx, K);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const ring::Args p{xq, (const int32_t*)qweight, (const bf16*)scales, (const bf16*)zscale,
+  const ring::Args p{xq, (const int32_t*)qweight, (const scale_t*)scales, (const scale_t*)zscale,
                      (const float*)sx, (const float*)ws, (bf16*)out, M, K, N, gs, /*ldx=*/K,
                      /*ou=*/0};
   return ring::launch<ring::Mode::Int8>(p, st);

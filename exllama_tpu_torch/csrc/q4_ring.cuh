@@ -1,8 +1,8 @@
 // The pipelined, warp-specialised tensor-core GEMM over a 4-bit GPTQ weight
-// (x [M, K] @ W, W given as packed nibbles [K/8, N] int32 with bf16 scale
-// and zero-scale rows [K/gs, N]), for prefill-sized M (M > 32), and the
-// same product against a resident int8 image of such a weight. Four modes of
-// one kernel:
+// (x [M, K] @ W, W given as packed nibbles [K/8, N] int32 with bf16 -- or,
+// built with -DSCALE_F32=1, f32 -- scale and zero-scale rows [K/gs, N]), for
+// prefill-sized M (M > 32), and the same product against a resident int8
+// image of such a weight. Four modes of one kernel:
 //
 //   Exact (K2, q4_matmul.cu): out = bf16(x @ bf16(q*s - zs)), f32 sums.
 //   Glu   (K12, q4_matmul.cu): the same product over
@@ -81,13 +81,14 @@
 #include "async_mma.cuh"
 
 namespace ring {
+SCALE_NS_BEGIN
 
 enum class Mode { Exact, Glu, Int8, W8 };
 
 constexpr int BN = 128, BK = 64;
 constexpr int CONSUMERS = 256;  // 8 warps multiply
 constexpr int W_BYTES = (BK / 8) * BN * 4;  // packed weights of a slab
-constexpr int SZ_BYTES = 2 * 2 * BN * 2;    // scales, zero-scales: two group rows each
+constexpr int SZ_BYTES = 2 * 2 * BN * SC_BYTES;  // scales, zero-scales: two group rows each
 constexpr int WS_BYTES = W_BYTES + SZ_BYTES;
 constexpr int C_LD = BN + 8;  // bf16 elements of an output row in the epilogue
 
@@ -130,8 +131,8 @@ struct Tile {
 struct Args {
   const void* x;            // Exact: bf16 [M, K]; Glu: bf16 [M, ldx]; Int8: int8 xq [M, K]
   const int32_t* qweight;   // [K/8, N]
-  const bf16* scales;       // [K/gs, N]
-  const bf16* zscale;       // [K/gs, N]
+  const scale_t* scales;    // [K/gs, N] (bf16, or f32 under -DSCALE_F32=1)
+  const scale_t* zscale;    // [K/gs, N]
   const float* sx;          // Int8: row scales [M]
   const float* ws;          // Int8: column scales [N]
   bf16* out;                // [M, N]
@@ -188,7 +189,7 @@ __device__ __forceinline__ void load_slab(unsigned char* smem, const Args& p, in
     return;
   }
   int32_t* Ws = reinterpret_cast<int32_t*>(Wst);
-  bf16* Ss = reinterpret_cast<bf16*>(Wst + W_BYTES);
+  scale_t* Ss = reinterpret_cast<scale_t*>(Wst + W_BYTES);
   const int kp0 = k0 / 8, g0 = k0 / p.gs, ng = p.K / p.gs;
   if constexpr (VEC) {
 #pragma unroll
@@ -199,9 +200,9 @@ __device__ __forceinline__ void load_slab(unsigned char* smem, const Args& p, in
       tc::cp_async16(Ws + r * BN + c, ok ? p.qweight + (size_t)(kp0 + r) * p.N + n0 + c : p.qweight,
                      ok ? 16 : 0);
     }
-    for (int i = t; i < 4 * (BN / 8); i += T::PRODUCERS) {
-      const int row = i / (BN / 8), c = (i % (BN / 8)) * 8;
-      const bf16* src = row >> 1 ? p.zscale : p.scales;
+    for (int i = t; i < 4 * (BN / SC_VEC); i += T::PRODUCERS) {
+      const int row = i / (BN / SC_VEC), c = (i % (BN / SC_VEC)) * SC_VEC;
+      const scale_t* src = row >> 1 ? p.zscale : p.scales;
       const bool ok = g0 + (row & 1) < ng && n0 + c < p.N;
       tc::cp_async16(Ss + row * BN + c, ok ? src + (size_t)(g0 + (row & 1)) * p.N + n0 + c : src,
                      ok ? 16 : 0);
@@ -214,9 +215,9 @@ __device__ __forceinline__ void load_slab(unsigned char* smem, const Args& p, in
     }
     for (int i = t; i < 4 * BN; i += T::PRODUCERS) {
       const int row = i / BN, c = i - row * BN;
-      const bf16* src = row >> 1 ? p.zscale : p.scales;
+      const scale_t* src = row >> 1 ? p.zscale : p.scales;
       const bool ok = g0 + (row & 1) < ng && n0 + c < p.N;
-      Ss[row * BN + c] = ok ? src[(size_t)(g0 + (row & 1)) * p.N + n0 + c] : f2bf(0.f);
+      Ss[row * BN + c] = ok ? src[(size_t)(g0 + (row & 1)) * p.N + n0 + c] : scale_t(0.f);
     }
   }
 }
@@ -329,7 +330,7 @@ struct ColumnConvert {
   __device__ __forceinline__ void slab(unsigned char* Bt, const unsigned char* Wst, int k0,
                                        int gs) {
     const int32_t* Ws = reinterpret_cast<const int32_t*>(Wst);
-    const bf16* Ss = reinterpret_cast<const bf16*>(Wst + W_BYTES);
+    const scale_t* Ss = reinterpret_cast<const scale_t*>(Wst + W_BYTES);
     const int g0 = k0 / gs;
     const int split = ((g0 + 1) * gs - k0) / 8;  // packed rows in the slab's first group
     uint32_t b[2 * PR];
@@ -339,7 +340,7 @@ struct ColumnConvert {
       const int gi = pr < split ? 0 : 1;
       if (g != g0 + gi) {  // uniform across the warp: k0 and gs are
         g = g0 + gi;
-        const float s = bf2f(Ss[gi * BN + col]), z = bf2f(Ss[(2 + gi) * BN + col]);
+        const float s = sc2f(Ss[gi * BN + col]), z = sc2f(Ss[(2 + gi) * BN + col]);
         if constexpr (T::INT8)
           requant_table(lo, s, z, inv_ws[col]);
         else
@@ -532,4 +533,5 @@ cudaError_t launch(const Args& p, cudaStream_t st) {
   return ok != cudaSuccess ? ok : go(q4_ring_kernel<MODE, false>);
 }
 
+SCALE_NS_END
 }  // namespace ring

@@ -66,8 +66,8 @@ constexpr int SUB = UR / 32;     // 32-k steps of a unit
 constexpr int PR = UR / 8;       // packed rows of a unit
 constexpr int STAGES = 3;        // slabs in the ring (a 4th measured no faster)
 constexpr int W_LD = BN + 8;     // words of a staged packed row (lane quads conflict-free)
-constexpr int SZ_OFF = PR * W_LD * 4;             // scale / zero rows: [SUB][2][BN] bf16
-constexpr int X_OFF = SZ_OFF + SUB * 2 * BN * 2;  // x's rows: raw, then formed in place
+constexpr int SZ_OFF = PR * W_LD * 4;                    // scale / zero rows: [SUB][2][BN]
+constexpr int X_OFF = SZ_OFF + SUB * 2 * BN * SC_BYTES;  // x's rows: raw, then formed in place
 static_assert(BN == THREADS, "thread t finishes column t of a one-row tile");
 
 // Register tiles of the rows: MB = 1 (x's one row in every column of B) or
@@ -183,7 +183,7 @@ __device__ __forceinline__ bool w_aligned(const QW& w) {
 __device__ __forceinline__ void load_w(unsigned char* slab, const QW& w, int K, int gs, int u,
                                        int KU, bool aligned, int tid) {
   uint32_t* ws = reinterpret_cast<uint32_t*>(slab);
-  bf16* sz = reinterpret_cast<bf16*>(slab + SZ_OFF);
+  scale_t* sz = reinterpret_cast<scale_t*>(slab + SZ_OFF);
   const int N = w.N, n0 = (u / KU) * BN, k0 = (u % KU) * UR;
   const int ng = UR / gs, g0 = k0 / gs, groups = K / gs;
   if (aligned) {
@@ -196,10 +196,10 @@ __device__ __forceinline__ void load_w(unsigned char* slab, const QW& w, int K, 
                                            : (const void*)w.qweight,
                      ok ? 16 : 0);
     }
-    for (int i = tid; i < ng * 2 * (BN / 8); i += THREADS) {
-      const int row = i / (BN / 8), c = (i % (BN / 8)) * 8, grp = g0 + (row >> 1);
+    for (int i = tid; i < ng * 2 * (BN / SC_VEC); i += THREADS) {
+      const int row = i / (BN / SC_VEC), c = (i % (BN / SC_VEC)) * SC_VEC, grp = g0 + (row >> 1);
       const bool ok = grp < groups && n0 + c < N;
-      const bf16* src = (row & 1 ? w.zscale : w.scales) + (size_t)grp * N + n0 + c;
+      const scale_t* src = (row & 1 ? w.zscale : w.scales) + (size_t)grp * N + n0 + c;
       tc::cp_async16(sz + row * BN + c, ok ? (const void*)src : (const void*)w.scales,
                      ok ? 16 : 0);
     }
@@ -213,7 +213,7 @@ __device__ __forceinline__ void load_w(unsigned char* slab, const QW& w, int K, 
       const int row = i / BN, c = i % BN, grp = g0 + (row >> 1);
       sz[row * BN + c] = grp < groups && n0 + c < N
                              ? (row & 1 ? w.zscale : w.scales)[(size_t)grp * N + n0 + c]
-                             : f2bf(0.f);
+                             : scale_t(0.f);
     }
   }
 }
@@ -410,7 +410,7 @@ __device__ __forceinline__ void unit_products(float (&acc)[Tile<MB>::NT][Tile<MB
   using Frag = typename std::conditional<MODE == q4::EXACT, float, int>::type;
   const int g = lane >> 2, q = lane & 3;
   const uint32_t* ws = reinterpret_cast<const uint32_t*>(slab);
-  const bf16* sz = reinterpret_cast<const bf16*>(slab + SZ_OFF);
+  const scale_t* sz = reinterpret_cast<const scale_t*>(slab + SZ_OFF);
   const float* xsum = reinterpret_cast<const float*>(slab + G.xsum_off);
   const float* sxs = reinterpret_cast<const float*>(slab + G.sx_off);
   const unsigned char* xs = slab + X_OFF + (MB == 1 ? 0 : g * G.xld);  // row g of tile 0
@@ -472,11 +472,8 @@ __device__ __forceinline__ void unit_products(float (&acc)[Tile<MB>::NT][Tile<MB
     }
     if ((32 * (s + 1)) % gs == 0) {  // group gi of the unit ends
       const int gi = 32 * s / gs;
-      const bf16* srow = sz + 2 * gi * BN + warp * 32 + 4 * g;
-      const uint2 sv = *reinterpret_cast<const uint2*>(srow);
-      const uint2 zv = *reinterpret_cast<const uint2*>(srow + BN);
-      const bf16* s4 = reinterpret_cast<const bf16*>(&sv);
-      const bf16* z4 = reinterpret_cast<const bf16*>(&zv);
+      const scale_t* srow = sz + 2 * gi * BN + warp * 32 + 4 * g;
+      const ScaleRow<4> s4(srow), z4(srow + BN);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) {
         if (NT > 1 && nt >= ntu) break;
@@ -496,9 +493,9 @@ __device__ __forceinline__ void unit_products(float (&acc)[Tile<MB>::NT][Tile<MB
               dv = (float)d1[h][nt][j] * sx;
               if constexpr (MODE == q4::A8X2) dv += (float)d2[h][nt][j] * (sx * (1.0f / 254.0f));
             }
-            const float sc = bf2f(s4[c]);
+            const float sc = s4[c];
             // EXACT: d sums x * (128 + q), so 128 * s joins zs
-            const float zc = MODE == q4::EXACT ? fmaf(128.f, sc, bf2f(z4[c])) : bf2f(z4[c]);
+            const float zc = MODE == q4::EXACT ? fmaf(128.f, sc, z4[c]) : z4[c];
             acc[nt][r][c] += sc * dv - zc * xsr;
           }
         }

@@ -15,9 +15,10 @@ int32 per output column reads 128 contiguous bytes, which is what the Hopper
 kernels want, so a checkpoint without act-order loads with no repack at all.
 Act-order rows are sorted group-sequential at load and the activation is
 permuted by ``x_map`` instead. The zero-point is folded into
-``zscale = (z+1)*s``, computed in f32 and rounded once to bf16, so the
-dequantized weights ``q*s - zscale`` are bit-identical to the JAX package's
-default (``scale_dtype="bf16"``).
+``zscale = (z+1)*s``, computed in f32 and rounded once to the scale dtype
+(bf16 by default, or f32: ``TuningParams.scale_dtype``), so the dequantized
+weights ``q*s - zscale`` are bit-identical to the JAX package's under the
+same ``scale_dtype``.
 
 Host-side helpers work on numpy arrays; ``QuantTensor`` holds torch tensors.
 """
@@ -145,8 +146,8 @@ class QuantTensor:
     """
 
     qweight: torch.Tensor            # int32 [K/8, N], GPTQ K-packed nibbles
-    scales: torch.Tensor             # bf16  [K/gs, N]
-    zscale: torch.Tensor             # bf16  [K/gs, N] = (stored_zero+1)*scales
+    scales: torch.Tensor             # bf16 or f32 [K/gs, N]
+    zscale: torch.Tensor             # as scales [K/gs, N] = (stored_zero+1)*scales
     x_map: Optional[torch.Tensor]    # int32 [K] or None
     groupsize: int
     # turbo prefill (with_w8 / with_w8_scale): the weight re-quantized per
@@ -183,11 +184,12 @@ class QuantTensor:
         )
 
 
-def _bf16(a: np.ndarray) -> torch.Tensor:
-    """f32 numpy -> bf16 torch, rounded to nearest even once."""
-    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
-        torch.bfloat16
-    )
+SCALE_TORCH_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def _store(a: np.ndarray, dtype=torch.bfloat16) -> torch.Tensor:
+    """f32 numpy -> torch ``dtype``, rounded to nearest even once."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dtype)
 
 
 def load_quant_tensor(
@@ -196,11 +198,13 @@ def load_quant_tensor(
     scales: np.ndarray,
     g_idx: Optional[np.ndarray] = None,
     device="cpu",
+    scale_dtype: str = "bf16",
 ) -> QuantTensor:
     """Build a :class:`QuantTensor` from GPTQ wire-format tensors.
 
     Groupsize is inferred from the qweight/qzeros shapes. An all-trivial
-    g_idx (sequential groups) is treated as absent.
+    g_idx (sequential groups) is treated as absent. ``scale_dtype`` ("bf16"
+    or "f32") is the storage type of scales and zscale.
     """
     k = qweight.shape[0] * 8
     n = qweight.shape[1]
@@ -225,10 +229,11 @@ def load_quant_tensor(
         words = pack_gptq_qweight(q)
     z = unpack_gptq_qzeros(np.asarray(qzeros, np.int32)).astype(np.float32)
     s32 = np.asarray(scales).astype(np.float32)
+    sdt = SCALE_TORCH_DTYPES[scale_dtype]
     return QuantTensor(
         qweight=torch.from_numpy(np.ascontiguousarray(words)).to(device),
-        scales=_bf16(s32).to(device),
-        zscale=_bf16((z + 1.0) * s32).to(device),   # round once, at store
+        scales=_store(s32, sdt).to(device),
+        zscale=_store((z + 1.0) * s32, sdt).to(device),   # round once, at store
         x_map=None if x_map is None else torch.from_numpy(x_map).to(device),
         groupsize=groupsize,
     )

@@ -1,7 +1,9 @@
 """Parameter construction (port of exllama_tpu/formats/loader.py).
 
   * ``load_model_params``: a GPTQ safetensors checkpoint, read by a small
-    reader of the port's own (no ``safetensors`` package needed);
+    reader of the port's own (no ``safetensors`` package needed; its
+    writer, ``save_safetensors``, serves ``utils/fabricate`` and
+    ``utils/shard``);
   * ``make_synthetic_params``: a random quantized model of any shape, either
     quantized from random float matrices (same draws as the JAX package for
     one seed) or, with ``fast=True``, random packed words and scales made
@@ -11,7 +13,9 @@
 
 All three fuse qkv / gate-up when ``tuning.fuse_projections`` (skipped for
 act-order layers); the first two fold the act-order down-proj permutation
-into the gate/up columns, as the JAX loaders do by default.
+into the gate/up columns where ``tuning.fold_act_order`` (the default, as
+in the JAX loaders), store the scales as ``tuning.scale_dtype`` says and,
+with ``tuning.quantize_lm_head``, quantize the lm_head to 4 bits.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from exllama_tpu_torch.config import ExLlamaConfig
 from exllama_tpu_torch.formats.gptq import (
+    SCALE_TORCH_DTYPES,
     QuantTensor,
     load_quant_tensor,
     npair_padded_n,
@@ -54,7 +59,8 @@ _ST_DTYPES = {
 
 class SafetensorsFile:
     """Minimal reader: 8-byte little-endian header length, a JSON header of
-    {name: {dtype, shape, data_offsets}}, then the raw data."""
+    {name: {dtype, shape, data_offsets}}, then the raw data
+    (``save_safetensors`` writes the same format)."""
 
     def __init__(self, path: str):
         self.path = path
@@ -78,6 +84,51 @@ class SafetensorsFile:
         return self.header[key]["dtype"]
 
 
+# dtypes in the order safetensors lays tensors out (larger first), as it
+# names them
+_ST_ORDER = ("BOOL", "U8", "I8", "I16", "U16", "F16", "BF16", "I32", "U32",
+             "F32", "F64", "I64", "U64")
+_ST_NAMES = {np.dtype(np.bool_): "BOOL", np.dtype(np.uint8): "U8",
+             np.dtype(np.int8): "I8", np.dtype(np.int16): "I16",
+             np.dtype(np.uint16): "U16", np.dtype(np.float16): "F16",
+             np.dtype(np.int32): "I32", np.dtype(np.uint32): "U32",
+             np.dtype(np.float32): "F32", np.dtype(np.float64): "F64",
+             np.dtype(np.int64): "I64", np.dtype(np.uint64): "U64"}
+
+
+def save_safetensors(tensors: "dict[str, np.ndarray]", path: str,
+                     metadata: "dict[str, str] | None" = None) -> int:
+    """Write numpy arrays as a safetensors file, byte for byte as the
+    ``safetensors`` package writes them: an 8-byte little-endian header
+    length, a compact JSON header (``__metadata__`` first), padded with
+    spaces to a multiple of 8 bytes, then the raw little-endian data,
+    tensors ordered by dtype (wider first), then by name. Returns the bytes
+    of tensor data."""
+    def dtype_name(a):
+        return _ST_NAMES[a.dtype.newbyteorder("=")]
+
+    items = sorted(tensors.items(),
+                   key=lambda kv: (-_ST_ORDER.index(dtype_name(kv[1])),
+                                   kv[0]))
+    header: dict = {}
+    if metadata:
+        header["__metadata__"] = metadata
+    off = 0
+    for name, a in items:
+        header[name] = {"dtype": dtype_name(a), "shape": list(a.shape),
+                        "data_offsets": [off, off + a.nbytes]}
+        off += a.nbytes
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for _, a in items:
+            a = np.ascontiguousarray(a, a.dtype.newbyteorder("<"))
+            f.write(memoryview(a.reshape(-1)).cast("B"))
+    return off
+
+
 def _fold_down_act_order(lp: LayerParams) -> LayerParams:
     """Fold the act-order down-proj input permutation into the gate/up
     output columns (numerics unchanged)."""
@@ -93,7 +144,8 @@ def _fold_down_act_order(lp: LayerParams) -> LayerParams:
 
 
 def _finish_layer(lp: LayerParams, config: ExLlamaConfig) -> LayerParams:
-    lp = _fold_down_act_order(lp)
+    if config.tuning.fold_act_order:
+        lp = _fold_down_act_order(lp)
     if config.tuning.fuse_projections:
         lp = fuse_layer_projections(lp)
     return lp
@@ -107,9 +159,32 @@ def _tables(config: ExLlamaConfig, device):
     )
 
 
+def quantize_head(w: np.ndarray, groupsize: int, act_order: bool = False,
+                  rng=None, device="cpu", scale_dtype: str = "bf16"):
+    """A 4-bit lm_head from f32 [hidden, vocab] (``quantize_lm_head``):
+    ``quantize_matrix`` as the JAX loaders call it. The wire format packs
+    zero-points 8 columns a word, so an odd vocab is quantized padded with
+    zero columns and the padding sliced off again (the port's layout has no
+    column packing); the JAX package refuses such a vocab."""
+    n = w.shape[1]
+    pad = -n % 8
+    t = quantize_matrix(np.pad(w, ((0, 0), (0, pad))) if pad else w,
+                        groupsize, act_order, rng)
+    qt = load_quant_tensor(t["qweight"], t["qzeros"], t["scales"],
+                           t.get("g_idx"), device=device,
+                           scale_dtype=scale_dtype)
+    if not pad:
+        return qt
+    return dataclasses.replace(
+        qt, qweight=qt.qweight[:, :n].contiguous(),
+        scales=qt.scales[:, :n].contiguous(),
+        zscale=qt.zscale[:, :n].contiguous())
+
+
 def load_model_params(config: ExLlamaConfig, device="cuda") -> ModelParams:
     """Load a GPTQ safetensors checkpoint (config.model_path)."""
     device = _require_device(device)
+    scale_dtype = config.tuning.scale_dtype
     files = [SafetensorsFile(fn) for fn in config.model_files()]
     where = {k: f for f in files for k in f.keys()}
 
@@ -135,6 +210,7 @@ def load_model_params(config: ExLlamaConfig, device="cuda") -> ModelParams:
             get(f"{prefix}.scales"),
             g_idx,
             device=device,
+            scale_dtype=scale_dtype,
         )
 
     layers = []
@@ -162,11 +238,19 @@ def load_model_params(config: ExLlamaConfig, device="cuda") -> ModelParams:
     config.act_order = act
 
     sin, cos = _tables(config, device)
+    if config.tuning.quantize_lm_head:
+        # loader.py:236-243, at the detected groupsize, else 128
+        head = np.asarray(get("lm_head.weight"), np.float32).T
+        lm_head = quantize_head(np.ascontiguousarray(head),
+                                config.groupsize or 128, device=device,
+                                scale_dtype=scale_dtype)
+    else:
+        lm_head = dense("lm_head.weight").t().contiguous()   # [hidden, vocab]
     return ModelParams(
         embed=dense("model.embed_tokens.weight"),
         layers=layers,
         norm=dense("model.norm.weight"),
-        lm_head=dense("lm_head.weight").t().contiguous(),   # [hidden, vocab]
+        lm_head=lm_head,
         rope_sin=sin,
         rope_cos=cos,
     )
@@ -193,9 +277,12 @@ def make_synthetic_params(
     ``fast=True`` draws packed words and per-group scales directly on
     ``device`` from a ``torch.Generator`` seeded with ``seed`` (the same
     compute and memory profile, ready in seconds at 7B); its weights are
-    not the JAX package's.
+    not the JAX package's. With ``tuning.quantize_lm_head`` the lm_head is
+    drawn as the layers' weights are (act-order too), before the embedding,
+    in the JAX package's order.
     """
     device = _require_device(device)
+    sdt = SCALE_TORCH_DTYPES[config.tuning.scale_dtype]
     h = config.hidden_size
     inter = config.intermediate_size
     kvdim = config.num_key_value_heads * config.head_dim
@@ -219,7 +306,7 @@ def make_synthetic_params(
             if act_order:
                 xm = torch.randperm(k, generator=gen, device=device).to(
                     torch.int32)
-            return QuantTensor(words, s.to(bf16), (8.0 * s).to(bf16), xm,
+            return QuantTensor(words, s.to(sdt), (8.0 * s).to(sdt), xm,
                                groupsize)
 
         def dense(shape, std):
@@ -231,11 +318,8 @@ def make_synthetic_params(
         def qt(k, n):
             w = (rng.standard_normal((k, n), dtype=np.float32)
                  * (0.02 / np.sqrt(k / 4096)))
-            t = quantize_matrix(w, groupsize, act_order, rng)
-            return load_quant_tensor(
-                t["qweight"], t["qzeros"], t["scales"], t.get("g_idx"),
-                device=device,
-            )
+            return quantize_head(w, groupsize, act_order, rng, device,
+                                 config.tuning.scale_dtype)
 
         def dense(shape, std):
             a = rng.standard_normal(shape, dtype=np.float32) * std
@@ -250,7 +334,10 @@ def make_synthetic_params(
             gate=qt(h, inter), up=qt(h, inter), down=qt(inter, h),
         )
         layers.append(_finish_layer(lp, config))
-    lm_head = dense((h, config.vocab_size), 0.02)
+    if config.tuning.quantize_lm_head:
+        lm_head = qt(h, config.vocab_size)
+    else:
+        lm_head = dense((h, config.vocab_size), 0.02)
     embed = dense((config.vocab_size, h), 0.02)
     sin, cos = _tables(config, device)
     return ModelParams(
@@ -270,21 +357,28 @@ def _bf16_from_np(a) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)
 
 
+def _scales_from_np(a) -> torch.Tensor:
+    """JAX scales in their own storage type: f32 stays f32, else bf16."""
+    if np.asarray(a).dtype == np.float32:
+        return torch.from_numpy(np.array(a, np.float32))
+    return _bf16_from_np(a)
+
+
 def _qt_from_jax(jqt, col_slices=None) -> QuantTensor:
     """One JAX npair QuantTensor -> the port's layout. ``col_slices`` picks
     the true columns of a fused tensor whose parts are each padded."""
     n_pad = np.asarray(jqt.qweight).shape[1] * 2
     q = unpack_npair(np.asarray(jqt.qweight))            # [K, N_pad]
-    s = np.asarray(jqt.scales, np.float32)
-    z = np.asarray(jqt.zscale, np.float32)
+    s = np.asarray(jqt.scales)
+    z = np.asarray(jqt.zscale)
     if col_slices is None:
         col_slices = [slice(0, jqt.out_features)]
     cols = np.concatenate([np.arange(n_pad)[sl] for sl in col_slices])
     xm = None if jqt.x_map is None else np.array(jqt.x_map, np.int32)
     return QuantTensor(
         qweight=torch.from_numpy(pack_gptq_qweight(q[:, cols])),
-        scales=_bf16_from_np(s[:, cols]),
-        zscale=_bf16_from_np(z[:, cols]),
+        scales=_scales_from_np(s[:, cols]),
+        zscale=_scales_from_np(z[:, cols]),
         x_map=None if xm is None else torch.from_numpy(xm),
         groupsize=jqt.groupsize,
     )
@@ -336,7 +430,9 @@ def params_from_jax(
         embed=_bf16_from_np(jax_params.embed),
         layers=layers,
         norm=_bf16_from_np(jax_params.norm),
-        lm_head=_bf16_from_np(jax_params.lm_head),
+        lm_head=(_qt_from_jax(jax_params.lm_head)
+                 if hasattr(jax_params.lm_head, "qweight")
+                 else _bf16_from_np(jax_params.lm_head)),
         rope_sin=torch.from_numpy(np.array(jax_params.rope_sin, np.float32)),
         rope_cos=torch.from_numpy(np.array(jax_params.rope_cos, np.float32)),
     )

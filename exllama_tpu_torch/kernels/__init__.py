@@ -5,11 +5,15 @@ library with a plain C interface, loaded with ``ctypes``; the sources of
 the shared GEMV (K1, K6, K7) compile once per arithmetic mode
 (``-DGEMV_MODE``: exact, a8, a8x2), one library each, and K7 once more per
 mode for the quantized KV caches (``-DKV_QUANT=1``), and K3 once more for
-head_dim 256 (``-DFLASH_D256=1``). The libraries go to
+head_dim 256 (``-DFLASH_D256=1``); every library that reads the 4-bit
+weights' scales (K1 / K9, K2 / K12, K6, K7, K10) once more for f32 scales
+(``-DSCALE_F32=1``, ``TuningParams.scale_dtype="f32"``; suffix ``_f32``).
+The libraries go to
 ``exllama_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
 the shared headers and the flags, so an edited source rebuilds and an
-unchanged one is reused. All libraries build in parallel, one ``nvcc``
-each, at the first kernel call (or an explicit :func:`build`). Nothing here
+unchanged one is reused. The libraries of one scale type build in
+parallel, one ``nvcc`` each, at the first call of one of them (an explicit
+:func:`build` builds them all at once). Nothing here
 runs at import time: CPU-only installs import the package freely and never
 build.
 
@@ -92,6 +96,15 @@ for _lib in ("layer_tail", "layer_tail_a8", "layer_tail_a8x2"):
     LIBRARIES[f"{_lib}_kvq"] = (
         "layer_tail", LIBRARIES[_lib][1] + ["-DKV_QUANT=1"])
     _SIGNATURES[f"{_lib}_kvq"] = (f"{_lib}_kvq", *_SIGNATURES[_lib][1:])
+# every library that reads the weights' scales, once more for f32 scales
+SCALED = [lib for lib, (stem, _) in LIBRARIES.items() if stem in (
+    "q4_gemv", "q4_matmul", "q4_mlp", "layer_tail", "q4_prefill_a8")]
+for _lib in SCALED:
+    LIBRARIES[f"{_lib}_f32"] = (LIBRARIES[_lib][0],
+                                LIBRARIES[_lib][1] + ["-DSCALE_F32=1"])
+for _name, (_lib, _fn, _sig) in list(_SIGNATURES.items()):
+    if _lib in SCALED:
+        _SIGNATURES[f"{_name}_f32"] = (f"{_lib}_f32", _fn, _sig)
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -117,14 +130,21 @@ def _target(lib: str) -> Path:
     return BUILD_DIR / f"{lib}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> float:
-    """Compile every library that is not up to date, all in parallel, and
-    load them all. Returns the seconds spent."""
+def scaled(name: str, scales: torch.Tensor) -> str:
+    """Entry point ``name``, or its f32-scale build for f32 ``scales``."""
+    return f"{name}_f32" if scales.dtype == torch.float32 else name
+
+
+def build(libs=None) -> float:
+    """Compile every library of ``libs`` (default: all) that is not up to
+    date, all in parallel, and load them. Returns the seconds spent."""
     t0 = time.time()
+    libs = list(LIBRARIES) if libs is None else list(libs)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = []
-    for lib, (stem, flags) in LIBRARIES.items():
+    for lib in libs:
+        stem, flags = LIBRARIES[lib]
         out = _target(lib)
         if out.exists():
             continue
@@ -147,7 +167,7 @@ def build() -> float:
             (BUILD_DIR / f"{s}.log").read_text()[-4000:] for s in failed
         )
         raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
-    for lib in LIBRARIES:
+    for lib in libs:
         _load(lib)
     return time.time() - t0
 
@@ -169,7 +189,8 @@ def launcher(name: str):
     lib, fn_name, _ = _SIGNATURES[name]
     if lib not in _libs:
         if not _target(lib).exists():
-            build()
+            f32 = lib.endswith("_f32")     # the libraries of its scale type
+            build(l for l in LIBRARIES if l.endswith("_f32") == f32)
         else:
             _load(lib)
     return getattr(_libs[lib], fn_name)

@@ -2,10 +2,12 @@
 exllama_tpu/model_init.py, same flag names).
 
 One argparse vocabulary, mapped onto a config by :func:`make_config` and
-onto a loaded model by :func:`build`. The port runs on one card: ``--tp`` /
-``--dp`` above 1 and ``--matmul_impl xla`` raise ``NotImplementedError``;
-``--cpu`` selects ``torch.device("cpu")``, where every kernel wrapper runs
-its plain PyTorch version.
+onto a loaded model by :func:`build`: every flag of the JAX package's
+``add_args``, and ``--scale_f32`` (which the JAX package's benchmark adds).
+The port runs on one card: ``--tp`` / ``--dp`` above 1 raise
+``NotImplementedError``; ``--cpu`` selects ``torch.device("cpu")``, where
+every kernel wrapper runs its plain PyTorch version; ``--matmul_impl xla``
+runs the plain path on the card, an oracle for the kernels.
 
     --kv_int8          int8 KV cache, one f32 scale per (token, kv head)
     --kv_int4          int4 KV cache, two values a byte
@@ -14,6 +16,7 @@ its plain PyTorch version.
     --turbo_prefill    with --turbo: int8 tensor-core prefill too
     --a8x2             two-pass W4A8 decode matmuls, bf16 KV
     --fuse_layer       the whole decode layer in one K7 launch
+    --scale_f32        f32 scales and zero-scales (the f32-scale builds)
 """
 
 from __future__ import annotations
@@ -80,14 +83,17 @@ def add_args(parser: argparse.ArgumentParser):
                              "MLP; tuning.fuse_qkv)")
     parser.add_argument("--matmul_impl", type=str, default="auto",
                         choices=["auto", "pallas", "xla"],
-                        help="q4 matmul implementation (the port has no "
-                             "'xla' path)")
+                        help="q4 matmul implementation ('xla': the plain "
+                             "path, an oracle for the kernels)")
     parser.add_argument("--attn_bucket", type=int, default=256,
                         help="Decode attention length bucket (0 = full cache)")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (plain PyTorch versions)")
     parser.add_argument("--max_input_len", type=int, default=2048,
                         help="Chunked-prefill max rows per chunk")
+    parser.add_argument("--scale_f32", action="store_true",
+                        help="store quantization scales in f32 (each 4-bit "
+                             "kernel runs its f32-scale build)")
 
 
 def device_of(args) -> torch.device:
@@ -123,7 +129,8 @@ def get_model_files(args):
 def make_config(args) -> ExLlamaConfig:
     if args.tp > 1 or args.dp > 1:
         raise NotImplementedError(
-            f"--tp {args.tp} --dp {args.dp}: the port runs on one device")
+            f"--tp {args.tp} --dp {args.dp}: the port runs on one device "
+            f"(parallelism is ROADMAP.md queue 1 item 8)")
     config = ExLlamaConfig(args.config)
     config.model_path = args.model
     config.max_seq_len = args.length
@@ -135,7 +142,7 @@ def make_config(args) -> ExLlamaConfig:
     if args.alpha != 1.0:
         config.alpha_value = args.alpha
         config.calculate_rotary_embedding_base()
-    config.tuning.matmul_impl = args.matmul_impl   # "xla": NotImplementedError
+    config.tuning.matmul_impl = args.matmul_impl   # "xla": the plain path
     config.tuning.attn_len_bucket = args.attn_bucket
     if getattr(args, "kv_int8", False) or getattr(args, "turbo", False):
         config.tuning.kv_cache_dtype = "int8"
@@ -161,6 +168,9 @@ def make_config(args) -> ExLlamaConfig:
         config.tuning.fuse_qkv = True
     if getattr(args, "scale_f32", False):
         config.tuning.scale_dtype = "f32"
+    # a flag of the port's benchmark (exllama_tpu_torch.benchmark)
+    if getattr(args, "no_fold_act_order", False):
+        config.tuning.fold_act_order = False
     return config
 
 

@@ -2,7 +2,8 @@
 device, no LoRA: fused qkv / gate-up projections, a bf16, int8 or int4 KV
 cache (``kv_cache_dtype``; optionally padded to a head width K3 takes,
 ``pad_head_dim``), 4-bit matmuls in the arithmetic ``matmul_impl`` names
-(exact by default, the W4A8 turbo modes opt-in) and a bf16 lm_head, with
+(exact by default, the W4A8 turbo modes opt-in, ``"xla"`` the plain path
+as an oracle) and a bf16 or 4-bit (``quantize_lm_head``) lm_head, with
 the JAX package's decode
 knobs (``TuningParams.fuse_mlp / fuse_attn / fuse_qkv / commit_impl``, its
 defaults too).
@@ -90,7 +91,7 @@ class ModelParams:
     embed: torch.Tensor           # [vocab, hidden] bf16
     layers: list                  # list[LayerParams]
     norm: torch.Tensor            # [hidden] bf16
-    lm_head: torch.Tensor         # [hidden, vocab] bf16
+    lm_head: "torch.Tensor | QuantTensor"   # [hidden, vocab] bf16, or 4-bit
     rope_sin: torch.Tensor        # [max_seq_len, head_dim] f32
     rope_cos: torch.Tensor
 
@@ -178,10 +179,10 @@ def _decoder_layer(
     flash = resolve_attn_impl(attn_impl, head_dim + d_pad) == "flash"
     attend_fn = attend if flash else attend_xla
     mlp_ok = mlp_fuse and fused_mlp_applicable(lp.gateup, lp.down, hidden,
-                                               b * t)
+                                               b * t, impl)
     attn_ok = (flash and defer_kv and attn_fuse
                and attn_o_applicable(lp.o, hidden, heads, head_dim, t, True,
-                                     batch=b, kv_heads=kv_heads))
+                                     batch=b, kv_heads=kv_heads, impl=impl))
 
     # the whole layer in one K7 launch (llama.py:188-232)
     if (qkv_fuse and attn_ok and mlp_ok
@@ -298,10 +299,11 @@ def forward_chunk(
     """One forward chunk over all layers (exllama_tpu/models/llama.py:
     forward_chunk, single device, no LoRA): embedding -> layers -> final
     norm -> lm_head. Returns f32 logits [B, T|1, vocab], int32 greedy token
-    ids [B, T|1] with ``head_mode="argmax"`` (kernel K5; no logits are
-    materialized), or None with ``preprocess_only``. Writes the chunk's K/V
-    into ``cache`` in place; the cursor ``cache.current_seq_len`` is the
-    caller's. The fuse flags, ``commit_impl``, ``matmul_impl`` and
+    ids [B, T|1] with ``head_mode="argmax"`` (kernel K5 over a bf16 head, no
+    logits materialized; a 4-bit head's logits through ``q4_matmul``, then
+    argmax, as the JAX package does), or None with ``preprocess_only``.
+    Writes the chunk's K/V into ``cache`` in place; the cursor
+    ``cache.current_seq_len`` is the caller's. The fuse flags, ``commit_impl``, ``matmul_impl`` and
     ``attn_impl`` are the JAX package's knobs; ``matmul_impl`` defaults to
     the exact kernels, ``attn_impl`` to K3 where it takes the head dim."""
     if head_mode not in ("logits", "argmax"):
@@ -361,10 +363,18 @@ def forward_chunk(
         return None
     if last_token_only:
         h = h[:, -1:, :]
+    if isinstance(params.lm_head, QuantTensor):
+        # llama.py:581-588: K1 at <= 32 rows, K2 above ("xla": plain)
+        logits = q4_matmul(rms_norm(h, params.norm, eps), params.lm_head,
+                           matmul_impl)
+        if head_mode == "argmax":
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits.to(torch.float32)
     if head_mode == "argmax":
-        return head_argmax(h, params.norm, params.lm_head, eps)
+        return head_argmax(h, params.norm, params.lm_head, eps,
+                           impl=matmul_impl)
     h = rms_norm(h, params.norm, eps)
-    return dense_matmul(h, params.lm_head)
+    return dense_matmul(h, params.lm_head, impl=matmul_impl)
 
 
 def _require_device(device) -> torch.device:
@@ -477,18 +487,15 @@ class ExLlama:
         return min(self.config.max_seq_len, -(-upto // bucket) * bucket)
 
     def num_params_bytes(self) -> int:
-        total = 0
+        """Bytes of the parameters, a 4-bit lm_head's packed words and
+        scales included."""
         p = self.params
-        for x in (p.embed, p.norm, p.lm_head, p.rope_sin, p.rope_cos):
-            total += x.numel() * x.element_size()
-        for lp in p.layers:
-            for f in dataclasses.fields(LayerParams):
-                x = getattr(lp, f.name)
-                if isinstance(x, QuantTensor):
-                    total += _quant_bytes(x)
-                elif x is not None:
-                    total += x.numel() * x.element_size()
-        return total
+        tensors = [p.embed, p.norm, p.lm_head, p.rope_sin, p.rope_cos]
+        tensors += [getattr(lp, f.name) for lp in p.layers
+                    for f in dataclasses.fields(LayerParams)]
+        return sum(_quant_bytes(x) if isinstance(x, QuantTensor)
+                   else x.numel() * x.element_size()
+                   for x in tensors if x is not None)
 
     def w8_image_bytes(self) -> int:
         """Bytes of the int8 images and column scales of turbo prefill."""

@@ -90,14 +90,18 @@ def kv_mode(k_cache: torch.Tensor, d: int, k_scale) -> int:
                      f"width {d}")
 
 
-def count_launch(fn, mode: int):
-    """One more launch on ``fn``'s counter for this cache format."""
-    attr = "launches" if mode == 0 else f"launches_{KV_MODES[mode]}"
+def count_launch(fn, mode: int, f32: bool = False):
+    """One more launch on ``fn``'s counter for this cache format; a build
+    over f32 weight scales counts on ``launches_f32`` whatever the format."""
+    attr = ("launches_f32" if f32 else
+            "launches" if mode == 0 else f"launches_{KV_MODES[mode]}")
     setattr(fn, attr, getattr(fn, attr) + 1)
 
 
-def init_launch_counters(fn):
+def init_launch_counters(fn, f32: bool = False):
     fn.launches = fn.launches_int8 = fn.launches_int4 = 0
+    if f32:
+        fn.launches_f32 = 0
 
 
 # ------------------------------------------------------- row quantization
@@ -148,7 +152,14 @@ def _write_at(cache, new, past_len):
     place. An int cursor is one slice write, and one outside the cache
     raises. A [1] / [B] tensor cursor is one indexed write that reads it on
     the device (no host sync); a row whose T positions do not lie in
-    [0, S) is left as it was, as K8 (``kv_commit``) leaves it."""
+    [0, S) is left as it was, as K8 (``kv_commit``) leaves it.
+
+    A stated deviation from the JAX package: its ``update_kv_cache``
+    (attention.py:106-122) writes through a vmapped
+    ``jax.lax.dynamic_update_slice``, which clamps the start into
+    [0, S - T] after counting a negative one from the end, so a row at
+    cursor S lands at S - 1 and one at -1 at S - 1 too, over a valid row. The port skips such a row instead; rows inside the
+    cache are written identically (tests/test_torch_knobs.py pins both)."""
     b, t, hkv = new.shape[:3]
     new = new.transpose(1, 2)
     if isinstance(past_len, int):
@@ -572,7 +583,10 @@ def kv_commit(k_caches, v_caches, new_k, new_v, past: torch.Tensor,
     into k_caches[l] / v_caches[l] [B, Hkv, S, D] at the cursor ``past``, an
     int32 tensor [1] (shared) or [B] (one a row) on the caches' device that
     the kernel reads (a row whose cursor is outside [0, S) is not written,
-    as the plain writes at a tensor cursor leave it), in place, in one launch; for a quantized cache the kernel quantizes
+    as the plain writes at a tensor cursor leave it: the JAX package's
+    clamped write would land it on a row inside, ``_write_at`` says where
+    and why the port does not), in place, in one launch; for a quantized
+    cache the kernel quantizes
     each row (:func:`quantize_kv_rows` / ``quantize_kv_rows4``) and writes
     its scale into k_scales[l] / v_scales[l] [B, Hkv, S] too. CPU caches
     take the plain per-layer writes. ``ptrs`` is :func:`kv_ptr_array` of
@@ -651,7 +665,9 @@ def commit_kv_cache(k_caches, v_caches, new_k, new_v, past_len,
     is stacked first, the plain route for a caller that does not stage
     them. ``"xla"`` and ``"auto"`` -- which resolves to the plain writes,
     as in the JAX package -- write one layer at a time with
-    :func:`update_kv_cache`."""
+    :func:`update_kv_cache`. On either route a row whose tensor cursor lies
+    outside [0, S) is left unwritten, where the JAX package's clamped write
+    lands it on a valid row: a stated deviation (``_write_at``)."""
     if impl not in COMMIT_IMPLS:
         raise ValueError(f"commit_impl {impl!r}")
     quantized = k_scales is not None

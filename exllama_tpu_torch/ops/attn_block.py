@@ -14,7 +14,8 @@ under the W4A8 values of ``impl`` ("pallas_a8", "pallas_a8x2",
 the same source), on ``layer_tail_a8.launches``; a launch over an int8 or
 int4 KV cache (``k_scale`` / ``v_scale`` given, as ``ops.attention.attend``
 takes them) counts on ``launches_int8`` / ``launches_int4`` of the same
-function instead. The attention arithmetic is K3's in every case. The
+function instead, and one over f32 weight scales (the ``_f32`` builds) on
+``launches_f32``. The attention arithmetic is K3's in every case. The
 ``*_plain`` functions are their plain PyTorch versions, the separate path's
 composition (``attend_plain`` and the q4 plain products), which CPU tensors
 take. The caller checks ``attn_o_applicable`` (and, for the MLP and qkv
@@ -63,12 +64,15 @@ MAX_GROUP = 8          # ... and at most 8 query heads per kv head
 
 def attn_o_applicable(o, hidden: int, heads: int, head_dim: int, t: int,
                       deferred: bool, batch: int = 1,
-                      kv_heads: Optional[int] = None) -> bool:
-    """The JAX gate's semantic conditions (attn_block.py:438-469): decode
-    only (T = 1, deferred commit), B <= 32, an o-proj without act-order
-    whose input is the heads and whose output is the residual. K7's own
-    limits: head_dim 128, at most 8 query heads per kv head, the groupsizes
-    its GEMV takes."""
+                      kv_heads: Optional[int] = None,
+                      impl: str = "auto") -> bool:
+    """The JAX gate's semantic conditions (attn_block.py:438-469): a
+    kernel ``impl`` (not the plain "xla"), decode only (T = 1, deferred
+    commit), B <= 32, an o-proj without act-order whose input is the heads
+    and whose output is the residual. K7's own limits: head_dim 128, at most
+    8 query heads per kv head, the groupsizes its GEMV takes."""
+    if check_matmul_impl(impl) == "xla":
+        return False
     if o is None or not deferred or t != 1 or batch > GEMV_MAX_M:
         return False
     if o.x_map is not None or o.groupsize not in (32, 64, 128):
@@ -94,8 +98,11 @@ def layer_step_applicable(qkv, o, hidden: int, heads: int,
 
 
 def same_groupsize(*qts) -> bool:
-    """One groupsize across the tensors one K7 launch reads."""
-    return len({qt.groupsize for qt in qts if qt is not None}) <= 1
+    """One groupsize (and one scale dtype) across the tensors one K7
+    launch reads."""
+    qts = [qt for qt in qts if qt is not None]
+    return (len({qt.groupsize for qt in qts}) <= 1
+            and len({qt.scales.dtype for qt in qts}) <= 1)
 
 
 # ------------------------------------------------------------ plain versions
@@ -272,6 +279,9 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
     a8 = impl in A8_IMPLS
     lib = "layer_tail" if not a8 else (
         "layer_tail_a8x2" if impl == "pallas_a8x2" else "layer_tail_a8")
+    if impl == "xla":
+        raise ValueError("layer_tail is a kernel: impl 'xla' runs the plain "
+                         "layer")
     b, t, hidden = h.shape
     dev = h.device
     if t != 1 or b > GEMV_MAX_M:
@@ -307,7 +317,9 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
             check_qt_tensors(qt, dev)
     if not same_groupsize(*qts) or any(
             qt is not None and qt.x_map is not None for qt in qts):
-        raise ValueError("layer_tail: one groupsize and no act-order")
+        raise ValueError("layer_tail: one groupsize and scale dtype, no "
+                         "act-order")
+    lib = kernels.scaled(lib, o.scales)
     past = _past_tensor(past_len, b, dev).contiguous()
     mask = None
     if input_mask is not None:
@@ -389,7 +401,8 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
         nsplit_cap, attend_len, mode, float(eps), 1.0 / math.sqrt(d),
         kernels.stream_of(h2),
     ), lib)
-    count_launch(layer_tail_a8 if a8 else layer_tail, mode)
+    count_launch(layer_tail_a8 if a8 else layer_tail, mode,
+                 f32=o.scales.dtype == torch.float32)
     return out.reshape(b, 1, hidden), k_row, v_row
 
 
@@ -472,5 +485,5 @@ def layer_step(h, qkv, input_norm, rope_sin, rope_cos, k_cache, v_cache,
                    rows_out=rows_out)
 
 
-init_launch_counters(layer_tail)
-init_launch_counters(layer_tail_a8)
+init_launch_counters(layer_tail, f32=True)
+init_launch_counters(layer_tail_a8, f32=True)

@@ -6,7 +6,9 @@ where the JAX package leaves it to ``jnp.dot``. The greedy head
 ``head_argmax`` (final norm -> lm_head -> argmax, no logits kept) is kernel
 K5 (csrc/head_argmax.cu), the port of ``dense.py:_head_argmax_kernel``,
 on K4's loop with the norm applied as x is staged. Both take any vocabulary
-size (an odd one through K4's unaligned loads).
+size (an odd one through K4's unaligned loads). ``impl="xla"`` (the model's
+``matmul_impl``) runs the plain versions on any device, as the JAX package
+sends its head to ``jnp.dot`` under "xla": an oracle, never a fallback.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from exllama_tpu_torch import kernels
+from exllama_tpu_torch.config import check_matmul_impl
 from exllama_tpu_torch.ops import full_f32_matmul
 from exllama_tpu_torch.ops.norms import rms_norm
 from exllama_tpu_torch.ops.quant import gemv_scratch, stream_k_ranges
@@ -109,11 +112,12 @@ def dense_gemv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 dense_gemv.launches = 0
 
 
-def dense_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., K] @ w [K, N] with f32 output."""
+def dense_matmul(x: torch.Tensor, w: torch.Tensor,
+                 impl: str = "auto") -> torch.Tensor:
+    """x [..., K] @ w [K, N] with f32 output; ``impl="xla"``: plain."""
     *lead, k = x.shape
     x2 = x.reshape(-1, k)
-    if x2.shape[0] <= GEMV_MAX_M:
+    if x2.shape[0] <= GEMV_MAX_M and check_matmul_impl(impl) != "xla":
         out = dense_gemv(x2.to(w.dtype), w)
     else:
         out = dense_gemv_plain(x2, w)
@@ -213,16 +217,18 @@ def _head_argmax_rows(x: torch.Tensor, norm_w: torch.Tensor, w: torch.Tensor,
 
 
 def head_argmax(h: torch.Tensor, norm_w: torch.Tensor, w: torch.Tensor,
-                eps: float) -> torch.Tensor:
+                eps: float, impl: str = "auto") -> torch.Tensor:
     """Greedy head: rms_norm -> lm_head GEMV -> argmax, no logits kept.
 
     h [B, T, hidden] (or [B, hidden]) -> int32 token ids [B, T] (or [B, 1]).
     K5 for CUDA tensors with B*T <= 32; the plain composition for more rows,
-    as the JAX package does (dense.py:183-188), and for CPU tensors."""
+    as the JAX package does (dense.py:183-188), for CPU tensors and under
+    ``impl="xla"``."""
     *lead, k = h.shape
     b = lead[0] if lead else 1
     x = h.reshape(-1, k)
-    if h.device.type == "cpu" or x.shape[0] > GEMV_MAX_M:
+    if (h.device.type == "cpu" or x.shape[0] > GEMV_MAX_M
+            or check_matmul_impl(impl) == "xla"):
         ids = head_argmax_plain(x, norm_w, w, eps)
     elif h.device.type == "cuda":
         ids = _head_argmax_rows(x, norm_w, w, eps)

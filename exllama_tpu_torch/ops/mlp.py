@@ -9,8 +9,8 @@ separate-kernel path's composition with the same cast points, and
 GEMV phases around silu(gate)*up). Under the
 W4A8 values of ``impl`` ("pallas_a8", "pallas_a8x2", "pallas_a8t") both
 GEMVs run K9's integer arithmetic (the a8 builds of the same source;
-launches count on ``q4_mlp_a8``). The caller checks
-``fused_mlp_applicable`` first.
+launches count on ``q4_mlp_a8``; over f32 scales on ``launches_f32``). The
+caller checks ``fused_mlp_applicable`` first.
 """
 
 from __future__ import annotations
@@ -26,6 +26,7 @@ from exllama_tpu_torch.ops.quant import (
     GEMV_MAX_M,
     _check_qt,
     check_qt_tensors,
+    count_launch,
     fused_gemv_scratch,
     fused_gemv_split_plain,
     q4_gemv_a8_plain,
@@ -35,13 +36,19 @@ from exllama_tpu_torch.ops.quant import (
 KERNEL_GROUPSIZES = (32, 64, 128)
 
 
-def fused_mlp_applicable(gateup, down, hidden: int, m: int) -> bool:
-    """The JAX gate's semantic conditions (mlp.py:249-286): fused gate|up
-    and down present, no act-order on either, residual width == down's
-    output, one groupsize, M small enough for the GEMV regime. The TPU
-    conditions (npair layout, N_ALIGN padding, the VMEM budget) have no
-    counterpart; K6's own limit is the groupsizes its GEMV takes."""
+def fused_mlp_applicable(gateup, down, hidden: int, m: int,
+                         impl: str = "auto") -> bool:
+    """The JAX gate's semantic conditions (mlp.py:249-286): a kernel
+    ``impl`` (not the plain "xla"), fused gate|up and down present, no
+    act-order on either, residual width == down's output, one groupsize and
+    one scale dtype, M small enough for the GEMV regime. The TPU conditions
+    (npair layout, N_ALIGN padding, the VMEM budget) have no counterpart;
+    K6's own limit is the groupsizes its GEMV takes."""
+    if check_matmul_impl(impl) == "xla":
+        return False
     if gateup is None or down is None or m > GEMV_MAX_M:
+        return False
+    if gateup.scales.dtype != down.scales.dtype:
         return False
     if gateup.x_map is not None or down.x_map is not None:
         return False
@@ -110,7 +117,7 @@ def q4_mlp(h: torch.Tensor, norm_w: torch.Tensor, gateup: QuantTensor,
     h2 = h.reshape(-1, hidden).contiguous()
     m = h2.shape[0]
     inter = down.in_features
-    if not fused_mlp_applicable(gateup, down, hidden, m):
+    if not fused_mlp_applicable(gateup, down, hidden, m, impl):
         raise ValueError("q4_mlp: shapes outside fused_mlp_applicable")
     _check_qt(h2, gateup)
     check_qt_tensors(down, h.device)
@@ -121,8 +128,9 @@ def q4_mlp(h: torch.Tensor, norm_w: torch.Tensor, gateup: QuantTensor,
     base = scratch.data_ptr()
     gpart, gticket = fused_gemv_scratch(h.device, m, 2 * inter)
     out = torch.empty_like(h2)
-    lib = "q4_mlp" if not a8 else (
-        "q4_mlp_a8x2" if impl == "pallas_a8x2" else "q4_mlp_a8")
+    lib = kernels.scaled("q4_mlp" if not a8 else (
+        "q4_mlp_a8x2" if impl == "pallas_a8x2" else "q4_mlp_a8"),
+        gateup.scales)
     kernels.check(kernels.launcher(lib)(
         h2.data_ptr(), norm_w.data_ptr(), gateup.qweight.data_ptr(),
         gateup.scales.data_ptr(), gateup.zscale.data_ptr(),
@@ -131,7 +139,7 @@ def q4_mlp(h: torch.Tensor, norm_w: torch.Tensor, gateup: QuantTensor,
         kernels.ptr(gpart), kernels.ptr(gticket), out.data_ptr(),
         m, hidden, inter, gateup.groupsize, float(eps), kernels.stream_of(h2),
     ), lib)
-    (q4_mlp_a8 if a8 else q4_mlp).launches += 1
+    count_launch(q4_mlp_a8 if a8 else q4_mlp, gateup)
     return out.reshape(*lead, hidden)
 
 
@@ -141,5 +149,5 @@ def q4_mlp_a8(h, norm_w, gateup, down, eps, two_pass: bool = False):
                   "pallas_a8x2" if two_pass else "pallas_a8")
 
 
-q4_mlp.launches = 0
-q4_mlp_a8.launches = 0
+q4_mlp.launches = q4_mlp.launches_f32 = 0
+q4_mlp_a8.launches = q4_mlp_a8.launches_f32 = 0

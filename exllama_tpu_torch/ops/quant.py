@@ -28,6 +28,12 @@ threshold measured on a TPU and kept for now):
 K2, K12, K10 and K11 are the exact, GLU, int8 and W8 modes of one
 pipelined tensor-core kernel (csrc/q4_ring.cuh).
 
+``impl="xla"`` is the plain path, ``_q4_matmul_plain`` on any device (the
+JAX package's ``impl == "xla"`` branch): an oracle that runs only where it is
+named, never a fallback. A tensor with f32 scales (``scale_dtype="f32"``)
+runs each kernel's f32-scale build (``kernels.scaled``); its launches count
+on the wrapper's ``launches_f32``, not on ``launches``.
+
 Act-order x is gathered, and at M > 32 the norm applied, before the
 prefill kernels. Each kernel wrapper runs its plain PyTorch version for CPU
 tensors only (the tests), launches the kernel for CUDA tensors and raises
@@ -46,6 +52,7 @@ import torch.nn.functional as F
 from exllama_tpu_torch import kernels
 from exllama_tpu_torch.config import A8_IMPLS, check_matmul_impl
 from exllama_tpu_torch.formats.gptq import (
+    SCALE_TORCH_DTYPES,
     QuantTensor,
     dequantize_t,
     unpack_qweight,
@@ -73,19 +80,33 @@ def _q4_matmul_plain(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+SCALE_DTYPES = tuple(SCALE_TORCH_DTYPES.values())
+
+
 def check_qt_tensors(qt: QuantTensor, device: torch.device):
     """Raise unless qt's tensors are what the kernels read, on ``device``:
     any groupsize that is a multiple of 32 and divides K (the reference
-    takes any that divides K)."""
+    takes any that divides K); scales and zero-scales both bf16 or both f32
+    (each scale type has its own kernel builds)."""
     gs, k = qt.groupsize, qt.in_features
     if gs <= 0 or gs % 32 or k % gs:
         raise ValueError(f"groupsize {gs} with K = {k}: the kernels take a "
                          f"multiple of 32 that divides K")
+    sdt = qt.scales.dtype
+    if sdt not in SCALE_DTYPES:
+        raise ValueError(f"scales: need one of {SCALE_DTYPES}, got {sdt}")
     for name, t, dt in (("qweight", qt.qweight, torch.int32),
-                        ("scales", qt.scales, torch.bfloat16),
-                        ("zscale", qt.zscale, torch.bfloat16)):
+                        ("scales", qt.scales, sdt),
+                        ("zscale", qt.zscale, sdt)):
         if t.dtype != dt or not t.is_contiguous() or t.device != device:
             raise ValueError(f"{name}: need contiguous {dt} on {device}")
+
+
+def count_launch(fn, qt: QuantTensor):
+    """One more launch on ``fn``'s counter: ``launches``, or
+    ``launches_f32`` for the f32-scale build (qt's scales are f32)."""
+    attr = "launches_f32" if qt.scales.dtype == torch.float32 else "launches"
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def _check_qt(x: torch.Tensor, qt: QuantTensor):
@@ -333,6 +354,7 @@ def _gemv_launch(lib, x, qt, norm_w, norm_eps):
             x.device, tiles * nsplit * gemv_rows(m) * GEMV_BN, tiles)
     else:
         part, ticket = fused_gemv_scratch(x.device, 1, n)
+    lib = kernels.scaled(lib, qt.scales)
     kernels.check(kernels.launcher(lib)(
         x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
         qt.zscale.data_ptr(), kernels.ptr(norm_w), kernels.ptr(qt.x_map),
@@ -352,11 +374,11 @@ def q4_gemv(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_eps=1e-6):
         raise RuntimeError(f"q4_gemv: unsupported device {x.device}")
     x, norm_w = _gemv_checks("q4_gemv", x, qt, norm_w)
     out = _gemv_launch("q4_gemv", x, qt, norm_w, norm_eps)
-    q4_gemv.launches += 1
+    count_launch(q4_gemv, qt)
     return out
 
 
-q4_gemv.launches = 0
+q4_gemv.launches = q4_gemv.launches_f32 = 0
 
 
 def q4_gemv_a8(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_eps=1e-6,
@@ -371,11 +393,11 @@ def q4_gemv_a8(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_eps=1e-6,
     x, norm_w = _gemv_checks("q4_gemv_a8", x, qt, norm_w)
     out = _gemv_launch("q4_gemv_a8x2" if two_pass else "q4_gemv_a8", x, qt,
                        norm_w, norm_eps)
-    q4_gemv_a8.launches += 1
+    count_launch(q4_gemv_a8, qt)
     return out
 
 
-q4_gemv_a8.launches = 0
+q4_gemv_a8.launches = q4_gemv_a8.launches_f32 = 0
 
 
 def _prefill_input(name, x, qt):
@@ -398,16 +420,17 @@ def q4_dequant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
     m, k = x.shape
     out = torch.empty((m, qt.out_features), dtype=torch.bfloat16,
                       device=x.device)
-    kernels.check(kernels.launcher("q4_matmul")(
+    lib = kernels.scaled("q4_matmul", qt.scales)
+    kernels.check(kernels.launcher(lib)(
         x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
         qt.zscale.data_ptr(), out.data_ptr(), m, k, qt.out_features,
         qt.groupsize, kernels.stream_of(x),
-    ), "q4_matmul")
-    q4_dequant_matmul.launches += 1
+    ), lib)
+    count_launch(q4_dequant_matmul, qt)
     return out
 
 
-q4_dequant_matmul.launches = 0
+q4_dequant_matmul.launches = q4_dequant_matmul.launches_f32 = 0
 
 
 def glu_silu_mul(x: torch.Tensor, ni: int, ou: int) -> torch.Tensor:
@@ -441,16 +464,17 @@ def q4_matmul_glu(x: torch.Tensor, qt: QuantTensor, ni: int,
         x = x.clone()
     out = torch.empty((m, qt.out_features), dtype=torch.bfloat16,
                       device=x.device)
-    kernels.check(kernels.launcher("q4_matmul_glu")(
+    lib = kernels.scaled("q4_matmul_glu", qt.scales)
+    kernels.check(kernels.launcher(lib)(
         x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
         qt.zscale.data_ptr(), out.data_ptr(), m, ni, qt.out_features,
         qt.groupsize, w_in, ou, kernels.stream_of(x),
-    ), "q4_matmul_glu")
-    q4_matmul_glu.launches += 1
+    ), lib)
+    count_launch(q4_matmul_glu, qt)
     return out
 
 
-q4_matmul_glu.launches = 0
+q4_matmul_glu.launches = q4_matmul_glu.launches_f32 = 0
 
 
 def w8_matmul_plain(x, w8, ws, out_dtype=None):
@@ -530,17 +554,18 @@ def q4_prefill_a8(x: torch.Tensor, qt: QuantTensor,
         raise RuntimeError(f"q4_prefill_a8: unsupported device {x.device}")
     x, xq, sx, out = _int8_operands("q4_prefill_a8", x, qt, ws)
     m, k = x.shape
-    kernels.check(kernels.launcher("q4_prefill_a8")(
+    lib = kernels.scaled("q4_prefill_a8", qt.scales)
+    kernels.check(kernels.launcher(lib)(
         x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
         qt.zscale.data_ptr(), ws.data_ptr(), xq.data_ptr(), sx.data_ptr(),
         out.data_ptr(), m, k, qt.out_features, qt.groupsize,
         kernels.stream_of(x),
-    ), "q4_prefill_a8")
-    q4_prefill_a8.launches += 1
+    ), lib)
+    count_launch(q4_prefill_a8, qt)
     return out
 
 
-q4_prefill_a8.launches = 0
+q4_prefill_a8.launches = q4_prefill_a8.launches_f32 = 0
 
 
 def q4_matmul(
@@ -560,6 +585,7 @@ def q4_matmul(
     product runs over silu(x[..., :ni]) * x[..., ou:ou+ni]; in the kernel
     (K12) at M > 32 without act-order and outside "pallas_a8t", formed up
     front otherwise. Composes with neither ``norm_w`` nor act-order fusion.
+    ``impl="xla"``: the plain path on any device, no kernel.
     """
     impl = check_matmul_impl(impl)
     if glu is not None:
@@ -570,14 +596,16 @@ def q4_matmul(
         *lead, w_in = x.shape
         x2 = x.reshape(-1, w_in)
         if (x2.shape[0] > GEMV_MAX_M and qt.x_map is None
-                and impl != "pallas_a8t" and qt.in_features == ni
+                and impl not in ("xla", "pallas_a8t") and qt.in_features == ni
                 and ou % 8 == 0 and w_in % 8 == 0):
             return q4_matmul_glu(x2, qt, ni, ou).reshape(
                 *lead, qt.out_features)
         x = glu_silu_mul(x, ni, ou)
     *lead, k = x.shape
     x2 = x.reshape(-1, k)
-    if x2.shape[0] <= GEMV_MAX_M:
+    if impl == "xla":
+        out = q4_gemv_plain(x2, qt, norm_w, norm_eps)
+    elif x2.shape[0] <= GEMV_MAX_M:
         if impl in A8_IMPLS:
             out = q4_gemv_a8(x2, qt, norm_w, norm_eps,
                              two_pass=impl == "pallas_a8x2")

@@ -45,10 +45,18 @@ def test_config_parses_written_config_json(tmp_path):
     ("quantize_lm_head", True),
 ])
 def test_tuning_knob_outside_the_slice_raises(knob, value):
+    """Every value of these knobs is the port's now: the JAX
+    package's other value is taken and read back, a value the JAX package
+    does not take raises ValueError (scale_dtype) or is no knob value."""
     t = TuningParams()
-    setattr(t, knob, getattr(t, knob))       # the slice value is accepted
-    with pytest.raises(NotImplementedError):
-        setattr(t, knob, value)
+    default = getattr(t, knob)
+    setattr(t, knob, default)
+    setattr(t, knob, value)
+    assert getattr(t, knob) == value
+    setattr(t, knob, default)
+    assert getattr(t, knob) == default
+    with pytest.raises(ValueError):
+        t.scale_dtype = "f16"
 
 
 @pytest.mark.parametrize("knob,value", [
@@ -129,6 +137,9 @@ def test_import_leaves_out_jax():
         "import exllama_tpu_torch.ops.mlp, exllama_tpu_torch.ops.attn_block\n"
         "import exllama_tpu_torch.models.llama as llama\n"
         "import exllama_tpu_torch.model_init, exllama_tpu_torch.cache\n"
+        "import exllama_tpu_torch.perplexity, exllama_tpu_torch.benchmark\n"
+        "import exllama_tpu_torch.utils.fabricate\n"
+        "import exllama_tpu_torch.utils.shard\n"
         "assert llama._attach_prefill_w8 and llama.q4_matmul\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'exllama_tpu' or m.startswith('exllama_tpu.')"

@@ -974,3 +974,118 @@ def test_kv_commit_quantized_matches_plain(gen, kind, d):
     for got, want in zip(caches + scales, ref_c + ref_s):
         assert torch.equal(got, want)
     assert not torch.equal(caches[0][:, :, past], caches[0][:, :, past - 1])
+
+
+# ------------------------------------------------- f32 scales, the xla path
+
+def _f32(qt, gen):
+    """qt with f32 scales carrying bits below bf16's (scale_dtype="f32")."""
+    def widen(t):
+        u = torch.rand(t.shape, generator=gen, device=t.device) - 0.5
+        return t.float() * (1.0 + u * 2.0 ** -8)
+    return dataclasses.replace(qt, scales=widen(qt.scales),
+                               zscale=widen(qt.zscale))
+
+
+def _one_f32_launch(fn, call):
+    """call() launches fn's f32-scale build once: launches_f32 + 1,
+    launches unchanged."""
+    before = fn.launches, fn.launches_f32
+    out = call()
+    assert (fn.launches, fn.launches_f32) == (before[0], before[1] + 1)
+    return out
+
+
+@pytest.mark.parametrize("m,k,n,gs,act,norm", [
+    (1, 512, 520, 128, False, True), (1, 1024, 264, 256, False, False),
+    (5, 512, 200, 64, True, False), (18, 2048, 384, 128, False, True),
+])
+def test_q4_gemv_f32_scales_match_plain(gen, m, k, n, gs, act, norm):
+    """K1's f32-scale build (both routes) at K1's 1e-2, and K9's (a8,
+    a8x2) at 5e-3 against the unrounded plain sums."""
+    qt = _f32(_qt(gen, k, n, gs, act), gen)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    nw = (torch.rand(k, generator=gen, device="cuda") + 0.5).bfloat16() \
+        if norm else None
+    got = _one_f32_launch(quant.q4_gemv,
+                          lambda: quant.q4_gemv(x, qt, nw, 1e-5))
+    _close(got, quant.q4_gemv_plain(x, qt, nw, 1e-5), 1e-2)
+    for two_pass in (False, True):
+        got = _one_f32_launch(quant.q4_gemv_a8, lambda: quant.q4_gemv_a8(
+            x, qt, nw, 1e-5, two_pass=two_pass))
+        _close(got, quant.q4_gemv_a8_plain(x, qt, nw, 1e-5, two_pass,
+                                           torch.float32), 5e-3)
+
+
+@pytest.mark.parametrize("m,k,n,gs", [(33, 256, 520, 32), (257, 512, 260, 128),
+                                      (1919, 320, 136, 64)])
+def test_ring_f32_scales_match_plain(gen, m, k, n, gs):
+    """K2 (1e-2), K10 (5e-3, unrounded plain) and K12 (1e-2) in their
+    f32-scale builds, N off a multiple of 8 included."""
+    qt = _f32(_qt(gen, k, n, gs, False), gen)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    got = _one_f32_launch(quant.q4_dequant_matmul,
+                          lambda: quant.q4_dequant_matmul(x, qt))
+    _close(got, quant._q4_matmul_plain(x, qt), 1e-2)
+    ws = w8_col_scale(qt)
+    got = _one_f32_launch(quant.q4_prefill_a8,
+                          lambda: quant.q4_prefill_a8(x, qt, ws))
+    _close(got, quant.q4_prefill_a8_plain(x, qt, ws, torch.float32), 5e-3)
+    xg = torch.randn((m, 2 * k), generator=gen, device="cuda").bfloat16()
+    got = _one_f32_launch(quant.q4_matmul_glu,
+                          lambda: quant.q4_matmul_glu(xg, qt, k, k))
+    _close(got, quant.q4_matmul_glu_plain(xg, qt, k, k), 1e-2)
+
+
+@pytest.mark.parametrize("m", [1, 18])
+def test_q4_mlp_and_layer_tail_f32_scales_match_plain(gen, m):
+    """K6 and K7 (layer_step at B = m) in their f32-scale builds, 2e-2 as
+    the bf16 builds."""
+    hidden, heads, hkv, d, inter, s_max, gs = 1024, 8, 2, 128, 1152, 256, 128
+    gateup = _f32(_qt(gen, hidden, 2 * inter, gs, False), gen)
+    down = _f32(_qt(gen, inter, hidden, gs, False), gen)
+    nw = (torch.rand(hidden, generator=gen, device="cuda") + 0.5).bfloat16()
+    h = torch.randn((m, 1, hidden), generator=gen, device="cuda").bfloat16()
+    got = _one_f32_launch(mlp.q4_mlp,
+                          lambda: mlp.q4_mlp(h, nw, gateup, down, 1e-6))
+    _close(got, mlp.q4_mlp_plain(h, nw, gateup, down, 1e-6), 2e-2)
+
+    o = _f32(_qt(gen, hidden, hidden, gs, False), gen)
+    qkv = _f32(_qt(gen, hidden, (heads + 2 * hkv) * d, gs, False), gen)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.5).bfloat16()
+
+    kc, vc = rnd(m, hkv, s_max, d), rnd(m, hkv, s_max, d)
+    sin, cos = rope.rope_tables(s_max, d, device="cuda")
+    sin_t, cos_t = rope.slice_tables(sin, cos, 100, 1)
+    args = (h * 0.5, qkv, nw, sin_t, cos_t, kc, vc, 100, s_max, o, nw,
+            gateup, down, 1e-6, heads, hkv, d, None)
+    got, kr, vr = _one_f32_launch(attn_block.layer_tail,
+                                  lambda: attn_block.layer_step(*args))
+    ref, kr_ref, vr_ref = attn_block.layer_step_plain(*args)
+    _close(kr, kr_ref, 1e-2)
+    _close(got, ref, 2e-2)
+
+
+def test_xla_runs_no_kernel_on_the_card(gen):
+    """matmul_impl="xla" on CUDA tensors is the plain path: the 4-bit and
+    lm_head wrappers launch nothing, and the result is the plain version's."""
+    qt = _qt(gen, 512, 264, 128, True)
+    w = (torch.randn((512, 1000), generator=gen, device="cuda")
+         * 0.02).bfloat16()
+    counters = (quant.q4_gemv, quant.q4_dequant_matmul, dense.dense_gemv,
+                dense.head_argmax)
+    before = [f.launches for f in counters]
+    for m in (1, 40):
+        x = torch.randn((m, 512), generator=gen, device="cuda").bfloat16()
+        assert torch.equal(quant.q4_matmul(x, qt, "xla"),
+                           quant.q4_gemv_plain(x, qt))
+        assert torch.equal(dense.dense_matmul(x, w, impl="xla"),
+                           dense.dense_gemv_plain(x, w))
+        nw = torch.ones(512, dtype=torch.bfloat16, device="cuda")
+        assert torch.equal(dense.head_argmax(x[:, None], nw, w, 1e-6, "xla"),
+                           dense.head_argmax_plain(x, nw, w, 1e-6).reshape(
+                               m, 1))
+    assert [f.launches for f in counters] == before

@@ -314,18 +314,24 @@ def test_make_config_matches_jax(flags, tmp_path):
 
 
 def test_model_init_flag_vocabulary_is_the_jax_one():
+    """Every flag of the JAX add_args, with its default, and one more:
+    --scale_f32, which the JAX package's benchmark adds beside it."""
     def flags(mod):
         parser = argparse.ArgumentParser()
         mod.add_args(parser)
         return {tuple(a.option_strings): (a.default, a.nargs, a.type)
                 for a in parser._actions}
 
-    assert flags(model_init) == flags(jinit)
+    ours, ref = flags(model_init), flags(jinit)
+    assert ours.pop(("--scale_f32",)) == (False, 0, None)
+    assert ours == ref
 
 
 @pytest.mark.parametrize("argv", [["--tp", "2"], ["--dp", "2"],
-                                  ["--matmul_impl", "xla"]])
+                                  ["--tp", "2", "--dp", "2"]])
 def test_model_init_refuses_what_the_port_lacks(argv, tmp_path):
+    """Tensor and data parallelism (``--matmul_impl xla``, once refused
+    here, is the plain path now: tests/test_torch_knobs.py)."""
     path = tmp_path / "config.json"
     path.write_text("{}")
     args = _parse(model_init, ["-c", str(path), "-m", "x"] + argv)

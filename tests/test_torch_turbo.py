@@ -609,10 +609,11 @@ def test_matmul_knobs_accept_and_reject():
     assert t.matmul_impl == ref.matmul_impl == "auto"
     assert t.prefill_w8 == ref.prefill_w8 == "auto"
     assert t.prefill_w8_budget_gb is None     # the JAX default is a 16 GiB
-    for impl in ("auto", "pallas", "pallas_a8", "pallas_a8x2", "pallas_a8t"):
+    for impl in ("auto", "pallas", "pallas_a8", "pallas_a8x2", "xla",
+                 "pallas_a8t"):
         t.matmul_impl = impl
         assert t.matmul_impl == impl
-    for impl in ("xla", "pallas_interpret", "pallas_a8_interpret",
+    for impl in ("pallas_interpret", "pallas_a8_interpret",
                  "pallas_a8x2_interpret", "pallas_a8t_interpret"):
         with pytest.raises(NotImplementedError):
             t.matmul_impl = impl
@@ -627,8 +628,11 @@ def test_matmul_knobs_accept_and_reject():
     t.prefill_w8_budget_gb = 40.0
     _, qt = _qt_pair(64, 16, 32, 1)
     x = torch.ones((1, 64), dtype=torch.bfloat16)
+    # "xla" is the plain path (an oracle), the interpret strings TPU-only
+    assert torch.equal(quant.q4_matmul(x, qt, "xla"),
+                       quant._q4_matmul_plain(x, qt))
     with pytest.raises(NotImplementedError):
-        quant.q4_matmul(x, qt, "xla")
+        quant.q4_matmul(x, qt, "pallas_interpret")
     with pytest.raises(ValueError):
         quant.q4_matmul(x, qt, "cublas")
 
