@@ -96,8 +96,24 @@ Phases, one line or block of output each; any failure exits non-zero:
      port's fabricate (7B width, act-order g128, 4 layers) through -d -v
      with the act-order fold on and off (K1 on the unfolded down
      projection, no K6 / K7).
+ 11. the compiled decode step on the same 32-layer model:
+     ``generator.gen_tokens`` and the benchmark's greedy loop
+     (``benchmark.greedy_loop``) through captured CUDA graphs, one per
+     attend-length bucket, each held bit for bit (tokens and caches)
+     against the same step run eagerly from the same state: B = 1 top-k 1
+     from 249 tokens across the 256 bucket, B = 1 sampled (top-k 40, top-p
+     0.65, penalty 1.15: the captured Philox stream is the eager one), B = 2
+     with a left-padded row and its mask, and the greedy loop against
+     forward_chunk(head_mode="argmax") at int cursors; the launch counters
+     after n replays n x the captured step's (K1 32, K7 32, K4 1 sampled;
+     K7 32, K5 1, K8 1 greedy); one replay of each traced by torch.profiler
+     (the kernels by name, the device's idle share beside phase 6's eager
+     step); graph and eager tok/s in turns. Phase 4 also holds the
+     generator's features on its 2-layer model against the CPU: beam
+     search at top-k 1 (= the card's greedy) and with 3 beams alive (K1 /
+     K7 at B = 3, K4 at M = 3), CFG (K7 at B = 2) and constraints.
 
-Each of phases 5-10 sets every launch counter to 0 just before it drives
+Each of phases 5-11 sets every launch counter to 0 just before it drives
 its path (phase 10: each benchmark run) and reads them just after; a kernel its path must run that shows no
 launch fails the run. The line before the last is a JSON summary of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. Needs exactly
@@ -2002,8 +2018,159 @@ def model_vs_cpu(device):
                                  f"the CPU max")
     cfg.tuning.fuse_qkv = False
     cfg.tuning.commit_impl = "auto"
+    features = generator_vs_cpu(cpu_model, gpu_model, ids[:, :24])
     return (worst, turbo_model_vs_cpu(cfg, cpu_params, steps[:5], device),
-            kv_model_vs_cpu(cfg, cpu_model, gpu_model, steps[:3]))
+            kv_model_vs_cpu(cfg, cpu_model, gpu_model, steps[:3]), features)
+
+
+def _generator(model, batch=1, **settings):
+    import exllama_tpu_torch as port
+
+    g = port.ExLlamaGenerator(
+        model, port.FakeTokenizer(), port.ExLlamaCache(model, batch_size=batch),
+        seed=SEED)
+    for k, v in settings.items():
+        setattr(g.settings, k, v)
+    return g
+
+
+def _penalized(logits, g):
+    """Row 0 of the generator's penalized, BOS-banned logits."""
+    from exllama_tpu_torch.ops.sampling import apply_rep_penalty
+
+    s = g.settings
+    row = apply_rep_penalty(logits, g._seq_buf, g.sequence.shape[1],
+                            s.token_repetition_penalty_max,
+                            s.token_repetition_penalty_sustain,
+                            s.token_repetition_penalty_decay)[0]
+    row[g.tokenizer.bos_token_id] -= 10000.0
+    return row
+
+
+def forced_gaps(model, ids, toks, score=_penalized, mask=None, rank=1):
+    """Teacher-forced on ``model`` after ``ids`` (each token of ``toks``
+    appended to every row in turn): how far each lies below the rank-th
+    best of ``score(logits, generator)``, over the raw logits' scale."""
+    g = _generator(model, batch=ids.shape[0])
+    g.gen_begin(ids, mask=mask)
+    gaps = []
+    for t in toks:
+        logits = model.forward(g.sequence[:, -1:], g.cache,
+                               input_mask=g._mask)[:, -1].float()
+        row = score(logits, g)
+        gaps.append(float(row.topk(rank).values[-1] - row[int(t)])
+                    / float(logits.abs().max()))
+        g.gen_accept_token(np.full((ids.shape[0], 1), t, np.int32))
+        g._sync_seq_buf()
+    return gaps
+
+
+def generator_vs_cpu(cpu_model, gpu_model, ids):
+    """Phase 4's generator features on the 2-layer full-width model, the
+    card against the CPU: beam search at top-k 1 (beams 3, length 4, 8
+    tokens) equal to the card's own greedy tokens bit for bit and, on the
+    CPU's teacher-forced logits, within 3% of the scale of its best; beam
+    search with 3 beams alive (top-k 3, top-p off), each step at 3 rows
+    launching K1 and K7 at B = 3 and K4 at M = 3, each committed token
+    among the best 3 of the card's teacher-forced logits; generate_cfg (alpha 0.3, 8 tokens, top-k 1)
+    within 3% of the CPU's best mixed log-softmax, K7 at B = 2 a step;
+    gen_single_token(constraints=) in the set and within 3% of the CPU's
+    constrained best."""
+    out = {}
+    bg = _generator(gpu_model, top_k=1, beams=3, beam_length=4)
+    bg.gen_begin(ids)
+    bg.begin_beam_search()
+    beam = [int(bg.beam_search()[0, 0]) for _ in range(8)]
+    bg.end_beam_search()
+    gg = _generator(gpu_model, top_k=1)
+    gg.gen_begin(ids)
+    greedy_toks = [int(gg.gen_single_token()[0, 0]) for _ in range(8)]
+    if beam != greedy_toks:
+        raise AssertionError(f"phase 4 beams top-k 1 {beam} vs greedy "
+                             f"{greedy_toks}")
+    gaps = forced_gaps(cpu_model, ids, beam)
+    if max(gaps) > 0.03:
+        raise AssertionError(f"phase 4 beams top-k 1 vs CPU: gaps {gaps}")
+    out["beams top-k 1"] = max(gaps)
+
+    b3 = _generator(gpu_model, top_k=3, top_p=0.0, beams=3, beam_length=4)
+    b3.gen_begin(ids)
+    b3.begin_beam_search()
+    steps, step = [], b3._beam_step
+
+    def counted_step(n_out):
+        rows, c0 = b3._beam_seqs.shape[0], counts()
+        r = step(n_out)
+        c1 = counts()
+        steps.append((rows, {k: c1[k] - c0[k] for k in c1}))
+        return r
+
+    b3._beam_step = counted_step
+    toks3 = [int(b3.beam_search()[0, 0]) for _ in range(8)]
+    b3.end_beam_search()
+    at3 = [c for rows, c in steps if rows == 3]
+    if not at3:
+        raise AssertionError(f"phase 4 beams: no step at 3 rows "
+                             f"({[r for r, _ in steps]})")
+    for c in at3:
+        require("phase 4 beam step at B = 3", c,
+                {"q4_gemv": 2, "layer_tail": 2, "dense_gemv": 1,
+                 "flash_attn": 0})
+    # each committed token among the 3 best of the card's teacher-forced
+    # logits, the candidates the filter keeps (the card decides both)
+    gaps = forced_gaps(gpu_model, ids, toks3, rank=3)
+    if max(gaps) > 0.0:
+        raise AssertionError(f"phase 4 beams top-k 3: gaps {gaps}")
+    out["beams at B = 3"] = (max(gaps), len(at3), len(steps))
+
+    from exllama_tpu_torch.tokenizer import FakeTokenizer
+
+    prompts = ["a cheerful story about", "a sad and dull report on"]
+    cg = _generator(gpu_model, batch=2, top_k=1)
+    zero_counts()
+    cg.generate_cfg(prompts, 0.3, 8)
+    c = counts()
+    cids, cmask = FakeTokenizer().encode(prompts, return_mask=True)
+    done = cg.sequence.shape[1] - cids.shape[1]
+    n_steps = done + (done < 8)
+    require("phase 4 CFG", c, {"layer_tail": 2 * n_steps,
+                               "dense_gemv": n_steps})
+    full = np.zeros((2, cpu_model.config.max_seq_len), bool)
+    full[:, :cids.shape[1]] = cmask
+
+    def mixed(logits, g):
+        from exllama_tpu_torch.ops.sampling import apply_rep_penalty
+
+        s = g.settings
+        lg = apply_rep_penalty(logits, g._seq_buf, g.sequence.shape[1],
+                               s.token_repetition_penalty_max,
+                               s.token_repetition_penalty_sustain,
+                               s.token_repetition_penalty_decay)
+        lp = torch.log_softmax(lg, dim=-1)
+        return 0.7 * lp[0] + 0.3 * lp[1]
+
+    gaps = forced_gaps(cpu_model, cids, cg.sequence[0, cids.shape[1]:],
+                       score=mixed, mask=full)
+    if gaps and max(gaps) > 0.03:
+        raise AssertionError(f"phase 4 CFG vs CPU: gaps {gaps}")
+    out["cfg"] = (max(gaps, default=0.0), done)
+
+    allowed = [300, 301, 400, 500]
+    got = []
+    for model in (gpu_model, cpu_model):
+        g = _generator(model, top_k=1)
+        g.gen_begin(ids)
+        got.append(int(g.gen_single_token(constraints=allowed)[0, 0]))
+
+    def constrained(logits, g):
+        return _penalized(logits, g) + g._logit_bias(allowed).to(logits.device)
+
+    gap = forced_gaps(cpu_model, ids, got[:1], score=constrained)[0]
+    if got[0] not in allowed or gap > 0.03:
+        raise AssertionError(f"phase 4 constraints: card {got[0]}, CPU "
+                             f"{got[1]}, gap {gap}")
+    out["constraints"] = (got, gap)
+    return out
 
 
 # the groupsize and head dims the port now takes on the card: (label,
@@ -2460,22 +2627,40 @@ def main_path(mp):
     return r1
 
 
-def step_kernels(step):
-    """The device's kernel and memset launches in one call of ``step``, by
-    name, from a torch.profiler trace of the card (None where the trace
-    shows no device activity)."""
+def trace_step(step):
+    """One call of ``step`` traced by torch.profiler on the card: (the
+    device's kernel and memset launches by name, the device's idle share
+    between the first launch's start and the last one's end), or (None,
+    None) where three traces in a row show no device activity (a later
+    profiler session in one process has come back empty)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        step()
+    for _ in range(3):      # a trace may come back empty: take the next
         torch.cuda.synchronize()
-    names = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            names[e.name] = names.get(e.name, 0) + 1
-    return names or None
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step()
+            torch.cuda.synchronize()
+        names, spans = {}, []
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                names[e.name] = names.get(e.name, 0) + 1
+                spans.append((e.time_range.start, e.time_range.end))
+        if spans:
+            break
+    else:
+        return None, None
+    spans.sort()
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    window = max(b for _, b in spans) - spans[0][0]
+    return names, dict(window_us=window, busy_us=busy,
+                       idle_share=1.0 - busy / window if window else 0.0)
 
 
 def greedy(mp, label, profile=False, **knobs):
@@ -2515,14 +2700,16 @@ def greedy(mp, label, profile=False, **knobs):
         f"launches per step {per_step}")
     out = dict(decode_tps=128 / dt, host_s=t_host, per_decode_step=per_step)
     if profile:
-        traced = step_kernels(lambda: forward_chunk(
+        traced, idle = trace_step(lambda: forward_chunk(
             model.params, cache, tok, past + 128, None, **kw))
         cache.current_seq_len = past + 129
-        out["step_kernels"] = traced
-        log(f"  greedy {label}: one step traced by torch.profiler: "
+        out["step_kernels"], out["step_idle"] = traced, idle
+        log(f"  greedy {label}: one eager step traced by torch.profiler: "
             + ("no device activity in the trace (not measured)"
                if traced is None else
-               f"{sum(traced.values())} device launches: {traced}"))
+               f"{sum(traced.values())} device launches, device idle "
+               f"{idle['idle_share']:.1%} of {idle['window_us']:.1f} us: "
+               f"{traced}"))
     return out
 
 
@@ -2804,10 +2991,14 @@ NOT_UNDER_XLA = ("q4_gemv", "q4_dequant_matmul", "dense_gemv", "head_argmax",
                  "w8_matmul", "q4_matmul_glu", "q4_mlp_a8", "layer_tail_a8")
 BENCH_STEPS = (
     # label, benchmark argv, environment, launches wanted (None: at least one)
+    # -p at -l 2048: 5 prefills of 1920 tokens (K2 128, K3 32 each); 480
+    # generator steps at each context (K1 32, K7 32, K4 1 a step) and 480
+    # greedy steps (K7 32, K5 1, K8 1), nearly all of them graph replays,
+    # which count the launches they captured
     ("-p", ["--synthetic", "7b", "-p"], {},
-     {k: None for k in ("q4_gemv", "q4_dequant_matmul", "flash_attn",
-                        "dense_gemv", "layer_tail", "head_argmax",
-                        "kv_commit")}),
+     {"q4_gemv": 30720, "q4_dequant_matmul": 640, "flash_attn": 160,
+      "dense_gemv": 960, "layer_tail": 46080, "head_argmax": 480,
+      "kv_commit": 480}),
     ("--matmul_impl xla -ppl", ["--synthetic", "7b", "-ppl",
                                 "--matmul_impl", "xla"], {},
      {**{k: 0 for k in NOT_UNDER_XLA},
@@ -2941,6 +3132,230 @@ def benchmark_path(launches):
     return res
 
 
+# -------------------------------------------------------------- phase 11
+
+# the kernels each captured decode step launches on the 32-layer model
+SAMPLED_STEP = {"q4_gemv": 32, "layer_tail": 32, "dense_gemv": 1,
+                "flash_attn": 0, "kv_commit": 0, "head_argmax": 0}
+GREEDY_STEP = {"layer_tail": 32, "head_argmax": 1, "kv_commit": 1,
+               "q4_gemv": 0, "flash_attn": 0, "dense_gemv": 0}
+STEP_KERNELS = {"sampled": ("q4_gemv", "layer_tail_kernel", "dense_gemv"),
+                "greedy": ("layer_tail_kernel", "head_argmax", "kv_commit")}
+
+
+def counter_names():
+    """{(wrapper, attribute): name in counts()} for a graph's captured
+    counts (``kernels.launch_counts`` keys)."""
+    return {v: k for k, v in launch_counters().items()}
+
+
+def captured(loop):
+    """{attend_len: {counter name: launches a replay}} of a DecodeLoop."""
+    names = counter_names()
+    return {a: {**{k: 0 for k in launch_counters()},
+                **{names[k]: n for k, n in e[1].items()}}
+            for a, e in sorted(loop.graphs.items())}
+
+
+def same_caches(label, a, b):
+    for x, y in zip(a._tensor_lists(), b._tensor_lists()):
+        for s, t in zip(x, y):
+            if not torch.equal(s, t):
+                raise AssertionError(f"phase 11 {label}: caches differ")
+
+
+def generator_pair(mp, batch=1, **settings):
+    """Two generators on fresh caches of the 32-layer model, one seed: the
+    first replays captured graphs, the second runs the same step eagerly
+    (``DecodeLoop.capture = False``)."""
+    port, tok = mp.port, mp.tok
+    gens = []
+    for capture in (True, False):
+        g = port.ExLlamaGenerator(
+            mp.model, tok, port.ExLlamaCache(mp.model, batch_size=batch),
+            seed=SEED)
+        g.disallow_tokens([tok.eos_token_id])
+        for k, v in settings.items():
+            setattr(g.settings, k, v)
+        g._loop.capture = capture
+        gens.append(g)
+    return gens
+
+
+def graph_vs_eager(mp, label, ids, n, mask=None, **settings):
+    """gen_tokens(n) through the graphs and eagerly from the same state:
+    tokens and caches bit-equal; the graph run's launches n x the step's,
+    and each graph's captured counts the step's. Returns the graphed
+    generator."""
+    g, e = generator_pair(mp, ids.shape[0], **settings)
+    for x in (g, e):
+        x.gen_begin(ids, mask=mask)
+    zero_counts()
+    got = g.gen_tokens(n)
+    c = counts()
+    ref = e.gen_tokens(n)
+    if not np.array_equal(got, ref):
+        raise AssertionError(f"phase 11 {label}: graph {got.tolist()} vs "
+                             f"eager {ref.tolist()}")
+    same_caches(label, g.cache, e.cache)
+    require(f"phase 11 {label}", c,
+            {k: v * n for k, v in SAMPLED_STEP.items()})
+    caps = captured(g._loop)
+    for a, cc in caps.items():
+        require(f"phase 11 {label} graph at attend_len {a}", cc, SAMPLED_STEP)
+    log(f"  [11] {label}: {n} tokens bit-equal to the eager step "
+        f"({got[:, :8].tolist()}...), graphs at attend_len {list(caps)}, "
+        f"launches {({k: v for k, v in c.items() if v})}")
+    return g, e
+
+
+def time_turns(label, runs, n):
+    """Each of ``runs`` ({name: fn(n)}) in turns (A B B A), fenced by
+    torch.cuda.synchronize(); the faster of each one's two, as tok/s."""
+    order = list(runs) + list(runs)[::-1]
+    best = {}
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name](n)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        best[name] = min(best.get(name, dt), dt)
+    out = {k: n / v for k, v in best.items()}
+    log(f"  [11] {label}, {n} tokens a run, A B B A: " + ", ".join(
+        f"{k} {v:.2f} tok/s" for k, v in out.items()))
+    return out
+
+
+def compiled_decode(mp):
+    """Phase 11: the compiled decode step on the 32-layer Llama-7B-shape
+    model -- gen_tokens and the benchmark's greedy loop through captured
+    CUDA graphs, one per attend-length bucket, held bit for bit against the
+    same step run eagerly from the same state; launch counters through the
+    replays; a torch.profiler trace of one replay (kernels by name, the
+    device's idle share); graph and eager tok/s in turns."""
+    from exllama_tpu_torch import benchmark
+    from exllama_tpu_torch.models.llama import forward_chunk
+
+    cfg, model, tok = mp.cfg, mp.model, mp.tok
+    res = {}
+    ids = mp.ids[:, :250]
+    graph_vs_eager(mp, "B=1 top-k 1 from 249 across the 256 bucket", ids, 16,
+                   top_k=1)
+    g, e = graph_vs_eager(
+        mp, "B=1 sampled (top-k 40, top-p 0.65, penalty 1.15)", ids, 16)
+    ids2, m2 = tok.encode(["Once upon a time",
+                           "In a land far away, long before the port"],
+                          return_mask=True, max_seq_len=cfg.max_seq_len)
+    full = np.zeros((2, cfg.max_seq_len), bool)
+    full[:, :ids2.shape[1]] = m2
+    graph_vs_eager(mp, "B=2, row 0 left-padded, with its mask", ids2, 16,
+                   mask=full, top_k=1)
+
+    # the benchmark's greedy loop (fuse_qkv + K8) against forward_chunk(
+    # head_mode="argmax") called eagerly at int cursors, after the prompt
+    cache = mp.port.ExLlamaCache(model)
+    model.forward(mp.ids[:, :-1], cache, preprocess_only=True)
+    ref_cache = cache.clone()
+    past = cache.current_seq_len
+    last = torch.as_tensor(mp.ids[:, -1:], device=model.device)
+    loop = benchmark.greedy_loop(model, cache)
+    zero_counts()
+    got = benchmark.greedy_decode(loop, last, past, 32).cpu()
+    c = counts()
+    require("phase 11 greedy loop", c,
+            {k: v * 32 for k, v in GREEDY_STEP.items()})
+    for a, cc in captured(loop).items():
+        require(f"phase 11 greedy graph at attend_len {a}", cc, GREEDY_STEP)
+    kw = dict(attend_len=cfg.max_seq_len, last_token_only=True,
+              preprocess_only=False, heads=cfg.num_attention_heads,
+              kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
+              eps=cfg.rms_norm_eps, head_mode="argmax", qkv_fuse=True,
+              commit_impl="pallas")
+    t, ref = last, []
+    for i in range(32):
+        t = forward_chunk(model.params, ref_cache, t, past + i, None, **kw)
+        ref.append(t)
+    ref = torch.cat(ref, dim=1).cpu()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"phase 11 greedy loop: graph {got.tolist()} vs "
+                             f"eager {ref.tolist()}")
+    ref_cache.current_seq_len = past + 32
+    same_caches("greedy loop", cache, ref_cache)
+    log(f"  [11] greedy loop (fuse_qkv + K8, attend_len {cfg.max_seq_len}): "
+        f"32 tokens bit-equal to eager forward_chunk(head_mode=\"argmax\"); "
+        f"launches {({k: v for k, v in c.items() if v})}")
+
+    # one replay of each graph traced (phase 6 traces an eager step of the
+    # greedy path); the sampled graph at the 2048 bucket after the
+    # 1919-token prompt
+    g.gen_begin(mp.ids)
+    e.gen_begin(mp.ids)
+    took = []
+    for _ in range(2):       # the bucket's capture (eager step + capture), a replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.gen_tokens(1)
+        took.append(time.perf_counter() - t0)
+    e.gen_tokens(2)
+    res["capture_ms"], res["replay_ms"] = took[0] * 1e3, took[1] * 1e3
+    log(f"  [11] gen_tokens(1) at a new bucket (eager step + capture): "
+        f"{took[0] * 1e3:.1f} ms; at a captured one (a replay): "
+        f"{took[1] * 1e3:.2f} ms (host clock, the token fetched)")
+    entry = g._loop.graphs[2048]
+    for label, step in (("sampled", entry[0].replay),
+                        ("greedy", loop.graphs[cfg.max_seq_len][0].replay)):
+        want = STEP_KERNELS[label]
+        names, idle = trace_step(step)
+        if names is None:
+            log(f"  [11] {label} replay traced: no device activity in the "
+                f"trace (not measured)")
+            continue
+        missing = [k for k in want if not any(k in n for n in names)]
+        if missing:
+            raise AssertionError(f"phase 11 {label} replay: no {missing} "
+                                 f"in the trace {names}")
+        res[f"{label}_replay"] = dict(launches=sum(names.values()), **idle)
+        top = sorted(names.items(), key=lambda kv: -kv[1])[:8]
+        log(f"  [11] {label} step, one replay traced: "
+            f"{sum(names.values())} device launches in "
+            f"{idle['window_us']:.1f} us, device busy {idle['busy_us']:.1f} "
+            f"us, idle {idle['idle_share']:.1%}; most launched: "
+            + "; ".join(f"{n} x {k[:90]}" for k, n in top))
+    # graph against eager, the same path, in turns
+    g.gen_begin(mp.ids)
+    e.gen_begin(mp.ids)
+    g.gen_tokens(4)                    # captures the 2048 bucket's graph
+    res["sampled_tps"] = time_turns(
+        "generator decode (sampled, 1919-token context)",
+        {"graph": lambda n: (g.gen_tokens(n), g.gen_rewind(n)),
+         "eager": lambda n: (e.gen_tokens(n), e.gen_rewind(n))}, 64)
+
+    def greedy_graph(n):
+        benchmark.greedy_decode(loop, last, past, n)
+
+    def greedy_eager(n):
+        t = last
+        for i in range(n):
+            t = forward_chunk(model.params, ref_cache, t, past + i, None, **kw)
+
+    res["greedy_tps"] = time_turns(
+        "greedy loop (fuse_qkv + K8, 1919-token context)",
+        {"graph": greedy_graph, "eager": greedy_eager}, 64)
+    # the kernels' tickets (K3, the GEMVs) and K5's keys read zero after
+    # the replays: each launch's last block resets them
+    from exllama_tpu_torch import kernels
+
+    held = [t for t in kernels.scratch_in_use(model.params.embed.device)
+            if not t.is_floating_point()]
+    if not held or any(int(t.count_nonzero()) for t in held):
+        raise AssertionError("phase 11: tickets or keys not zero after the "
+                             "replays")
+    log(f"  [11] {len(held)} ticket / key buffers read zero after the "
+        f"replays")
+    return res
+
+
 # ------------------------------------------------------------------- main
 
 SOURCES = {
@@ -3031,7 +3446,7 @@ def main() -> int:
     log(f"[3 kernels] all agree ({time.time() - t0:.1f} s)")
 
     t0 = time.time()
-    worst, worst_turbo, worst_kv = model_vs_cpu(device)
+    worst, worst_turbo, worst_kv, features = model_vs_cpu(device)
     log(f"[4 model] 2 layers at 7B width, 64-token prefill + 8 decode steps, "
         f"default and fuse_qkv + K8 commit: card vs CPU logits within "
         f"{worst:.4f} of the logit scale (limit 0.03), greedy head agrees; "
@@ -3044,6 +3459,17 @@ def main() -> int:
                     f"{KV_MODEL_TOL[k][0]}), decode within {v[1]:.4f} (limit "
                     f"{KV_MODEL_TOL[k][1]})" for k, v in worst_kv.items())
         + f" ({time.time() - t0:.1f} s)")
+    log(f"[4 model] generator features, card vs CPU (teacher-forced gaps "
+        f"over the logit scale, limit 0.03): beam search top-k 1 = the "
+        f"card's greedy, gap {features['beams top-k 1']:.4f}; 3 beams "
+        f"(top-k 3): gap to the card's own 3rd best "
+        f"{features['beams at B = 3'][0]:.4f}, "
+        f"{features['beams at B = 3'][1]} of "
+        f"{features['beams at B = 3'][2]} steps at B = 3 (K1 2, K7 2, K4 1 "
+        f"each); CFG alpha 0.3: {features['cfg'][1]} tokens, gap "
+        f"{features['cfg'][0]:.4f}, K7 at B = 2 a step; constraints: card / "
+        f"CPU tokens {features['constraints'][0]}, gap "
+        f"{features['constraints'][1]:.4f}")
     t0 = time.time()
     shaped = shapes_model_vs_cpu(device)
     log("[4 model] 2 layers at full width, attn_impl auto, 64-token prefill "
@@ -3139,6 +3565,24 @@ def main() -> int:
     bench = benchmark_path(launches)
     log("  phase 10 results: " + json.dumps(bench, default=str))
     log(f"[10 benchmark] done ({time.time() - t0:.1f} s)")
+
+    log("[11 compiled decode] gen_tokens and the benchmark's greedy loop "
+        "through captured CUDA graphs (one per attend-length bucket) on the "
+        "32-layer model, against the same step run eagerly")
+    t0 = time.time()
+    mp = MainPath(device)
+    zero_counts()
+    graphs = compiled_decode(mp)
+    c11 = counts()
+    launches.update({k: launches.get(k, 0) + v for k, v in c11.items()})
+    eager_idle = runs["fuse_qkv, commit_impl=pallas"]["step_idle"]
+    log("  device idle share within one step: " + ", ".join(
+        f"{k} replay {graphs[f'{k}_replay']['idle_share']:.1%}"
+        for k in ("sampled", "greedy") if f"{k}_replay" in graphs)
+        + ("" if eager_idle is None else
+           f"; phase 6's eager greedy step {eager_idle['idle_share']:.1%}"))
+    del mp
+    log(f"[11 compiled decode] done ({time.time() - t0:.1f} s)")
 
     # K3's prefill path beside its decode path (the summary names decode)
     log("  flash_attn prefill T=1919: " + "; ".join(

@@ -12,7 +12,9 @@ benchmark.py, same flags):
             then the same fit for the greedy decode that the root's bench.py
             drives (forward_chunk(head_mode="argmax") with fuse_qkv and the
             K8 commit, each token fed back on the device); device memory in
-            use and at its peak. Every timing is fenced by
+            use and at its peak. Both decode paths run through
+            ``generator.DecodeLoop``: on the card a captured CUDA graph a
+            step (the warm-up calls capture them). Every timing is fenced by
             torch.cuda.synchronize() on the card.
   -ppl      perplexity on a jsonl / text dataset (-ds; the bundled
             datasets/wikitext2_val_sample.jsonl by default), --ppl_chunks
@@ -53,7 +55,7 @@ import torch
 from exllama_tpu_torch import model_init
 from exllama_tpu_torch.cache import ExLlamaCache
 from exllama_tpu_torch.config import ExLlamaConfig
-from exllama_tpu_torch.generator import ExLlamaGenerator
+from exllama_tpu_torch.generator import DecodeLoop, ExLlamaGenerator
 from exllama_tpu_torch.perplexity import Perplexity
 
 SYNTH_SHAPES = {
@@ -148,28 +150,28 @@ def _fit(time_n, label, out, n_long: int = 128):
                   "n_long": n_long, "n_short": n_short}
 
 
-def greedy_decode(model, cache, tok, past: int, n: int):
-    """n greedy tokens through forward_chunk(head_mode="argmax") with the
+def greedy_loop(model, cache) -> DecodeLoop:
+    """The greedy decode loop of the root bench.py:175-196, the counterpart
+    of its loop under ``jax.jit``: forward_chunk(head_mode="argmax") with the
     whole layer in one K7 launch and every layer's K/V rows in one K8
-    launch (root bench.py:175-196), each token fed back on the device;
-    returns the tokens [B, n] on the device."""
-    from exllama_tpu_torch.models.llama import forward_chunk
-
+    launch, at attend_len max_seq_len, each token fed back on the device --
+    a ``DecodeLoop`` with no sampler, one captured graph replayed a step on
+    the card (K7 x L, K5, K8)."""
     cfg = model.config
-    kw = dict(attend_len=cfg.max_seq_len, last_token_only=True,
-              preprocess_only=False, heads=cfg.num_attention_heads,
-              kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
-              eps=cfg.rms_norm_eps, head_mode="argmax", qkv_fuse=True,
-              commit_impl="pallas", mlp_fuse=cfg.tuning.fuse_mlp,
-              attn_fuse=cfg.tuning.fuse_attn,
-              matmul_impl=cfg.tuning.matmul_impl,
-              attn_impl=cfg.tuning.attn_impl)
-    toks = []
-    for i in range(n):
-        tok = forward_chunk(model.params, cache, tok, past + i, None, **kw)
-        toks.append(tok)
-    cache.current_seq_len = past + n
-    return torch.cat(toks, dim=1)
+    hist = torch.zeros((cache.batch_size, cache.max_seq_len + 1),
+                       dtype=torch.int32, device=model.device)
+    return DecodeLoop(model, cache, hist, head_mode="argmax",
+                      attend_len=cfg.max_seq_len, qkv_fuse=True,
+                      commit_impl="pallas")
+
+
+def greedy_decode(loop: DecodeLoop, tok, past: int, n: int):
+    """n greedy tokens of ``loop`` (:func:`greedy_loop`) from token ``tok``
+    [B, 1] at cache position ``past``; returns the tokens [B, n] on the
+    device."""
+    toks = loop.run(n, tok, past, past + 1)
+    loop.cache.current_seq_len = past + n
+    return toks
 
 
 def run_perf(model, cache, args):
@@ -215,10 +217,10 @@ def run_perf(model, cache, args):
     prefill()
     past = cache.current_seq_len
     tok = torch.as_tensor(ids[:, -1:]).to(dev)
+    loop = greedy_loop(model, cache)
 
     def greedy_n(n):
-        t, toks = timer(lambda: greedy_decode(model, cache, tok, past, n),
-                        dev)
+        t, toks = timer(lambda: greedy_decode(loop, tok, past, n), dev)
         assert toks.shape == (1, n)
         return t
 

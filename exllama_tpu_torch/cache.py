@@ -22,7 +22,12 @@ layers write their K (``rows[0, l]``) and V (``rows[1, l]``) rows for the
 commit (D: the width attended, head_dim or the padded one), and
 ``cursor``, an int32 [1] device buffer that ``forward_chunk`` fills with a
 decode step's int cursor, once, for every kernel of the step (K3 / K7 and
-K8) to read.
+K8) to read. A step given the cursor itself (``generator.DecodeLoop``, the
+captured decode step) reads it and advances it on the device.
+
+Beam search keeps a second cache whose rows are the beams: ``take_rows``
+gathers its rows by parent and ``keep_rows`` cuts it to the first k (the
+JAX package's ``_map_state`` with ``take`` / a slice), on every member.
 """
 
 from __future__ import annotations
@@ -135,6 +140,28 @@ class ExLlamaCache:
             for t in ts:
                 t.copy_(torch.roll(t, -1, dims=2))
         self.current_seq_len -= 1
+
+    def take_rows(self, index):
+        """Keep the batch rows ``index`` (a [k] int tensor or list, in that
+        order, repeats allowed) of every member -- K, V, the scales and the
+        staged rows -- as new tensors: the gather of beam rows by parent
+        (exllama_tpu/generator.py:819-823). ``batch_size``, ``shape`` and
+        ``kv_ptrs`` follow; the shared [1] cursor stays."""
+        idx = torch.as_tensor(index, dtype=torch.long).to(self.device)
+        self._set_rows(lambda t: t.index_select(0, idx), idx.numel())
+
+    def keep_rows(self, k: int):
+        """Cut every member to its first ``k`` batch rows (views; the JAX
+        ``_map_state(lambda x: x[:k])``, generator.py:786-799)."""
+        self._set_rows(lambda t: t[:k], k)
+
+    def _set_rows(self, fn, b: int):
+        for ts in self._tensor_lists():
+            ts[:] = [fn(t) for t in ts]
+        self.rows = fn(self.rows.transpose(0, 2)).transpose(0, 2).contiguous()
+        self.batch_size = b
+        self.shape = (self.shape[0], b, *self.shape[2:])
+        self.kv_ptrs = kv_ptr_array(self.k, self.v, self.k_scale, self.v_scale)
 
     def copy_states(
         self,

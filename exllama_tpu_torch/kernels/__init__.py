@@ -19,6 +19,13 @@ build.
 
 Every C entry point takes pointers and the stream as ``void*`` and returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises on non-zero.
+It launches on the stream it is given, ``torch.cuda.current_stream()``, so
+under CUDA graph capture (``generator.DecodeLoop``) it launches into the
+graph. Each wrapper in ``exllama_tpu_torch.ops`` counts its launches on
+integer attributes of its own (``launches``, ``launches_int8``, ...);
+:func:`launch_counts` reads them all and :func:`add_launches` adds to them,
+which is how a graph's replay, which runs no Python, counts the launches
+it captured.
 """
 
 from __future__ import annotations
@@ -218,3 +225,65 @@ def sm_count(dev) -> int:
 
 def stream_of(t) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# -------------------------------------------------------- launch counters
+
+_OPS = ("attention", "attn_block", "dense", "mlp", "quant")
+
+
+def launch_counters() -> list:
+    """Every launch counter of the kernel wrappers: (wrapper, attribute)
+    for each ``launches*`` attribute of a function in the ops modules."""
+    import importlib
+
+    seen, out = set(), []
+    for name in _OPS:
+        mod = importlib.import_module(f"exllama_tpu_torch.ops.{name}")
+        for fn in vars(mod).values():
+            if not callable(fn) or id(fn) in seen:
+                continue
+            attrs = sorted(a for a in getattr(fn, "__dict__", {})
+                           if a.startswith("launches"))
+            if attrs:
+                seen.add(id(fn))
+                out += [(fn, a) for a in attrs]
+    return out
+
+
+def launch_counts() -> dict:
+    """{(wrapper, attribute): count} of every launch counter."""
+    return {(fn, a): getattr(fn, a) for fn, a in launch_counters()}
+
+
+def add_launches(counts: dict, times: int = 1):
+    """Add ``times`` x ``counts`` ({(wrapper, attribute): n}, e.g. the
+    difference of two :func:`launch_counts`) to the counters."""
+    for (fn, a), n in counts.items():
+        setattr(fn, a, getattr(fn, a) + n * times)
+
+
+# ---------------------------------------------------- scratch and capture
+
+def scratch_in_use(dev) -> list:
+    """The per-device scratch tensors the kernels write and keep between
+    launches: K3's decode partials and tickets, the GEMVs' (K1, K4-K7)
+    partials and tickets, K5's keys. A captured graph holds these
+    references, so a later eager call that grows a scratch (and drops the
+    dictionary's reference) never frees memory the graph still writes."""
+    from exllama_tpu_torch.ops import attention, dense, quant
+
+    dev = torch.device(dev)
+    held = [*attention._SCRATCH.get(dev, ()), *quant._GEMV_SCRATCH.get(dev, ())]
+    keys = dense._HEAD_KEYS.get(dev)
+    return held + ([keys] if keys is not None else [])
+
+
+def no_growth_under_capture(name: str):
+    """Raise where the per-device scratch ``name`` is about to be allocated
+    or replaced while the current stream is being captured: the buffer
+    would come from the graph's pool and the eager callers would share it.
+    The eager step before each capture sizes every scratch."""
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{name} would grow under CUDA graph capture: "
+                           f"run the step eagerly first, which sizes it")

@@ -303,7 +303,12 @@ def forward_chunk(
     logits materialized; a 4-bit head's logits through ``q4_matmul``, then
     argmax, as the JAX package does), or None with ``preprocess_only``.
     Writes the chunk's K/V into ``cache`` in place; the cursor
-    ``cache.current_seq_len`` is the caller's. The fuse flags, ``commit_impl``, ``matmul_impl`` and
+    ``cache.current_seq_len`` is the caller's. ``past_len`` is an int
+    (checked on the host; on the card a T = 1 step fills ``cache.cursor``
+    with it) or a tensor read on the device only: ``cache.cursor`` itself
+    for the captured decode step (``generator.DecodeLoop``), whose rope
+    rows, kernels and commit then all read the device cursor and whose
+    host checks the position it knows. The fuse flags, ``commit_impl``, ``matmul_impl`` and
     ``attn_impl`` are the JAX package's knobs; ``matmul_impl`` defaults to
     the exact kernels, ``attn_impl`` to K3 where it takes the head dim."""
     if head_mode not in ("logits", "argmax"):

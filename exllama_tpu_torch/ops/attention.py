@@ -457,11 +457,15 @@ _SCRATCH: dict = {}
 def _decode_scratch(dev, n_part: int, n_ticket: int):
     """The decode path's partials (f32) and tickets (int32, zero between
     launches: the last block of each ticket resets it), grown per device
-    and kept, so a decode step allocates nothing."""
+    and kept, so a decode step allocates nothing. A graph holds the
+    buffers it captured (``kernels.scratch_in_use``); growing under capture
+    raises."""
     part, ticket = _SCRATCH.get(dev, (None, None))
     if part is None or part.numel() < n_part:
+        kernels.no_growth_under_capture("K3's decode partials")
         part = torch.empty((n_part,), dtype=torch.float32, device=dev)
     if ticket is None or ticket.numel() < n_ticket:
+        kernels.no_growth_under_capture("K3's decode tickets")
         ticket = torch.zeros((n_ticket,), dtype=torch.int32, device=dev)
     _SCRATCH[dev] = (part, ticket)
     return part, ticket

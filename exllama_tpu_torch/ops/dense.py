@@ -181,9 +181,11 @@ _HEAD_KEYS: dict = {}
 
 def head_argmax_scratch(dev) -> torch.Tensor:
     """K5's keys (32) and grid ticket, int64 [33] zeros, per device: every
-    launch leaves them zero (its last block resets them)."""
+    launch leaves them zero (its last block resets them). Allocated at the
+    first launch on a device, which must not be under capture."""
     keys = _HEAD_KEYS.get(dev)
     if keys is None:
+        kernels.no_growth_under_capture("K5's keys")
         keys = _HEAD_KEYS[dev] = torch.zeros((GEMV_MAX_M + 1,),
                                              dtype=torch.int64, device=dev)
     return keys

@@ -223,12 +223,15 @@ _GEMV_SCRATCH: dict = {}
 def gemv_scratch(dev, n_part: int, n_ticket: int):
     """The tensor-core GEMV's split partials (f32) and column-tile tickets
     (int32, zero between launches: the last block of each tile resets its
-    own), grown per device and kept, as K3's decode scratch. K1, K9, K6 and
-    K7 run on one stream and share them."""
+    own), grown per device and kept, as K3's decode scratch. K1, K9, K4-K7
+    run on one stream and share them. A graph holds the buffers it
+    captured (``kernels.scratch_in_use``); growing under capture raises."""
     part, ticket = _GEMV_SCRATCH.get(dev, (None, None))
     if part is None or part.numel() < n_part:
+        kernels.no_growth_under_capture("the GEMV partials")
         part = torch.empty((max(n_part, 1),), dtype=torch.float32, device=dev)
     if ticket is None or ticket.numel() < n_ticket:
+        kernels.no_growth_under_capture("the GEMV tickets")
         ticket = torch.zeros((max(n_ticket, 1),), dtype=torch.int32, device=dev)
     _GEMV_SCRATCH[dev] = (part, ticket)
     return part, ticket

@@ -11,6 +11,10 @@ exllama_tpu/ops/sampling.py).
 
 Randomness comes from an explicit ``torch.Generator``; its draws differ from
 JAX's PRNG for the same seed, so tests compare the deterministic parts.
+Everything here runs on the device without a host read, so a CUDA graph can
+capture it (``generator.DecodeLoop``): the sampler settings are Python
+numbers, fixed in the capture, and ``torch.multinomial`` draws from the
+generator registered with the graph, the same numbers as eagerly.
 """
 
 from __future__ import annotations
@@ -37,7 +41,7 @@ class SamplerSettings:
 
 def rep_penalty_mask(
     sequence: torch.Tensor,  # [B, S] int token history (positions < seq_len valid)
-    seq_len: int,
+    seq_len,                 # int, or a [1] int tensor on sequence's device
     vocab_size: int,
     penalty_max: float,
     sustain: int,
@@ -47,7 +51,9 @@ def rep_penalty_mask(
     ``penalty_max``, older ones decay linearly to 1.0 over ``decay``
     positions (the token at age == sustain still gets the full penalty);
     sustain == -1 penalizes the whole context. The most recent occurrence of
-    a token decides its factor (equivalently the max)."""
+    a token decides its factor (equivalently the max). A tensor ``seq_len``
+    is read on the device only (no host sync), so a captured step can take
+    its position from device memory; the arithmetic is the int one's."""
     b, s_max = sequence.shape
     dev = sequence.device
     pos = torch.arange(s_max, device=dev)[None, :]

@@ -1089,3 +1089,63 @@ def test_xla_runs_no_kernel_on_the_card(gen):
                            dense.head_argmax_plain(x, nw, w, 1e-6).reshape(
                                m, 1))
     assert [f.launches for f in counters] == before
+
+
+# ------------------------------------------- the captured decode step
+
+def _graph_model(**tuning):
+    import exllama_tpu_torch as port
+
+    cfg = port.ExLlamaConfig()
+    cfg.hidden_size, cfg.intermediate_size = 512, 1024
+    cfg.num_attention_heads = cfg.num_key_value_heads = 4
+    cfg.head_dim, cfg.num_hidden_layers, cfg.vocab_size = 128, 2, 1000
+    cfg.max_seq_len, cfg.tuning.attn_len_bucket = 128, 32
+    for k, v in tuning.items():
+        setattr(cfg.tuning, k, v)
+    params = port.make_synthetic_params(cfg, 128, False, seed=3,
+                                        device="cuda", fast=True)
+    return port.ExLlama(cfg, params=params, device="cuda")
+
+
+@pytest.mark.parametrize("settings,tuning", [
+    (dict(top_k=1), {}),
+    ({}, {}),                                 # top-k 40, top-p 0.65, penalty
+    (dict(top_k=1), dict(fuse_qkv=True, commit_impl="pallas",
+                         kv_cache_dtype="int8")),
+])
+def test_decode_graphs_replay_the_eager_step(gen, settings, tuning):
+    """gen_tokens through captured graphs (one per 32-token bucket) against
+    the same step run eagerly from one state and one generator seed:
+    tokens and caches bit-equal, each step's launches counted once, the
+    replays' counts those of the eager run."""
+    import numpy as np
+
+    import exllama_tpu_torch as port
+    from exllama_tpu_torch import kernels
+
+    model = _graph_model(**tuning)
+    ids = (np.arange(27, dtype=np.int32)[None] * 37 + 11) % 1000
+    runs = []
+    for capture in (True, False):
+        g = port.ExLlamaGenerator(model, port.FakeTokenizer(),
+                                  port.ExLlamaCache(model), seed=0)
+        for k, v in settings.items():
+            setattr(g.settings, k, v)
+        g._loop.capture = capture
+        g.gen_begin(ids)
+        before = kernels.launch_counts()
+        toks = g.gen_tokens(40)                # positions 26..65
+        after = kernels.launch_counts()
+        runs.append((g, toks, {k: after[k] - before[k] for k in after}))
+    (g, got, c_graph), (e, ref, c_eager) = runs
+    assert sorted(g._loop.graphs) == [32, 64, 96]
+    assert e._loop.graphs == {}
+    np.testing.assert_array_equal(got, ref)
+    for x, y in zip(g.cache._tensor_lists(), e.cache._tensor_lists()):
+        for s, t in zip(x, y):
+            assert torch.equal(s, t)
+    assert c_graph == c_eager and sum(c_graph.values()) > 0
+    step = next(iter(g._loop.graphs.values()))[1]
+    assert {k: 40 * n for k, n in step.items()} == {
+        k: n for k, n in c_graph.items() if n}
