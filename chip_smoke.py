@@ -112,8 +112,28 @@ Phases, one line or block of output each; any failure exits non-zero:
      generator's features on its 2-layer model against the CPU: beam
      search at top-k 1 (= the card's greedy) and with 3 beams alive (K1 /
      K7 at B = 3, K4 at M = 3), CFG (K7 at B = 2) and constraints.
+ 12. LoRA adapters and the other generators: two adapters written in the
+     PEFT layout from a seed (Q: r 8 on q and v, PEFT's default targets;
+     A: r 16 on all seven projections). On 2-layer full-width models on
+     zero-mean weights each first moves the card's logits by more than 3x
+     the 0.03 limit, then holds the card against the CPU within it, with
+     K1 / K7 (Q) or K1 / K3 (A) a decode step; act-order g128 with the
+     fold under A, where an adapter loaded without the fold's permutation
+     moves the logits by more than 3x the limit. On a zero-mean 32-layer
+     model: gen_tokens through the graphs bit-equal to the eager steps
+     under Q (K1 32, K7 32, K4 1 a step), then under A after a switch
+     without gen_begin (every graph captured anew; K1 128, K3 32, K4 1, no
+     K6 / K7), a prefill under A (K2 128, K3 32), generate_simple under
+     each through the graphs = eager, decode tok/s with none / Q / A in
+     turns and one replay of each traced (device launches, idle share);
+     ExLlamaAltGenerator under Q with a stop string and a stop token (no
+     leak, stream() = generate); SpeculativeGenerator with the n-gram
+     proposer on a repeating 1,024-token prompt, 128 tokens each
+     within 0.03 of the one-token path's best, K1 64, K3 32, K6 32, K4 1
+     per verify forward, beside the generator's graphed and eager tok/s;
+     then a 4-layer draft model (another seed), 32 tokens, its acceptance.
 
-Each of phases 5-11 sets every launch counter to 0 just before it drives
+Each of phases 5-12 sets every launch counter to 0 just before it drives
 its path (phase 10: each benchmark run) and reads them just after; a kernel its path must run that shows no
 launch fails the run. The line before the last is a JSON summary of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. Needs exactly
@@ -372,6 +392,11 @@ def kernel_cases(device, timer, res):
         ("prefill B=2 T=64 past=[1000,1100]", 2, 64, 32, [1000, 1100], 1280,
          False, False),
         ("prefill B=2 T=64 left-pad mask", 2, 64, 32, 0, 256, False, True),
+        # the speculative verify forward: T = k + 1 query rows of a chunk
+        # written at the cursor, on the split-KV decode path
+        ("verify T=4 past=1024", 1, 4, 32, 1024, 1280, False, False),
+        ("verify T=5 past=1100", 1, 5, 32, 1100, 1280, False, False),
+        ("verify T=9 past=2000", 1, 9, 32, 2000, 2048, False, False),
     ]
     h, d, s_max = 32, 128, 2048
     for label, b, t, hkv, past, alen, deferred, masked in acases:
@@ -392,10 +417,22 @@ def kernel_cases(device, timer, res):
         if masked:
             mask = torch.ones((b, s_max), dtype=torch.bool, device=device)
             mask[0, :17] = False          # row 0 left-padded by 17 tokens
+        if label.startswith("verify"):
+            plant_chunk_keys(q, kc, past)
         got = attention.attend(q, kc, vc, past_t, alen, mask, new_kv)
         ref = attention.attend_plain(q, kc, vc, past_t, alen, mask, new_kv)
         err, rel = check_close(f"flash_attn {label}", got, ref,
                                TOL["flash_attn"])
+        if label.startswith("verify"):
+            # the fault: the causal mask inside the chunk dropped, every
+            # row seeing the whole chunk
+            leak = attention.attend_plain(q, kc, vc, past + t - 1, alen,
+                                          mask, new_kv).float()
+            moved = ((leak - ref.float()).abs().max()
+                     / ref.float().abs().max()).item()
+            if moved <= 3 * TOL["flash_attn"]:
+                raise AssertionError(f"flash_attn {label}: a chunk without "
+                                     f"its causal mask moves only {moved}")
 
         # work this data needs: visible keys per query row, K/V rows read
         vis, kv_rows = 0, 0
@@ -533,7 +570,8 @@ def fused_cases(device, timer, res):
 
             def separate():
                 a = rms_norm(h, nw, eps)
-                mid = mlp.silu_mul(quant.q4_matmul(a, gateup), inter)
+                gu = quant.q4_matmul(a, gateup)
+                mid = mlp.silu_mul(gu[..., :inter], gu[..., inter:])
                 return h + quant.q4_matmul(mid, down)
 
             nbytes = (q4_bytes(hidden, 2 * inter, gs)
@@ -614,8 +652,8 @@ def fused_cases(device, timer, res):
             h1 = h + quant.q4_matmul(attn.reshape(b, 1, nq), o)
             if entry == "attn_block_o":
                 return h1
-            mid = mlp.silu_mul(quant.q4_matmul(rms_norm(h1, nw, eps), gateup),
-                               inter)
+            gu = quant.q4_matmul(rms_norm(h1, nw, eps), gateup)
+            mid = mlp.silu_mul(gu[..., :inter], gu[..., inter:])
             return h1 + quant.q4_matmul(mid, down)
 
         keys = b * min(past, s_max)
@@ -636,6 +674,24 @@ def fused_cases(device, timer, res):
                iters=10, s_fn=separate)
     del o, gateup, down, qkvs
     k7_attention_cases(device, timer, res)
+
+
+def plant_chunk_keys(q, kc, past):
+    """For the query rows of a chunk at ``past`` (q [B, T, H, D], one query
+    head a kv head): row t's next key, at past + t + 1 (hidden from it by
+    the causal mask), scores 8 above row t's best visible key, so that a
+    row that sees past its own position takes that key's value. In place
+    on kc."""
+    d = q.shape[-1]
+    qf = q.float()
+    for i in range(q.shape[1] - 1):
+        qi = qf[:, i]                                           # [B, H, D]
+        best = (torch.einsum("bhd,bhsd->bhs", qi,
+                             kc[:, :, :past + i + 1].float())
+                / math.sqrt(d)).amax(-1)                        # [B, H]
+        norm = qi.norm(dim=-1, keepdim=True)
+        a = (best[..., None] + 8) * math.sqrt(d) / norm
+        kc[:, :, past + i + 1] = (a * qi / norm).bfloat16()
 
 
 def planted_attention(gen, b, heads, hkv, s_max, past, n_pad, device):
@@ -951,7 +1007,8 @@ def turbo_cases(device, timer, res):
 
         def separate():
             a = rms_norm(h, nw, eps)
-            mid = mlp.silu_mul(quant.q4_matmul(a, gu, impl), inter)
+            gu_out = quant.q4_matmul(a, gu, impl)
+            mid = mlp.silu_mul(gu_out[..., :inter], gu_out[..., inter:])
             return h + quant.q4_matmul(mid, dn, impl)
 
         record("q4_mlp_a8", tag, err, rel,
@@ -2475,6 +2532,11 @@ def counts():
             for k, (fn, attr) in launch_counters().items()}
 
 
+def since(c0):
+    """The launches since ``c0 = counts()``."""
+    return {k: v - c0[k] for k, v in counts().items()}
+
+
 def require(name, got, want):
     """Fail unless every kernel in ``want`` launched the given number of
     times (None: at least once)."""
@@ -3209,7 +3271,7 @@ def graph_vs_eager(mp, label, ids, n, mask=None, **settings):
     return g, e
 
 
-def time_turns(label, runs, n):
+def time_turns(label, runs, n, phase=11):
     """Each of ``runs`` ({name: fn(n)}) in turns (A B B A), fenced by
     torch.cuda.synchronize(); the faster of each one's two, as tok/s."""
     order = list(runs) + list(runs)[::-1]
@@ -3222,7 +3284,7 @@ def time_turns(label, runs, n):
         dt = time.perf_counter() - t0
         best[name] = min(best.get(name, dt), dt)
     out = {k: n / v for k, v in best.items()}
-    log(f"  [11] {label}, {n} tokens a run, A B B A: " + ", ".join(
+    log(f"  [{phase}] {label}, {n} tokens a run, A B B A: " + ", ".join(
         f"{k} {v:.2f} tok/s" for k, v in out.items()))
     return out
 
@@ -3354,6 +3416,548 @@ def compiled_decode(mp):
     log(f"  [11] {len(held)} ticket / key buffers read zero after the "
         f"replays")
     return res
+
+
+# -------------------------------------------------------------- phase 12
+
+# the adapters (utils.fabricate.fabricate_lora, PEFT layout, written for the
+# 32-layer model; the 2-layer models read their first two layers): Q =
+# PEFT's default targets on a Llama model, A = all seven projections, at
+# scale 0.3 on zero-mean weights (``centered``), where lora_vs_cpu first
+# shows that each moves the logits by more than 3x LORA_TOL. On
+# make_synthetic_params(fast)'s own weights (zero-point 8) the common mode
+# of the residual stream dwarfs any projection's low-rank term.
+ADAPTERS = {"Q": dict(targets=("q", "v"), r=8, alpha=16.0),
+            "A": dict(targets=("q", "k", "v", "o", "gate", "up", "down"),
+                      r=16, alpha=16.0)}
+LORA_SCALE = 0.3
+LORA_TOL = 0.03        # phase 4's: card vs CPU logits over the logit scale
+# launches per decode step on the 32-layer model: adapter Q keeps K7's
+# layer tail (q and v adapted: K1 without its norm prologue), adapter A
+# refuses K7 (o) and K6 (the MLP): K1 on qkv, o, gate|up and down, K3
+LORA_STEP = {"Q": {"q4_gemv": 32, "layer_tail": 32, "dense_gemv": 1,
+                   "flash_attn": 0, "q4_mlp": 0},
+             "A": {"q4_gemv": 128, "flash_attn": 32, "dense_gemv": 1,
+                   "layer_tail": 0, "q4_mlp": 0}}
+# per prefill of more than 32 tokens under adapter A
+LORA_PREFILL = {"q4_dequant_matmul": 128, "flash_attn": 32}
+# per speculative verify forward (T = k + 1 = 2..9 rows, no adapter): K1 on
+# qkv (norm prologue) and o, K3 at T query rows over the cache, K6, K4
+VERIFY_STEP = {"q4_gemv": 64, "flash_attn": 32, "q4_mlp": 32,
+               "dense_gemv": 1, "layer_tail": 0}
+
+
+def lora_step_2layers(name, act):
+    """LORA_STEP for the 2-layer models of lora_vs_cpu; on act-order layers
+    (never fused: q, k, v, gate, up apart) adapter A runs K1 seven times a
+    layer."""
+    if act:
+        return {"q4_gemv": 14, "flash_attn": 2, "dense_gemv": 1,
+                "layer_tail": 0, "q4_mlp": 0}
+    return {k: v if k == "dense_gemv" else v // 16
+            for k, v in LORA_STEP[name].items()}
+
+
+def write_adapters(cfg, root):
+    """{name: (config path, adapter path)} of ADAPTERS for ``cfg``."""
+    from exllama_tpu_torch.utils.fabricate import fabricate_lora
+
+    return {name: fabricate_lora(os.path.join(root, name), cfg,
+                                 scale=LORA_SCALE, seed=SEED + 12 + i, **a)
+            for i, (name, a) in enumerate(ADAPTERS.items())}
+
+
+def lora_vs_cpu(device, files):
+    """2 layers at full width on zero-mean weights (``centered``), one seed,
+    on the card and on the CPU: 64-token prefill + 4 teacher-forced decode
+    steps under each adapter. Each adapter first moves the card's logits
+    by more than 3x LORA_TOL against the same model without it; then card
+    vs CPU within LORA_TOL. Then act-order g128 with the fold on under
+    adapter A, where an adapter loaded without the fold's permutation
+    moves the logits by more than 3x the limit. Returns {case: (moved,
+    worst card vs CPU, launches a decode step)}."""
+    import exllama_tpu_torch as port
+
+    out = {}
+    rng = np.random.default_rng(SEED + 12)
+    for label, act, names in (("g128", False, ("Q", "A")),
+                              ("act-order g128, folded", True, ("A",))):
+        cfg = port.ExLlamaConfig()
+        cfg.num_hidden_layers = 2
+        cfg.max_seq_len = 128
+        cpu_params = centered(port.make_synthetic_params(
+            cfg, 128, act, seed=1, device="cpu", fast=True))
+        if act and any(f is None for f in cpu_params.down_folds):
+            raise AssertionError(f"phase 12 {label}: a layer was not folded")
+        cpu_model = port.ExLlama(cfg, params=cpu_params, device="cpu")
+        gpu_model = port.ExLlama(cfg, params=cpu_params.to(device),
+                                 device=device)
+        ids = rng.integers(0, cfg.vocab_size, size=(1, 64)).astype(np.int32)
+        steps = [ids] + [rng.integers(0, cfg.vocab_size, size=(1, 1)).astype(
+            np.int32) for _ in range(4)]
+
+        def run(model, lora):
+            cache, outs, per_step = port.ExLlamaCache(model), [], None
+            for i, tok in enumerate(steps):
+                c0 = counts()
+                outs.append(model.forward(tok, cache, last_id_only=i > 0,
+                                          lora=lora).float().cpu())
+                c1 = counts()
+                if i == len(steps) - 1:
+                    per_step = {k: c1[k] - c0[k] for k in c1}
+            return outs, per_step
+
+        def rel(a, b):
+            return max(((x - y).abs().max() / y.abs().max()).item()
+                       for x, y in zip(a, b))
+
+        base, _ = run(gpu_model, None)
+        for name in names:
+            got, step = run(gpu_model, port.ExLlamaLora(gpu_model,
+                                                        *files[name]))
+            ref, _ = run(cpu_model, port.ExLlamaLora(cpu_model, *files[name]))
+            moved, err = rel(got, base), rel(got, ref)
+            if moved <= 3 * LORA_TOL:
+                raise AssertionError(f"phase 12 {label} adapter {name}: "
+                                     f"moves the logits by only {moved:.4f}")
+            if not all(torch.isfinite(g).all() for g in got) or err > LORA_TOL:
+                raise AssertionError(f"phase 12 {label} adapter {name}: card "
+                                     f"vs CPU logits rel {err:.4f}")
+            require(f"phase 12 {label} adapter {name} decode step", step,
+                    lora_step_2layers(name, act))
+            case = dict(moved=moved, err=err,
+                        step={k: v for k, v in step.items() if v})
+            if act:
+                # the fault: an adapter of gate / up / down without the
+                # permutation the load folded into gate / up's columns
+                blind = port.ExLlama(cfg, params=dataclasses.replace(
+                    gpu_model.params, down_folds=None), device=device)
+                wrong, _ = run(gpu_model, port.ExLlamaLora(blind,
+                                                           *files[name]))
+                case["unfolded_moved"] = rel(wrong, got)
+                if case["unfolded_moved"] <= 3 * LORA_TOL:
+                    raise AssertionError(
+                        f"phase 12 {label}: the adapter without the fold "
+                        f"moves the logits by only {case['unfolded_moved']}")
+            out[f"{label} adapter {name}"] = case
+        del cpu_model, gpu_model, cpu_params
+    return out
+
+
+def lora_generators(mp, loras):
+    """The generator under each adapter on the 32-layer model: gen_tokens
+    through the graphs bit-equal (tokens and caches) to the same steps run
+    eagerly, with the per-step launches of LORA_STEP; then the adapter
+    switched to A without a gen_begin (the loop's epoch: every graph is
+    captured anew) and again bit-equal to the eager steps; generate_simple
+    through the graphs equal to the eager one; decode tok/s with each
+    adapter beside none, in turns."""
+    res = {}
+    ids = mp.ids[:, :250]
+    g, e = generator_pair(mp, top_k=1)
+    for x in (g, e):
+        x.lora = loras["Q"]
+        x.gen_begin(ids)
+    c0 = counts()
+    got, ref = g.gen_tokens(16), e.gen_tokens(16)
+    c = since(c0)
+    if not np.array_equal(got, ref):
+        raise AssertionError(f"phase 12 adapter Q: graph {got.tolist()} vs "
+                             f"eager {ref.tolist()}")
+    same_caches("adapter Q (phase 12)", g.cache, e.cache)
+    require("phase 12 gen_tokens under Q (graphs and eager)", c,
+            {k: 2 * v * 16 for k, v in LORA_STEP["Q"].items()})
+    caps = captured(g._loop)
+    for a, cc in caps.items():
+        require(f"phase 12 adapter Q graph at attend_len {a}", cc,
+                LORA_STEP["Q"])
+    held = {a: entry[0] for a, entry in g._loop.graphs.items()}
+    # the adapter changes between two gen_tokens calls of one sequence
+    for x in (g, e):
+        x.lora = loras["A"]
+    c0 = counts()
+    got, ref = g.gen_tokens(16), e.gen_tokens(16)
+    c_a = since(c0)
+    if not np.array_equal(got, ref):
+        raise AssertionError(f"phase 12 Q -> A: graph {got.tolist()} vs "
+                             f"eager {ref.tolist()}")
+    same_caches("adapter Q -> A (phase 12)", g.cache, e.cache)
+    if any(entry[0] is held.get(a) for a, entry in g._loop.graphs.items()):
+        raise AssertionError("phase 12: a graph captured under adapter Q "
+                             "replayed under adapter A")
+    require("phase 12 gen_tokens under A (graphs and eager)", c_a,
+            {k: 2 * v * 16 for k, v in LORA_STEP["A"].items()})
+    for a, cc in captured(g._loop).items():
+        require(f"phase 12 adapter A graph at attend_len {a}", cc,
+                LORA_STEP["A"])
+    log(f"  [12] gen_tokens(16) from 249 tokens under adapter Q, then 16 "
+        f"more after switching to A: graphs bit-equal to the eager steps "
+        f"(tokens {got[0, :6].tolist()}...), graphs under Q at attend_len "
+        f"{list(caps)} dropped at the switch, launches a step Q "
+        f"{LORA_STEP['Q']}, A {LORA_STEP['A']}")
+    # a prefill under adapter A, and generate_simple through the graphs
+    c0 = counts()
+    g.gen_begin(ids)
+    pre = since(c0)
+    require("phase 12 prefill under adapter A", pre, LORA_PREFILL)
+    res["prefill_A"] = {k: v for k, v in pre.items() if v}
+    for name in ("Q", "A"):
+        texts = []
+        for x in (g, e):
+            x.lora = loras[name]
+            texts.append((x.generate_simple("Once upon a time",
+                                            max_new_tokens=32),
+                          x.sequence.copy()))
+        if texts[0][0] != texts[1][0] or not np.array_equal(texts[0][1],
+                                                            texts[1][1]):
+            raise AssertionError(f"phase 12 generate_simple under {name}: "
+                                 f"graph vs eager differ")
+    log(f"  [12] generate_simple (32 tokens) under Q and A through the "
+        f"graphs = eager; prefill of 249 tokens under A: {res['prefill_A']}")
+    # decode tok/s, the sampled generator at the 1919-token context, with
+    # no adapter, Q and A in turns
+    gens = {}
+    for name in ("none", "Q", "A"):
+        x = generator_pair(mp)[0]
+        x.lora = loras.get(name)
+        x.gen_begin(mp.ids)
+        x.gen_tokens(4)                     # captures the 2048 bucket
+        gens[name] = x
+    res["tps"] = time_turns(
+        "generator decode (sampled, graphs, 1919-token context) by adapter",
+        {k: (lambda n, x=x: (x.gen_tokens(n), x.gen_rewind(n)))
+         for k, x in gens.items()}, 64, phase=12)
+    # one replay of each one's graph traced: its device launches (the
+    # low-rank terms are plain tensor code) and the device's idle share
+    for name, x in gens.items():
+        entry = next(iter(x._loop.graphs.values()), None)
+        names, idle = (None, None) if entry is None else trace_step(
+            entry[0].replay)
+        if names is None:
+            log(f"  [12] adapter {name}: replay not traced (no graph or no "
+                f"device activity in the trace: not measured)")
+            continue
+        res[f"trace_{name}"] = dict(launches=sum(names.values()), **idle)
+        log(f"  [12] adapter {name}, one replayed step traced: "
+            f"{sum(names.values())} device launches in "
+            f"{idle['window_us']:.1f} us, device busy {idle['busy_us']:.1f} "
+            f"us, idle {idle['idle_share']:.1%}")
+    return res
+
+
+def alt_generator_path(mp, lora):
+    """ExLlamaAltGenerator on the 32-layer model under adapter Q, greedy,
+    every token but printable ASCII disallowed (the byte tokenizer then
+    decodes one character a token). From the text of a generate without
+    stop conditions: a stop string first occurring at position i >= 6 and
+    a stop token first occurring after it give the text before i, no stop
+    string in it, and stream()'s chunks joined equal it; a stop token
+    alone (first occurring at j >= 3) gives the text before j; K1 / K7 /
+    K4 launched."""
+    port = mp.port
+    alt = port.ExLlamaAltGenerator(mp.model, mp.tok,
+                                   port.ExLlamaCache(mp.model), seed=SEED)
+    s = port.ExLlamaAltGenerator.Settings(temperature=1.0, top_k=1)
+    s.lora = lora
+    printable = range(32 + 4, 127 + 4)
+    s.disallowed_tokens = [t for t in range(mp.cfg.vocab_size)
+                           if t not in printable]
+    prompt = "The adapter says:"
+    c0 = counts()
+    full = alt.generate(prompt, [], 32, s)
+    toks = alt.sequence_ids[0, -32:].tolist()
+    if len(full) != 32 or not all(t in printable for t in toks):
+        raise AssertionError(f"phase 12 alt: {len(full)} characters, tokens "
+                             f"{toks}")
+    first = {}
+    for j, t in enumerate(toks):
+        first.setdefault(t, j)
+    i = next((i for i in range(6, 30) if full.find(full[i:i + 2]) == i), 6)
+    stop_str = full[i:i + 2]
+    cut = full.find(stop_str)
+    late = [t for t, j in first.items() if j > cut + 1] or [4]
+    early = [t for t, j in first.items() if j >= 3]
+    out = alt.generate(prompt, [stop_str, late[0]], 32, s)
+    alt.begin_stream(prompt, [stop_str, late[0]], 32, s)
+    chunks = []
+    while True:
+        chunk, eos = alt.stream()
+        chunks.append(chunk)
+        if eos:
+            break
+    by_token = None if not early else alt.generate(prompt, [early[0]], 32, s)
+    c = since(c0)
+    if out != full[:cut] or stop_str in out or "".join(chunks) != out:
+        raise AssertionError(f"phase 12 alt: {out!r} / {''.join(chunks)!r} "
+                             f"vs {full[:cut]!r} (stop {stop_str!r})")
+    if early and by_token != full[:first[early[0]]]:
+        raise AssertionError(f"phase 12 alt: stop token {early[0]}: "
+                             f"{by_token!r}")
+    require("phase 12 alt generator", c, {"q4_gemv": None,
+                                          "layer_tail": None,
+                                          "dense_gemv": None})
+    log(f"  [12] alt generator under Q: {full!r}; stop string {stop_str!r} "
+        f"and token {late[0]}: {out!r} ({len(chunks)} stream chunks, "
+        f"joined equal); stop token {early[:1]} alone: {by_token!r}; "
+        f"launches {({k: v for k, v in c.items() if v})}")
+    return dict(text=full, out=out, chunks=len(chunks), by_token=by_token)
+
+
+# the one-token routes a verify row is held against: the default (K1, K7,
+# K4) and the separate kernels (K1, K3, K1, K1, K4)
+ONE_TOKEN_ROUTES = (("fused", {}),
+                    ("separate", dict(fuse_mlp=False, fuse_attn=False)))
+
+
+def verify_rows_vs_steps(port, model, ids):
+    """Every row of the verify forward, at the shapes the speculative run
+    gives it (most of its rows only decide acceptance, so its emitted
+    tokens cannot show them): after a prefill of ``ids``, for T = 4, 5, 9,
+    one forward of the last token and the pattern's next T - 1 tokens (the
+    n-gram proposer's draft) with last_id_only=False, then T one-token
+    forwards of the same tokens on each of ONE_TOKEN_ROUTES, row i at the
+    cursor base + i over the cache rows the T-row forward wrote (taken from
+    the last row down, so none of those rows was overwritten yet). Each
+    T-row forward launches VERIFY_STEP (per layer). Returns {T: (worst row
+    against the default route's step, worst row of the two routes against
+    each other)}, each over the step's logit scale."""
+    layers = model.config.num_hidden_layers
+    want = {k: v if k == "dense_gemv" else v * layers // 32
+            for k, v in VERIFY_STEP.items()}
+    tuning = model.config.tuning
+    cache = port.ExLlamaCache(model)
+    model.forward(ids[None, :-1], cache, preprocess_only=True)
+    base = cache.current_seq_len
+    out = {}
+    for t in (4, 5, 9):
+        chunk = np.concatenate([ids[-1:], ids[:t - 1]])[None]
+        c0 = counts()
+        rows = model.forward(chunk, cache, last_id_only=False)[0].float()
+        require(f"phase 12 verify forward at T = {t}, {layers} layers",
+                since(c0), want)
+        if not torch.isfinite(rows).all():
+            raise AssertionError(f"phase 12 verify T = {t}: non-finite rows")
+        steps = {}
+        for route, knobs in ONE_TOKEN_ROUTES:
+            old = {k: getattr(tuning, k) for k in knobs}
+            for k, v in knobs.items():
+                setattr(tuning, k, v)
+            try:
+                steps[route] = [None] * t
+                for i in reversed(range(t)):
+                    cache.current_seq_len = base + i
+                    steps[route][i] = model.forward(
+                        chunk[:, i:i + 1], cache)[0, -1].float()
+            finally:
+                for k, v in old.items():
+                    setattr(tuning, k, v)
+        cache.current_seq_len = base
+
+        def rel(a, b):
+            return max(((x - y).abs().max() / y.abs().max()).item()
+                       for x, y in zip(a, b))
+
+        out[t] = (rel(rows, steps["fused"]),
+                  rel(steps["separate"], steps["fused"]))
+    del cache
+    return out
+
+
+def verify_rows(port, device, mp, ids):
+    """verify_rows_vs_steps on a 2-layer full-width model (zero-mean
+    weights, another seed, max_seq_len 2048) and on the 32-layer model.
+    Each row within LORA_TOL of its one-token step or, where the two
+    one-token routes sit further apart than that (32 layers of zero-mean
+    random weights amplify a bf16 step of difference between any two
+    routes to ~3% of the logit scale), within 1.5x their spread. Returns
+    {label: {T: (worst row, spread)}}."""
+    cfg = port.ExLlamaConfig()
+    cfg.num_hidden_layers = 2
+    cfg.max_seq_len = mp.cfg.max_seq_len
+    two = port.ExLlama(cfg, params=centered(port.make_synthetic_params(
+        cfg, 128, False, seed=SEED + 2, device=device, fast=True)),
+        device=device)
+    out = {"2 layers": verify_rows_vs_steps(port, two, ids)}
+    del two
+    out["32 layers"] = verify_rows_vs_steps(port, mp.model, ids)
+    for label, by_t in out.items():
+        for t, (err, spread) in by_t.items():
+            if err > max(LORA_TOL, 1.5 * spread):
+                raise AssertionError(
+                    f"phase 12 verify forward, {label}, T = {t}: a row "
+                    f"{err:.4f} of the logit scale from its one-token step "
+                    f"(the two one-token routes {spread:.4f} apart)")
+    return out
+
+
+def speculative_path(mp, device):
+    """SpeculativeGenerator on the 32-layer model: first every row of the
+    verify forward against one-token steps (``verify_rows``); then
+    NgramProposer, top-k 1, 128 tokens after a 64-token pattern repeated
+    16 times; every emitted token within LORA_TOL of the best of the
+    one-token kernel path teacher-forced over the same sequence
+    (``forced_gaps``); the launches of each verify forward VERIFY_STEP;
+    drafted / accepted / forwards and tok/s beside the generator's eager
+    and graphed tok/s on the same prompt. Then a 4-layer draft model of the
+    same width (another seed), 32 tokens: its acceptance rate; and the
+    model as its own draft (max_draft 8), 32 tokens, where the drafts are
+    the one-token path's greedy tokens, so that most tokens are emitted
+    from rows 1..k of the verify forwards and held by ``forced_gaps``."""
+    from exllama_tpu_torch.speculative import DraftModelProposer, NgramProposer
+
+    port, model, tok = mp.port, mp.model, mp.tok
+    rng = np.random.default_rng(SEED + 12)
+    ids = np.tile(rng.integers(4, 260, size=64), 16).astype(np.int32)
+    res = dict(rows=verify_rows(port, device, mp, ids))
+    log(f"  [12] verify forward after {len(ids) - 1} tokens, every row vs a "
+        f"one-token step over the same cache rows (limit {LORA_TOL}, or 1.5x "
+        f"the two one-token routes' spread where that is larger): " + "; ".join(
+            f"{label} " + ", ".join(f"T = {t} within {e:.4f} (routes {sp:.4f}"
+                                    f" apart)" for t, (e, sp) in by_t.items())
+            for label, by_t in res["rows"].items()))
+    spec = port.SpeculativeGenerator(model, tok, port.ExLlamaCache(model),
+                                     NgramProposer(), seed=SEED)
+    spec.settings.top_k = 1
+    verify = []
+
+    def counted(input_ids, cache, **kw):
+        c0 = counts()
+        r = type(model).forward(model, input_ids, cache, **kw)
+        t = np.asarray(input_ids).shape[1]
+        if not kw.get("last_id_only", True) and t > 1:
+            verify.append((t, since(c0)))
+        return r
+
+    model.forward = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seq = spec.generate_tokens(ids, 128)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        del model.forward
+    toks = seq[len(ids):]
+    if len(toks) != 128 or not verify:
+        raise AssertionError(f"phase 12 speculative: {len(toks)} tokens, "
+                             f"{len(verify)} verify forwards of 2+ rows")
+    for t, c in verify:
+        require(f"phase 12 verify forward at T = {t}", c, VERIFY_STEP)
+    gaps = forced_gaps(model, ids[None], toks,
+                       score=lambda logits, g: logits[0])
+    if max(gaps) > LORA_TOL:
+        raise AssertionError(f"phase 12 speculative: a token {max(gaps):.4f} "
+                             f"below the one-token path's best")
+    res.update(stats=dict(spec.stats), acceptance=spec.acceptance_rate,
+               tps=128 / dt, max_gap=max(gaps),
+               verify_rows=sorted({t for t, _ in verify}))
+    # the generator on the same prompt, greedy: graphs and eager
+    rates = {}
+    for label, capture in (("graphs", True), ("eager", False)):
+        g = generator_pair(mp, top_k=1)[0 if capture else 1]
+        g.gen_begin(ids[None])
+        g.gen_tokens(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.gen_tokens(128)
+        torch.cuda.synchronize()
+        rates[label] = 128 / (time.perf_counter() - t0)
+    res["generator_tps"] = rates
+    log(f"  [12] speculative (n-gram, top-k 1) after {len(ids)} tokens: 128 "
+        f"tokens in {dt:.3f} s = {res['tps']:.2f} tok/s; {spec.stats}, "
+        f"acceptance {spec.acceptance_rate:.3f}, verify rows "
+        f"{res['verify_rows']}, launches per verify forward {VERIFY_STEP}; "
+        f"every token within {max(gaps):.4f} of the one-token path's best; "
+        f"the generator on the same prompt: graphs "
+        f"{rates['graphs']:.2f}, eager {rates['eager']:.2f} tok/s")
+    # a draft model: 4 layers of the same width and vocab, another seed
+    cfg4 = port.ExLlamaConfig()
+    cfg4.num_hidden_layers = 4
+    cfg4.max_seq_len = mp.cfg.max_seq_len
+    draft = port.ExLlama(cfg4, params=centered(port.make_synthetic_params(
+        cfg4, 128, False, seed=SEED + 1, device=device, fast=True)),
+        device=device)
+    dspec = port.SpeculativeGenerator(model, tok, port.ExLlamaCache(model),
+                                      DraftModelProposer(draft, max_draft=4),
+                                      seed=SEED)
+    dspec.settings.top_k = 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dseq = dspec.generate_tokens(ids, 32)
+    torch.cuda.synchronize()
+    ddt = time.perf_counter() - t0
+    dgaps = forced_gaps(model, ids[None], dseq[len(ids):],
+                        score=lambda logits, g: logits[0])
+    if len(dseq) != len(ids) + 32 or max(dgaps) > LORA_TOL:
+        raise AssertionError(f"phase 12 draft model: {len(dseq) - len(ids)} "
+                             f"tokens, gap {max(dgaps):.4f}")
+    res["draft"] = dict(stats=dict(dspec.stats),
+                        acceptance=dspec.acceptance_rate, tps=32 / ddt,
+                        max_gap=max(dgaps))
+    log(f"  [12] draft model (4 layers, seed {SEED + 1}, max_draft 4): 32 "
+        f"tokens in {ddt:.3f} s = {32 / ddt:.2f} tok/s; {dspec.stats}, "
+        f"acceptance {dspec.acceptance_rate:.3f}; every token within "
+        f"{max(dgaps):.4f} of the one-token path's best")
+    del draft, dspec
+    # the model as its own draft: it drafts the one-token path's greedy
+    # tokens, so a verify row that agrees with its one-token step accepts
+    sspec = port.SpeculativeGenerator(model, tok, port.ExLlamaCache(model),
+                                      DraftModelProposer(model, max_draft=8),
+                                      seed=SEED)
+    sspec.settings.top_k = 1
+    sseq = sspec.generate_tokens(ids, 32)
+    sgaps = forced_gaps(model, ids[None], sseq[len(ids):],
+                        score=lambda logits, g: logits[0])
+    st = sspec.stats
+    if len(sseq) != len(ids) + 32 or max(sgaps) > LORA_TOL:
+        raise AssertionError(f"phase 12 self-draft: {len(sseq) - len(ids)} "
+                             f"tokens, gap {max(sgaps):.4f}")
+    if 2 * st["accepted"] < st["tokens"]:
+        raise AssertionError(f"phase 12 self-draft: {st}: fewer than half "
+                             f"the tokens came from drafted rows")
+    res["self_draft"] = dict(stats=dict(st), acceptance=sspec.acceptance_rate,
+                             max_gap=max(sgaps))
+    log(f"  [12] the model as its own draft (max_draft 8): {st}, acceptance "
+        f"{sspec.acceptance_rate:.3f}, {st['accepted']} of {st['tokens']} "
+        f"tokens from rows 1..k of the verify forwards; every token within "
+        f"{max(sgaps):.4f} of the one-token path's best")
+    del sspec
+    return res
+
+
+def lora_and_generators(device, launches):
+    """Phase 12: the LoRA adapters, the alt generator and speculative
+    decoding. Returns its results; adds every launch of the phase (its
+    sub-phases count by difference) to ``launches``."""
+    import exllama_tpu_torch as port
+
+    out = {}
+    zero_counts()
+    with tempfile.TemporaryDirectory() as root:
+        full = port.ExLlamaConfig()
+        files = write_adapters(full, root)
+        t0 = time.time()
+        out["vs_cpu"] = lora_vs_cpu(device, files)
+        log("  [12] 2 layers at full width, zero-mean weights, 64-token "
+            "prefill + 4 decode steps, card vs CPU (limit "
+            f"{LORA_TOL}; each adapter first moves the card's logits by > "
+            f"{3 * LORA_TOL}): " + "; ".join(
+                f"{k}: moved {v['moved']:.4f}, within {v['err']:.4f}"
+                + (f", without the fold's permutation moved "
+                   f"{v['unfolded_moved']:.4f}" if "unfolded_moved" in v
+                   else "") + f", launches a step {v['step']}"
+                for k, v in out["vs_cpu"].items())
+            + f" ({time.time() - t0:.1f} s)")
+        mp = MainPath(device)
+        mp.use_model(port.ExLlama(mp.cfg, params=centered(mp.model.params),
+                                  device=device))
+        loras = {n: port.ExLlamaLora(mp.model, *f) for n, f in files.items()}
+    out["generator"] = lora_generators(mp, loras)
+    out["alt"] = alt_generator_path(mp, loras["Q"])
+    out["speculative"] = speculative_path(mp, device)
+    c = counts()
+    launches.update({k: launches.get(k, 0) + v for k, v in c.items()})
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -3584,12 +4188,37 @@ def main() -> int:
     del mp
     log(f"[11 compiled decode] done ({time.time() - t0:.1f} s)")
 
+    log("[12 adapters and generators] LoRA adapters Q (q, v) and A (all "
+        "seven projections) against the CPU on 2-layer full-width models "
+        "and through the generator's graphs on the 32-layer model; the alt "
+        "generator; speculative decoding")
+    t0 = time.time()
+    p12 = lora_and_generators(device, launches)
+    tps = p12["generator"]["tps"]
+    spec = p12["speculative"]
+    log(f"  decode tok/s by adapter (sampled, graphs, 1919-token context, "
+        f"in turns): none {tps['none']:.2f}, Q {tps['Q']:.2f}, A "
+        f"{tps['A']:.2f} (phase 11, the same step without an adapter: "
+        f"{graphs['sampled_tps']['graph']:.2f}); speculative "
+        f"{spec['tps']:.2f} tok/s (acceptance {spec['acceptance']:.3f}) "
+        f"beside the generator's {spec['generator_tps']['graphs']:.2f} "
+        f"(graphs) / {spec['generator_tps']['eager']:.2f} (eager); verify "
+        f"rows vs one-token steps within "
+        f"{max(e for r in spec['rows'].values() for e, _ in r.values()):.4f}"
+        f"; self-draft acceptance "
+        f"{spec['self_draft']['acceptance']:.3f}")
+    log(f"[12 adapters and generators] done ({time.time() - t0:.1f} s)")
+
     # K3's prefill path beside its decode path (the summary names decode)
     log("  flash_attn prefill T=1919: " + "; ".join(
         f"{kname} kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
         f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f}"
         for kname in ("flash_attn", "flash_attn_int8", "flash_attn_int4")
         for r in res[kname] if "prefill T=1919" in r["case"]))
+    log("  flash_attn at the verify forward's shapes: " + "; ".join(
+        f"{r['case']} kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
+        f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f}"
+        for r in res["flash_attn"] if r["case"].startswith("verify")))
     summary = []
     for kname, (src, replaces, rep_case) in SOURCES.items():
         r = next(c for c in res[kname] if c["case"].startswith(rep_case))

@@ -8,6 +8,7 @@ is hand-written CUDA C++ under ``csrc/``, built by ``nvcc`` at first use
 plain PyTorch version instead. Entry points default to ``device="cuda"``.
 """
 
+from exllama_tpu_torch.alt_generator import ExLlamaAltGenerator
 from exllama_tpu_torch.cache import ExLlamaCache
 from exllama_tpu_torch.config import ExLlamaConfig, TuningParams
 from exllama_tpu_torch.formats.loader import (
@@ -16,16 +17,21 @@ from exllama_tpu_torch.formats.loader import (
     params_from_jax,
 )
 from exllama_tpu_torch.generator import ExLlamaGenerator
+from exllama_tpu_torch.lora import ExLlamaLora
 from exllama_tpu_torch.models.llama import ExLlama
+from exllama_tpu_torch.speculative import SpeculativeGenerator
 from exllama_tpu_torch.tokenizer import ExLlamaTokenizer, FakeTokenizer
 
 __all__ = [
     "ExLlama",
+    "ExLlamaAltGenerator",
     "ExLlamaCache",
     "ExLlamaConfig",
     "ExLlamaGenerator",
+    "ExLlamaLora",
     "ExLlamaTokenizer",
     "FakeTokenizer",
+    "SpeculativeGenerator",
     "TuningParams",
     "load_model_params",
     "make_synthetic_params",

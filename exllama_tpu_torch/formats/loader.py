@@ -15,7 +15,10 @@ All three fuse qkv / gate-up when ``tuning.fuse_projections`` (skipped for
 act-order layers); the first two fold the act-order down-proj permutation
 into the gate/up columns where ``tuning.fold_act_order`` (the default, as
 in the JAX loaders), store the scales as ``tuning.scale_dtype`` says and,
-with ``tuning.quantize_lm_head``, quantize the lm_head to 4 bits.
+with ``tuning.quantize_lm_head``, quantize the lm_head to 4 bits. Each
+keeps the folded permutations in ``ModelParams.down_folds`` (one entry a
+layer, None where nothing was folded), which a LoRA adapter of gate, up or
+down needs (``lora.ExLlamaLora``).
 """
 
 from __future__ import annotations
@@ -129,23 +132,29 @@ def save_safetensors(tensors: "dict[str, np.ndarray]", path: str,
     return off
 
 
-def _fold_down_act_order(lp: LayerParams) -> LayerParams:
+def _fold_down_act_order(lp: LayerParams):
     """Fold the act-order down-proj input permutation into the gate/up
-    output columns (numerics unchanged)."""
+    output columns (numerics unchanged). Returns (the layer, the applied
+    permutation as int64 numpy), or (lp, None) where there is nothing to
+    fold."""
     if lp.down.x_map is None or lp.gate is None or lp.up is None:
-        return lp
-    fold = lp.down.x_map.cpu().numpy()
+        return lp, None
+    fold = lp.down.x_map.cpu().numpy().astype(np.int64)
     return dataclasses.replace(
         lp,
         gate=permute_out_columns(lp.gate, fold),
         up=permute_out_columns(lp.up, fold),
         down=dataclasses.replace(lp.down, x_map=None),
-    )
+    ), fold
 
 
-def _finish_layer(lp: LayerParams, config: ExLlamaConfig) -> LayerParams:
+def _finish_layer(lp: LayerParams, config: ExLlamaConfig, folds: list):
+    """Fold and fuse one loaded layer; its fold (or None) goes to
+    ``folds``."""
+    fold = None
     if config.tuning.fold_act_order:
-        lp = _fold_down_act_order(lp)
+        lp, fold = _fold_down_act_order(lp)
+    folds.append(fold)
     if config.tuning.fuse_projections:
         lp = fuse_layer_projections(lp)
     return lp
@@ -213,7 +222,7 @@ def load_model_params(config: ExLlamaConfig, device="cuda") -> ModelParams:
             scale_dtype=scale_dtype,
         )
 
-    layers = []
+    layers, folds = [], []
     t0 = time.time()
     act = False
     for i in range(config.num_hidden_layers):
@@ -234,7 +243,7 @@ def load_model_params(config: ExLlamaConfig, device="cuda") -> ModelParams:
         )
         config.groupsize = lp.q.groupsize
         act = act or lp.q.act_order
-        layers.append(_finish_layer(lp, config))
+        layers.append(_finish_layer(lp, config, folds))
     config.act_order = act
 
     sin, cos = _tables(config, device)
@@ -253,6 +262,7 @@ def load_model_params(config: ExLlamaConfig, device="cuda") -> ModelParams:
         lm_head=lm_head,
         rope_sin=sin,
         rope_cos=cos,
+        down_folds=folds,
     )
 
 
@@ -325,7 +335,7 @@ def make_synthetic_params(
             a = rng.standard_normal(shape, dtype=np.float32) * std
             return torch.from_numpy(a).to(device=device, dtype=bf16)
 
-    layers = []
+    layers, folds = [], []
     for _ in range(config.num_hidden_layers):
         lp = LayerParams(
             input_norm=torch.ones(h, dtype=bf16, device=device),
@@ -333,7 +343,7 @@ def make_synthetic_params(
             q=qt(h, qdim), k=qt(h, kvdim), v=qt(h, kvdim), o=qt(qdim, h),
             gate=qt(h, inter), up=qt(h, inter), down=qt(inter, h),
         )
-        layers.append(_finish_layer(lp, config))
+        layers.append(_finish_layer(lp, config, folds))
     if config.tuning.quantize_lm_head:
         lm_head = qt(h, config.vocab_size)
     else:
@@ -343,7 +353,7 @@ def make_synthetic_params(
     return ModelParams(
         embed=embed, layers=layers,
         norm=torch.ones(h, dtype=bf16, device=device),
-        lm_head=lm_head, rope_sin=sin, rope_cos=cos,
+        lm_head=lm_head, rope_sin=sin, rope_cos=cos, down_folds=folds,
     )
 
 
@@ -395,11 +405,13 @@ def _fused_slices(widths: "list[int]") -> "list[slice]":
 
 
 def params_from_jax(
-    jax_params, config: ExLlamaConfig, device="cuda"
+    jax_params, config: ExLlamaConfig, device="cuda", down_folds=None,
 ) -> ModelParams:
     """Convert a JAX ``ModelParams`` (leaves already numpy arrays, e.g. via
     ``jax.tree.map(np.asarray, params)``) into the port's params. Reads by
-    attribute only; imports nothing of JAX."""
+    attribute only; imports nothing of JAX. ``down_folds``: the JAX
+    params' ``_down_folds`` (a plain attribute, which the tree map drops),
+    the folded permutations a LoRA adapter needs; None: nothing folded."""
     device = _require_device(device)
     nq = config.num_attention_heads * config.head_dim
     nkv = config.num_key_value_heads * config.head_dim
@@ -435,5 +447,7 @@ def params_from_jax(
                  else _bf16_from_np(jax_params.lm_head)),
         rope_sin=torch.from_numpy(np.array(jax_params.rope_sin, np.float32)),
         rope_cos=torch.from_numpy(np.array(jax_params.rope_cos, np.float32)),
+        down_folds=[None if f is None else np.asarray(f, np.int64)
+                    for f in (down_folds or [None] * len(layers))],
     )
     return params.to(device)

@@ -14,9 +14,12 @@ counterpart of the JAX ``_decode_loop_n``: on the card one captured CUDA
 graph per attend-length bucket, replayed step after step with no host read
 between steps; on the CPU the same step function, eagerly. A capture that
 fails raises: there is no fallback to an eager loop on the card. The graphs
-are dropped on ``reset()``, on ``gen_begin`` and when the settings or the
-disallowed tokens change. Beam search runs the beams as the batch of a
-second cache (``ExLlamaCache.take_rows`` / ``keep_rows``), eagerly.
+are dropped on ``reset()``, on ``gen_begin`` and when the settings, the
+disallowed tokens or the adapter change. Beam search runs the beams as the
+batch of a second cache (``ExLlamaCache.take_rows`` / ``keep_rows``),
+eagerly. ``generator.lora`` (a ``lora.ExLlamaLora``, or None) reaches
+every forward: prefill, feed, single tokens, the decode loop, CFG and the
+beams.
 """
 
 from __future__ import annotations
@@ -90,19 +93,20 @@ class DecodeLoop:
     cursor and position + 1, all on the device. The static buffers: the
     token [B, 1], the cache's ``cursor``, the history position [1], the
     history (the caller's [B, >= S_max + 1] int32), the input mask and the
-    [V] logit bias (copied in on every run where given).
+    [V] logit bias (copied in on every run where given); a LoRA adapter's
+    tensors are read where they lie (a graph holds them).
 
     On the card each step runs one ``torch.cuda.CUDAGraph`` per key: the
     attend-length bucket (``ExLlama._attend_len(past + 1)``, or the fixed
     ``attend_len``), under one epoch of the rest -- batch, head mode, the
     sampler settings, the mask's shape, whether a bias is set, the forward
-    knobs and the parameters. A new epoch drops every graph. The first step
-    of a new bucket runs eagerly on the capture stream -- it builds the
-    kernels' libraries and sizes their scratch -- and is then captured; all
-    graphs share one memory pool (they keep nothing allocated there between
-    replays, so they may replay in any order). Capture records the launch
-    counts of the step; each replay adds them to the counters
-    (``kernels.add_launches``). A capture that fails raises. With
+    knobs, the parameters and the adapter. A new epoch drops every graph.
+    The first step of a new bucket runs eagerly on the capture stream -- it
+    builds the kernels' libraries and sizes their scratch -- and is then
+    captured; all graphs share one memory pool (they keep nothing
+    allocated there between replays, so they may replay in any order).
+    Capture records the launch counts of the step; each replay adds them to
+    the counters (``kernels.add_launches``). A capture that fails raises. With
     ``capture=False``, or on the CPU, the same step runs eagerly.
     """
 
@@ -125,6 +129,7 @@ class DecodeLoop:
         self.pos = torch.zeros((1,), dtype=torch.int32, device=dev)
         self.mask: Optional[torch.Tensor] = None
         self.bias: Optional[torch.Tensor] = None
+        self.lora: Optional[list] = None
         self.graphs: dict = {}
         self._epoch = None
         self._stream = self._pool = None
@@ -152,7 +157,8 @@ class DecodeLoop:
             self.mask, attend_len=attend_len, last_token_only=True,
             preprocess_only=False, heads=cfg.num_attention_heads,
             kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
-            eps=cfg.rms_norm_eps, head_mode=self.head_mode, **kw)
+            eps=cfg.rms_norm_eps, head_mode=self.head_mode, lora=self.lora,
+            **kw)
         if sampler is None:
             tokens = out.reshape(-1)                  # the greedy head's ids
             _put_column(self.hist, self.pos, tokens)
@@ -176,12 +182,14 @@ class DecodeLoop:
 
     def run(self, n: int, tok, past: int, hist_len: int, sampler=None,
             mask: Optional[torch.Tensor] = None,
-            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+            bias: Optional[torch.Tensor] = None,
+            lora: Optional[list] = None) -> torch.Tensor:
         """n steps from token ``tok`` [B, 1] at cache position ``past``,
         the history holding ``hist_len`` tokens; ``sampler`` = (settings,
-        BOS id), or None for the greedy head. Returns the n tokens [B, n]
-        as a view of the history, on the device (no host read). The caller
-        sets ``cache.current_seq_len``."""
+        BOS id), or None for the greedy head; ``lora`` an adapter's
+        ``ExLlamaLora.stacked`` or None. Returns the n tokens [B, n] as a
+        view of the history, on the device (no host read). The caller sets
+        ``cache.current_seq_len``."""
         s_max = self.cache.max_seq_len
         if not (0 <= past and past + n <= s_max
                 and hist_len + n <= self.hist.shape[1]):
@@ -196,6 +204,7 @@ class DecodeLoop:
         self.pos.fill_(hist_len)
         self.mask = self._static(self.mask, mask)
         self.bias = self._static(self.bias, bias)
+        self.lora = lora
         kw = self._forward_kwargs()
         dev = self.cache.k[0].device
         graphs = self.capture and dev.type == "cuda"
@@ -204,7 +213,7 @@ class DecodeLoop:
                  (dataclasses.astuple(sampler[0]), sampler[1]),
                  None if mask is None else tuple(mask.shape),
                  bias is not None, tuple(sorted(kw.items())),
-                 id(self.model.params))
+                 id(self.model.params), None if lora is None else id(lora))
         if epoch != self._epoch:
             self.reset()
             self._epoch = epoch
@@ -257,7 +266,7 @@ class DecodeLoop:
                   if after[k] != before[k]}
         kernels.add_launches(counts, -1)      # capture launched nothing
         keep = (kernels.scratch_in_use(dev), self.model.params, self.mask,
-                self.bias)
+                self.bias, self.lora)
         return graph, counts, keep
 
 
@@ -270,6 +279,7 @@ class ExLlamaGenerator:
         self.model = model
         self.tokenizer = tokenizer
         self.cache = cache
+        self.lora = None
         self.disallowed_tokens: Optional[list[int]] = None
         self.generator = torch.Generator(device=model.device).manual_seed(seed)
         self.in_beam_search = False
@@ -322,7 +332,7 @@ class ExLlamaGenerator:
         if in_tokens.shape[1] > 1:
             self.model.forward(
                 in_tokens[:, :-1], self.cache, preprocess_only=True,
-                input_mask=self._mask,
+                input_mask=self._mask, lora=self.lora,
             )
 
     def gen_begin_empty(self):
@@ -370,7 +380,7 @@ class ExLlamaGenerator:
         if start < self.sequence.shape[1] - 1:
             self.model.forward(
                 self.sequence[:, start:-1], self.cache, preprocess_only=True,
-                input_mask=self._mask,
+                input_mask=self._mask, lora=self.lora,
             )
         self.sequence_actual = self.sequence
         self._sync_seq_buf()
@@ -462,6 +472,7 @@ class ExLlamaGenerator:
         logits = self.model.forward(
             self.sequence[:, -1:], self.cache,
             input_mask=self._mask if mask is None else self._as_mask(mask),
+            lora=self.lora,
         )
         s = self.settings
         if constraints is not None:
@@ -494,6 +505,7 @@ class ExLlamaGenerator:
             self.sequence.shape[1],
             sampler=(self.settings, self.tokenizer.bos_token_id),
             mask=self._mask, bias=self._logit_bias(),
+            lora=None if self.lora is None else self.lora.stacked,
         )
         toks = out.cpu().numpy().astype(np.int32)                # [B, n]
         self.cache.current_seq_len = past + n
@@ -574,6 +586,7 @@ class ExLlamaGenerator:
         for _ in range(max_new_tokens):
             logits = self.model.forward(
                 self.sequence[:, -1:], self.cache, input_mask=self._mask,
+                lora=self.lora,
             )
             lg = apply_rep_penalty(
                 logits[:, -1, :].to(torch.float32), self._seq_buf,
@@ -694,6 +707,7 @@ class ExLlamaGenerator:
             mlp_fuse=t.fuse_mlp, attn_fuse=t.fuse_attn, qkv_fuse=t.fuse_qkv,
             commit_impl=t.commit_impl, matmul_impl=t.matmul_impl,
             attn_impl=t.attn_impl,
+            lora=None if self.lora is None else self.lora.stacked,
         )
         self._beam_cache.current_seq_len = past + 1
         probs = self._beam_filter(logits, hist, hist_len)
@@ -732,6 +746,7 @@ class ExLlamaGenerator:
                 # initial expansion off the main cache
                 logits = self.model.forward(
                     self.sequence[:, -1:], self.cache, input_mask=self._mask,
+                    lora=self.lora,
                 )
                 self._beam_prefix = self.sequence.shape[1]
                 self._beam_seqs = None

@@ -1,5 +1,5 @@
 """The Llama-family model (port of exllama_tpu/models/llama.py), single
-device, no LoRA: fused qkv / gate-up projections, a bf16, int8 or int4 KV
+device: fused qkv / gate-up projections, a bf16, int8 or int4 KV
 cache (``kv_cache_dtype``; optionally padded to a head width K3 takes,
 ``pad_head_dim``), 4-bit matmuls in the arithmetic ``matmul_impl`` names
 (exact by default, the W4A8 turbo modes opt-in, ``"xla"`` the plain path
@@ -24,8 +24,14 @@ environment makes the long-prefill down projection form silu(gate)*up in
 its kernel (K12). A quantized cache is read by the same K3 / K7 and written
 by the same K8, each dispatching on the cache format; a prefill chunk is
 quantized as it is written and attended from the cache, a decode step
-attends to its own row in bf16 and quantizes it at the commit. Everything
-between kernels is plain tensor code. PyTorch
+attends to its own row in bf16 and quantizes it at the commit. A LoRA
+adapter (``lora.ExLlamaLora``; ``forward(..., lora=)``) adds its low-rank
+term to each adapted projection's output and keeps the fused kernels that
+would skip it off, as the JAX gates do: any adapter refuses K7's whole-layer
+launch, an adapted o K7 altogether (K3 then attends and K1 projects), an
+adapted gate / up / down K6 and K7's MLP phases, and an adapted q / k / v
+takes the input norm out of K1's prologue (the adapter reads the same normed
+x). Everything between kernels is plain tensor code. PyTorch
 runs eagerly, so there is no jit: the layer loop is a Python loop and the
 cache is updated in place.
 """
@@ -66,7 +72,7 @@ from exllama_tpu_torch.ops.attn_block import (
 from exllama_tpu_torch.ops.dense import dense_matmul, head_argmax
 from exllama_tpu_torch.ops.mlp import fused_mlp_applicable, q4_mlp, silu_mul
 from exllama_tpu_torch.ops.norms import rms_norm
-from exllama_tpu_torch.ops.quant import q4_matmul
+from exllama_tpu_torch.ops.quant import lora_delta, q4_matmul
 from exllama_tpu_torch.ops.rope import apply_rope_sliced, slice_tables
 
 
@@ -94,6 +100,10 @@ class ModelParams:
     lm_head: "torch.Tensor | QuantTensor"   # [hidden, vocab] bf16, or 4-bit
     rope_sin: torch.Tensor        # [max_seq_len, head_dim] f32
     rope_cos: torch.Tensor
+    # the act-order permutation folded into each layer's gate/up columns
+    # (int64 numpy [intermediate], None where nothing was folded), which
+    # lora.ExLlamaLora applies to the adapters of those projections
+    down_folds: Optional[list] = None
 
     @property
     def device(self) -> torch.device:
@@ -115,7 +125,7 @@ class ModelParams:
         return ModelParams(
             embed=mv(self.embed), layers=layers, norm=mv(self.norm),
             lm_head=mv(self.lm_head), rope_sin=mv(self.rope_sin),
-            rope_cos=mv(self.rope_cos),
+            rope_cos=mv(self.rope_cos), down_folds=self.down_folds,
         )
 
 
@@ -157,15 +167,17 @@ def _decoder_layer(
     matmul_impl: str = "auto",
     attn_impl: str = "auto",
     rows_out=None,
+    lora=None,
 ):
     """One decoder layer (exllama_tpu/models/llama.py:_decoder_layer, single
-    device, no LoRA). Returns (h, k_row, v_row); the rows are the new K/V of
-    a deferred (T=1) step, which the caller commits. ``rows_out`` (the
-    layer's views of ``ExLlamaCache.rows``): where the whole layer is one K7
-    launch, the kernel writes the rows there and they are returned; the
-    other paths return rows of their own (their V row is a slice of the qkv
-    output, which a copy into the buffer would cost a launch a layer to
-    stage). ``attn_impl`` routes
+    device). ``lora``: the layer's ``lora.LayerLora`` or None. Returns (h,
+    k_row, v_row); the rows are the new K/V of a deferred (T=1) step, which
+    the caller commits. ``rows_out`` (the layer's views of
+    ``ExLlamaCache.rows``): where the whole layer is one K7 launch, the
+    kernel writes the rows there and they are returned; the other paths
+    return rows of their own (their V row is a slice of the qkv output,
+    which a copy into the buffer would cost a launch a layer to stage).
+    ``attn_impl`` routes
     the attention of the width the cache stores (``resolve_attn_impl``):
     K3, or the einsum route, which also keeps the fused K7 off, as the JAX
     package keeps its megakernels to "flash"."""
@@ -178,15 +190,32 @@ def _decoder_layer(
     d_pad = max(kc.shape[-1] - head_dim, 0)
     flash = resolve_attn_impl(attn_impl, head_dim + d_pad) == "flash"
     attend_fn = attend if flash else attend_xla
-    mlp_ok = mlp_fuse and fused_mlp_applicable(lp.gateup, lp.down, hidden,
-                                               b * t, impl)
+
+    def lora_ab(name):
+        return None if lora is None else getattr(lora, name)
+
+    def proj(x, qt, name):
+        return q4_matmul(x, qt, impl, lora=lora_ab(name))
+
+    def lora_add(out, x, name):
+        # the low-rank term of one slice of a fused projection
+        ab = lora_ab(name)
+        return out if ab is None else out + lora_delta(x, ab)
+
+    qkv_lora = any(lora_ab(n) is not None for n in ("q", "k", "v"))
+    mlp_lora = any(lora_ab(n) is not None for n in ("gate", "up", "down"))
+    o_lora = lora_ab("o") is not None
+    mlp_ok = mlp_fuse and fused_mlp_applicable(
+        lp.gateup, lp.down, hidden, b * t, impl, has_lora=mlp_lora)
     attn_ok = (flash and defer_kv and attn_fuse
                and attn_o_applicable(lp.o, hidden, heads, head_dim, t, True,
-                                     batch=b, kv_heads=kv_heads, impl=impl))
+                                     batch=b, kv_heads=kv_heads, impl=impl,
+                                     has_lora=o_lora))
 
     # the whole layer in one K7 launch (llama.py:188-232)
     if (qkv_fuse and attn_ok and mlp_ok
-            and layer_step_applicable(lp.qkv, lp.o, hidden, heads, head_dim)
+            and layer_step_applicable(lp.qkv, lp.o, hidden, heads, head_dim,
+                                      has_lora=qkv_lora or mlp_lora or o_lora)
             and same_groupsize(lp.qkv, lp.o, lp.gateup, lp.down)):
         return layer_step(
             h, lp.qkv, lp.input_norm, rope_sin, rope_cos, kc, vc, past_len,
@@ -195,18 +224,25 @@ def _decoder_layer(
             k_scale=ksc, v_scale=vsc, rows_out=rows_out,
         )
 
-    if lp.qkv is not None:
+    if lp.qkv is not None and not qkv_lora:
         # the input norm rides in the GEMV prologue at decode M
         fused = q4_matmul(h, lp.qkv, impl, norm_w=lp.input_norm,
                           norm_eps=eps)
         q = fused[..., :nq]
         k = fused[..., nq : nq + nkv]
         v = fused[..., nq + nkv :]
+    elif lp.qkv is not None:
+        # the adapters read the same normed x as the kernel (llama.py:245)
+        a = rms_norm(h, lp.input_norm, eps)
+        fused = q4_matmul(a, lp.qkv, impl)
+        q = lora_add(fused[..., :nq], a, "q")
+        k = lora_add(fused[..., nq : nq + nkv], a, "k")
+        v = lora_add(fused[..., nq + nkv :], a, "v")
     else:
         a = rms_norm(h, lp.input_norm, eps)
-        q = q4_matmul(a, lp.q, impl)
-        k = q4_matmul(a, lp.k, impl)
-        v = q4_matmul(a, lp.v, impl)
+        q = proj(a, lp.q, "q")
+        k = proj(a, lp.k, "k")
+        v = proj(a, lp.v, "v")
     q = apply_rope_sliced(q.reshape(b, t, heads, head_dim), rope_sin, rope_cos)
     k = apply_rope_sliced(k.reshape(b, t, kv_heads, head_dim), rope_sin, rope_cos)
     v = v.reshape(b, t, kv_heads, head_dim)
@@ -248,7 +284,7 @@ def _decoder_layer(
     if attn is not None:
         if d_pad > 0:
             attn = attn[..., :head_dim]
-        h = h + q4_matmul(attn.reshape(b, t, nq), lp.o, impl)
+        h = h + proj(attn.reshape(b, t, nq), lp.o, "o")
 
     if mlp_ok:
         # the MLP block in one K6 launch (llama.py:353-362)
@@ -256,7 +292,8 @@ def _decoder_layer(
                 k_row, v_row)
     a = rms_norm(h, lp.post_norm, eps)
     ni = lp.down.in_features
-    if lp.gateup is not None and os.environ.get("EXL_GLU_FUSE", "0") == "1":
+    if (lp.gateup is not None and not mlp_lora
+            and os.environ.get("EXL_GLU_FUSE", "0") == "1"):
         # opt-in (llama.py:367-378): the down projection forms
         # silu(gate)*up from the raw gate|up output in its kernel (K12); up
         # starts at column ni of the port's unpadded fused tensor
@@ -264,12 +301,14 @@ def _decoder_layer(
         h = h + q4_matmul(fused, lp.down, impl, glu=(ni, ni))
         return h, k_row, v_row
     if lp.gateup is not None:
-        mid = silu_mul(q4_matmul(a, lp.gateup, impl), ni)
+        fused = q4_matmul(a, lp.gateup, impl)
+        g = lora_add(fused[..., :ni], a, "gate")
+        u = lora_add(fused[..., ni:], a, "up")
     else:
-        g = q4_matmul(a, lp.gate, impl)
-        u = q4_matmul(a, lp.up, impl)
-        mid = F.silu(g.to(torch.float32)).to(u.dtype) * u
-    h = h + q4_matmul(mid, lp.down, impl)
+        g = proj(a, lp.gate, "gate")
+        u = proj(a, lp.up, "up")
+    mid = silu_mul(g, u)
+    h = h + proj(mid, lp.down, "down")
     return h, k_row, v_row
 
 
@@ -295,9 +334,10 @@ def forward_chunk(
     commit_impl: str = "auto",
     matmul_impl: str = "auto",
     attn_impl: str = "auto",
+    lora=None,
 ):
     """One forward chunk over all layers (exllama_tpu/models/llama.py:
-    forward_chunk, single device, no LoRA): embedding -> layers -> final
+    forward_chunk, single device): embedding -> layers -> final
     norm -> lm_head. Returns f32 logits [B, T|1, vocab], int32 greedy token
     ids [B, T|1] with ``head_mode="argmax"`` (kernel K5 over a bf16 head, no
     logits materialized; a 4-bit head's logits through ``q4_matmul``, then
@@ -310,7 +350,9 @@ def forward_chunk(
     rows, kernels and commit then all read the device cursor and whose
     host checks the position it knows. The fuse flags, ``commit_impl``, ``matmul_impl`` and
     ``attn_impl`` are the JAX package's knobs; ``matmul_impl`` defaults to
-    the exact kernels, ``attn_impl`` to K3 where it takes the head dim."""
+    the exact kernels, ``attn_impl`` to K3 where it takes the head dim.
+    ``lora``: an adapter's per-layer ``LayerLora`` list
+    (``ExLlamaLora.stacked``) or None."""
     if head_mode not in ("logits", "argmax"):
         raise ValueError(f"head_mode {head_mode!r}")
     b, t = tokens.shape
@@ -348,6 +390,7 @@ def forward_chunk(
             attend_len=attend_len, input_mask=input_mask, defer_kv=defer,
             mlp_fuse=mlp_fuse, attn_fuse=attn_fuse, qkv_fuse=qkv_fuse,
             matmul_impl=matmul_impl, attn_impl=attn_impl, rows_out=rows,
+            lora=None if lora is None else lora[li],
         )
         k_rows.append(k_row)
         v_rows.append(v_row)
@@ -517,6 +560,7 @@ class ExLlama:
         last_id_only: bool = True,
         preprocess_only: bool = False,
         input_mask=None,              # [B, S_max] bool, True = valid
+        lora=None,                    # lora.ExLlamaLora or None
     ):
         """Chunked forward. Advances ``cache.current_seq_len`` and writes the
         cache in place. Returns f32 logits [B, 1, vocab] / [B, T, vocab], or
@@ -560,6 +604,7 @@ class ExLlama:
                 commit_impl=tune.commit_impl,
                 matmul_impl=tune.matmul_impl,
                 attn_impl=tune.attn_impl,
+                lora=None if lora is None else lora.stacked,
             )
             cache.current_seq_len += chunk
             if is_last:

@@ -65,13 +65,14 @@ MAX_GROUP = 8          # ... and at most 8 query heads per kv head
 def attn_o_applicable(o, hidden: int, heads: int, head_dim: int, t: int,
                       deferred: bool, batch: int = 1,
                       kv_heads: Optional[int] = None,
-                      impl: str = "auto") -> bool:
+                      impl: str = "auto", has_lora: bool = False) -> bool:
     """The JAX gate's semantic conditions (attn_block.py:438-469): a
-    kernel ``impl`` (not the plain "xla"), decode only (T = 1, deferred
-    commit), B <= 32, an o-proj without act-order whose input is the heads
-    and whose output is the residual. K7's own limits: head_dim 128, at most
-    8 query heads per kv head, the groupsizes its GEMV takes."""
-    if check_matmul_impl(impl) == "xla":
+    kernel ``impl`` (not the plain "xla"), no LoRA adapter on o, decode only
+    (T = 1, deferred commit), B <= 32, an o-proj without act-order whose
+    input is the heads and whose output is the residual. K7's own limits:
+    head_dim 128, at most 8 query heads per kv head, the groupsizes its
+    GEMV takes."""
+    if check_matmul_impl(impl) == "xla" or has_lora:
         return False
     if o is None or not deferred or t != 1 or batch > GEMV_MAX_M:
         return False
@@ -86,11 +87,12 @@ def attn_o_applicable(o, hidden: int, heads: int, head_dim: int, t: int,
 
 
 def layer_step_applicable(qkv, o, hidden: int, heads: int,
-                          head_dim: int) -> bool:
-    """Phase B's extra conditions (attn_block.py:923-950): a fused qkv
-    without act-order on the residual, o's groupsize, head_dim 128 (rope
-    pairs column j with j + 64 of one head)."""
-    if qkv is None or o is None or qkv.x_map is not None:
+                          head_dim: int, has_lora: bool = False) -> bool:
+    """Phase B's extra conditions (attn_block.py:923-950): no LoRA adapter
+    on any projection of the layer, a fused qkv without act-order on the
+    residual, o's groupsize, head_dim 128 (rope pairs column j with j + 64
+    of one head)."""
+    if qkv is None or o is None or has_lora or qkv.x_map is not None:
         return False
     if qkv.in_features != hidden or qkv.groupsize != o.groupsize:
         return False

@@ -37,16 +37,17 @@ KERNEL_GROUPSIZES = (32, 64, 128)
 
 
 def fused_mlp_applicable(gateup, down, hidden: int, m: int,
-                         impl: str = "auto") -> bool:
+                         impl: str = "auto", has_lora: bool = False) -> bool:
     """The JAX gate's semantic conditions (mlp.py:249-286): a kernel
-    ``impl`` (not the plain "xla"), fused gate|up and down present, no
-    act-order on either, residual width == down's output, one groupsize and
-    one scale dtype, M small enough for the GEMV regime. The TPU conditions
-    (npair layout, N_ALIGN padding, the VMEM budget) have no counterpart;
-    K6's own limit is the groupsizes its GEMV takes."""
+    ``impl`` (not the plain "xla"), fused gate|up and down present, no LoRA
+    adapter on gate, up or down, no act-order on either, residual width ==
+    down's output, one groupsize and one scale dtype, M small enough for
+    the GEMV regime. The TPU conditions (npair layout, N_ALIGN padding, the
+    VMEM budget) have no counterpart; K6's own limit is the groupsizes its
+    GEMV takes."""
     if check_matmul_impl(impl) == "xla":
         return False
-    if gateup is None or down is None or m > GEMV_MAX_M:
+    if gateup is None or down is None or has_lora or m > GEMV_MAX_M:
         return False
     if gateup.scales.dtype != down.scales.dtype:
         return False
@@ -60,10 +61,9 @@ def fused_mlp_applicable(gateup, down, hidden: int, m: int,
             and gateup.out_features == 2 * down.in_features)
 
 
-def silu_mul(gu: torch.Tensor, inter: int) -> torch.Tensor:
-    """silu(gate) * up of a fused [..., 2*inter] bf16 gate|up output: silu in
-    f32 rounded to bf16, times up in bf16 (mlp.py:_silu_boundary)."""
-    g, u = gu[..., :inter], gu[..., inter:]
+def silu_mul(g: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """silu(gate) * up of bf16 gate and up outputs: silu in f32 rounded to
+    bf16, times up in bf16 (mlp.py:_silu_boundary)."""
     return F.silu(g.to(torch.float32)).to(u.dtype) * u
 
 
@@ -84,7 +84,8 @@ def q4_mlp_plain(h, norm_w, gateup: QuantTensor, down: QuantTensor, eps,
     *lead, k = h.shape
     h2 = h.reshape(-1, k)
     a = rms_norm(h2, norm_w, eps)
-    mid = silu_mul(gemv(a, gateup), down.in_features)
+    gu, ni = gemv(a, gateup), down.in_features
+    mid = silu_mul(gu[..., :ni], gu[..., ni:])
     return (h2 + gemv(mid, down)).reshape(*lead, k)
 
 

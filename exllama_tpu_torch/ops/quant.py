@@ -26,7 +26,10 @@ threshold measured on a TPU and kept for now):
     silu(gate)*up from the raw fused gate|up output inside the kernel.
 
 K2, K12, K10 and K11 are the exact, GLU, int8 and W8 modes of one
-pipelined tensor-core kernel (csrc/q4_ring.cuh).
+pipelined tensor-core kernel (csrc/q4_ring.cuh). ``lora=(A, B)`` adds a
+LoRA adapter's low-rank term after any of them (``lora_delta``: two
+f32-accumulated products in plain tensor code, which is where the JAX
+package computes it too).
 
 ``impl="xla"`` is the plain path, ``_q4_matmul_plain`` on any device (the
 JAX package's ``impl == "xla"`` branch): an oracle that runs only where it is
@@ -578,6 +581,7 @@ def q4_matmul(
     norm_w: "torch.Tensor | None" = None,
     norm_eps: float = 1e-6,
     glu: "tuple[int, int] | None" = None,
+    lora: "tuple[torch.Tensor, torch.Tensor] | None" = None,
 ) -> torch.Tensor:
     """``[rms_norm](x) @ dequant(qt)``; x [..., in_features] bf16 ->
     [..., out_features] bf16. Dispatches by ``impl`` and M = prod(leading
@@ -589,8 +593,16 @@ def q4_matmul(
     (K12) at M > 32 without act-order and outside "pallas_a8t", formed up
     front otherwise. Composes with neither ``norm_w`` nor act-order fusion.
     ``impl="xla"``: the plain path on any device, no kernel.
+
+    ``lora=(A, B)``: a LoRA adapter's low-rank term ``lora_delta(x, lora)``
+    added to the kernel's output (quant.py:1717-1718). The adapter consumes
+    x as given, so it composes with neither ``norm_w`` (norm first) nor
+    ``glu``.
     """
     impl = check_matmul_impl(impl)
+    if lora is not None and (norm_w is not None or glu is not None):
+        raise ValueError("q4_matmul: lora composes with neither norm_w nor "
+                         "glu (norm first)")
     if glu is not None:
         ni, ou = glu
         if norm_w is not None or ou + ni > x.shape[-1]:
@@ -623,4 +635,26 @@ def q4_matmul(
         else:
             ws = qt.w8_scale if qt.w8_scale is not None else w8_col_scale(qt)
             out = q4_prefill_a8(x2, qt, ws)
-    return out.reshape(*lead, qt.out_features)
+    out = out.reshape(*lead, qt.out_features)
+    if lora is not None:
+        out = out + lora_delta(x, lora)
+    return out
+
+
+def lora_delta(x: torch.Tensor, lora) -> torch.Tensor:
+    """The low-rank LoRA term ``x @ A @ B`` (quant.py:1722-1744), in x's
+    dtype. A / B are [in, r] / [r, out] (one adapter for the whole batch)
+    or [B, in, r] / [B, r, out] (one adapter a batch row; zero rows: a row
+    without an adapter) for x [B, T, in]. Each product accumulates in f32
+    and is rounded to x's dtype, as the JAX function's
+    ``preferred_element_type=f32`` dots. Plain tensor code on every device:
+    the JAX package computes it outside its kernels too."""
+    a, b = lora
+    f32 = torch.float32
+    a = a.to(x.dtype).to(f32)
+    b = b.to(x.dtype).to(f32)
+    if a.dim() == 2:
+        xr = torch.matmul(x.to(f32), a).to(x.dtype)
+        return torch.matmul(xr.to(f32), b).to(x.dtype)
+    xr = torch.einsum("bti,bir->btr", x.to(f32), a).to(x.dtype)
+    return torch.einsum("btr,bro->bto", xr.to(f32), b).to(x.dtype)

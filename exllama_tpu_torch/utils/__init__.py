@@ -1,1 +1,2 @@
-"""Tools of the port: checkpoint fabrication and sharding."""
+"""Tools of the port: checkpoint and adapter fabrication, sharding, and
+the stop-string split of the streaming generators."""

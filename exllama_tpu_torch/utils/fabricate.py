@@ -15,7 +15,9 @@ bytes; the files are written by the port's own safetensors writer
 (``formats.loader.save_safetensors``), so no ``safetensors`` package is
 needed. ``--layers`` cuts the depth (the default is the model's). Absolute
 perplexity on random weights means nothing; ``benchmark -d DIR -v`` holds
-the kernels against the plain path on it.
+the kernels against the plain path on it. ``fabricate_lora`` writes a LoRA
+adapter in the PEFT layout for a model's shapes (``lora.ExLlamaLora``
+loads it).
 """
 
 from __future__ import annotations
@@ -159,6 +161,59 @@ def fabricate(out_dir: str, model: str = "7b", groupsize: int = 128,
             {"metadata": {"total_size": total}, "weight_map": weight_map}, f
         )
     return out_dir, total
+
+
+# PEFT's module of each projection a LoRA adapter may target
+LORA_MODULES = {"q": "self_attn", "k": "self_attn", "v": "self_attn",
+                "o": "self_attn", "gate": "mlp", "up": "mlp", "down": "mlp"}
+
+
+def fabricate_lora(out_dir: str, config, targets, r: int = 8,
+                   alpha: float = 16.0, scale: float = 1.0,
+                   seed: int = 0) -> "tuple[str, str]":
+    """Write a LoRA adapter in the PEFT layout for a model of ``config``'s
+    shapes: ``adapter_config.json`` (r, lora_alpha, target_modules) and
+    ``adapter_model.safetensors`` with ``base_model.model.model.layers.N.
+    {self_attn,mlp}.P_proj.lora_A.weight`` [r, in] and ``lora_B.weight``
+    [out, r]. ``targets``: the projections ("q", ..., "down") of every
+    layer, or {layer: projections}. A is drawn with std scale / sqrt(in)
+    and B with std scale / sqrt(r) from ``np.random.default_rng(seed)``, so
+    the low-rank term of a unit-RMS input has std ~ scale**2 * alpha / r
+    (scale 0 writes zeros). Returns (config path, adapter path)."""
+    os.makedirs(out_dir, exist_ok=True)
+    c = config
+    qdim = c.num_attention_heads * c.head_dim
+    kvdim = c.num_key_value_heads * c.head_dim
+    shapes = {"q": (c.hidden_size, qdim), "k": (c.hidden_size, kvdim),
+              "v": (c.hidden_size, kvdim), "o": (qdim, c.hidden_size),
+              "gate": (c.hidden_size, c.intermediate_size),
+              "up": (c.hidden_size, c.intermediate_size),
+              "down": (c.intermediate_size, c.hidden_size)}
+    if not isinstance(targets, dict):
+        targets = {li: targets for li in range(c.num_hidden_layers)}
+    rng = np.random.default_rng(seed)
+    tensors = {}
+    for li in sorted(targets):
+        for p in targets[li]:
+            k, n = shapes[p]
+            base = (f"base_model.model.model.layers.{li}."
+                    f"{LORA_MODULES[p]}.{p}_proj")
+            a = rng.standard_normal((r, k), dtype=np.float32) * np.float32(
+                scale / np.sqrt(k))
+            b = rng.standard_normal((n, r), dtype=np.float32) * np.float32(
+                scale / np.sqrt(r))
+            tensors[f"{base}.lora_A.weight"] = a
+            tensors[f"{base}.lora_B.weight"] = b
+    names = sorted({p for ps in targets.values() for p in ps},
+                   key=list(LORA_MODULES).index)
+    cfg_path = os.path.join(out_dir, "adapter_config.json")
+    with open(cfg_path, "w") as f:
+        json.dump({"r": r, "lora_alpha": alpha, "fan_in_fan_out": False,
+                   "bias": "none", "peft_type": "LORA",
+                   "target_modules": [f"{p}_proj" for p in names]}, f)
+    path = os.path.join(out_dir, "adapter_model.safetensors")
+    save_safetensors(tensors, path)
+    return cfg_path, path
 
 
 def main(argv=None):

@@ -1108,6 +1108,48 @@ def _graph_model(**tuning):
     return port.ExLlama(cfg, params=params, device="cuda")
 
 
+def test_decode_graphs_replay_the_eager_step_under_an_adapter(gen, tmp_path):
+    """gen_tokens under a LoRA adapter on all seven projections (K1 on qkv,
+    o, gate|up and down, K3; no K6 or K7) through the graphs against the
+    same steps run eagerly: tokens and caches bit-equal, the captured
+    step's launches those of the eager one."""
+    import numpy as np
+
+    import exllama_tpu_torch as port
+    from exllama_tpu_torch import kernels
+    from exllama_tpu_torch.utils.fabricate import fabricate_lora
+
+    model = _graph_model()
+    files = fabricate_lora(str(tmp_path), model.config,
+                           ("q", "k", "v", "o", "gate", "up", "down"), r=16,
+                           scale=0.5)
+    lora = port.ExLlamaLora(model, *files)
+    ids = (np.arange(27, dtype=np.int32)[None] * 37 + 11) % 1000
+    runs = []
+    for capture in (True, False):
+        g = port.ExLlamaGenerator(model, port.FakeTokenizer(),
+                                  port.ExLlamaCache(model), seed=0)
+        g.lora = lora
+        g.settings.top_k = 1
+        g._loop.capture = capture
+        g.gen_begin(ids)
+        before = kernels.launch_counts()
+        toks = g.gen_tokens(40)                # positions 26..65
+        after = kernels.launch_counts()
+        runs.append((g, toks, {k: after[k] - before[k] for k in after}))
+    (g, got, c_graph), (e, ref, c_eager) = runs
+    assert sorted(g._loop.graphs) == [32, 64, 96]
+    np.testing.assert_array_equal(got, ref)
+    for x, y in zip(g.cache._tensor_lists(), e.cache._tensor_lists()):
+        for s, t in zip(x, y):
+            assert torch.equal(s, t)
+    assert c_graph == c_eager
+    step = next(iter(g._loop.graphs.values()))[1]
+    assert {(fn.__name__, a): n for (fn, a), n in step.items()} == {
+        ("q4_gemv", "launches"): 8, ("attend", "launches"): 2,
+        ("dense_gemv", "launches"): 1}
+
+
 @pytest.mark.parametrize("settings,tuning", [
     (dict(top_k=1), {}),
     ({}, {}),                                 # top-k 40, top-p 0.65, penalty
