@@ -132,8 +132,34 @@ Phases, one line or block of output each; any failure exits non-zero:
      within 0.03 of the one-token path's best, K1 64, K3 32, K6 32, K4 1
      per verify forward, beside the generator's graphed and eager tok/s;
      then a 4-layer draft model (another seed), 32 tokens, its acceptance.
+ 13. serving on phase 12's 32-layer model (zero-mean weights, adapter Q):
+     the continuous-batching engine at 8 slots (64-token admission chunks,
+     256-key buckets; an 8 GiB bf16 cache) takes twelve requests with
+     prompts of 32-512 tokens from a seed, 64 new tokens each: six greedy,
+     six sampled (temperature 0.8, top-k 40, top-p 0.65, penalty 1.15),
+     three under adapter Q, two with a stop string, one admitted
+     mid-flight. Each greedy request is first run alone in the engine (its
+     stop string is cut from that text); batched, its tokens are bit-equal
+     to alone (up to the stop string, which never reaches the text); the
+     scenario through the captured graphs is bit-equal to the same engine
+     run eagerly (every token, the caches, the histories); every slot is
+     free at the end; each batched step launches K1 32, K7 32, K4 1 and
+     each admission chunk K2 128, K3 32; the greedy tokens lie within
+     max(0.03, 1.5x the spread of two one-token routes) of the
+     single-sequence generator's best, teacher-forced. The six greedy
+     requests again through the engine's speculative step (NgramProposer,
+     lookahead 4, eager: T = 5 rows at eight cursors, K2 128 and K3 32 a
+     verify step), each equal to the plain engine's tokens or within the
+     same teacher-forced limit. Then the greedy-all 8-slot step: the
+     engine's whole step() (packed read and retire loop included), and its
+     device step alone replayed and eager (ms, tok/s), one replay traced;
+     the HTTP API (eight concurrent clients, four JSON and four SSE
+     streams, /health), the websocket protocol (driven in process: echo,
+     getConfig, estimateToken, oneShotInfer, streamInfer) and the web UI
+     (/, /api/populate, a streamed /api/userinput) on the card; and
+     ``benchmark --synthetic 7b -cs 8`` through phase 10's runner.
 
-Each of phases 5-12 sets every launch counter to 0 just before it drives
+Each phase prints its seconds. Each of phases 5-13 sets every launch counter to 0 just before it drives
 its path (phase 10: each benchmark run) and reads them just after; a kernel its path must run that shows no
 launch fails the run. The line before the last is a JSON summary of the
 kernels; the last line is ``{"ok": true, "device": {...}}``. Needs exactly
@@ -3955,9 +3981,612 @@ def lora_and_generators(device, launches):
     out["generator"] = lora_generators(mp, loras)
     out["alt"] = alt_generator_path(mp, loras["Q"])
     out["speculative"] = speculative_path(mp, device)
+    out["mp"], out["lora_q"] = mp, loras["Q"]
     c = counts()
     launches.update({k: launches.get(k, 0) + v for k, v in c.items()})
     return out
+
+
+# -------------------------------------------------------------- phase 13
+
+SERVE_SLOTS = 8
+SERVE_NEW = 64
+SERVE_LATE_STEP = 24        # the twelfth request is submitted at this step
+# per batched decode step on the 32-layer model (8 rows; with or without a
+# slot under adapter Q, which keeps K7: K1 on qkv without its norm) and per
+# 64-token admission chunk (64 rows: K2 on qkv, o, gate|up and down; K3's
+# prefill path)
+SERVE_STEP = {"q4_gemv": 32, "layer_tail": 32, "dense_gemv": 1,
+              "flash_attn": 0, "q4_mlp": 0, "q4_dequant_matmul": 0,
+              "head_argmax": 0, "kv_commit": 0}
+SERVE_CHUNK = {"q4_dequant_matmul": 128, "flash_attn": 32, "q4_gemv": 0,
+               "layer_tail": 0, "dense_gemv": 0, "q4_mlp": 0}
+# per speculative verify step (lookahead 4: T = 5 rows at each of the 8
+# cursors, 40 rows: K2 on qkv, o, gate|up and down; K3's split-KV decode at
+# 5 rows a slot; the lm_head above K4's 32 rows is plain)
+SERVE_SPEC = {"q4_dequant_matmul": 128, "flash_attn": 32, "q4_gemv": 0,
+              "layer_tail": 0, "dense_gemv": 0, "q4_mlp": 0,
+              "head_argmax": 0, "kv_commit": 0}
+
+
+def tag_tokenizer():
+    """The byte tokenizer with a decode that is injective per token
+    (``<id>`` pieces): every token of the 32,000-token vocabulary shows in
+    the text, so a stop string can be cut from any output."""
+    import exllama_tpu_torch as port
+
+    class TagTokenizer(port.FakeTokenizer):
+        def decode(self, ids, **kw):
+            ids = np.asarray(ids)
+            if ids.ndim == 2:
+                return [self.decode(r) for r in ids]
+            return "".join(f"<{int(t)}>" for t in ids.reshape(-1))
+
+    return TagTokenizer()
+
+
+def serve_specs(vocab):
+    """The twelve requests: prompts of 32-512 tokens from a seed, 64 new
+    tokens each; even ones greedy (top-k 1, penalty 1.0), odd ones sampled
+    (temperature 0.8, top-k 40, top-p 0.65, penalty 1.15); 2, 5 and 9
+    under adapter Q; 4 and 8 with a stop string (cut from their text when
+    alone); 11 submitted mid-flight."""
+    from exllama_tpu_torch.ops.sampling import SamplerSettings
+
+    rng = np.random.default_rng(SEED + 13)
+    specs = []
+    for i in range(12):
+        n = int(rng.integers(32, 513))
+        greedy = i % 2 == 0
+        specs.append(dict(
+            prompt=rng.integers(4, vocab, size=n).astype(np.int32),
+            settings=SamplerSettings(temperature=1.0, top_k=1, top_p=0.0,
+                                     token_repetition_penalty_max=1.0)
+            if greedy else SamplerSettings(
+                temperature=0.8, top_k=40, top_p=0.65,
+                token_repetition_penalty_max=1.15),
+            greedy=greedy, lora=i in (2, 5, 9), stop=i in (4, 8),
+            late=i == 11, stop_string=None))
+    return specs
+
+
+def serve_engine(mp, lora, capture=True, **kw):
+    """An 8-slot engine on the phase's model with adapter Q registered
+    (``kw``: the speculative settings); every admission chunk's, decode
+    step's and verify step's launches recorded apart."""
+    from exllama_tpu_torch.serve import ContinuousBatchingEngine
+
+    eng = ContinuousBatchingEngine(mp.model, mp.tok, max_slots=SERVE_SLOTS,
+                                   prefill_bucket=64, attn_bucket=256,
+                                   seed=SEED, **kw)
+    eng.capture = capture
+    eng.lora_id = eng.register_lora(lora)
+    eng.counted = {"chunk": [], "step": [], "spec": []}
+
+    def counted(kind, fn):
+        def call(*a):
+            c0 = counts()
+            out = fn(*a)
+            eng.counted[kind].append(since(c0))
+            return out
+        return call
+
+    eng._prefill_chunk = counted("chunk", eng._prefill_chunk)
+    eng._run_decode = counted("step", eng._run_decode)
+    eng._step_spec = counted("spec", eng._step_spec)
+    return eng
+
+
+def serve_submit(eng, spec):
+    return eng.submit(spec["prompt"], SERVE_NEW, settings=spec["settings"],
+                      stop_tokens=(-1,),
+                      stop_strings=(spec["stop_string"],)
+                      if spec["stop_string"] else (),
+                      lora_id=eng.lora_id if spec["lora"] else -1)
+
+
+def serve_scenario(eng, specs):
+    """All twelve requests through ``eng`` (the twelfth submitted at step
+    SERVE_LATE_STEP); returns (requests, seconds, steps), fenced."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [None if s["late"] else serve_submit(eng, s) for s in specs]
+    steps = 0
+    while eng.has_work() or None in reqs:
+        if steps == SERVE_LATE_STEP:
+            reqs[11] = serve_submit(eng, specs[11])
+        eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0, steps
+
+
+def forced_rows(mp, ids, toks, lora, **knobs):
+    """The single-sequence generator's logits teacher-forced over ``toks``
+    after ``ids`` (``model.forward`` on its cache at B = 1, under ``lora``,
+    the tuning ``knobs`` set for the call): [len(toks), V] f32."""
+    import exllama_tpu_torch as port
+
+    tuning = mp.model.config.tuning
+    old = {k: getattr(tuning, k) for k in knobs}
+    for k, v in knobs.items():
+        setattr(tuning, k, v)
+    try:
+        g = port.ExLlamaGenerator(mp.model, mp.tok,
+                                  port.ExLlamaCache(mp.model), seed=SEED)
+        g.lora = lora
+        g.gen_begin(ids[None])
+        rows = []
+        for t in toks:
+            rows.append(mp.model.forward(g.sequence[:, -1:], g.cache,
+                                         lora=lora)[0, -1].float())
+            g.gen_accept_token(np.array([[t]], np.int32))
+    finally:
+        for k, v in old.items():
+            setattr(tuning, k, v)
+    return torch.stack(rows)
+
+
+def same_engine_state(a, b):
+    """The two engines' caches and histories bit-equal."""
+    for x, y in zip(a.cache._tensor_lists(), b.cache._tensor_lists()):
+        for s, t in zip(x, y):
+            if not torch.equal(s, t):
+                raise AssertionError("phase 13: graph and eager caches "
+                                     "differ")
+    if not torch.equal(a._hist, b._hist):
+        raise AssertionError("phase 13: graph and eager histories differ")
+
+
+def greedy_step_rates(eng, specs):
+    """The greedy-all 8-slot step: the scenario's first eight prompts, all
+    greedy, without an adapter, 400 new tokens each, admitted into
+    ``eng``; then the engine's whole ``step()`` timed (20 steps inside one
+    attend-length bucket, fenced: the replay, the packed host read and the
+    retire loop), its device step alone timed replayed (20 replays, fenced)
+    and eager (5 steps), and one replay traced. Returns (ms a ``step()``,
+    ms a replayed step, ms an eager step, device launches by name, idle
+    share); the last two None where the trace shows no device activity."""
+    for s in specs[:SERVE_SLOTS]:       # none finishes before the timing
+        eng.submit(s["prompt"], 400, settings=specs[0]["settings"],
+                   stop_tokens=(-1,))
+    while eng.admitting or eng.queue:
+        eng.step()
+    if eng._sched_dirty:
+        eng._upload(np.array([r is not None for r in eng.slot_req]))
+    if eng.num_active != SERVE_SLOTS or not eng._greedy_all:
+        raise AssertionError("phase 13: the greedy step is not 8 greedy rows")
+
+    def bucket(steps_ahead):
+        return -(-(int(eng.pos.max()) + 1 + steps_ahead) // eng.attn_bucket)
+
+    while bucket(0) != bucket(21):
+        eng.step()
+    eng.step()                  # captures if this (epoch, bucket) is new
+    n_graphs = len(eng.graphs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        eng.step()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 20
+    if len(eng.graphs) != n_graphs or eng.num_active != SERVE_SLOTS:
+        raise AssertionError("phase 13: a capture or a retired slot inside "
+                             "the timed step() calls")
+    cfg = eng.model.config
+    al = min(cfg.max_seq_len, -(-(int(eng.pos.max()) + 1 + 30)
+                                // eng.attn_bucket) * eng.attn_bucket)
+    decode = eng._run_decode
+    decode(al)                  # captures if this (epoch, bucket) is new
+
+    def timed(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            decode(al)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    graph_ms = timed(20)
+    names, idle = trace_step(lambda: decode(al))
+    eng.capture = False
+    eager_ms = timed(5)
+    return step_ms, graph_ms, eager_ms, names, idle
+
+
+def spec_serving(mp, lora, specs, plain, limit):
+    """The engine's speculative step on the card: the scenario's six greedy
+    requests (one under adapter Q, two with stop strings) through an 8-slot
+    engine with ``NgramProposer`` at lookahead 4, eager. Each verify forward
+    runs T = 5 rows at eight different cursors, samples every position,
+    accepts on the device and writes the history under a mask. Each
+    request's tokens equal the plain engine's (``plain``, the scenario's
+    graphed run) or, from where they part, lie within ``limit`` of the
+    single-sequence generator's best, teacher-forced; no stop string leaks;
+    every slot ends free; every verify step launches ``SERVE_SPEC``.
+    Returns its results."""
+    from exllama_tpu_torch.speculative import NgramProposer
+
+    eng = serve_engine(mp, lora, capture=False,
+                       spec_proposer=NgramProposer(), spec_lookahead=4)
+    todo = [i for i, s in enumerate(specs) if s["greedy"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = {i: serve_submit(eng, specs[i]) for i in todo}
+    eng.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if eng.num_active or len(eng.free) != SERVE_SLOTS:
+        raise AssertionError(f"phase 13 spec: slots {eng.slot_req}")
+    if not eng.counted["spec"]:
+        raise AssertionError("phase 13 spec: no verify step ran")
+    for c in eng.counted["spec"]:
+        require("phase 13 verify step", c, SERVE_SPEC)
+    for c in eng.counted["chunk"]:
+        require("phase 13 spec chunk", c, SERVE_CHUNK)
+    equal, gaps = [], {}
+    for i, r in reqs.items():
+        s = specs[i]
+        if r.state != "done" or (s["stop"] and s["stop_string"] in r.text):
+            raise AssertionError(f"phase 13 spec request {i}: {r.state}, "
+                                 f"{r.text!r}")
+        if not s["stop"] and len(r.new_tokens) != SERVE_NEW:
+            raise AssertionError(f"phase 13 spec request {i}: "
+                                 f"{len(r.new_tokens)} tokens")
+        if r.new_tokens == plain[i].new_tokens:
+            equal.append(i)
+            continue
+        toks = r.new_tokens
+        rows = forced_rows(mp, r.prompt_ids, toks,
+                           lora if s["lora"] else None)
+        rows[:, mp.tok.bos_token_id] -= 10000.0
+        pick = rows[torch.arange(len(toks)), torch.tensor(toks)]
+        gaps[i] = ((rows.max(dim=1).values - pick)
+                   / rows.abs().max(dim=1).values).max().item()
+    if gaps and max(gaps.values()) > limit:
+        raise AssertionError(f"phase 13 spec: tokens {gaps} of the logit "
+                             f"scale below the generator's best (limit "
+                             f"{limit:.4f})")
+    st = dict(eng.spec_stats)
+    n_tok = sum(len(r.new_tokens) for r in reqs.values())
+    return dict(equal=equal, gaps=gaps, stats=st, tokens=n_tok,
+                seconds=secs, tps=n_tok / secs,
+                verify_steps=len(eng.counted["spec"]),
+                plain_steps=len(eng.counted["step"]),
+                chunks=len(eng.counted["chunk"]),
+                per_verify_step={k: v for k, v in
+                                 eng.counted["spec"][0].items() if v})
+
+
+def api_round_trip(mp):
+    """serve.api on 127.0.0.1:0 over a fresh 8-slot engine: four JSON and
+    four SSE clients at once, greedy, the SSE prompts the JSON ones: every
+    answer 200, each stream ends in [DONE] and its deltas join to the JSON
+    text of its prompt; /health answers. Returns the texts' lengths."""
+    import http.client
+    import threading
+
+    from exllama_tpu_torch.serve import api as serve_api
+
+    api, httpd, _ = serve_api.make_server(mp.model, mp.tok,
+                                          max_slots=SERVE_SLOTS)
+    results = {}
+
+    def client(i, stream):
+        body = {"prompt": f"client {i} asks the engine something",
+                "max_tokens": 16, "top_k": 1, "temperature": 1.0,
+                "repetition_penalty": 1.0, "stream": stream}
+        conn = http.client.HTTPConnection(*httpd.server_address, timeout=600)
+        conn.request("POST", "/v1/completions", json.dumps(body),
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        results[(i, stream)] = (r.status, r.read().decode())
+        conn.close()
+
+    try:
+        threads = [threading.Thread(target=client, args=(i, s))
+                   for i in range(4) for s in (False, True)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        conn = http.client.HTTPConnection(*httpd.server_address, timeout=60)
+        conn.request("GET", "/health")
+        r = conn.getresponse()
+        health = (r.status, json.loads(r.read()))
+        conn.close()
+    finally:
+        httpd.shutdown()
+        api.shutdown()
+    if len(results) != 8 or any(s != 200 for s, _ in results.values()):
+        raise AssertionError(f"phase 13 api: {results}")
+    if health[0] != 200 or health[1]["status"] != "ok":
+        raise AssertionError(f"phase 13 api /health: {health}")
+    lengths = []
+    for i in range(4):
+        text = json.loads(results[(i, False)][1])["choices"][0]["text"]
+        lines = [x[len("data: "):] for x in results[(i, True)][1].splitlines()
+                 if x.startswith("data: ")]
+        if not lines or lines[-1] != "[DONE]":
+            raise AssertionError(f"phase 13 api stream {i}: {lines[-1:]}")
+        joined = "".join(json.loads(x)["choices"][0]["text"]
+                         for x in lines[:-1])
+        if joined != text or not text:
+            raise AssertionError(f"phase 13 api stream {i}: {joined!r} vs "
+                                 f"{text!r}")
+        lengths.append(len(text))
+    return dict(health=health[1], text_chars=lengths)
+
+
+def ws_round_trip(mp):
+    """serve.ws's WsProtocol.handle driven in process by a fake connection
+    (an async iterator of messages, a list of sent frames): echo,
+    getConfig, estimateToken, oneShotInfer and streamInfer (greedy, 8
+    tokens each, the same prompt: the stream joins to the one-shot
+    text)."""
+    import asyncio
+
+    import exllama_tpu_torch as port
+    from exllama_tpu_torch.serve.ws import WsProtocol
+
+    proto = WsProtocol(mp.model, mp.tok, port.ExLlamaCache(mp.model))
+    greedy = dict(maxNew=8, top_k=1, temperature=1.0, rep_pen=1.0)
+    msgs = [dict(action="echo", request_id="a"),
+            dict(action="getConfig", request_id="b"),
+            dict(action="estimateToken", request_id="c",
+                 text="count these tokens"),
+            dict(action="oneShotInfer", request_id="d", text="one shot",
+                 **greedy),
+            dict(action="streamInfer", request_id="e", text="one shot",
+                 **greedy)]
+
+    class Conn:
+        def __init__(self):
+            self.sent = []
+
+        def __aiter__(self):
+            async def gen():
+                for m in msgs:
+                    yield json.dumps(m)
+            return gen()
+
+        async def send(self, frame):
+            self.sent.append(json.loads(frame))
+
+    conn = Conn()
+    asyncio.run(proto.handle(conn))
+    out = conn.sent
+    stream = [f for f in out if f["request_id"] == "e"]
+    one = next(f for f in out if f["request_id"] == "d")
+    ok = (out[0] == {"action": "echo", "request_id": "a"}
+          and out[1]["response"]["layers"] == mp.cfg.num_hidden_layers
+          and out[1]["response"]["max_seq_len"] == mp.cfg.max_seq_len
+          and out[2]["response"] == len("count these tokens")
+          and one["utilContext"].startswith("one shot") and one["response"]
+          and stream[-1].get("eos") is True
+          and "".join(f["response"] for f in stream)
+          == stream[-1]["fullResponse"] == one["response"])
+    if not ok:
+        raise AssertionError(f"phase 13 ws: {out}")
+    return dict(frames=len(out), stream_frames=len(stream),
+                chars=len(one["response"]))
+
+
+def webui_round_trip(mp):
+    """The web UI's make_server with a temporary sessions directory: GET
+    /, /api/populate, and a streamed /api/userinput (8 response tokens)."""
+    import http.client
+
+    from exllama_tpu_torch.webui import app as webui_app
+
+    with tempfile.TemporaryDirectory() as sdir:
+        httpd, _ = webui_app.make_server(mp.model, mp.tok, s_dir=sdir)
+        webui_app.session.max_response_tokens = 8
+        try:
+            def req(method, path, body=None):
+                conn = http.client.HTTPConnection(*httpd.server_address,
+                                                  timeout=600)
+                conn.request(method, path,
+                             None if body is None else json.dumps(body),
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                data = r.read()
+                conn.close()
+                return r.status, data
+
+            s1, index = req("GET", "/")
+            s2, state = req("GET", "/api/populate")
+            s3, stream = req("POST", "/api/userinput",
+                             {"user_input": "hi there"})
+            s4, after = req("GET", "/api/populate")
+        finally:
+            httpd.shutdown()
+    packets = [json.loads(x) for x in stream.decode().splitlines()
+               if x.strip()]
+    cmds = [p["cmd"] for p in packets]
+    hist = json.loads(after)["history"]
+    if ((s1, s2, s3, s4) != (200,) * 4 or b"exllama_tpu_torch" not in index
+            or json.loads(state)["max_seq_len"] != mp.cfg.max_seq_len
+            or cmds[0] != "begin_stream" or "append" not in cmds
+            or hist[-2]["text"] != "hi there"
+            or hist[-1]["author"] != "Chatbort"):
+        raise AssertionError(f"phase 13 webui: {(s1, s2, s3, s4)} {cmds} "
+                             f"{hist[-2:]}")
+    return dict(packets=len(packets))
+
+
+def serving_path(mp, lora, launches, card):
+    """Phase 13: the continuous-batching engine and its front ends on the
+    32-layer model of phase 12 (zero-mean weights, adapter Q); ``card`` (the
+    card's name and power limit) is printed beside its numbers. Returns its
+    results; adds every launch of the phase to ``launches``."""
+    import gc
+
+    res = {}
+    zero_counts()
+    mp.tok = tag_tokenizer()
+    specs = serve_specs(mp.cfg.vocab_size)
+    t_phase = time.time()
+
+    # each greedy request alone in an 8-slot engine (graphs); the stop
+    # strings are cut from their texts
+    alone = serve_engine(mp, lora)
+    solo = {}
+    for i, s in enumerate(specs):
+        if not s["greedy"]:
+            continue
+        r = serve_submit(alone, s)
+        alone.run()
+        solo[i] = list(r.new_tokens)
+        if s["stop"]:
+            toks = r.new_tokens
+            text = mp.tok.decode(toks)
+            j = next(j for j in range(16, SERVE_NEW - 2)
+                     if text.find(mp.tok.decode(toks[j:j + 2]))
+                     == len(mp.tok.decode(toks[:j])))
+            s["stop_string"] = mp.tok.decode(toks[j:j + 2])
+            s["stop_at"] = j
+    del alone
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for label, capture in (("graphs", True), ("eager", False)):
+        eng = serve_engine(mp, lora, capture)
+        reqs, secs, steps = serve_scenario(eng, specs)
+        runs[label] = (eng, reqs, secs, steps)
+    (g, greqs, gsec, gsteps), (e, ereqs, esec, esteps) = (runs["graphs"],
+                                                         runs["eager"])
+    for i, (a, b) in enumerate(zip(greqs, ereqs)):
+        if a.new_tokens != b.new_tokens:
+            raise AssertionError(f"phase 13 request {i}: graph "
+                                 f"{a.new_tokens} vs eager {b.new_tokens}")
+    same_engine_state(g, e)
+    if (g.num_active or len(g.free) != SERVE_SLOTS
+            or not g.graphs and g.cache.device.type == "cuda"):
+        raise AssertionError(f"phase 13: slots {g.slot_req}, free {g.free}")
+    for kind, want in (("step", SERVE_STEP), ("chunk", SERVE_CHUNK)):
+        for c in g.counted[kind] + e.counted[kind]:
+            require(f"phase 13 {kind}", c, want)
+    n_tok = sum(len(r.new_tokens) for r in greqs)
+    for i, r in enumerate(greqs):
+        s = specs[i]
+        if r.state != "done" or any(x in r.text for x in ([s["stop_string"]]
+                                                          if s["stop"] else [])):
+            raise AssertionError(f"phase 13 request {i}: {r.state}, stop "
+                                 f"string in {r.text!r}")
+        if s["stop"]:
+            j = s["stop_at"]
+            if (r.new_tokens != solo[i][:j + 2]
+                    or r.text != mp.tok.decode(solo[i][:j])):
+                raise AssertionError(f"phase 13 request {i} (stop string at "
+                                     f"{j}): {r.new_tokens} / {r.text!r}")
+        elif s["greedy"] and r.new_tokens != solo[i]:
+            raise AssertionError(f"phase 13 greedy request {i}: batched "
+                                 f"{r.new_tokens} vs alone {solo[i]}")
+        elif len(r.new_tokens) != SERVE_NEW:
+            raise AssertionError(f"phase 13 request {i}: "
+                                 f"{len(r.new_tokens)} tokens")
+    res["scenario"] = dict(
+        tokens=n_tok, graph_s=gsec, eager_s=esec, graph_steps=gsteps,
+        graph_tps=n_tok / gsec, eager_tps=n_tok / esec,
+        chunks=len(g.counted["chunk"]), steps=len(g.counted["step"]),
+        graphs=len(g.graphs))
+    log(f"  [13] 12 requests (6 greedy, 6 sampled; 3 under adapter Q, 2 with "
+        f"a stop string, 1 admitted at step {SERVE_LATE_STEP}) through 8 "
+        f"slots: {n_tok} tokens; graphs {gsec:.3f} s = {n_tok / gsec:.1f} "
+        f"tok/s ({gsteps} steps, {len(g.graphs)} graphs captured), eager "
+        f"{esec:.3f} s = {n_tok / esec:.1f} tok/s; tokens, caches and "
+        f"histories of the two bit-equal; greedy requests bit-equal alone "
+        f"and batched (the stop-string ones up to their stop); launches "
+        f"per batched step {SERVE_STEP} ({len(g.counted['step'])} steps), "
+        f"per 64-token admission chunk {SERVE_CHUNK} "
+        f"({len(g.counted['chunk'])} chunks) [{card}]")
+    del e, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the greedy tokens against the single-sequence generator, teacher-
+    # forced; the limit from the spread of two correct one-token routes
+    # (the default's K7, the separate K1 / K3) over the first 16 tokens
+    gaps, spread = {}, 0.0
+    for i, s in enumerate(specs):
+        if not s["greedy"]:
+            continue
+        toks = greqs[i].new_tokens
+        lo = lora if s["lora"] else None
+        rows = forced_rows(mp, s["prompt"], toks, lo)
+        scale = rows.abs().max(dim=1).values
+        banned = rows.clone()
+        banned[:, mp.tok.bos_token_id] -= 10000.0     # as the engine bans it
+        pick = banned[torch.arange(len(toks)), torch.tensor(toks)]
+        gaps[i] = ((banned.max(dim=1).values - pick) / scale).max().item()
+        sep = forced_rows(mp, s["prompt"], toks[:16], lo, fuse_mlp=False,
+                          fuse_attn=False)
+        spread = max(spread, ((sep - rows[:16]).abs().max(dim=1).values
+                              / scale[:16]).max().item())
+    limit = max(LORA_TOL, 1.5 * spread)
+    if max(gaps.values()) > limit:
+        raise AssertionError(f"phase 13: greedy tokens {gaps} of the logit "
+                             f"scale below the generator's best (limit "
+                             f"{limit:.4f}, routes {spread:.4f} apart)")
+    res["forced"] = dict(gaps=gaps, spread=spread, limit=limit)
+    log(f"  [13] greedy requests teacher-forced on the single-sequence "
+        f"generator: worst token {max(gaps.values()):.4f} of the logit scale "
+        f"below its best (limit {limit:.4f}: 0.03 or 1.5x the {spread:.4f} "
+        f"between the default and the separate one-token routes)")
+
+    sp = spec_serving(mp, lora, specs, greqs, limit)
+    res["spec"] = sp
+    log(f"  [13] speculative serving (NgramProposer, lookahead 4, eager): "
+        f"the 6 greedy requests, {sp['tokens']} tokens in "
+        f"{sp['seconds']:.3f} s = {sp['tps']:.1f} tok/s; {sp['verify_steps']} "
+        f"verify steps at T = 5 x 8 slots, each launching "
+        f"{sp['per_verify_step']}; drafted {sp['stats']['drafted']}, "
+        f"accepted {sp['stats']['accepted']}; requests {sp['equal']} equal "
+        f"to the plain engine's tokens, the others teacher-forced within "
+        f"{sp['gaps']} (limit {limit:.4f}) [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step_ms, graph_ms, eager_ms, names, idle = greedy_step_rates(g, specs)
+    res["greedy_step"] = dict(step_ms=step_ms, graph_ms=graph_ms,
+                              eager_ms=eager_ms, step_tps=8e3 / step_ms,
+                              graph_tps=8e3 / graph_ms,
+                              eager_tps=8e3 / eager_ms)
+    log(f"  [13] the greedy-all 8-slot step: the engine's step() (replay, "
+        f"packed host read, retire loop) {step_ms:.3f} ms = "
+        f"{8e3 / step_ms:.1f} tok/s; its device step alone replayed "
+        f"{graph_ms:.3f} ms = {8e3 / graph_ms:.1f} tok/s, eager "
+        f"{eager_ms:.3f} ms = {8e3 / eager_ms:.1f} tok/s [{card}]")
+    if names is None:
+        log("  [13] replay not traced (no device activity in the trace: not "
+            "measured)")
+    else:
+        res["trace"] = dict(launches=sum(names.values()), **idle)
+        log(f"  [13] one replayed greedy-all 8-slot step traced: "
+            f"{sum(names.values())} device launches in "
+            f"{idle['window_us']:.1f} us, busy {idle['busy_us']:.1f} us, "
+            f"idle {idle['idle_share']:.1%} [{card}]")
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res["api"] = api_round_trip(mp)
+    res["ws"] = ws_round_trip(mp)
+    res["webui"] = webui_round_trip(mp)
+    log(f"  [13] front ends on the card: api {res['api']}, ws {res['ws']}, "
+        f"webui {res['webui']}")
+    c = counts()
+    launches.update({k: launches.get(k, 0) + v for k, v in c.items()})
+    res["cs"] = bench_step(
+        "-cs 8", ["--synthetic", "7b", "-cs", "8"], {},
+        {k: None for k in ("q4_gemv", "layer_tail", "dense_gemv",
+                           "q4_dequant_matmul", "flash_attn")},
+        launches)["streams"]
+    log(f"  [13] benchmark -cs 8: {res['cs']['tokens']} tokens in "
+        f"{res['cs']['seconds']:.3f} s = {res['cs']['tps']:.1f} tok/s "
+        f"({time.time() - t_phase:.1f} s in the phase) [{card}]")
+    return res
 
 
 # ------------------------------------------------------------------- main
@@ -4020,7 +4649,9 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     log(f"[1 device] {name} (torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.device_count()} device)")
+        f"{torch.version.cuda}, {torch.cuda.device_count()} device; the CPU "
+        f"references on {torch.get_num_threads()} torch threads, "
+        f"{os.cpu_count()} CPUs)")
     log(smi)
 
     secs = kernels.build()
@@ -4208,6 +4839,14 @@ def main() -> int:
         f"; self-draft acceptance "
         f"{spec['self_draft']['acceptance']:.3f}")
     log(f"[12 adapters and generators] done ({time.time() - t0:.1f} s)")
+
+    log("[13 serving] the continuous-batching engine (8 slots, 64-token "
+        "admission chunks, 256-key buckets) on phase 12's 32-layer model; "
+        "its HTTP, websocket and web-UI front ends; benchmark -cs 8")
+    t0 = time.time()
+    p13 = serving_path(p12.pop("mp"), p12.pop("lora_q"), launches, smi)
+    log("  phase 13 results: " + json.dumps(p13, default=str))
+    log(f"[13 serving] done ({time.time() - t0:.1f} s)")
 
     # K3's prefill path beside its decode path (the summary names decode)
     log("  flash_attn prefill T=1919: " + "; ".join(

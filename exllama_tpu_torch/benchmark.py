@@ -28,7 +28,10 @@ benchmark.py, same flags):
             dataset: logits within 5% of their scale); then a greedy
             completion; -vv adds 4 identical batched rows that must decode
             alike
-  -cs       refused: the serving engine is not ported yet
+  -cs N     aggregate throughput of N streams through the continuous-
+            batching engine (serve/engine.py, N slots): prompts of 32-127
+            tokens drawn from seed 0, 64 new tokens each under the default
+            sampler settings, one warm-up step, then tokens / seconds
   --scale_f32, --no_fold_act_order
             f32 scales; the act-order down projection's gather kept
             (TuningParams scale_dtype, fold_act_order)
@@ -361,10 +364,57 @@ def run_validate(model, cache, tokenizer, args, level):
     return out
 
 
+def add_model_args(parser: argparse.ArgumentParser):
+    """``model_init``'s flags and the synthetic model's (``--synthetic``,
+    ``--groupsize``, ``--act_order``, ``--no_fold_act_order``): what
+    :func:`load` reads. The serving front ends and the examples take them
+    too."""
+    model_init.add_args(parser)
+    parser.add_argument("--synthetic", type=str, choices=list(SYNTH_SHAPES),
+                        help="use a synthetic model of this shape")
+    parser.add_argument("--groupsize", type=int, default=128)
+    parser.add_argument("--act_order", action="store_true")
+    parser.add_argument("--no_fold_act_order", action="store_true",
+                        help="keep the act-order down projection's gather "
+                             "(fold_act_order=False)")
+
+
+def run_streams(model, args) -> dict:
+    """``-cs N``: N concurrent streams through the continuous-batching
+    engine (the root benchmark's ``run_streams``): N slots, prompts of
+    32-127 tokens from seed 0, 64 new tokens each, one warm-up step (it
+    admits the first prompt and captures the first decode graph on the
+    card), then the aggregate rate of the rest, fenced."""
+    from exllama_tpu_torch.serve.engine import ContinuousBatchingEngine
+
+    cfg = model.config
+    n = args.streams
+    eng = ContinuousBatchingEngine(model, tokenizer=_dummy_tok(cfg),
+                                   max_slots=n, attn_bucket=256)
+    rng = np.random.default_rng(0)
+    new_tokens = 64
+    for _ in range(n):
+        plen = int(rng.integers(32, 128))
+        prompt = rng.integers(0, cfg.vocab_size, size=(plen,)).astype(np.int32)
+        eng.submit(prompt, max_new_tokens=new_tokens, stop_tokens=(-1,))
+    eng.step()
+    device = model.device
+    fence(device)
+    t0 = time.perf_counter()
+    produced = 0
+    while eng.has_work():
+        produced += len(eng.step())
+    fence(device)
+    dt = time.perf_counter() - t0
+    print(f" ** Aggregate: {produced} tokens over {n} streams in {dt:.2f}s "
+          f"= {produced / dt:.1f} tok/s")
+    return dict(streams=n, tokens=produced, seconds=dt, tps=produced / dt)
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description="benchmark / validate the "
                                                  "PyTorch port")
-    model_init.add_args(parser)
+    add_model_args(parser)
     parser.add_argument("-p", "--perf", action="store_true")
     parser.add_argument("-ppl", "--perplexity", action="store_true")
     parser.add_argument("-v", "--validate", action="count", default=0)
@@ -374,16 +424,9 @@ def parse_args(argv=None):
                         help="perplexity deltas of the opt-in W4A8 modes "
                              "(a8t prefill; a8 / a8x2 decode, token by "
                              "token) against the exact kernels")
-    parser.add_argument("--synthetic", type=str, choices=list(SYNTH_SHAPES),
-                        help="use a synthetic model of this shape")
-    parser.add_argument("--groupsize", type=int, default=128)
-    parser.add_argument("--act_order", action="store_true")
     parser.add_argument("-cs", "--streams", type=int, default=0,
-                        help="aggregate throughput over N streams (not "
-                             "ported yet)")
-    parser.add_argument("--no_fold_act_order", action="store_true",
-                        help="keep the act-order down projection's gather "
-                             "(fold_act_order=False)")
+                        help="aggregate throughput over N streams through "
+                             "the continuous-batching engine")
     args = parser.parse_args(argv)
     if args.dataset is None and (
             args.perplexity or args.validate or args.ppl_turbo):
@@ -394,9 +437,6 @@ def parse_args(argv=None):
 
 def load(args):
     """(model, tokenizer) that ``args`` name: synthetic, or from disk."""
-    if args.streams:
-        raise SystemExit("-cs: the serving engine is not ported yet "
-                         "(ROADMAP.md, queue 1 item 7)")
     if args.synthetic:
         _, model, tokenizer = build_synthetic(args.synthetic, args)
         model_init.print_options(argparse.Namespace(
@@ -420,6 +460,9 @@ def run(args, model, tokenizer) -> dict:
     if args.validate:
         results["validate"] = run_validate(model, cache, tokenizer, args,
                                            args.validate)
+    if args.streams:
+        del cache
+        results["streams"] = run_streams(model, args)
     return results
 
 

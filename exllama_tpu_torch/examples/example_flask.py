@@ -1,0 +1,73 @@
+"""A small HTTP inference API with preset sampler profiles (the routes
+/infer_precise, /infer_creative and /infer_sphinx of the reference's Flask
+example, on the stdlib http.server). Serves until killed."""
+
+import json
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+from exllama_tpu_torch.examples.common import build_from_args
+from exllama_tpu_torch.generator import ExLlamaGenerator
+
+PRESETS = {
+    "precise": dict(token_repetition_penalty_max=1.176,
+                    temperature=0.7, top_p=0.1, top_k=40, typical=0.0),
+    "creative": dict(token_repetition_penalty_max=1.1,
+                     temperature=0.72, top_p=0.73, top_k=0, typical=0.0),
+    "sphinx": dict(token_repetition_penalty_max=1.15,
+                   temperature=1.99, top_p=0.18, top_k=30, typical=0.0),
+}
+
+
+def make_handler(generator, max_new_tokens=200):
+    """A request handler class that answers POST /infer_<preset> with the
+    completion of the JSON body's "prompt" (or the raw body)."""
+    cfg = generator.model.config
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):
+            pass
+
+        def do_POST(self):
+            preset = self.path.strip("/").replace("infer_", "")
+            if preset not in PRESETS:
+                self.send_response(404)
+                self.end_headers()
+                return
+            body = self.rfile.read(
+                int(self.headers.get("Content-Length", 0))).decode()
+            try:
+                prompt = json.loads(body)["prompt"]
+            except (json.JSONDecodeError, KeyError, TypeError):
+                prompt = body  # raw text too
+            for k, v in PRESETS[preset].items():
+                setattr(generator.settings, k, v)
+            generator.settings.token_repetition_penalty_sustain = \
+                cfg.max_seq_len
+            data = generator.generate_simple(
+                prompt, max_new_tokens=max_new_tokens).encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/plain; charset=utf-8")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+    return Handler
+
+
+def main(argv=None):
+    def extra(parser):
+        parser.add_argument("--host", default="0.0.0.0")
+        parser.add_argument("--port", type=int, default=8004)
+
+    args, cfg, model, tokenizer, cache = build_from_args(
+        "inference API", extra_args=extra, argv=argv)
+    generator = ExLlamaGenerator(model, tokenizer, cache)
+    print(f"serving /infer_precise /infer_creative /infer_sphinx on "
+          f"{args.port}")
+    ThreadingHTTPServer((args.host, args.port),
+                        make_handler(generator, args.max_new or 200)
+                        ).serve_forever()
+
+
+if __name__ == "__main__":
+    main()

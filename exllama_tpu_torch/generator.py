@@ -35,7 +35,6 @@ from exllama_tpu_torch.cache import ExLlamaCache
 from exllama_tpu_torch.models.llama import forward_chunk
 from exllama_tpu_torch.ops.sampling import (
     SamplerSettings,
-    _filter_row,
     apply_rep_penalty,
     filter_probs,
     sample,
@@ -239,35 +238,48 @@ class DecodeLoop:
             self._stream = torch.cuda.Stream(dev)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-        cur = torch.cuda.current_stream(dev)
-        self._stream.wait_stream(cur)
-        with torch.cuda.stream(self._stream):
-            self._step(attend_len, sampler, kw)
-        cur.wait_stream(self._stream)
-        # the eager step done before the capture starts: without this sync
-        # a sampled step's replays drew other tokens than the eager step
-        # (tests/test_torch_kernels.py, a sampled case after a greedy one)
-        torch.cuda.synchronize(dev)
-        graph = torch.cuda.CUDAGraph()
-        if sampler is not None:
-            graph.register_generator_state(self.generator)
-        before = kernels.launch_counts()
-        # capture_begin / _end rather than the torch.cuda.graph context,
-        # which also empties the allocator's cache at every capture: the
-        # next prefill would allocate from the driver again
-        with torch.cuda.stream(self._stream):
-            graph.capture_begin(pool=self._pool)
-            try:
-                self._step(attend_len, sampler, kw)
-            finally:
-                graph.capture_end()
-        after = kernels.launch_counts()
-        counts = {k: after[k] - before[k] for k in after
-                  if after[k] != before[k]}
-        kernels.add_launches(counts, -1)      # capture launched nothing
+        graph, counts = capture_step(
+            lambda: self._step(attend_len, sampler, kw), dev, self._stream,
+            self._pool, None if sampler is None else self.generator)
         keep = (kernels.scratch_in_use(dev), self.model.params, self.mask,
                 self.bias, self.lora)
         return graph, counts, keep
+
+
+def capture_step(step, dev, stream, pool, generator=None):
+    """Run ``step()`` eagerly on ``stream`` (it builds the kernels'
+    libraries and sizes their scratch), then capture it into a new
+    ``torch.cuda.CUDAGraph`` in ``pool``, with ``generator``'s state
+    registered where the step draws from it. Returns (graph, the launch
+    counts of one step): the capture records them and takes them back off
+    the counters, since a capture launches nothing."""
+    cur = torch.cuda.current_stream(dev)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream):
+        step()
+    cur.wait_stream(stream)
+    # the eager step done before the capture starts: without this sync
+    # a sampled step's replays drew other tokens than the eager step
+    # (tests/test_torch_kernels.py, a sampled case after a greedy one)
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    before = kernels.launch_counts()
+    # capture_begin / _end rather than the torch.cuda.graph context,
+    # which also empties the allocator's cache at every capture: the
+    # next prefill would cudaMalloc its buffers again
+    with torch.cuda.stream(stream):
+        graph.capture_begin(pool=pool)
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    after = kernels.launch_counts()
+    counts = {k: after[k] - before[k] for k in after
+              if after[k] != before[k]}
+    kernels.add_launches(counts, -1)      # capture launched nothing
+    return graph, counts
 
 
 class ExLlamaGenerator:
@@ -561,8 +573,8 @@ class ExLlamaGenerator:
         s = self.settings
         row = torch.as_tensor(logits_row, dtype=torch.float32).to(
             self.model.device)
-        sp = _filter_row(row, s.temperature, s.top_k, s.top_p, s.min_p,
-                         s.typical)
+        sp = filter_probs(row[None], s.temperature, s.top_k, s.top_p,
+                          s.min_p, s.typical)[0]
         choice = torch.multinomial(sp[None], 1, generator=self.generator)[0, 0]
         return (choice.cpu().numpy().reshape(1, 1).astype(np.int32),
                 sp[choice].cpu().numpy())

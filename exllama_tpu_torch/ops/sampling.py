@@ -41,9 +41,9 @@ class SamplerSettings:
 
 def rep_penalty_mask(
     sequence: torch.Tensor,  # [B, S] int token history (positions < seq_len valid)
-    seq_len,                 # int, or a [1] int tensor on sequence's device
+    seq_len,                 # int, or an int tensor [1] / [B, 1] on sequence's device
     vocab_size: int,
-    penalty_max: float,
+    penalty_max,             # float, or a [B] tensor: one a row
     sustain: int,
     decay: int,
 ) -> torch.Tensor:
@@ -53,21 +53,23 @@ def rep_penalty_mask(
     sustain == -1 penalizes the whole context. The most recent occurrence of
     a token decides its factor (equivalently the max). A tensor ``seq_len``
     is read on the device only (no host sync), so a captured step can take
-    its position from device memory; the arithmetic is the int one's."""
+    its position from device memory; the arithmetic is the int one's. A
+    [B] ``penalty_max`` (with a [B, 1] ``seq_len``) gives each row its own
+    penalty and length; a row at 1.0 gets 1.0 everywhere."""
     b, s_max = sequence.shape
     dev = sequence.device
+    pen = penalty_max
+    if torch.is_tensor(pen):
+        pen = pen.to(device=dev, dtype=torch.float32)[:, None]
     pos = torch.arange(s_max, device=dev)[None, :]
     age = (seq_len - 1 - pos).to(torch.float32)
+    full = torch.zeros_like(age) + pen
     if sustain == -1:
-        v = torch.full_like(age, penalty_max)
+        v = full
         in_window = pos >= 0
     else:
-        dv = (1.0 - penalty_max) / decay if decay else 0.0
-        v = torch.where(
-            age <= sustain,
-            torch.full_like(age, penalty_max),
-            penalty_max + dv * (age - sustain),
-        )
+        dv = (1.0 - pen) / decay if decay else 0.0
+        v = torch.where(age <= sustain, full, pen + dv * (age - sustain))
         in_window = age < sustain + decay
     valid = (pos < seq_len) & in_window & (v > 1.0)
     v = torch.where(valid, v, 1.0).expand(b, s_max)
@@ -85,49 +87,63 @@ def apply_rep_penalty(logits, sequence, seq_len, penalty_max, sustain, decay):
     return torch.where(logits > 0.0, logits / v, logits * v)
 
 
-def _filter_row(logits, temperature, top_k, top_p, min_p, typical):
-    """The reference filtering pipeline on one row [V] -> normalized probs
-    in vocab order, exact zeros on filtered-out tokens."""
-    v = logits.shape[-1]
-    logits = logits / temperature + 1e-8
-    probs = torch.softmax(logits, dim=-1)
+def filter_rows(logits, temperature, top_k, top_p, min_p, typical):
+    """The reference filtering pipeline (exllama_tpu/ops/sampling.py:
+    _filter_row, under ``jax.vmap`` for [B] settings) on every row of
+    [B, W] f32 logits at once: normalized probabilities [B, W] in vocab
+    order, exact zeros on the filtered-out tokens. Each setting is a number
+    for all rows or a [B] tensor, one a row; ``top_k`` 0 and ``top_p`` /
+    ``typical`` 0.0 disable their stages. A stage whose setting is a number
+    that disables it is left out; a [B] setting picks each row's result with
+    ``torch.where``, so nothing reads the host."""
+    f32 = torch.float32
+    w = logits.shape[-1]
+    dev = logits.device
+
+    def col(x, dtype):
+        if torch.is_tensor(x):
+            return x.to(device=dev, dtype=dtype)[:, None]
+        return torch.full((1, 1), x, dtype=dtype, device=dev)
+
+    def on(x):
+        return torch.is_tensor(x) or x > 0
+
+    probs = torch.softmax(logits.to(f32) / col(temperature, f32) + 1e-8,
+                          dim=-1)
     # descending; ties keep the lower index first, like jax.lax.top_k
-    sp, si = torch.sort(probs, descending=True, stable=True)
-    ranks = torch.arange(v, device=logits.device)
+    sp, si = torch.sort(probs, dim=-1, descending=True, stable=True)
+    ranks = torch.arange(w, device=dev)[None, :]
 
-    if top_k > 0:
-        sp = torch.where(ranks < top_k, sp, 0.0)
-    sp = sp / sp.sum()
+    if on(top_k):
+        k = col(top_k, torch.int64)
+        sp = torch.where((k <= 0) | (ranks < k), sp, 0.0)
+    sp = sp / sp.sum(dim=-1, keepdim=True)
 
-    if top_p > 0.0:
-        cum = torch.cumsum(sp, dim=0)
-        keep = (ranks == 0) | ((cum <= top_p) & (sp >= min_p))
-        sp = torch.where(keep, sp, 0.0)
-        sp = sp / sp.sum()
+    if on(top_p):
+        p = col(top_p, f32)
+        cum = torch.cumsum(sp, dim=-1)
+        keep = (ranks == 0) | ((cum <= p) & (sp >= col(min_p, f32)))
+        cut = torch.where(keep, sp, 0.0)
+        sp = torch.where(p > 0.0, cut / cut.sum(dim=-1, keepdim=True), sp)
 
-    if typical > 0.0:
+    if on(typical):
+        t = col(typical, f32)
         logp = torch.log(sp + 1e-10)
-        neg_entropy = torch.where(sp > 0, sp * logp, 0.0).sum()
-        dev = torch.abs(neg_entropy - logp)
-        dev = torch.where(sp > 0, dev, torch.inf)
-        order = torch.argsort(dev, stable=True)      # ascending deviation
-        sp_t = sp[order]
-        cum = torch.cumsum(sp_t, dim=0)
-        keep_t = (ranks == 0) | (cum <= typical)
+        neg_entropy = torch.where(sp > 0, sp * logp, 0.0).sum(dim=-1,
+                                                              keepdim=True)
+        dev_ = torch.where(sp > 0, torch.abs(neg_entropy - logp), torch.inf)
+        order = torch.argsort(dev_, dim=-1, stable=True)   # ascending deviation
+        sp_t = sp.gather(1, order)
+        keep_t = (ranks == 0) | (torch.cumsum(sp_t, dim=-1) <= t)
         sp_t = torch.where(keep_t, sp_t, 0.0)
-        sp = torch.zeros_like(sp).index_copy(0, order, sp_t)
-        sp = sp / sp.sum()
+        typ = torch.zeros_like(sp).scatter_(1, order, sp_t)
+        sp = torch.where(t > 0.0, typ / typ.sum(dim=-1, keepdim=True), sp)
 
-    return torch.zeros_like(sp).index_copy(0, si, sp)
+    return torch.zeros_like(sp).scatter_(1, si, sp)
 
 
-def filter_probs(logits, temperature, top_k, top_p, min_p, typical):
-    """Batched :func:`_filter_row` over [B, V] f32 logits."""
-    lg = logits.to(torch.float32)
-    return torch.stack([
-        _filter_row(row, temperature, top_k, top_p, min_p, typical)
-        for row in lg
-    ])
+# the generator's name for it: [B, V] logits under one setting of each
+filter_probs = filter_rows
 
 
 def sample(
@@ -152,3 +168,58 @@ def sample(
 def greedy(logits: torch.Tensor) -> torch.Tensor:
     """Argmax per row (the temperature -> 0 limit / top_k = 1)."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+# ------------------------------------------------ per-row (serving) samplers
+#
+# The continuous-batching engine (serve/engine.py) keeps one sampler setting
+# a slot: ``temperature``, ``top_k``, ``top_p``, ``min_p``, ``typical`` and
+# ``penalty_max`` are [B] tensors on the device, which :func:`filter_rows`
+# and :func:`rep_penalty_mask` take row by row, so nothing reads the host
+# and a graph can capture the whole step.
+
+
+def filter_sample_rows(lg, generator, temperature, top_k, top_p, min_p,
+                       typical, candidate_cap: int = 0) -> torch.Tensor:
+    """One token a row of [B, V] f32 logits (penalties and bias applied),
+    each row under its own settings: :func:`filter_rows`, then one
+    ``torch.multinomial`` over the rows from ``generator``
+    (exllama_tpu/ops/sampling.py:filter_sample_rows). With
+    ``candidate_cap`` C < V, ``torch.topk`` first keeps each row's C
+    highest logits and the same filter runs C wide (top-p and typical then
+    renormalize over the top-C mass: opt-in). Returns int32 [B]."""
+    v = lg.shape[-1]
+    idx = None
+    if candidate_cap and candidate_cap < v:
+        lg, idx = torch.topk(lg, candidate_cap, dim=-1)
+    sp = filter_rows(lg, temperature, top_k, top_p, min_p, typical)
+    choice = torch.multinomial(sp, 1, generator=generator)
+    if idx is not None:
+        choice = idx.gather(1, choice)
+    return choice[:, 0].to(torch.int32)
+
+
+def rep_window(s_max: int, sustain: int, decay: int) -> int:
+    """The history positions that can carry a penalty: with a finite
+    sustain only the last sustain + decay, rounded up to 128."""
+    if sustain < 0:
+        return s_max
+    return min(s_max, -(-(sustain + decay) // 128) * 128)
+
+
+def rep_mask_windowed(hist, lens, penalty_max, vocab: int, sustain: int,
+                      decay: int) -> torch.Tensor:
+    """[B, V] repetition-penalty factors of each row over its own history
+    (exllama_tpu/serve/engine.py:_rep_mask_windowed): ``hist`` [B, S] int
+    tokens with ``lens`` [B] valid positions, ``penalty_max`` [B], all on
+    the device. Only each row's last W = :func:`rep_window` positions can
+    matter, so :func:`rep_penalty_mask` runs over that window: ages are
+    window-relative and equal to its ages over the whole row."""
+    s_max = hist.shape[1]
+    w = rep_window(s_max, sustain, decay)
+    lens = lens.to(device=hist.device, dtype=torch.int64)
+    start = torch.clamp(lens - w, min=0, max=s_max - w)
+    pos = torch.arange(w, device=hist.device)[None, :]
+    win = hist.gather(1, start[:, None] + pos)
+    return rep_penalty_mask(win, torch.clamp(lens, max=w)[:, None], vocab,
+                            penalty_max, sustain, decay)

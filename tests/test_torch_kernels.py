@@ -1191,3 +1191,68 @@ def test_decode_graphs_replay_the_eager_step(gen, settings, tuning):
     step = next(iter(g._loop.graphs.values()))[1]
     assert {k: 40 * n for k, n in step.items()} == {
         k: n for k, n in c_graph.items() if n}
+
+
+# ------------------------------------- the serving engine's decode graphs
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_engine_graphs_replay_the_eager_step(gen, tmp_path, mixed):
+    """The continuous-batching engine (4 slots, 5 requests of different
+    lengths, one admitted mid-flight) through its captured decode steps
+    against the same engine run eagerly from one seed: tokens and caches
+    bit-equal, the replays' launch counts those of the eager run. Greedy
+    (K1 2, K7 2, K4 1 a step on 2 layers), then mixed: two sampled requests with a
+    penalty and one under a rank-8 adapter on q and v (the per-slot stack;
+    K7 stays on, K1 on qkv without its norm)."""
+    import numpy as np
+
+    import exllama_tpu_torch as port
+    from exllama_tpu_torch import kernels
+    from exllama_tpu_torch.ops.sampling import SamplerSettings
+    from exllama_tpu_torch.serve import ContinuousBatchingEngine
+    from exllama_tpu_torch.utils.fabricate import fabricate_lora
+
+    model = _graph_model()
+    greedy = SamplerSettings(temperature=1.0, top_k=1, top_p=0.0,
+                             token_repetition_penalty_max=1.0)
+    lora = None
+    if mixed:
+        lora = port.ExLlamaLora(model, *fabricate_lora(
+            str(tmp_path), model.config, ("q", "v"), r=8, scale=0.5))
+    prompts = [(np.arange(n, dtype=np.int32) * 37 + 11 + n) % 1000
+               for n in (27, 5, 40, 12, 33)]
+    runs = []
+    for capture in (True, False):
+        eng = ContinuousBatchingEngine(model, port.FakeTokenizer(),
+                                       max_slots=4, prefill_bucket=16,
+                                       attn_bucket=32, seed=5)
+        eng.capture = capture
+        lid = eng.register_lora(lora) if mixed else -1
+        before = kernels.launch_counts()
+        reqs = []
+        for i, p in enumerate(prompts[:4]):
+            st = greedy if not mixed or i % 2 else SamplerSettings()
+            reqs.append(eng.submit(p, 20, settings=st, stop_tokens=(-1,),
+                                   lora_id=lid if mixed and i == 1 else -1))
+        for _ in range(6):
+            eng.step()
+        reqs.append(eng.submit(prompts[4], 20, settings=greedy,
+                               stop_tokens=(-1,)))
+        eng.run()
+        after = kernels.launch_counts()
+        runs.append((eng, [r.new_tokens for r in reqs],
+                     {k: after[k] - before[k] for k in after}))
+    (g, got, c_graph), (e, ref, c_eager) = runs
+    assert got == ref and all(len(t) == 20 for t in got)
+    assert g.graphs and not e.graphs
+    for x, y in zip(g.cache._tensor_lists(), e.cache._tensor_lists()):
+        for s, t in zip(x, y):
+            assert torch.equal(s, t)
+    assert torch.equal(g._hist, e._hist)
+    assert c_graph == c_eager and sum(c_graph.values()) > 0
+    steps = [{(fn.__name__, a): n for (fn, a), n in v[1].items()}
+             for v in g.graphs.values()]
+    if not mixed:
+        assert {("q4_gemv", "launches"): 2, ("layer_tail", "launches"): 2,
+                ("dense_gemv", "launches"): 1} in steps
+    assert all(s[("layer_tail", "launches")] == 2 for s in steps)
