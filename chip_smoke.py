@@ -159,11 +159,30 @@ Phases, one line or block of output each; any failure exits non-zero:
      (/, /api/populate, a streamed /api/userinput) on the card; and
      ``benchmark --synthetic 7b -cs 8`` through phase 10's runner.
 
-Each phase prints its seconds. Each of phases 5-13 sets every launch counter to 0 just before it drives
-its path (phase 10: each benchmark run) and reads them just after; a kernel its path must run that shows no
-launch fails the run. The line before the last is a JSON summary of the
-kernels; the last line is ``{"ok": true, "device": {...}}``. Needs exactly
-one visible CUDA device.
+ 14. parallelism (tensor, sequence, data) as ranks on the one card: gloo
+     worlds of 2 and 4 processes (``parallel.launch.run_world``; NCCL
+     refuses two ranks on one device), after a world that records which
+     collectives gloo runs on CUDA tensors. tp = 2 on the 32-layer 7B
+     (centred weights, a 512-token prompt, 32 teacher-forced steps and one
+     greedy-head step) and sp = 2 (4 steps at a 2,048-token context; the
+     ring prefill where gloo carries CUDA point-to-point) in the world of
+     two; tp = 4 at 8 layers (down's 2,752 rows a rank padded to 2,816) and
+     the continuous-batching engine at dp = 2 x tp = 2 (8 slots, four
+     greedy requests, 32 tokens each) in the world of four. Each held
+     against the unsharded port on the card within phase 13's rule
+     (max(0.03, 1.5x the spread of the default and separate one-token
+     routes)), every rank the same bits, and each route's per-rank
+     launches (tp: K1 4 a layer, K3 1, K4 or K5 1 a step; K2 4 a layer and
+     K3 1 a prefill; no K6 / K7; sp: K1 4 a layer); then K1 and K3 at the
+     shard shapes against their plain versions, timed beside their bounds.
+
+Each phase prints its seconds. Each of phases 5-13 sets every launch counter
+to 0 just before it drives its path (phase 10: each benchmark run) and reads
+them just after; phase 14's ranks are fresh processes (every counter at 0)
+that read their counters around each step, prefill and admission chunk; a
+kernel its path must run that shows no launch fails the run. The line before
+the last is a JSON summary of the kernels; the last line is ``{"ok": true,
+"device": {...}}``. Needs exactly one visible CUDA device.
 """
 
 import dataclasses
@@ -2046,6 +2065,14 @@ def f32_scale_cases(device, timer, res):
 
 # --------------------------------------------------------------- phase 4
 
+# the CPU references' lengths (each CPU forward dequantizes every weight of
+# the 2-layer full-width model, ~3-4 s on the chip machine's 8 threads):
+# decode steps of the two configurations, decode steps of the shape and
+# knob models, tokens of the generator features (8, 4 and 8 until phase 14
+# took the time)
+PHASE4_STEPS, PHASE4_MODEL_STEPS, PHASE4_TOKENS = 4, 2, 4
+
+
 def model_vs_cpu(device):
     """2 layers at full 7B width, one seed, on the card and on the CPU, in
     the default configuration and with fuse_qkv + the K8 commit. Returns the
@@ -2063,7 +2090,7 @@ def model_vs_cpu(device):
     rng = np.random.default_rng(SEED)
     ids = rng.integers(0, cfg.vocab_size, size=(1, 64)).astype(np.int32)
     steps = [ids] + [rng.integers(0, cfg.vocab_size, size=(1, 1)).astype(
-        np.int32) for _ in range(8)]
+        np.int32) for _ in range(PHASE4_STEPS)]
     worst = 0.0
     for qkv_fuse, commit in ((False, "auto"), (True, "pallas")):
         cfg.tuning.fuse_qkv = qkv_fuse
@@ -2150,12 +2177,12 @@ def forced_gaps(model, ids, toks, score=_penalized, mask=None, rank=1):
 
 def generator_vs_cpu(cpu_model, gpu_model, ids):
     """Phase 4's generator features on the 2-layer full-width model, the
-    card against the CPU: beam search at top-k 1 (beams 3, length 4, 8
-    tokens) equal to the card's own greedy tokens bit for bit and, on the
+    card against the CPU: beam search at top-k 1 (beams 3, length 4,
+    PHASE4_TOKENS tokens) equal to the card's own greedy tokens bit for bit and, on the
     CPU's teacher-forced logits, within 3% of the scale of its best; beam
     search with 3 beams alive (top-k 3, top-p off), each step at 3 rows
     launching K1 and K7 at B = 3 and K4 at M = 3, each committed token
-    among the best 3 of the card's teacher-forced logits; generate_cfg (alpha 0.3, 8 tokens, top-k 1)
+    among the best 3 of the card's teacher-forced logits; generate_cfg (alpha 0.3, PHASE4_TOKENS tokens, top-k 1)
     within 3% of the CPU's best mixed log-softmax, K7 at B = 2 a step;
     gen_single_token(constraints=) in the set and within 3% of the CPU's
     constrained best."""
@@ -2163,11 +2190,12 @@ def generator_vs_cpu(cpu_model, gpu_model, ids):
     bg = _generator(gpu_model, top_k=1, beams=3, beam_length=4)
     bg.gen_begin(ids)
     bg.begin_beam_search()
-    beam = [int(bg.beam_search()[0, 0]) for _ in range(8)]
+    beam = [int(bg.beam_search()[0, 0]) for _ in range(PHASE4_TOKENS)]
     bg.end_beam_search()
     gg = _generator(gpu_model, top_k=1)
     gg.gen_begin(ids)
-    greedy_toks = [int(gg.gen_single_token()[0, 0]) for _ in range(8)]
+    greedy_toks = [int(gg.gen_single_token()[0, 0])
+                   for _ in range(PHASE4_TOKENS)]
     if beam != greedy_toks:
         raise AssertionError(f"phase 4 beams top-k 1 {beam} vs greedy "
                              f"{greedy_toks}")
@@ -2189,7 +2217,7 @@ def generator_vs_cpu(cpu_model, gpu_model, ids):
         return r
 
     b3._beam_step = counted_step
-    toks3 = [int(b3.beam_search()[0, 0]) for _ in range(8)]
+    toks3 = [int(b3.beam_search()[0, 0]) for _ in range(PHASE4_TOKENS)]
     b3.end_beam_search()
     at3 = [c for rows, c in steps if rows == 3]
     if not at3:
@@ -2211,11 +2239,11 @@ def generator_vs_cpu(cpu_model, gpu_model, ids):
     prompts = ["a cheerful story about", "a sad and dull report on"]
     cg = _generator(gpu_model, batch=2, top_k=1)
     zero_counts()
-    cg.generate_cfg(prompts, 0.3, 8)
+    cg.generate_cfg(prompts, 0.3, PHASE4_TOKENS)
     c = counts()
     cids, cmask = FakeTokenizer().encode(prompts, return_mask=True)
     done = cg.sequence.shape[1] - cids.shape[1]
-    n_steps = done + (done < 8)
+    n_steps = done + (done < PHASE4_TOKENS)
     require("phase 4 CFG", c, {"layer_tail": 2 * n_steps,
                                "dense_gemv": n_steps})
     full = np.zeros((2, cpu_model.config.max_seq_len), bool)
@@ -2271,9 +2299,9 @@ SHAPE_MODELS = (
 
 
 def shapes_model_vs_cpu(device):
-    """Phase 4's comparison (64-token prefill, then 4 teacher-forced decode
-    steps, card vs CPU logits within 3% of the logit scale) for each of
-    SHAPE_MODELS in the default configuration (attn_impl "auto"). Returns
+    """Phase 4's comparison (64-token prefill, then PHASE4_MODEL_STEPS
+    teacher-forced decode steps, card vs CPU logits within 3% of the logit
+    scale) for each of SHAPE_MODELS in the default configuration (attn_impl "auto"). Returns
     {label: (worst rel, {counter: launches})}: head_dim 100 must take the
     einsum route and never K3, head_dim 256 K3, groupsize 256 K1 and K2."""
     import exllama_tpu_torch as port
@@ -2296,7 +2324,7 @@ def shapes_model_vs_cpu(device):
                                  device=device)
         ids = rng.integers(0, cfg.vocab_size, size=(1, 64)).astype(np.int32)
         steps = [ids] + [rng.integers(0, cfg.vocab_size, size=(1, 1)).astype(
-            np.int32) for _ in range(4)]
+            np.int32) for _ in range(PHASE4_MODEL_STEPS)]
         c_cpu, c_gpu = port.ExLlamaCache(cpu_model), port.ExLlamaCache(gpu_model)
         fns = {"flash_attn": attention.attend, "attend_xla":
                attention.attend_xla, "q4_gemv": quant.q4_gemv,
@@ -2335,34 +2363,22 @@ KNOB_MODELS = (
 
 
 def centered(params):
-    """params with every 4-bit tensor's zero-point at its nibbles' mean
-    (zscale = 7.5 * scales): zero-mean weights. make_synthetic_params(fast)
-    puts it at 8, so every weight carries -s/2; through two layers at 7B
-    width that common mode grows the residual stream by two orders of
-    magnitude and leaves some rows' logits ill-conditioned (on the act-order
-    model below, 1e-3 of noise on the embeddings moves the CPU's own logits
-    by 35% of their scale; centered, by 1.2%), so no comparison of two
-    implementations can hold there."""
-    from exllama_tpu_torch.formats.gptq import QuantTensor
+    """Zero-mean weights: ``exllama_tpu_torch.parallel.worlds.centered``
+    (zscale = 7.5 * scales; make_synthetic_params(fast) puts the zero-point
+    at 8, and through two layers at 7B width that common mode grows the
+    residual stream by two orders of magnitude and leaves some rows' logits
+    ill-conditioned: on the act-order model below, 1e-3 of noise on the
+    embeddings moves the CPU's own logits by 35% of their scale; centered,
+    by 1.2%)."""
+    from exllama_tpu_torch.parallel.worlds import centered as center
 
-    def c(qt):
-        if not isinstance(qt, QuantTensor):
-            return qt
-        return dataclasses.replace(qt, zscale=(qt.scales.float() * 7.5).to(
-            qt.scales.dtype))
-
-    layers = [dataclasses.replace(lp, **{
-        f.name: c(getattr(lp, f.name)) for f in dataclasses.fields(lp)
-        if isinstance(getattr(lp, f.name), QuantTensor)})
-        for lp in params.layers]
-    return dataclasses.replace(params, layers=layers,
-                               lm_head=c(params.lm_head))
+    return center(params)
 
 
 def knob_models_vs_cpu(device):
-    """Phase 4's comparison (64-token prefill, then 4 teacher-forced decode
-    steps, card vs CPU logits within 3% of the logit scale) for each of
-    KNOB_MODELS in the default configuration, on zero-mean weights
+    """Phase 4's comparison (64-token prefill, then PHASE4_MODEL_STEPS
+    teacher-forced decode steps, card vs CPU logits within 3% of the logit
+    scale) for each of KNOB_MODELS in the default configuration, on zero-mean weights
     (``centered``). Returns {label: (worst rel, {counter: launches})}: f32
     scales launch the f32-scale builds only, the 4-bit head K1 / K2 and
     never K4, the unfolded act-order layers K1 (the down projection's
@@ -2389,7 +2405,7 @@ def knob_models_vs_cpu(device):
             raise AssertionError(f"{label}: the down projection was folded")
         ids = rng.integers(0, vocab, size=(1, 64)).astype(np.int32)
         steps = [ids] + [rng.integers(0, vocab, size=(1, 1)).astype(
-            np.int32) for _ in range(4)]
+            np.int32) for _ in range(PHASE4_MODEL_STEPS)]
         c_cpu, c_gpu = port.ExLlamaCache(cpu_model), port.ExLlamaCache(gpu_model)
         before = {k: getattr(f, a) for k, (f, a) in counters.items()}
         worst = 0.0
@@ -4589,6 +4605,467 @@ def serving_path(mp, lora, launches, card):
     return res
 
 
+# -------------------------------------------------------------- phase 14
+
+PAR_SEED = SEED + 14
+WORLDS = "exllama_tpu_torch.parallel.worlds:"
+SEVEN_B = dict(hidden_size=4096, intermediate_size=11008,
+               num_attention_heads=32, num_key_value_heads=32, head_dim=128,
+               num_hidden_layers=32, vocab_size=32000)
+PAR_LEN = 1024                 # max_seq_len of the tp and engine models
+PAR_PROMPT, PAR_STEPS = 512, 32
+TP4_LAYERS, TP4_STEPS = 8, 8   # tp = 4: four ranks on one card, depth cut
+SP_CONTEXT, SP_STEPS = 2048, 4
+ENGINE_SLOTS, ENGINE_NEW = 8, 32
+PAR_DEVICE = "cuda"            # where the ranks run their tensors
+PAR_BACKEND = "gloo"           # NCCL refuses two ranks on one device
+# the collectives the parallel paths need from the backend on CUDA tensors
+PAR_NEEDS = ("all_reduce_sum_f32", "all_reduce_max_f32",
+             "all_reduce_sum_int32", "all_gather_into_tensor")
+
+
+def par_fields(layers=32, length=PAR_LEN):
+    return dict(SEVEN_B, num_hidden_layers=layers, max_seq_len=length,
+                max_input_len=length, max_attention_size=length ** 2)
+
+
+def per_layer(layers, **per):
+    """Launches a step or prefill at ``layers`` layers: {kernel: n a layer}
+    times the depth (``"head"`` entries: once)."""
+    return {k: (n if k in ("dense_gemv", "head_argmax") else n * layers)
+            for k, n in per.items()}
+
+
+def tp_want(layers):
+    """Per-rank launches under tp (phase 7's separate route: no K6 / K7):
+    a decode step K1 4 a layer (qkv, o, gate|up, down), K3 1, K4 1; the
+    greedy head's step K5 1 instead of K4; a prefill K2 4 a layer, K3 1."""
+    step = per_layer(layers, q4_gemv=4, flash_attn=1, dense_gemv=1,
+                     layer_tail=0, q4_mlp=0, head_argmax=0)
+    argmax = dict(step, dense_gemv=0, head_argmax=1)
+    prefill = per_layer(layers, q4_dequant_matmul=4, flash_attn=1,
+                        layer_tail=0, q4_mlp=0)
+    return step, argmax, prefill
+
+
+def need(name, got, want):
+    """``require`` on a rank's counts, which list only what moved."""
+    require(name, {k: got.get(k, 0) for k in want}, want)
+
+
+def rel_rows(a, b):
+    """max |a - b| over max |b|, per row, worst row."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float((np.abs(a - b).max(axis=-1)
+                  / np.abs(b).max(axis=-1)).max())
+
+
+def whole_reference(spec, device):
+    """The unsharded model of ``spec`` on the card, teacher-forced through
+    the same prompt, steps and greedy-head token: the default route, and
+    the separate route (fusions off; tp runs the same kernels split). The
+    spread of the two routes sets the limit: phase 13's rule,
+    max(0.03, 1.5 x spread). Returns (default run, separate run, limit)."""
+    from exllama_tpu_torch.parallel import worlds
+
+    model = worlds.build_model(spec, None, device)
+    forced = np.concatenate([spec["forced"], np.full(
+        (1, 1), spec["argmax_token"], np.int32)], axis=1)
+    runs = []
+    for fuse in (True, False):
+        model.config.tuning.fuse_mlp = model.config.tuning.fuse_attn = fuse
+        runs.append(worlds.forced_run(model, spec["prompt"], forced, 1))
+    spread = max(rel_rows(runs[1]["prefill"], runs[0]["prefill"]),
+                 rel_rows(runs[1]["steps"], runs[0]["steps"]))
+    del model
+    torch.cuda.empty_cache()
+    return runs[0], runs[1], max(LORA_TOL, 1.5 * spread)
+
+
+def check_tp(label, ranks, ref, limit, layers):
+    """Every rank: the same bits; prefill and steps within ``limit`` of the
+    unsharded default route; the greedy head's pick within it too; the
+    per-rank launches of tp_want. Returns the worst reading."""
+    step, argmax, prefill = tp_want(layers)
+    n = len(ranks[0]["steps"])
+    worst = max(rel_rows(ranks[0]["prefill"], ref["prefill"]),
+                rel_rows(ranks[0]["steps"], ref["steps"][:n]))
+    if worst > limit:
+        raise AssertionError(f"phase 14 {label}: logits {worst:.4f} of the "
+                             f"scale from the unsharded model (limit "
+                             f"{limit:.4f})")
+    row = ref["steps"][n][0]
+    pick = ranks[0]["argmax"][0]
+    gap = (row.max() - row[pick]) / np.abs(row).max()
+    if gap > limit:
+        raise AssertionError(f"phase 14 {label}: greedy head picked {pick}, "
+                             f"{gap:.4f} of the scale below the best")
+    for r in ranks:
+        if (not np.array_equal(r["prefill"], ranks[0]["prefill"])
+                or not np.array_equal(r["steps"], ranks[0]["steps"])
+                or r["tokens"] != ranks[0]["tokens"]
+                or r["argmax"] != ranks[0]["argmax"]):
+            raise AssertionError(f"phase 14 {label}: rank {r['rank']} "
+                                 f"differs from rank 0")
+        need(f"phase 14 {label} prefill, rank {r['rank']}",
+             r["per_prefill"], prefill)
+        for c in r["per_step"]:
+            need(f"phase 14 {label} decode step, rank {r['rank']}", c, step)
+        need(f"phase 14 {label} greedy-head step, rank {r['rank']}",
+             r["per_argmax"], argmax)
+    return worst
+
+
+def shard_shape_cases(device, timer, res):
+    """K1 and K3 at the shard shapes of tp = 2 and 4 on Llama-7B, held
+    against their plain versions and timed beside their bounds (phase 3's
+    recorder): o at K = 4096 / tp; down at K = 5504 (tp = 2) and 2816 (tp =
+    4: 2752 padded to whole groups); qkv at N = 12288 / tp with the input
+    norm; K3's decode at past 2000 on 32 / tp heads."""
+    from exllama_tpu_torch.formats.gptq import dequantize_t, tp_chunk
+    from exllama_tpu_torch.ops import attention, quant
+
+    gen = torch.Generator(device=device).manual_seed(PAR_SEED)
+    record = make_recorder(timer, res)
+    for tp in (2, 4):
+        for nm, k, n, norm in (("o", 4096 // tp, 4096, False),
+                               ("down", tp_chunk(11008, tp, 128), 4096, False),
+                               ("qkv", 4096, 12288 // tp, True)):
+            qt = random_qt(gen, k, n, 128, False, device)
+            w = dequantize_t(qt)
+            nw = ((torch.rand(k, generator=gen, device=device) + 0.5)
+                  .bfloat16() if norm else None)
+            x = torch.randn((1, k), generator=gen, device=device).bfloat16()
+            got = quant.q4_gemv(x, qt, nw, 1e-6)
+            ref = quant.q4_gemv_plain(x, qt, nw, 1e-6)
+            label = f"tp{tp} {nm} {k}->{n} g128 M=1" + (" norm" if norm
+                                                       else "")
+            err, rel = check_close(f"q4_gemv {label}", got, ref,
+                                   TOL["q4_gemv"])
+            record("q4_gemv", label, err, rel,
+                   lambda: quant.q4_gemv(x, qt, nw, 1e-6),
+                   lambda: quant.q4_gemv_plain(x, qt, nw, 1e-6),
+                   lambda: torch.matmul(x, w),
+                   q4_bytes(k, n, 128) + 2 * k + 2 * n
+                   + (2 * k if norm else 0), 2 * k * n)
+            del w
+        heads, d, past, alen = 32 // tp, 128, 2000, 2048
+        q = torch.randn((1, 1, heads, d), generator=gen,
+                        device=device).bfloat16()
+        kc, vc = (torch.randn((1, heads, alen, d), generator=gen,
+                              device=device).bfloat16() for _ in range(2))
+        new_kv = tuple(torch.randn((1, 1, heads, d), generator=gen,
+                                   device=device).bfloat16()
+                       for _ in range(2))
+        got = attention.attend(q, kc, vc, past, alen, None, new_kv)
+        ref = attention.attend_plain(q, kc, vc, past, alen, None, new_kv)
+        label = f"tp{tp} decode past={past} {heads} heads"
+        err, rel = check_close(f"flash_attn {label}", got, ref,
+                               TOL["flash_attn"])
+        qh, ks, vs = q.transpose(1, 2), kc[:, :, :past], vc[:, :, :past]
+        record("flash_attn", label, err, rel,
+               lambda: attention.attend(q, kc, vc, past, alen, None, new_kv),
+               lambda: attention.attend_plain(q, kc, vc, past, alen, None,
+                                              new_kv),
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qh, ks, vs),
+               2 * q.numel() * 2 + 2 * past * heads * d * 2
+               + 2 * heads * d * 2, 4 * d * heads * (past + 1), iters=10)
+
+
+def engine_reference(spec, device, results):
+    """The unsharded engine on the same model and requests, and the
+    sharded engine's tokens teacher-forced on the unsharded model: each
+    within phase 13's limit of the best (0.03, or 1.5x the spread of the
+    default and separate one-token routes over the first 16 tokens).
+    Returns (requests equal to the unsharded engine's, worst gap, limit)."""
+    from types import SimpleNamespace
+
+    from exllama_tpu_torch.parallel import worlds
+    from exllama_tpu_torch.tokenizer import FakeTokenizer
+
+    model = worlds.build_model(spec, None, device)
+    ref = unsharded_engine_tokens(model, spec)
+    mp = SimpleNamespace(model=model, tok=FakeTokenizer())
+    gaps, spread, equal = [], 0.0, 0
+    for i, prompt in enumerate(spec["prompts"]):
+        toks = results[0]["tokens"][i]
+        equal += toks == ref[i]
+        rows = forced_rows(mp, prompt, toks, None)
+        scale = rows.abs().max(dim=1).values
+        banned = rows.clone()
+        banned[:, mp.tok.bos_token_id] -= 10000.0
+        pick = banned[torch.arange(len(toks)), torch.tensor(toks)]
+        gaps.append(((banned.max(dim=1).values - pick) / scale).max().item())
+        sep = forced_rows(mp, prompt, toks[:16], None, fuse_mlp=False,
+                          fuse_attn=False)
+        spread = max(spread, ((sep - rows[:16]).abs().max(dim=1).values
+                              / scale[:16]).max().item())
+    del model
+    torch.cuda.empty_cache()
+    return equal, max(gaps), max(LORA_TOL, 1.5 * spread)
+
+
+def unsharded_engine_tokens(model, spec):
+    """The unsharded engine's greedy tokens for ``spec``'s requests."""
+    from exllama_tpu_torch.ops.sampling import SamplerSettings
+    from exllama_tpu_torch.serve import ContinuousBatchingEngine
+    from exllama_tpu_torch.tokenizer import FakeTokenizer
+
+    eng = ContinuousBatchingEngine(model, FakeTokenizer(),
+                                   max_slots=spec["slots"],
+                                   prefill_bucket=spec["bucket"],
+                                   attn_bucket=spec["attn_bucket"])
+    greedy = SamplerSettings(temperature=1.0, top_k=1, top_p=0.0,
+                             token_repetition_penalty_max=1.0)
+    reqs = [eng.submit(p, spec["new"], settings=greedy, stop_tokens=(-1,))
+            for p in spec["prompts"]]
+    eng.run()
+    return [list(r.new_tokens) for r in reqs]
+
+
+def causal_attention(q, k, v):
+    """Full causal attention in f32, plain: q [B, T, H, D], k / v [B, T,
+    Hkv, D] -> [B, T, H, D]."""
+    from exllama_tpu_torch.ops import full_f32_matmul
+
+    b, t, h, d = q.shape
+    hkv = k.shape[2]
+    qf = q.reshape(b, t, hkv, h // hkv, d)
+    with full_f32_matmul():
+        s = torch.einsum("bthgd,bshd->bhgts", qf, k) / math.sqrt(d)
+        keep = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+        p = torch.softmax(s.masked_fill(~keep, float("-inf")), dim=-1)
+        o = torch.einsum("bhgts,bshd->bthgd", p, v)
+    return o.reshape(b, t, h, d)
+
+
+def gloo_coverage() -> dict:
+    """Which collectives gloo runs on CUDA tensors here, each in a world of
+    two ranks on the one card: the collectives in one world, the
+    point-to-point ring in a world of its own (gloo's TCP transport may
+    abort the process on a device pointer rather than raise). A probe that
+    took its world down reads "aborted the process"."""
+    from exllama_tpu_torch.parallel.launch import run_world
+    from exllama_tpu_torch.parallel.worlds import PROBES
+
+    cov = {}
+    for probes in (PROBES[:-1], PROBES[-1:]):
+        with tempfile.TemporaryDirectory() as tmp:
+            note = os.path.join(tmp, "probes")
+            spec = dict(device=PAR_DEVICE, probes=probes, log=note)
+            try:
+                cov.update(run_world(WORLDS + "collectives", 2, (spec,),
+                                     backend=PAR_BACKEND, timeout=240,
+                                     collective_timeout=60)[0])
+            except Exception as e:      # noqa: BLE001 - the finding itself
+                lines = (open(note).read().splitlines()
+                         if os.path.exists(note) else [])
+                for line in lines:
+                    if ": " in line:
+                        k, v = line.split(": ", 1)
+                        cov[k] = v
+                last = lines[-1] if lines else ""
+                if last.startswith("start "):
+                    cov[last[6:]] = "aborted the process"
+                cov.setdefault("world", str(e).strip().splitlines()[-1][:200])
+    return cov
+
+
+def parallel_path(device, card, launches, res):
+    """Phase 14: tensor, sequence and data parallelism as ranks of gloo
+    worlds on the one card (``parallel.launch.run_world``: one process a
+    rank, ``torch.multiprocessing`` spawn, a file store; NCCL refuses two
+    ranks on one device). Which collectives gloo runs on CUDA tensors; tp =
+    2 on the 32-layer 7B (a 512-token prompt, 32 teacher-forced steps, one
+    greedy-head step) and sp = 2 (steps at a 2,048-token context; the ring
+    prefill where gloo carries CUDA point-to-point) in one world of two;
+    tp = 4 (8 layers: the uneven down split) and the engine at dp = 2 x tp
+    = 2 (8 slots, four greedy requests) in one world of four; each route
+    held against the unsharded port on the card within phase 13's rule,
+    with its per-rank launches; the shard shapes' kernel times (filed in
+    ``res`` beside phase 3's cases). Rank 0's launches go into
+    ``launches``. Returns the phase's numbers."""
+    from exllama_tpu_torch.parallel.launch import run_world
+
+    out = {}
+    t0 = time.time()
+    cov = gloo_coverage()
+    out["gloo_cuda"] = cov
+    log(f"  [14] gloo on CUDA tensors (torch {torch.__version__}, 2 ranks "
+        f"on one card): {json.dumps(cov)} ({time.time() - t0:.1f} s)")
+    missing = [k for k in PAR_NEEDS if cov.get(k) != "ok"]
+    if missing:
+        raise AssertionError(f"phase 14: gloo cannot run {missing} on CUDA "
+                             f"tensors: {cov}")
+    ring = cov.get("batch_isend_irecv") == "ok"
+
+    rng = np.random.default_rng(PAR_SEED)
+
+    def ids(*shape):
+        return rng.integers(4, SEVEN_B["vocab_size"], shape).astype(np.int32)
+
+    tp2 = dict(cfg=par_fields(), tuning={}, tp=2, gs=128, seed=PAR_SEED,
+               fast=True, centered=True, device=PAR_DEVICE,
+               prompt=ids(1, PAR_PROMPT), forced=ids(1, PAR_STEPS),
+               argmax_token=int(ids(1)[0]))
+    tp4 = dict(tp2, cfg=par_fields(TP4_LAYERS), tp=4, seed=PAR_SEED + 1,
+               prompt=ids(1, PAR_PROMPT), forced=ids(1, TP4_STEPS),
+               argmax_token=int(ids(1)[0]))
+    sp2 = dict(cfg=par_fields(length=SP_CONTEXT), tuning={}, gs=128,
+               seed=PAR_SEED + 2, fast=True, centered=True, device=PAR_DEVICE,
+               prompt=ids(1, SP_CONTEXT - SP_STEPS), forced=ids(1, SP_STEPS),
+               reference=True, separate=True)
+    engine = dict(cfg=par_fields(), tuning={}, tp=2, dp=2, gs=128,
+                  seed=PAR_SEED + 3, fast=True, centered=True, device=PAR_DEVICE,
+                  slots=ENGINE_SLOTS, bucket=64, attn_bucket=256,
+                  prompts=[ids(int(n)) for n in rng.integers(32, 129, 4)],
+                  new=ENGINE_NEW)
+
+    t0 = time.time()
+    ref2, sep2, lim2 = whole_reference(tp2, device)
+    ref4, sep4, lim4 = whole_reference(tp4, device)
+    log(f"  [14] unsharded references on the card ({time.time() - t0:.1f} "
+        f"s): 32 layers, decode step median "
+        f"{statistics.median(ref2['ms']):.3f} ms default / "
+        f"{statistics.median(sep2['ms']):.3f} ms separate (eager); limits "
+        f"{lim2:.4f} (32 layers), {lim4:.4f} ({TP4_LAYERS} layers) [{card}]")
+
+    runs = [("tp2", "tp_forward", tp2), ("sp2", "sp_decode", sp2)]
+    if ring:
+        qkv = [(rng.standard_normal((1, SP_CONTEXT, heads, 128)) * 0.4)
+               .astype(np.float32) for heads in (32, 32, 32)]
+        runs.append(("ring", "sp_ops",
+                     dict(device=PAR_DEVICE, cases={"ring": ("ring", *qkv)})))
+    t0 = time.time()
+    two = run_world(WORLDS + "run_all", 2, (runs,),
+                    backend=PAR_BACKEND, timeout=600)
+    secs_two = time.time() - t0
+    tp_ranks = [r["tp2"] for r in two]
+    w2 = check_tp("tp = 2", tp_ranks, ref2, lim2, 32)
+    ms = [statistics.median(r["ms"]) for r in tp_ranks]
+    out["tp2"] = dict(worst=w2, limit=lim2, step_ms=ms,
+                      per_step=tp_ranks[0]["per_step"][0],
+                      per_prefill=tp_ranks[0]["per_prefill"],
+                      per_argmax=tp_ranks[0]["per_argmax"],
+                      shapes=tp_ranks[0]["shapes"])
+    log(f"  [14] tp = 2, 32 layers at 7B width, {PAR_PROMPT}-token prompt + "
+        f"{PAR_STEPS} teacher-forced steps + one greedy-head step: logits "
+        f"within {w2:.4f} of the unsharded model's scale (limit {lim2:.4f}), "
+        f"both ranks the same bits and tokens; per rank a step "
+        f"{out['tp2']['per_step']}, a prefill {out['tp2']['per_prefill']}, "
+        f"the greedy step {out['tp2']['per_argmax']}; layer-0 shapes "
+        f"{out['tp2']['shapes']}; decode step median per rank "
+        f"{', '.join(f'{m:.3f}' for m in ms)} ms (eager, gloo all-reduces "
+        f"through the host; one card shared by both ranks: not a scaling "
+        f"figure) [{card}]")
+
+    sp_ranks = [r["sp2"] for r in two]
+    sp_spread = rel_rows(sp_ranks[0]["separate"], sp_ranks[0]["reference"])
+    sp_lim = max(LORA_TOL, 1.5 * sp_spread)
+    for r in sp_ranks:
+        worst = rel_rows(r["steps"], r["reference"])
+        if worst > sp_lim or not np.array_equal(r["steps"],
+                                                sp_ranks[0]["steps"]):
+            raise AssertionError(f"phase 14 sp = 2: {worst:.4f} of the scale "
+                                 f"from the unsharded steps (limit "
+                                 f"{sp_lim:.4f}), or the ranks differ")
+        for c in r["per_step"]:
+            need("phase 14 sp = 2 step", c, per_layer(
+                32, q4_gemv=4, flash_attn=0, layer_tail=0, dense_gemv=0))
+    out["sp2"] = dict(worst=rel_rows(sp_ranks[0]["steps"],
+                                     sp_ranks[0]["reference"]),
+                      limit=sp_lim, positions=sp_ranks[0]["positions"],
+                      step_ms=[statistics.median(r["ms"]) for r in sp_ranks],
+                      per_step=sp_ranks[0]["per_step"][0])
+    log(f"  [14] sp = 2, 32 layers, {SP_STEPS} steps at a {SP_CONTEXT}-token "
+        f"context ({out['sp2']['positions']} positions a rank): within "
+        f"{out['sp2']['worst']:.4f} of the unsharded steps (limit "
+        f"{sp_lim:.4f}), both ranks the same bits; per rank a step "
+        f"{out['sp2']['per_step']} (attention and head plain), median "
+        f"{', '.join(f'{m:.3f}' for m in out['sp2']['step_ms'])} ms [{card}]")
+    if ring:
+        want = causal_attention(*(torch.from_numpy(a).to(device)
+                                  for a in qkv)).cpu().numpy()
+        got = np.concatenate([r["ring"]["ring"] for r in two], axis=1)
+        err = float(np.abs(got - want).max())
+        if err > 3e-3:
+            raise AssertionError(f"phase 14 ring prefill: {err} (limit 3e-3)")
+        out["ring"] = err
+        log(f"  [14] ring prefill attention at T = {SP_CONTEXT} over 2 ranks "
+            f"(batch_isend_irecv on CUDA tensors): within {err:.2g} of full "
+            f"causal attention (limit 3e-3)")
+    else:
+        log("  [14] ring prefill: not run on the card (gloo's "
+            "batch_isend_irecv does not take CUDA tensors here; held on the "
+            "CPU by tests/test_torch_parallel_sp.py)")
+    del two
+    t0 = time.time()
+    four = run_world(WORLDS + "run_all", 4,
+                     ([("tp4", "tp_forward", tp4),
+                       ("engine", "engine_tokens", engine)],),
+                     backend=PAR_BACKEND, timeout=600)
+    secs_four = time.time() - t0
+    tp4_ranks = [r["tp4"] for r in four]
+    w4 = check_tp("tp = 4", tp4_ranks, ref4, lim4, TP4_LAYERS)
+    out["tp4"] = dict(worst=w4, limit=lim4, shapes=tp4_ranks[0]["shapes"],
+                      per_step=tp4_ranks[0]["per_step"][0],
+                      step_ms=[statistics.median(r["ms"]) for r in tp4_ranks])
+    log(f"  [14] tp = 4, {TP4_LAYERS} layers at 7B width (depth cut: four "
+        f"ranks on one card): within {w4:.4f} (limit {lim4:.4f}); "
+        f"layer-0 shapes {out['tp4']['shapes']} (down's 2752 rows a rank "
+        f"padded to 2816); per rank a step {out['tp4']['per_step']} [{card}]")
+
+    eng = [r["engine"] for r in four]
+    for r in eng:
+        if r["tokens"] != eng[0]["tokens"] or r["free"] != ENGINE_SLOTS:
+            raise AssertionError(f"phase 14 engine: rank {r['rank']} "
+                                 f"differs or holds slots")
+        for c in r["per_step"]:
+            need("phase 14 engine step", c, per_layer(
+                32, q4_gemv=4, flash_attn=1, dense_gemv=1, layer_tail=0,
+                q4_mlp=0))
+        for c in r["per_chunk"]:
+            need("phase 14 engine admission chunk", c,
+                 per_layer(32, q4_dequant_matmul=4, flash_attn=1))
+    t0 = time.time()
+    equal, gap, elim = engine_reference(engine, device, eng)
+    if gap > elim:
+        raise AssertionError(f"phase 14 engine: a token {gap:.4f} of the "
+                             f"scale below the unsharded best (limit "
+                             f"{elim:.4f})")
+    n_tok = sum(len(t) for t in eng[0]["tokens"])
+    out["engine"] = dict(equal=equal, gap=gap, limit=elim, tokens=n_tok,
+                         seconds=eng[0]["seconds"], rows=[r["rows"]
+                                                          for r in eng],
+                         per_step=eng[0]["per_step"][0],
+                         per_chunk=eng[0]["per_chunk"][0])
+    log(f"  [14] engine at dp = 2 x tp = 2, {ENGINE_SLOTS} slots (each "
+        f"replica 4 of them: {out['engine']['rows']}), four greedy requests "
+        f"of {ENGINE_NEW} tokens: every rank the same tokens, {equal} of 4 "
+        f"requests equal to the unsharded engine's, every token within "
+        f"{gap:.4f} of the unsharded model's best, teacher-forced (limit "
+        f"{elim:.4f}); per rank a step {out['engine']['per_step']}, an "
+        f"admission chunk {out['engine']['per_chunk']}; {n_tok} tokens in "
+        f"{eng[0]['seconds']:.2f} s (eager) [{card}] "
+        f"({time.time() - t0:.1f} s of references)")
+    out["world_seconds"] = dict(two_ranks=secs_two, four_ranks=secs_four)
+
+    t0 = time.time()
+    mine = {}
+    shard_shape_cases(device, Timer(device), mine)
+    for k, cases in mine.items():
+        res[k].extend(cases)
+    out["shard_kernels"] = mine
+    log(f"  [14] shard-shape kernels ({time.time() - t0:.1f} s) [{card}]")
+    for r in (tp_ranks[0], sp_ranks[0], tp4_ranks[0], eng[0]):
+        for c in ([r.get("per_prefill", {})] + r["per_step"]
+                  + r.get("per_chunk", []) + [r.get("per_argmax", {})]):
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+    return out
+
+
 # ------------------------------------------------------------------- main
 
 SOURCES = {
@@ -4682,7 +5159,8 @@ def main() -> int:
 
     t0 = time.time()
     worst, worst_turbo, worst_kv, features = model_vs_cpu(device)
-    log(f"[4 model] 2 layers at 7B width, 64-token prefill + 8 decode steps, "
+    log(f"[4 model] 2 layers at 7B width, 64-token prefill + {PHASE4_STEPS} "
+        f"decode steps, "
         f"default and fuse_qkv + K8 commit: card vs CPU logits within "
         f"{worst:.4f} of the logit scale (limit 0.03), greedy head agrees; "
         f"prefill + 4 steps under the W4A8 modes: "
@@ -4708,14 +5186,16 @@ def main() -> int:
     t0 = time.time()
     shaped = shapes_model_vs_cpu(device)
     log("[4 model] 2 layers at full width, attn_impl auto, 64-token prefill "
-        "+ 4 decode steps, card vs CPU logits: " + "; ".join(
+        f"+ {PHASE4_MODEL_STEPS} decode steps, card vs CPU logits: "
+        + "; ".join(
             f"{k} within {w:.4f} (limit 0.03; launches {c})"
             for k, (w, c) in shaped.items()) + f" ({time.time() - t0:.1f} s)")
     xla_route += shaped["head_dim 100"][1]["attend_xla"]
     t0 = time.time()
     knobbed = knob_models_vs_cpu(device)
-    log("[4 model] 2 layers at full width, 64-token prefill + 4 decode "
-        "steps, card vs CPU logits: " + "; ".join(
+    log("[4 model] 2 layers at full width, 64-token prefill + "
+        f"{PHASE4_MODEL_STEPS} decode steps, card vs CPU logits: "
+        + "; ".join(
             f"{k} within {w:.4f} (limit 0.03; launches {c})"
             for k, (w, c) in knobbed.items()) + f" ({time.time() - t0:.1f} s)")
 
@@ -4847,6 +5327,16 @@ def main() -> int:
     p13 = serving_path(p12.pop("mp"), p12.pop("lora_q"), launches, smi)
     log("  phase 13 results: " + json.dumps(p13, default=str))
     log(f"[13 serving] done ({time.time() - t0:.1f} s)")
+
+    log("[14 parallel] tensor, sequence and data parallelism as ranks of "
+        f"{PAR_BACKEND} worlds on the one card (parallel.launch, backend "
+        f"{PAR_BACKEND}: NCCL refuses two ranks on one device): tp = 2 (32 "
+        f"layers), sp = 2, tp = 4 ({TP4_LAYERS} layers), the engine at dp = "
+        "2 x tp = 2")
+    t0 = time.time()
+    p14 = parallel_path(device, smi, launches, res)
+    log("  phase 14 results: " + json.dumps(p14, default=str))
+    log(f"[14 parallel] done ({time.time() - t0:.1f} s)")
 
     # K3's prefill path beside its decode path (the summary names decode)
     log("  flash_attn prefill T=1919: " + "; ".join(

@@ -42,12 +42,18 @@ directly on the device (``make_synthetic_params(fast=True)``: seconds at
 7B instead of minutes of host-side quantization). A checkpoint on disk
 (-d, e.g. one written by ``python -m exllama_tpu_torch.utils.fabricate``)
 loads through ``model_init.build``. Runs on the card unless --cpu is given.
-``main(argv)`` returns the numbers it printed, as a dict.
+``main(argv)`` returns the numbers it printed, as a dict. ``--tp`` / ``--dp``
+run it on a mesh, one process a rank under ``torchrun`` (only rank 0
+prints):
+
+    torchrun --nproc-per-node 2 -m exllama_tpu_torch.benchmark \
+        --synthetic 7b --tp 2 -p
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import time
@@ -97,9 +103,11 @@ def build_synthetic(name, args):
     if args.scale_f32:
         cfg.tuning.scale_dtype = "f32"
     cfg.tuning.fold_act_order = not args.no_fold_act_order
+    cfg.tp_size, cfg.dp_size = args.tp, args.dp
     params = make_synthetic_params(
         cfg, groupsize=args.groupsize, act_order=args.act_order, seed=0,
         device=device, fast=name != "tiny",
+        mesh=model_init.mesh_from_args(args),
     )
     model = ExLlama(cfg, params=params, device=device)
     tok = FakeTokenizer()
@@ -467,9 +475,20 @@ def run(args, model, tokenizer) -> dict:
 
 
 def main(argv=None) -> dict:
+    """Parse, load, run. In a world of ranks (``torchrun --nproc-per-node N
+    -m exllama_tpu_torch.benchmark --tp N``) every rank runs the same
+    program on its shard and only rank 0 prints."""
     args = parse_args(argv)
-    model, tokenizer = load(args)
-    return run(args, model, tokenizer)
+    quiet = contextlib.nullcontext()
+    import torch.distributed as dist
+
+    rank = (dist.get_rank() if dist.is_initialized()
+            else int(os.environ.get("RANK", "0")))
+    if args.tp * args.dp > 1 and rank != 0:
+        quiet = contextlib.redirect_stdout(open(os.devnull, "w"))
+    with quiet:
+        model, tokenizer = load(args)
+        return run(args, model, tokenizer)
 
 
 if __name__ == "__main__":

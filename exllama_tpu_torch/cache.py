@@ -25,6 +25,11 @@ decode step's int cursor, once, for every kernel of the step (K3 / K7 and
 K8) to read. A step given the cursor itself (``generator.DecodeLoop``, the
 captured decode step) reads it and advances it on the device.
 
+On a mesh (the model's, ``parallel.mesh``) a rank's cache holds its own
+part: kv_heads / tp heads and, where dp divides the batch, B / dp rows
+(``local_cache_dims``); a sequence-parallel rank keeps S / sp positions
+(``parallel.sequence.shard_cache_sp``).
+
 Beam search keeps a second cache whose rows are the beams: ``take_rows``
 gathers its rows by parent and ``keep_rows`` cuts it to the first k (the
 JAX package's ``_map_state`` with ``take`` / a slice), on every member.
@@ -45,6 +50,20 @@ def stored_head_dim(head_dim: int, kv_cache_dtype: str, pad: bool) -> int:
     if pad and head_dim != 64 and head_dim % 128:
         return 64 if head_dim < 64 else -(-head_dim // 128) * 128
     return head_dim
+
+
+def local_cache_dims(batch: int, kv_heads: int, mesh=None):
+    """(batch rows, kv heads) of one rank's cache (mesh.py:288-308): the
+    heads split over tp; the rows over dp where dp divides them, else whole
+    on every data-parallel replica (the engine's B = 1 scratch)."""
+    if mesh is None:
+        return batch, kv_heads
+    if kv_heads % mesh.tp:
+        raise ValueError(f"kv_heads {kv_heads} do not split over tp "
+                         f"{mesh.tp}")
+    if mesh.dp > 1 and batch % mesh.dp == 0:
+        batch //= mesh.dp
+    return batch, kv_heads // mesh.tp
 
 
 class ExLlamaCache:
@@ -79,11 +98,14 @@ class ExLlamaCache:
             raise ValueError("need model= or copy_from=")
         cfg = model.config
         tune = cfg.tuning
+        batch, kv_heads = local_cache_dims(
+            batch_size or cfg.batch_size, cfg.num_key_value_heads,
+            getattr(model, "mesh", None))
         shape = (
             cfg.num_hidden_layers,
-            batch_size or cfg.batch_size,
+            batch,
             max_seq_len or cfg.max_seq_len,
-            cfg.num_key_value_heads,
+            kv_heads,
             cfg.head_dim,
         )
         self.batch_size = shape[1]

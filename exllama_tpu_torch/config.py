@@ -205,6 +205,8 @@ class ExLlamaConfig:
         self.compress_pos_emb = 1.0      # linear RoPE position compression
         self.alpha_value = 1.0           # NTK RoPE alpha scaling
         self.batch_size = 1              # KV cache batch dimension
+        self.tp_size = 1                 # tensor-parallel degree (--tp)
+        self.dp_size = 1                 # data/batch-parallel degree (--dp)
 
         # -- quantization (normally detected from tensor shapes at load)
         self.groupsize: Optional[int] = None

@@ -248,12 +248,14 @@ def unpack_qweight(qweight: torch.Tensor) -> torch.Tensor:
 
 
 def dequantize_t(qt: QuantTensor, dtype=torch.bfloat16) -> torch.Tensor:
-    """Dequantize on qt's device -> [K, N]: q*s - zscale in f32, then cast."""
+    """Dequantize on qt's device -> [K, N]: q*s - zscale in f32, then cast
+    (the scales broadcast over each group's rows)."""
     gs = qt.groupsize
     q = unpack_qweight(qt.qweight).to(torch.float32)
-    s = qt.scales.to(torch.float32).repeat_interleave(gs, dim=0)
-    zs = qt.zscale.to(torch.float32).repeat_interleave(gs, dim=0)
-    return (q * s - zs).to(dtype)
+    k, n = q.shape
+    s = qt.scales.to(torch.float32)[:, None, :]
+    zs = qt.zscale.to(torch.float32)[:, None, :]
+    return (q.view(k // gs, gs, n) * s - zs).reshape(k, n).to(dtype)
 
 
 def dequantize(qt: QuantTensor) -> np.ndarray:
@@ -405,3 +407,94 @@ def quantize_matrix(
     if act_order:
         out["g_idx"] = g_idx
     return out
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel slicing (exllama_tpu formats/gptq.py:599-795 in the port's
+# layout). The JAX package retiles a global tensor into tp padded segments
+# and shard_map hands each device its own; here each rank keeps only its
+# own slice. Uneven splits take a uniform chunk whose tail is zero words
+# with zero scales and zero-scales, so the padding dequantizes to exactly 0
+# and every rank runs the same kernels at the same shapes.
+# ---------------------------------------------------------------------------
+
+# The port's K rule: the kernels take K in whole groups of a multiple of 32
+# rows (``ops.quant.check_qt_tensors``), so a row chunk is a multiple of
+# lcm(TP_K_STEP, groupsize). The JAX package's step is 128, a TPU lane.
+TP_K_STEP = 32
+
+
+def tp_chunk(total: int, tp: int, step: int) -> int:
+    """Uniform per-rank chunk covering ``total`` split ``tp`` ways at
+    ``step`` alignment; the last rank(s) may hold fewer true elements."""
+    per_rank = -(-total // tp)
+    return -(-per_rank // step) * step
+
+
+def tp_row_step(qt: QuantTensor) -> int:
+    """Alignment of a row chunk of ``qt``: whole groups the kernels take."""
+    import math
+
+    return math.lcm(TP_K_STEP, qt.groupsize)
+
+
+def _pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """``t`` zero-extended along ``dim`` to ``size``, contiguous."""
+    extra = size - t.shape[dim]
+    if extra == 0:
+        return t.contiguous()
+    shape = list(t.shape)
+    shape[dim] = extra
+    return torch.cat([t, t.new_zeros(shape)], dim=dim).contiguous()
+
+
+def slice_out_columns(qt: QuantTensor, tp: int, rank: int,
+                      chunk: "int | None" = None) -> QuantTensor:
+    """Rank ``rank``'s output columns of a column-parallel tensor (q, k, v,
+    gate, up): true columns ``[rank*chunk, min((rank+1)*chunk, N))``,
+    zero-extended to ``chunk`` (default N / tp, which must be whole). The
+    K-side permutation ``x_map`` stays whole."""
+    assert qt.w8 is None and qt.w8_scale is None, \
+        "slice before attaching the int8 image"
+    n = qt.out_features
+    if chunk is None:
+        assert n % tp == 0, (n, tp)
+        chunk = n // tp
+    assert chunk * tp >= n, (chunk, tp, n)
+    lo, hi = min(rank * chunk, n), min((rank + 1) * chunk, n)
+
+    def cols(t):
+        return _pad_to(t[:, lo:hi], 1, chunk)
+
+    return dataclasses.replace(qt, qweight=cols(qt.qweight),
+                               scales=cols(qt.scales),
+                               zscale=cols(qt.zscale))
+
+
+def slice_in_rows(qt: QuantTensor, tp: int, rank: int,
+                  chunk: "int | None" = None) -> QuantTensor:
+    """Rank ``rank``'s input rows of a row-parallel tensor (o, down): true
+    rows ``[rank*chunk, min((rank+1)*chunk, K))``, zero-extended to
+    ``chunk`` (default ``tp_chunk(K, tp, tp_row_step(qt))``; whole groups).
+    The rank's product is a partial sum the caller all-reduces; its input
+    must carry zeros where the padding is (a column-parallel producer
+    sliced with the same chunk does). An act-order ``x_map`` is sliced with
+    the rows (global indices; padded entries 0, on zero-scale rows)."""
+    assert qt.w8 is None and qt.w8_scale is None, \
+        "slice before attaching the int8 image"
+    k, gs = qt.in_features, qt.groupsize
+    if chunk is None:
+        chunk = tp_chunk(k, tp, tp_row_step(qt))
+    assert chunk % gs == 0 and chunk * tp >= k, (chunk, gs, tp, k)
+    lo, hi = min(rank * chunk, k), min((rank + 1) * chunk, k)
+    assert lo % gs == 0 and hi % gs == 0, (lo, hi, gs)
+    xm = None
+    if qt.x_map is not None:
+        xm = _pad_to(qt.x_map[lo:hi], 0, chunk)
+    return dataclasses.replace(
+        qt,
+        qweight=_pad_to(qt.qweight[lo // 8:hi // 8], 0, chunk // 8),
+        scales=_pad_to(qt.scales[lo // gs:hi // gs], 0, chunk // gs),
+        zscale=_pad_to(qt.zscale[lo // gs:hi // gs], 0, chunk // gs),
+        x_map=xm,
+    )

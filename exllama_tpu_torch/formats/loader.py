@@ -148,16 +148,31 @@ def _fold_down_act_order(lp: LayerParams):
     ), fold
 
 
-def _finish_layer(lp: LayerParams, config: ExLlamaConfig, folds: list):
+def _finish_layer(lp: LayerParams, config: ExLlamaConfig, folds: list,
+                  mesh=None):
     """Fold and fuse one loaded layer; its fold (or None) goes to
-    ``folds``."""
+    ``folds``. On a mesh with tp > 1 the layer is cut to this rank's
+    slices first and fused on the rank (``parallel.mesh.shard_layer``;
+    loader.py:139, :190-194)."""
     fold = None
     if config.tuning.fold_act_order:
         lp, fold = _fold_down_act_order(lp)
     folds.append(fold)
+    if mesh is not None and mesh.tp > 1:
+        from exllama_tpu_torch.parallel.mesh import shard_layer
+
+        return shard_layer(lp, mesh.tp, mesh.tp_rank,
+                           fuse=config.tuning.fuse_projections)
     if config.tuning.fuse_projections:
         lp = fuse_layer_projections(lp)
     return lp
+
+
+def _check_mesh(config: ExLlamaConfig, mesh):
+    if mesh is not None:
+        from exllama_tpu_torch.parallel.mesh import validate_tp
+
+        validate_tp(config, mesh.tp)
 
 
 def _tables(config: ExLlamaConfig, device):
@@ -190,9 +205,12 @@ def quantize_head(w: np.ndarray, groupsize: int, act_order: bool = False,
         zscale=qt.zscale[:, :n].contiguous())
 
 
-def load_model_params(config: ExLlamaConfig, device="cuda") -> ModelParams:
-    """Load a GPTQ safetensors checkpoint (config.model_path)."""
+def load_model_params(config: ExLlamaConfig, device="cuda",
+                      mesh=None) -> ModelParams:
+    """Load a GPTQ safetensors checkpoint (config.model_path); on a
+    ``mesh`` (``parallel.mesh.make_mesh``) keep this rank's slices."""
     device = _require_device(device)
+    _check_mesh(config, mesh)
     scale_dtype = config.tuning.scale_dtype
     files = [SafetensorsFile(fn) for fn in config.model_files()]
     where = {k: f for f in files for k in f.keys()}
@@ -243,7 +261,7 @@ def load_model_params(config: ExLlamaConfig, device="cuda") -> ModelParams:
         )
         config.groupsize = lp.q.groupsize
         act = act or lp.q.act_order
-        layers.append(_finish_layer(lp, config, folds))
+        layers.append(_finish_layer(lp, config, folds, mesh))
     config.act_order = act
 
     sin, cos = _tables(config, device)
@@ -263,6 +281,7 @@ def load_model_params(config: ExLlamaConfig, device="cuda") -> ModelParams:
         rope_sin=sin,
         rope_cos=cos,
         down_folds=folds,
+        mesh=mesh,
     )
 
 
@@ -278,8 +297,11 @@ def make_synthetic_params(
     seed: int = 0,
     device="cuda",
     fast: bool = False,
+    mesh=None,
 ) -> ModelParams:
-    """A random quantized model with ``config``'s shapes.
+    """A random quantized model with ``config``'s shapes (on a ``mesh``:
+    this rank's slices of it; every rank draws the whole model from the
+    seed, so every tp degree computes the same model).
 
     Weight scales follow standard transformer init so activations stay
     numerically sane. The default mode quantizes random float matrices with
@@ -292,6 +314,7 @@ def make_synthetic_params(
     in the JAX package's order.
     """
     device = _require_device(device)
+    _check_mesh(config, mesh)
     sdt = SCALE_TORCH_DTYPES[config.tuning.scale_dtype]
     h = config.hidden_size
     inter = config.intermediate_size
@@ -343,7 +366,7 @@ def make_synthetic_params(
             q=qt(h, qdim), k=qt(h, kvdim), v=qt(h, kvdim), o=qt(qdim, h),
             gate=qt(h, inter), up=qt(h, inter), down=qt(inter, h),
         )
-        layers.append(_finish_layer(lp, config, folds))
+        layers.append(_finish_layer(lp, config, folds, mesh))
     if config.tuning.quantize_lm_head:
         lm_head = qt(h, config.vocab_size)
     else:
@@ -354,6 +377,7 @@ def make_synthetic_params(
         embed=embed, layers=layers,
         norm=torch.ones(h, dtype=bf16, device=device),
         lm_head=lm_head, rope_sin=sin, rope_cos=cos, down_folds=folds,
+        mesh=mesh,
     )
 
 
@@ -406,12 +430,16 @@ def _fused_slices(widths: "list[int]") -> "list[slice]":
 
 def params_from_jax(
     jax_params, config: ExLlamaConfig, device="cuda", down_folds=None,
+    mesh=None,
 ) -> ModelParams:
     """Convert a JAX ``ModelParams`` (leaves already numpy arrays, e.g. via
     ``jax.tree.map(np.asarray, params)``) into the port's params. Reads by
     attribute only; imports nothing of JAX. ``down_folds``: the JAX
     params' ``_down_folds`` (a plain attribute, which the tree map drops),
-    the folded permutations a LoRA adapter needs; None: nothing folded."""
+    the folded permutations a LoRA adapter needs; None: nothing folded.
+    ``mesh``: this rank's shard (``parallel.mesh.shard_params``, fusing on
+    the rank where ``tuning.fuse_projections``; the JAX params must then be
+    unfused)."""
     device = _require_device(device)
     nq = config.num_attention_heads * config.head_dim
     nkv = config.num_key_value_heads * config.head_dim
@@ -450,4 +478,10 @@ def params_from_jax(
         down_folds=[None if f is None else np.asarray(f, np.int64)
                     for f in (down_folds or [None] * len(layers))],
     )
+    if mesh is not None:
+        from exllama_tpu_torch.parallel.mesh import shard_params
+
+        _check_mesh(config, mesh)
+        params = shard_params(params, mesh,
+                              fuse=config.tuning.fuse_projections)
     return params.to(device)

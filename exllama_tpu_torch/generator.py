@@ -106,7 +106,10 @@ class DecodeLoop:
     allocated there between replays, so they may replay in any order).
     Capture records the launch counts of the step; each replay adds them to
     the counters (``kernels.add_launches``). A capture that fails raises. With
-    ``capture=False``, or on the CPU, the same step runs eagerly.
+    ``capture=False``, on the CPU, or on a mesh of more than one rank the
+    same step runs eagerly: a gloo collective cannot be captured in a CUDA
+    graph, and the capture of an NCCL one is not checked yet (the kernels
+    still run on the card).
     """
 
     def __init__(self, model, cache: ExLlamaCache, hist: torch.Tensor, *,
@@ -206,7 +209,9 @@ class DecodeLoop:
         self.lora = lora
         kw = self._forward_kwargs()
         dev = self.cache.k[0].device
-        graphs = self.capture and dev.type == "cuda"
+        mesh = getattr(self.model, "mesh", None)
+        graphs = (self.capture and dev.type == "cuda"
+                  and (mesh is None or mesh.tp * mesh.dp == 1))
         epoch = (self.cache.batch_size, self.head_mode,
                  None if sampler is None else
                  (dataclasses.astuple(sampler[0]), sampler[1]),
@@ -631,6 +636,12 @@ class ExLlamaGenerator:
         self.beams = None
         if self.settings.beams == 1 and self.settings.beam_length == 1:
             return
+        mesh = getattr(self.model, "mesh", None)
+        if mesh is not None and mesh.tp > 1:
+            # exllama_tpu/generator.py:635-641
+            raise NotImplementedError(
+                "beam search over a tensor-parallel mesh is not supported "
+                "(per-beam cache gathers assume local KV)")
         self.in_beam_search = True
 
     def _beam_bias(self) -> torch.Tensor:

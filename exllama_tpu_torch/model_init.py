@@ -4,10 +4,14 @@ exllama_tpu/model_init.py, same flag names).
 One argparse vocabulary, mapped onto a config by :func:`make_config` and
 onto a loaded model by :func:`build`: every flag of the JAX package's
 ``add_args``, and ``--scale_f32`` (which the JAX package's benchmark adds).
-The port runs on one card: ``--tp`` / ``--dp`` above 1 raise
-``NotImplementedError``; ``--cpu`` selects ``torch.device("cpu")``, where
-every kernel wrapper runs its plain PyTorch version; ``--matmul_impl xla``
-runs the plain path on the card, an oracle for the kernels.
+``--tp`` / ``--dp`` above 1 make a world of ``tp * dp`` ranks, one process
+each, started by ``torchrun --nproc-per-node N`` (``mesh_from_args`` joins
+it through ``parallel.multihost.initialize`` with ``--backend``, nccl by
+default: one card a rank; gloo where named) and a ``("dp", "tp")`` mesh on
+which every rank loads its own shard (the projections load unfused and
+fuse on the rank); ``--cpu`` selects ``torch.device("cpu")``, where every
+kernel wrapper runs its plain PyTorch version; ``--matmul_impl xla`` runs
+the plain path on the card, an oracle for the kernels.
 
     --kv_int8          int8 KV cache, one f32 scale per (token, kv head)
     --kv_int4          int4 KV cache, two values a byte
@@ -49,9 +53,16 @@ def add_args(parser: argparse.ArgumentParser):
                         help="Override rope_theta directly")
 
     parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel degree (the port runs 1)")
+                        help="Tensor-parallel degree (ranks of a torchrun "
+                             "world)")
     parser.add_argument("--dp", type=int, default=1,
-                        help="Data/batch-parallel degree (the port runs 1)")
+                        help="Data/batch-parallel degree (ranks of a "
+                             "torchrun world)")
+    parser.add_argument("--backend", type=str, default="nccl",
+                        choices=["nccl", "gloo"],
+                        help="torch.distributed backend of a --tp/--dp "
+                             "world: nccl (one card a rank) or gloo (CPU "
+                             "tensors, or several ranks on one card)")
     parser.add_argument("--kv_int8", action="store_true",
                         help="int8 KV cache (halves the KV stream; "
                              "per-token-per-head scales)")
@@ -126,11 +137,19 @@ def get_model_files(args):
         raise ValueError("missing arguments: ['tokenizer'] (or use -d)")
 
 
+def mesh_from_args(args):
+    """None at ``--tp 1 --dp 1``; else this rank's ``("dp", "tp")`` mesh,
+    after joining the world (torchrun's environment, ``--backend``)."""
+    if args.tp * args.dp == 1:
+        return None
+    from exllama_tpu_torch.parallel.mesh import make_mesh
+    from exllama_tpu_torch.parallel.multihost import initialize
+
+    initialize(backend=getattr(args, "backend", "nccl"))
+    return make_mesh(tp=args.tp, dp=args.dp)
+
+
 def make_config(args) -> ExLlamaConfig:
-    if args.tp > 1 or args.dp > 1:
-        raise NotImplementedError(
-            f"--tp {args.tp} --dp {args.dp}: the port runs on one device "
-            f"(parallelism is ROADMAP.md queue 1 item 8)")
     config = ExLlamaConfig(args.config)
     config.model_path = args.model
     config.max_seq_len = args.length
@@ -142,6 +161,8 @@ def make_config(args) -> ExLlamaConfig:
     if args.alpha != 1.0:
         config.alpha_value = args.alpha
         config.calculate_rotary_embedding_base()
+    config.tp_size = args.tp
+    config.dp_size = args.dp
     config.tuning.matmul_impl = args.matmul_impl   # "xla": the plain path
     config.tuning.attn_len_bucket = args.attn_bucket
     if getattr(args, "kv_int8", False) or getattr(args, "turbo", False):
@@ -182,7 +203,7 @@ def print_options(args, extra: dict | None = None):
         print(f" -- RoPE compression: {args.compress_pos_emb}")
     if args.alpha != 1.0:
         print(f" -- NTK alpha: {args.alpha}")
-    print(f" -- Device: {device_of(args)}, "
+    print(f" -- Device: {device_of(args)}, mesh: tp={args.tp} dp={args.dp}, "
           f"matmul={args.matmul_impl}, attn_bucket={args.attn_bucket}")
     if extra:
         for k, v in extra.items():
@@ -190,14 +211,15 @@ def print_options(args, extra: dict | None = None):
 
 
 def build(args):
-    """Config + model + tokenizer from parsed args, and None where the JAX
-    package returns its device mesh."""
+    """Config + model + tokenizer + mesh (None at one rank) from parsed
+    args; on a mesh the model is this rank's shard."""
     from exllama_tpu_torch.models.llama import ExLlama
     from exllama_tpu_torch.tokenizer import ExLlamaTokenizer, FakeTokenizer
 
     get_model_files(args)
     config = make_config(args)
-    model = ExLlama(config, device=device_of(args))
+    mesh = mesh_from_args(args)
+    model = ExLlama(config, device=device_of(args), mesh=mesh)
     if args.tokenizer is None:
         print(" !! no tokenizer file found; using byte-level FakeTokenizer")
         tokenizer = FakeTokenizer()
@@ -205,4 +227,4 @@ def build(args):
         tokenizer = ExLlamaTokenizer(args.tokenizer)
     print(f" -- Groupsize (inferred): {config.groupsize}")
     print(f" -- Act-order (inferred): {config.act_order}")
-    return config, model, tokenizer, None
+    return config, model, tokenizer, mesh

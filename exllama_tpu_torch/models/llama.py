@@ -1,5 +1,5 @@
-"""The Llama-family model (port of exllama_tpu/models/llama.py), single
-device: fused qkv / gate-up projections, a bf16, int8 or int4 KV
+"""The Llama-family model (port of exllama_tpu/models/llama.py): fused
+qkv / gate-up projections, a bf16, int8 or int4 KV
 cache (``kv_cache_dtype``; optionally padded to a head width K3 takes,
 ``pad_head_dim``), 4-bit matmuls in the arithmetic ``matmul_impl`` names
 (exact by default, the W4A8 turbo modes opt-in, ``"xla"`` the plain path
@@ -33,7 +33,10 @@ adapted gate / up / down K6 and K7's MLP phases, and an adapted q / k / v
 takes the input norm out of K1's prologue (the adapter reads the same normed
 x). Everything between kernels is plain tensor code. PyTorch
 runs eagerly, so there is no jit: the layer loop is a Python loop and the
-cache is updated in place.
+cache is updated in place. On a mesh (``parallel.mesh``) each rank runs the
+same forward on its shard: local heads, the separate kernels (K1 and K3 a
+step, K2 and K3 a prefill; K6 / K7 off), one all-reduce after o and one
+after down, and the batch split over dp (``forward_chunk``).
 """
 
 from __future__ import annotations
@@ -74,6 +77,7 @@ from exllama_tpu_torch.ops.mlp import fused_mlp_applicable, q4_mlp, silu_mul
 from exllama_tpu_torch.ops.norms import rms_norm
 from exllama_tpu_torch.ops.quant import lora_delta, q4_matmul
 from exllama_tpu_torch.ops.rope import apply_rope_sliced, slice_tables
+from exllama_tpu_torch.parallel.mesh import all_gather_dim, all_reduce_sum
 
 
 @dataclasses.dataclass
@@ -104,6 +108,9 @@ class ModelParams:
     # (int64 numpy [intermediate], None where nothing was folded), which
     # lora.ExLlamaLora applies to the adapters of those projections
     down_folds: Optional[list] = None
+    # the rank's mesh (parallel.mesh.Mesh) when these are one rank's shard
+    # (parallel.mesh.shard_params); forward_chunk reads it
+    mesh: object = None
 
     @property
     def device(self) -> torch.device:
@@ -126,6 +133,7 @@ class ModelParams:
             embed=mv(self.embed), layers=layers, norm=mv(self.norm),
             lm_head=mv(self.lm_head), rope_sin=mv(self.rope_sin),
             rope_cos=mv(self.rope_cos), down_folds=self.down_folds,
+            mesh=self.mesh,
         )
 
 
@@ -168,9 +176,13 @@ def _decoder_layer(
     attn_impl: str = "auto",
     rows_out=None,
     lora=None,
+    tp_group=None,
 ):
-    """One decoder layer (exllama_tpu/models/llama.py:_decoder_layer, single
-    device). ``lora``: the layer's ``lora.LayerLora`` or None. Returns (h,
+    """One decoder layer (exllama_tpu/models/llama.py:_decoder_layer).
+    ``lora``: the layer's ``lora.LayerLora`` or None. ``tp_group``: the
+    tensor-parallel group of a rank's shard (``heads`` / ``kv_heads`` are
+    then the rank's): o and down give partial sums, each all-reduced once
+    and added to the residual (``parallel.mesh.all_reduce_sum``). Returns (h,
     k_row, v_row); the rows are the new K/V of a deferred (T=1) step, which
     the caller commits. ``rows_out`` (the layer's views of
     ``ExLlamaCache.rows``): where the whole layer is one K7 launch, the
@@ -284,7 +296,18 @@ def _decoder_layer(
     if attn is not None:
         if d_pad > 0:
             attn = attn[..., :head_dim]
-        h = h + proj(attn.reshape(b, t, nq), lp.o, "o")
+        attn2 = attn.reshape(b, t, nq)
+        if tp_group is not None and lp.o.x_map is not None:
+            # act-order o under tp (llama.py:335-346): its K permutation
+            # crosses the head split, so gather the whole attention output
+            # and take this rank's rows by its slice of x_map
+            full = all_gather_dim(attn2, tp_group, -1)
+            x_o = full[..., lp.o.x_map.to(torch.long)]
+            h = h + all_reduce_sum(
+                q4_matmul(x_o, dataclasses.replace(lp.o, x_map=None), impl),
+                tp_group)
+        else:
+            h = h + all_reduce_sum(proj(attn2, lp.o, "o"), tp_group)
 
     if mlp_ok:
         # the MLP block in one K6 launch (llama.py:353-362)
@@ -298,7 +321,8 @@ def _decoder_layer(
         # silu(gate)*up from the raw gate|up output in its kernel (K12); up
         # starts at column ni of the port's unpadded fused tensor
         fused = q4_matmul(a, lp.gateup, impl)
-        h = h + q4_matmul(fused, lp.down, impl, glu=(ni, ni))
+        h = h + all_reduce_sum(q4_matmul(fused, lp.down, impl, glu=(ni, ni)),
+                               tp_group)
         return h, k_row, v_row
     if lp.gateup is not None:
         fused = q4_matmul(a, lp.gateup, impl)
@@ -308,12 +332,77 @@ def _decoder_layer(
         g = proj(a, lp.gate, "gate")
         u = proj(a, lp.up, "up")
     mid = silu_mul(g, u)
-    h = h + proj(mid, lp.down, "down")
+    h = h + all_reduce_sum(proj(mid, lp.down, "down"), tp_group)
     return h, k_row, v_row
 
 
+def _split_rows(x, sl, b):
+    """Rows ``sl`` of a batch-major operand of batch ``b`` (ints, None and
+    per-call operands pass through)."""
+    if isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == b:
+        return x[sl]
+    return x
+
+
+def _split_lora(lora, sl, b):
+    """The rows ``sl`` of a per-row stacked adapter ([B, in, r] pairs); a
+    whole-batch adapter passes through."""
+    if lora is None:
+        return None
+    out = []
+    for ll in lora:
+        out.append(dataclasses.replace(ll, **{
+            f.name: None if getattr(ll, f.name) is None else tuple(
+                _split_rows(t, sl, b) if t.dim() == 3 else t
+                for t in getattr(ll, f.name))
+            for f in dataclasses.fields(ll)}))
+    return out
+
+
 @torch.inference_mode()
-def forward_chunk(
+def forward_chunk(params: ModelParams, cache: ExLlamaCache,
+                  tokens: torch.Tensor, past_len, input_mask, **kw):
+    """One forward chunk over all layers (exllama_tpu/models/llama.py:
+    forward_chunk): :func:`_forward_rank` on this rank's part of the
+    batch. On a mesh (``params.mesh``, one rank's shard from
+    ``parallel.mesh.shard_params``) the heads are the rank's under tp, the
+    fused K6 / K7 launches stay off (their in-kernel residual adds cannot
+    straddle the all-reduce, as the JAX package keeps its megakernels off
+    under tp: llama.py:458-470) and o / down all-reduce their partials;
+    under dp a batch that is ``dp`` times the cache's rows is split, this
+    replica computes its rows and the outputs are gathered over dp (every
+    rank returns the whole batch's); any other batch is computed whole on
+    every replica (the engine's B = 1 admission scratch). A LoRA adapter
+    under tp raises, as in the JAX package (llama.py:707-710)."""
+    mesh = params.mesh
+    if mesh is None or mesh.tp * mesh.dp == 1:
+        return _forward_rank(params, cache, tokens, past_len, input_mask,
+                             **kw)
+    if mesh.tp > 1:
+        if kw.get("lora") is not None:
+            raise NotImplementedError(
+                "LoRA is not supported over tensor parallelism (as in the "
+                "JAX package)")
+        kw.update(heads=kw["heads"] // mesh.tp,
+                  kv_heads=kw["kv_heads"] // mesh.tp,
+                  mlp_fuse=False, attn_fuse=False, qkv_fuse=False,
+                  tp_group=mesh.group("tp"))
+    b = tokens.shape[0]
+    if mesh.dp == 1 or cache.batch_size * mesh.dp != b:
+        return _forward_rank(params, cache, tokens, past_len, input_mask,
+                             **kw)
+    from exllama_tpu_torch.parallel.multihost import local_batch_slice
+
+    sl = local_batch_slice(b, mesh)
+    if kw.get("lora") is not None:
+        kw["lora"] = _split_lora(kw["lora"], sl, b)
+    out = _forward_rank(params, cache, tokens[sl],
+                        _split_rows(past_len, sl, b),
+                        _split_rows(input_mask, sl, b), **kw)
+    return None if out is None else all_gather_dim(out, mesh.dp_group, 0)
+
+
+def _forward_rank(
     params: ModelParams,
     cache: ExLlamaCache,
     tokens: torch.Tensor,            # [B, T] int
@@ -335,9 +424,10 @@ def forward_chunk(
     matmul_impl: str = "auto",
     attn_impl: str = "auto",
     lora=None,
+    tp_group=None,
 ):
-    """One forward chunk over all layers (exllama_tpu/models/llama.py:
-    forward_chunk, single device): embedding -> layers -> final
+    """One forward chunk over all layers on one rank (exllama_tpu/models/
+    llama.py:_forward_impl): embedding -> layers -> final
     norm -> lm_head. Returns f32 logits [B, T|1, vocab], int32 greedy token
     ids [B, T|1] with ``head_mode="argmax"`` (kernel K5 over a bf16 head, no
     logits materialized; a 4-bit head's logits through ``q4_matmul``, then
@@ -390,7 +480,7 @@ def forward_chunk(
             attend_len=attend_len, input_mask=input_mask, defer_kv=defer,
             mlp_fuse=mlp_fuse, attn_fuse=attn_fuse, qkv_fuse=qkv_fuse,
             matmul_impl=matmul_impl, attn_impl=attn_impl, rows_out=rows,
-            lora=None if lora is None else lora[li],
+            lora=None if lora is None else lora[li], tp_group=tp_group,
         )
         k_rows.append(k_row)
         v_rows.append(v_row)
@@ -452,7 +542,8 @@ def _quant_bytes(qt: QuantTensor, image_only: bool = False) -> int:
                for t in (getattr(qt, f) for f in fields) if t is not None)
 
 
-def _attach_prefill_w8(params: ModelParams, config) -> ModelParams:
+def _attach_prefill_w8(params: ModelParams, config,
+                       tp: int = 1) -> ModelParams:
     """Attach the resident int8 weight images of turbo prefill
     (formats.gptq.with_w8; exllama_tpu/models/llama.py:_attach_prefill_w8).
     ``prefill_w8="on"`` (or "off", when called directly) attaches every
@@ -476,7 +567,7 @@ def _attach_prefill_w8(params: ModelParams, config) -> ModelParams:
         packed = sum(_quant_bytes(qt) for _, _, qt in tensors)
         kv_bytes = int(2 * config.num_hidden_layers * config.max_seq_len
                        * config.num_key_value_heads * config.head_dim
-                       * KV_CACHE_DTYPES[tune.kv_cache_dtype])
+                       * KV_CACHE_DTYPES[tune.kv_cache_dtype]) // tp
         w8_budget = max(budget_gb * 2 ** 30 - packed - kv_bytes, 0)
 
     spent = 0
@@ -504,7 +595,10 @@ class ExLlama:
     """Model wrapper: owns params + config, exposes ``forward``.
 
     ``device`` defaults to the card; with no card present construction
-    fails rather than falling back to the CPU.
+    fails rather than falling back to the CPU. ``mesh``
+    (``parallel.mesh.make_mesh``): this rank loads (or, given whole
+    ``params``, keeps) its shard, ``parallel.mesh.shard_params``; params
+    that are already a rank's shard carry their mesh.
     """
 
     def __init__(
@@ -512,20 +606,32 @@ class ExLlama:
         config: ExLlamaConfig,
         params: Optional[ModelParams] = None,
         device="cuda",
+        mesh=None,
     ):
         self.config = config
         self.device = _require_device(device)
         if params is None:
             from exllama_tpu_torch.formats.loader import load_model_params
 
-            params = load_model_params(config, device=self.device)
+            params = load_model_params(config, device=self.device, mesh=mesh)
         elif params.device != self.device:
             params = params.to(self.device)
+        if mesh is not None and params.mesh is not mesh:
+            # whole params: this rank's shard of them (the loader checks
+            # the split of what it loads)
+            from exllama_tpu_torch.parallel.mesh import (shard_params,
+                                                         validate_tp)
+
+            validate_tp(config, mesh.tp)
+            params = shard_params(params, mesh,
+                                  fuse=config.tuning.fuse_projections)
+        self.mesh = params.mesh
         # turbo prefill keeps int8 images of the weights on the card
         if (config.tuning.matmul_impl == "pallas_a8t"
                 and config.tuning.prefill_w8 != "off"
                 and self.device.type == "cuda"):
-            params = _attach_prefill_w8(params, config)
+            params = _attach_prefill_w8(
+                params, config, 1 if self.mesh is None else self.mesh.tp)
         self.params = params
 
     def _attend_len(self, upto: int) -> int:

@@ -62,8 +62,18 @@ under its ``generate_lock``) and the websocket server
 one generating thread at a time. The scratches are per device, not per
 front end: two front ends in one process would share them.
 
-A ``mesh`` (multi-chip serving) is parallelism, ROADMAP.md queue 1 item 8:
-it raises ``NotImplementedError``.
+Over a mesh (the model's, ``ExLlama(config, mesh=)``; engine.py:412-457)
+the engine is SPMD: every rank runs ``step()`` in lockstep on the same
+submissions (each caller submits the same requests on every rank) and
+keeps the same host state. A rank's slot cache holds its data-parallel
+replica's slots (``parallel.multihost.local_batch_slice``) and its tp
+heads; ``forward_chunk`` computes the replica's rows and gathers the
+logits over dp, so every rank samples every slot, from the same seeded
+generator, alike. Admission chunks run on every replica into the B = 1
+scratch (heads split, rows whole) and a finished prompt is copied into the
+slot's row by the replica that owns it. The decode step runs eagerly
+there (``generator.DecodeLoop`` says why). A relay of HTTP submissions
+from one rank to the others is the front ends' part, not done yet.
 """
 
 from __future__ import annotations
@@ -86,6 +96,7 @@ from exllama_tpu_torch.ops.sampling import (
     filter_sample_rows,
     rep_mask_windowed,
 )
+from exllama_tpu_torch.parallel.multihost import local_batch_slice
 from exllama_tpu_torch.utils.streaming import split_on_stop_strings
 
 QUEUED, PREFILL, RUNNING, DONE = "queued", "prefill", "running", "done"
@@ -175,10 +186,13 @@ class ContinuousBatchingEngine:
                  attn_bucket: int = 256, mesh=None,
                  spec_proposer=None, spec_lookahead: int = 4,
                  sampler_candidate_cap: int = 0):
-        if mesh is not None or getattr(model, "mesh", None) is not None:
-            raise NotImplementedError(
-                "serving over a device mesh is parallelism, not ported yet "
-                "(ROADMAP.md, queue 1 item 8)")
+        self.mesh = getattr(model, "mesh", None)
+        if mesh is not None and mesh is not self.mesh:
+            raise ValueError("the engine's mesh must be the model's: build "
+                             "the model with ExLlama(config, mesh=mesh)")
+        if self.mesh is not None and max_slots % self.mesh.dp:
+            raise ValueError(f"max_slots ({max_slots}) must divide over dp "
+                             f"({self.mesh.dp})")
         self.model = model
         self.tokenizer = tokenizer
         self.max_slots = max_slots
@@ -193,8 +207,12 @@ class ContinuousBatchingEngine:
         self.sampler_candidate_cap = sampler_candidate_cap
         cfg = model.config
         dev = model.device
+        # on a mesh: the slot cache's rows split over dp (this replica's
+        # slots) and its heads over tp; the B = 1 scratch splits heads only
         self.cache = ExLlamaCache(model, batch_size=max_slots)
         self.scratch = ExLlamaCache(model, batch_size=1)
+        self._rows = local_batch_slice(max_slots, self.mesh)
+        self._ranks = 1 if self.mesh is None else self.mesh.tp * self.mesh.dp
         self.generator = torch.Generator(device=dev).manual_seed(seed)
 
         s_max = cfg.max_seq_len
@@ -372,9 +390,11 @@ class ContinuousBatchingEngine:
 
     def _finish_admission(self, adm: _Admission):
         req, slot = adm.req, adm.slot
-        if adm.done > 0:
+        if adm.done > 0 and self._rows.start <= slot < self._rows.stop:
+            # into this replica's rows only (engine.py:448-455)
             n = min(adm.done, self.scratch.max_seq_len)
-            self.scratch.copy_states(self.cache, 0, n, 0, n, 0, 1, slot, 1)
+            self.scratch.copy_states(self.cache, 0, n, 0, n, 0, 1,
+                                     slot - self._rows.start, 1)
         ids = req.prompt_ids
         plen = len(ids)
         self.pos[slot] = plen - 1
@@ -520,7 +540,7 @@ class ContinuousBatchingEngine:
         step of a new (epoch, bucket), or eager (CPU, ``capture=False``)."""
         kw = self._forward_kwargs()
         dev = self._tok.device
-        if not (self.capture and dev.type == "cuda"):
+        if not (self.capture and dev.type == "cuda") or self._ranks > 1:
             self._decode_step(attend_len, kw)
             return
         epoch = (self._use_rep, self._greedy_all, self.sampler_candidate_cap,

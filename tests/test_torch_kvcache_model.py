@@ -314,8 +314,10 @@ def test_make_config_matches_jax(flags, tmp_path):
 
 
 def test_model_init_flag_vocabulary_is_the_jax_one():
-    """Every flag of the JAX add_args, with its default, and one more:
-    --scale_f32, which the JAX package's benchmark adds beside it."""
+    """Every flag of the JAX add_args, with its default, and two more:
+    --scale_f32, which the JAX package's benchmark adds beside it, and
+    --backend, the torch.distributed backend of a --tp/--dp world (the JAX
+    package's runtime has no choice to make)."""
     def flags(mod):
         parser = argparse.ArgumentParser()
         mod.add_args(parser)
@@ -324,19 +326,27 @@ def test_model_init_flag_vocabulary_is_the_jax_one():
 
     ours, ref = flags(model_init), flags(jinit)
     assert ours.pop(("--scale_f32",)) == (False, 0, None)
+    assert ours.pop(("--backend",)) == ("nccl", None, str)
     assert ours == ref
 
 
 @pytest.mark.parametrize("argv", [["--tp", "2"], ["--dp", "2"],
                                   ["--tp", "2", "--dp", "2"]])
 def test_model_init_refuses_what_the_port_lacks(argv, tmp_path):
-    """Tensor and data parallelism (``--matmul_impl xla``, once refused
-    here, is the plain path now: tests/test_torch_knobs.py)."""
+    """Tensor and data parallelism, refused here until the port had them,
+    now set the config's degrees as the JAX make_config does; what is
+    refused is a mesh of more ranks than the world has (a --tp/--dp run
+    is a world of tp * dp ranks: torchrun, or parallel.launch)
+    (``--matmul_impl xla``, once refused here, is the plain path now:
+    tests/test_torch_knobs.py)."""
     path = tmp_path / "config.json"
     path.write_text("{}")
     args = _parse(model_init, ["-c", str(path), "-m", "x"] + argv)
-    with pytest.raises(NotImplementedError):
-        model_init.make_config(args)
+    config = model_init.make_config(args)
+    assert (config.tp_size, config.dp_size) == (args.tp, args.dp)
+    assert config.tuning.fuse_projections      # fused on each rank
+    with pytest.raises(ValueError, match="ranks"):
+        model_init.mesh_from_args(args)
 
 
 def test_model_init_resolves_files_and_devices(tmp_path):

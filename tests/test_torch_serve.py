@@ -469,7 +469,9 @@ def test_every_module_leaves_out_jax():
 
 
 def test_mesh_is_not_ported(model):
-    with pytest.raises(NotImplementedError, match="item 8"):
+    """Serving over a mesh is ported (tests/test_torch_parallel.py); the
+    mesh must be the one the model's shard was made on."""
+    with pytest.raises(ValueError, match="mesh"):
         ContinuousBatchingEngine(model, port.FakeTokenizer(), mesh=object())
 
 
