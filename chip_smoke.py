@@ -4029,16 +4029,9 @@ def tag_tokenizer():
     """The byte tokenizer with a decode that is injective per token
     (``<id>`` pieces): every token of the 32,000-token vocabulary shows in
     the text, so a stop string can be cut from any output."""
-    import exllama_tpu_torch as port
+    from exllama_tpu_torch.parallel import worlds
 
-    class TagTokenizer(port.FakeTokenizer):
-        def decode(self, ids, **kw):
-            ids = np.asarray(ids)
-            if ids.ndim == 2:
-                return [self.decode(r) for r in ids]
-            return "".join(f"<{int(t)}>" for t in ids.reshape(-1))
-
-    return TagTokenizer()
+    return worlds.tag_tokenizer()
 
 
 def serve_specs(vocab):
@@ -4275,41 +4268,20 @@ def spec_serving(mp, lora, specs, plain, limit):
 
 def api_round_trip(mp):
     """serve.api on 127.0.0.1:0 over a fresh 8-slot engine: four JSON and
-    four SSE clients at once, greedy, the SSE prompts the JSON ones: every
-    answer 200, each stream ends in [DONE] and its deltas join to the JSON
-    text of its prompt; /health answers. Returns the texts' lengths."""
-    import http.client
-    import threading
-
+    four SSE clients at once, greedy, 16 tokens, the SSE prompts the JSON
+    ones (``worlds.api_clients``): every answer 200, each stream ends in
+    [DONE] and its deltas join to the JSON text of its prompt; /health
+    answers. Returns the texts' lengths."""
+    from exllama_tpu_torch.parallel import worlds
     from exllama_tpu_torch.serve import api as serve_api
 
     api, httpd, _ = serve_api.make_server(mp.model, mp.tok,
                                           max_slots=SERVE_SLOTS)
-    results = {}
-
-    def client(i, stream):
-        body = {"prompt": f"client {i} asks the engine something",
-                "max_tokens": 16, "top_k": 1, "temperature": 1.0,
-                "repetition_penalty": 1.0, "stream": stream}
-        conn = http.client.HTTPConnection(*httpd.server_address, timeout=600)
-        conn.request("POST", "/v1/completions", json.dumps(body),
-                     {"Content-Type": "application/json"})
-        r = conn.getresponse()
-        results[(i, stream)] = (r.status, r.read().decode())
-        conn.close()
-
     try:
-        threads = [threading.Thread(target=client, args=(i, s))
-                   for i in range(4) for s in (False, True)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=600)
-        conn = http.client.HTTPConnection(*httpd.server_address, timeout=60)
-        conn.request("GET", "/health")
-        r = conn.getresponse()
-        health = (r.status, json.loads(r.read()))
-        conn.close()
+        results = worlds.api_clients(httpd.server_address, 4, 16)
+        status, body = worlds.http_call(httpd.server_address, "GET",
+                                        "/health")
+        health = (status, json.loads(body))
     finally:
         httpd.shutdown()
         api.shutdown()
@@ -4320,55 +4292,35 @@ def api_round_trip(mp):
     lengths = []
     for i in range(4):
         text = json.loads(results[(i, False)][1])["choices"][0]["text"]
-        lines = [x[len("data: "):] for x in results[(i, True)][1].splitlines()
-                 if x.startswith("data: ")]
-        if not lines or lines[-1] != "[DONE]":
-            raise AssertionError(f"phase 13 api stream {i}: {lines[-1:]}")
-        joined = "".join(json.loads(x)["choices"][0]["text"]
-                         for x in lines[:-1])
-        if joined != text or not text:
+        joined, done = worlds.sse_text(results[(i, True)][1])
+        if not done or joined != text or not text:
             raise AssertionError(f"phase 13 api stream {i}: {joined!r} vs "
-                                 f"{text!r}")
+                                 f"{text!r} (ended in [DONE]: {done})")
         lengths.append(len(text))
     return dict(health=health[1], text_chars=lengths)
 
 
 def ws_round_trip(mp):
     """serve.ws's WsProtocol.handle driven in process by a fake connection
-    (an async iterator of messages, a list of sent frames): echo,
-    getConfig, estimateToken, oneShotInfer and streamInfer (greedy, 8
-    tokens each, the same prompt: the stream joins to the one-shot
-    text)."""
+    (``worlds.WsConn``: an async iterator of messages, a list of sent
+    frames): echo, getConfig, estimateToken, oneShotInfer and streamInfer
+    (greedy, 8 tokens each, the same prompt: the stream joins to the
+    one-shot text)."""
     import asyncio
 
     import exllama_tpu_torch as port
+    from exllama_tpu_torch.parallel import worlds
     from exllama_tpu_torch.serve.ws import WsProtocol
 
     proto = WsProtocol(mp.model, mp.tok, port.ExLlamaCache(mp.model))
     greedy = dict(maxNew=8, top_k=1, temperature=1.0, rep_pen=1.0)
-    msgs = [dict(action="echo", request_id="a"),
-            dict(action="getConfig", request_id="b"),
-            dict(action="estimateToken", request_id="c",
-                 text="count these tokens"),
-            dict(action="oneShotInfer", request_id="d", text="one shot",
-                 **greedy),
-            dict(action="streamInfer", request_id="e", text="one shot",
-                 **greedy)]
-
-    class Conn:
-        def __init__(self):
-            self.sent = []
-
-        def __aiter__(self):
-            async def gen():
-                for m in msgs:
-                    yield json.dumps(m)
-            return gen()
-
-        async def send(self, frame):
-            self.sent.append(json.loads(frame))
-
-    conn = Conn()
+    conn = worlds.WsConn([
+        dict(action="echo", request_id="a"),
+        dict(action="getConfig", request_id="b"),
+        dict(action="estimateToken", request_id="c",
+             text="count these tokens"),
+        dict(action="oneShotInfer", request_id="d", text="one shot", **greedy),
+        dict(action="streamInfer", request_id="e", text="one shot", **greedy)])
     asyncio.run(proto.handle(conn))
     out = conn.sent
     stream = [f for f in out if f["request_id"] == "e"]
@@ -4617,6 +4569,10 @@ PAR_PROMPT, PAR_STEPS = 512, 32
 TP4_LAYERS, TP4_STEPS = 8, 8   # tp = 4: four ranks on one card, depth cut
 SP_CONTEXT, SP_STEPS = 2048, 4
 ENGINE_SLOTS, ENGINE_NEW = 8, 32
+# the front ends over tp = 2: 4 JSON + 4 SSE clients, 16 greedy tokens each;
+# ws and the web UI 8 tokens a generation; a follower that misses the stop
+# message fails its relay after RELAY_S seconds, inside the world's timeout
+FRONT_CLIENTS, FRONT_NEW, FRONT_GEN_NEW, RELAY_S = 4, 16, 8, 300
 PAR_DEVICE = "cuda"            # where the ranks run their tensors
 PAR_BACKEND = "gloo"           # NCCL refuses two ranks on one device
 # the collectives the parallel paths need from the backend on CUDA tensors
@@ -4840,6 +4796,100 @@ def causal_attention(q, k, v):
     return o.reshape(b, t, h, d)
 
 
+def check_front_ends(ranks, card) -> dict:
+    """Phase 14's front ends over tp = 2 (``worlds.front_ends``, one result
+    a rank): serve.api's answers (200, each stream joins to its JSON text),
+    every request's tokens the same on both ranks and bit for bit those of
+    the same requests submitted directly to an engine on every rank, both
+    ranks the same steps with tp's launches a step (K1 128, K3 32, K4 1)
+    and an admission chunk (K2 128, K3 32), one relay message a step;
+    serve.ws and the web UI through the mirrored generator: rank 0's text
+    that of the same calls made directly on every rank, every rank the
+    same sequence; the beam-search refusal on rank 0, the follower's loop
+    ended. Logs the relay's cost. Returns the readings, and rank 0's
+    launch counts under ``counted``."""
+    api = [r["api"] for r in ranks]
+    lead = api[0]
+    bad = [t for t in lead["texts"] if t["status"] != [200, 200]
+           or not t["done"] or t["stream"] != t["json"] or not t["json"]]
+    if bad or lead["health"][0] != 200:
+        raise AssertionError(f"phase 14 api over tp = 2: {bad} "
+                             f"{lead['health']}")
+    step = per_layer(32, q4_gemv=4, flash_attn=1, dense_gemv=1, layer_tail=0,
+                     q4_mlp=0)
+    chunk = per_layer(32, q4_dequant_matmul=4, flash_attn=1, layer_tail=0,
+                      q4_mlp=0)
+    for r in api:
+        if (r["tokens"] != lead["tokens"] or r["direct"] != lead["tokens"]
+                or r["req_ids"] != lead["req_ids"]
+                or r["steps"] != lead["steps"]
+                or r.get("follow_steps", r["steps"]) != r["steps"]
+                or r["messages"] != lead["steps"] + 1):
+            raise AssertionError(
+                f"phase 14 api over tp = 2: a rank's tokens, steps or "
+                f"messages differ: tokens {r['tokens']} direct "
+                f"{r['direct']} vs rank 0 {lead['tokens']}; steps "
+                f"{r['steps']} / {lead['steps']}, messages {r['messages']}")
+        for c in r["per_step"]:
+            need("phase 14 api step", c, step)
+        for c in r["per_chunk"]:
+            need("phase 14 api admission chunk", c, chunk)
+    if len(lead["tokens"]) != 2 * FRONT_CLIENTS or any(
+            len(t) != FRONT_NEW for t in lead["tokens"]):
+        raise AssertionError(f"phase 14 api: {lead['tokens']}")
+    gens = {}
+    for part in ("ws", "webui"):
+        rs = [r[part] for r in ranks]
+        got = rs[0]["frames"] if part == "ws" else rs[0]["texts"]
+        if (got != rs[0]["direct"] or not got
+                or any(r["direct"] != got or r["sequence"]
+                       != rs[0]["sequence"] for r in rs)
+                or any(r["follow"]["errors"] for r in rs[1:])):
+            raise AssertionError(f"phase 14 {part} over tp = 2: rank 0 "
+                                 f"{got} vs direct {rs[0]['direct']}")
+        gens[part] = rs[0]
+    if [f for f in gens["ws"]["frames"] if f.get("eos")
+            and not f["fullResponse"]] or not all(gens["webui"]["texts"]):
+        raise AssertionError("phase 14 ws / webui over tp = 2: an empty "
+                             "response")
+    beams = ranks[0]["beams"]["raised"] or ""
+    if (not beams.startswith("NotImplementedError")
+            or ranks[1]["beams"]["errors"] != [beams]):
+        raise AssertionError(f"phase 14 beam refusal over the relay: "
+                             f"{ranks[0]['beams']} / {ranks[1]['beams']}")
+    cost = {part: dict(messages=r["messages"],
+                       ms_a_message=1e3 * r["relay_s"] / r["messages"],
+                       seconds=r["seconds"])
+            for part, r in (("api", lead), ("ws", gens["ws"]),
+                            ("webui", gens["webui"]))}
+    cost["api"]["messages_a_step"] = (lead["messages"] - 1) / lead["steps"]
+    log(f"  [14] serve.api over tp = 2 (32 layers at 7B width, rank 0 "
+        f"serving on 127.0.0.1:0, the other rank following): "
+        f"{FRONT_CLIENTS} JSON + {FRONT_CLIENTS} SSE clients at once, "
+        f"greedy, {FRONT_NEW} tokens: every answer 200, each stream joined "
+        f"to its JSON text, every request's tokens on both ranks equal bit "
+        f"for bit to the same requests submitted directly to an engine on "
+        f"both ranks; {lead['steps']} steps on each rank, a step "
+        f"{lead['per_step'][0]}, an admission chunk {lead['per_chunk'][0]}; "
+        f"relay {cost['api']['messages']} messages "
+        f"({cost['api']['messages_a_step']:.3f} a step, and the stop), "
+        f"{cost['api']['ms_a_message']:.3f} ms a message on rank 0; "
+        f"{lead['seconds']:.2f} s served [{card}]")
+    log(f"  [14] serve.ws and the web UI over tp = 2 through the mirrored "
+        f"generator: rank 0's frames / texts equal the same calls made "
+        f"directly on both ranks, both ranks the same sequence "
+        f"({len(gens['ws']['sequence'][0])} / "
+        f"{len(gens['webui']['sequence'][0])} tokens); ws "
+        f"{cost['ws']['messages']} messages, "
+        f"{cost['ws']['ms_a_message']:.3f} ms a message; web UI "
+        f"{cost['webui']['messages']} messages, "
+        f"{cost['webui']['ms_a_message']:.3f} ms a message; beam search "
+        f"refused on rank 0 ({beams[:60]}...), the follower stopped [{card}]")
+    return dict(relay=cost, steps=lead["steps"], per_step=lead["per_step"][0],
+                per_chunk=lead["per_chunk"][0],
+                counted=lead["per_step"] + lead["per_chunk"])
+
+
 def gloo_coverage() -> dict:
     """Which collectives gloo runs on CUDA tensors here, each in a world of
     two ranks on the one card: the collectives in one world, the
@@ -4878,8 +4928,9 @@ def parallel_path(device, card, launches, res):
     rank, ``torch.multiprocessing`` spawn, a file store; NCCL refuses two
     ranks on one device). Which collectives gloo runs on CUDA tensors; tp =
     2 on the 32-layer 7B (a 512-token prompt, 32 teacher-forced steps, one
-    greedy-head step) and sp = 2 (steps at a 2,048-token context; the ring
-    prefill where gloo carries CUDA point-to-point) in one world of two;
+    greedy-head step), sp = 2 (steps at a 2,048-token context; the ring
+    prefill, its passes host-staged) and the front ends over tp = 2
+    (``check_front_ends``) in one world of two;
     tp = 4 (8 layers: the uneven down split) and the engine at dp = 2 x tp
     = 2 (8 slots, four greedy requests) in one world of four; each route
     held against the unsharded port on the card within phase 13's rule,
@@ -4898,7 +4949,6 @@ def parallel_path(device, card, launches, res):
     if missing:
         raise AssertionError(f"phase 14: gloo cannot run {missing} on CUDA "
                              f"tensors: {cov}")
-    ring = cov.get("batch_isend_irecv") == "ok"
 
     rng = np.random.default_rng(PAR_SEED)
 
@@ -4921,6 +4971,10 @@ def parallel_path(device, card, launches, res):
                   slots=ENGINE_SLOTS, bucket=64, attn_bucket=256,
                   prompts=[ids(int(n)) for n in rng.integers(32, 129, 4)],
                   new=ENGINE_NEW)
+    front = dict(cfg=par_fields(), tuning={}, tp=2, gs=128, seed=PAR_SEED + 4,
+                 fast=True, centered=True, device=PAR_DEVICE,
+                 slots=SERVE_SLOTS, clients=FRONT_CLIENTS, new=FRONT_NEW,
+                 gen_new=FRONT_GEN_NEW, relay_timeout=RELAY_S)
 
     t0 = time.time()
     ref2, sep2, lim2 = whole_reference(tp2, device)
@@ -4931,12 +4985,12 @@ def parallel_path(device, card, launches, res):
         f"{statistics.median(sep2['ms']):.3f} ms separate (eager); limits "
         f"{lim2:.4f} (32 layers), {lim4:.4f} ({TP4_LAYERS} layers) [{card}]")
 
-    runs = [("tp2", "tp_forward", tp2), ("sp2", "sp_decode", sp2)]
-    if ring:
-        qkv = [(rng.standard_normal((1, SP_CONTEXT, heads, 128)) * 0.4)
-               .astype(np.float32) for heads in (32, 32, 32)]
-        runs.append(("ring", "sp_ops",
-                     dict(device=PAR_DEVICE, cases={"ring": ("ring", *qkv)})))
+    qkv = [(rng.standard_normal((1, SP_CONTEXT, heads, 128)) * 0.4)
+           .astype(np.float32) for heads in (32, 32, 32)]
+    runs = [("tp2", "tp_forward", tp2), ("sp2", "sp_decode", sp2),
+            ("ring", "sp_ops",
+             dict(device=PAR_DEVICE, cases={"ring": ("ring", *qkv)})),
+            ("front", "front_ends", front)]
     t0 = time.time()
     two = run_world(WORLDS + "run_all", 2, (runs,),
                     backend=PAR_BACKEND, timeout=600)
@@ -4984,21 +5038,27 @@ def parallel_path(device, card, launches, res):
         f"{sp_lim:.4f}), both ranks the same bits; per rank a step "
         f"{out['sp2']['per_step']} (attention and head plain), median "
         f"{', '.join(f'{m:.3f}' for m in out['sp2']['step_ms'])} ms [{card}]")
-    if ring:
-        want = causal_attention(*(torch.from_numpy(a).to(device)
-                                  for a in qkv)).cpu().numpy()
-        got = np.concatenate([r["ring"]["ring"] for r in two], axis=1)
-        err = float(np.abs(got - want).max())
-        if err > 3e-3:
-            raise AssertionError(f"phase 14 ring prefill: {err} (limit 3e-3)")
-        out["ring"] = err
-        log(f"  [14] ring prefill attention at T = {SP_CONTEXT} over 2 ranks "
-            f"(batch_isend_irecv on CUDA tensors): within {err:.2g} of full "
-            f"causal attention (limit 3e-3)")
-    else:
-        log("  [14] ring prefill: not run on the card (gloo's "
-            "batch_isend_irecv does not take CUDA tensors here; held on the "
-            "CPU by tests/test_torch_parallel_sp.py)")
+    want = causal_attention(*(torch.from_numpy(a).to(device)
+                              for a in qkv)).cpu().numpy()
+    got = np.concatenate([r["ring"]["ring"] for r in two], axis=1)
+    err = float(np.abs(got - want).max())
+    if err > 3e-3:
+        raise AssertionError(f"phase 14 ring prefill: {err} (limit 3e-3)")
+    times = [r["ring"]["timing"]["ring"] for r in two]
+    out["ring"] = dict(err=err, timing=times)
+    ring_ms = ", ".join(f"{t['ring_ms']:.3f}" for t in times)
+    pass_ms = ", ".join(f"{t['pass_ms']:.3f}" for t in times)
+    log(f"  [14] ring prefill attention at T = {SP_CONTEXT} over 2 ranks, "
+        f"f32 blocks, each pass host-staged (CUDA -> host -> gloo "
+        f"batch_isend_irecv -> CUDA; the direct probe above reads "
+        f"{cov.get('batch_isend_irecv')!r}): within {err:.2g} of full "
+        f"causal attention (limit 3e-3); per rank the whole ring {ring_ms} "
+        f"ms, one pass of its two K / V blocks ({times[0]['pass_bytes']} "
+        f"bytes) {pass_ms} ms (median of 3) [{card}]")
+    out["front"] = check_front_ends([r["front"] for r in two], card)
+    for c in out["front"].pop("counted"):
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
     del two
     t0 = time.time()
     four = run_world(WORLDS + "run_all", 4,
@@ -5331,8 +5391,8 @@ def main() -> int:
     log("[14 parallel] tensor, sequence and data parallelism as ranks of "
         f"{PAR_BACKEND} worlds on the one card (parallel.launch, backend "
         f"{PAR_BACKEND}: NCCL refuses two ranks on one device): tp = 2 (32 "
-        f"layers), sp = 2, tp = 4 ({TP4_LAYERS} layers), the engine at dp = "
-        "2 x tp = 2")
+        f"layers), sp = 2 and its ring prefill, the front ends over tp = 2, "
+        f"tp = 4 ({TP4_LAYERS} layers), the engine at dp = 2 x tp = 2")
     t0 = time.time()
     p14 = parallel_path(device, smi, launches, res)
     log("  phase 14 results: " + json.dumps(p14, default=str))

@@ -21,6 +21,7 @@ from exllama_tpu_torch.lora import ExLlamaLora
 from exllama_tpu_torch.models.llama import ExLlama
 from exllama_tpu_torch.speculative import SpeculativeGenerator
 from exllama_tpu_torch.tokenizer import ExLlamaTokenizer, FakeTokenizer
+from exllama_tpu_torch.version import __version__
 
 __all__ = [
     "ExLlama",
@@ -33,6 +34,7 @@ __all__ = [
     "FakeTokenizer",
     "SpeculativeGenerator",
     "TuningParams",
+    "__version__",
     "load_model_params",
     "make_synthetic_params",
     "params_from_jax",

@@ -53,7 +53,6 @@ prints):
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import os
 import time
@@ -478,15 +477,10 @@ def main(argv=None) -> dict:
     """Parse, load, run. In a world of ranks (``torchrun --nproc-per-node N
     -m exllama_tpu_torch.benchmark --tp N``) every rank runs the same
     program on its shard and only rank 0 prints."""
-    args = parse_args(argv)
-    quiet = contextlib.nullcontext()
-    import torch.distributed as dist
+    from exllama_tpu_torch.parallel.relay import quiet_follower
 
-    rank = (dist.get_rank() if dist.is_initialized()
-            else int(os.environ.get("RANK", "0")))
-    if args.tp * args.dp > 1 and rank != 0:
-        quiet = contextlib.redirect_stdout(open(os.devnull, "w"))
-    with quiet:
+    args = parse_args(argv)
+    with quiet_follower(args):
         model, tokenizer = load(args)
         return run(args, model, tokenizer)
 

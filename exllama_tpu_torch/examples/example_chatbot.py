@@ -1,10 +1,11 @@
 """Interactive terminal chatbot: a fixed persona prompt, streaming
 token-by-token output, break-on-newline, and a rewind when the model tries
 to speak for the user. Reads lines from stdin until EOF, "quit" or
-"exit"."""
+"exit" (over a mesh: rank 0 reads them and relays each line)."""
 
-from exllama_tpu_torch.examples.common import build_from_args
+from exllama_tpu_torch.examples.common import build_from_args, read_line
 from exllama_tpu_torch.generator import ExLlamaGenerator
+from exllama_tpu_torch.parallel.relay import relay_for
 
 
 def extra(parser):
@@ -39,13 +40,10 @@ def main(argv=None):
     break_on_newline = not args.no_newline
     max_response_tokens = args.max_new or 256
 
+    relay = relay_for(model)        # rank 0 reads stdin for every rank
     while True:
-        try:
-            line = input(f"{user}: ").strip()
-        except (EOFError, KeyboardInterrupt):
-            print()
-            break
-        if line in ("quit", "exit"):
+        line = read_line(f"{user}: ", relay)
+        if line is None or line in ("quit", "exit"):
             break
         # keep room in the cache for the turn and the response
         turn = tokenizer.encode(f"{user}: {line}\n{bot}:")

@@ -1,12 +1,16 @@
 """A small HTTP inference API with preset sampler profiles (the routes
 /infer_precise, /infer_creative and /infer_sphinx of the reference's Flask
-example, on the stdlib http.server). Serves until killed."""
+example, on the stdlib http.server). Serves until killed. One request
+generates at a time (a lock). Over a mesh rank 0 serves through a mirrored
+generator (``parallel.relay``) and the other ranks follow it."""
 
 import json
+import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from exllama_tpu_torch.examples.common import build_from_args
 from exllama_tpu_torch.generator import ExLlamaGenerator
+from exllama_tpu_torch.parallel.relay import Mirrored, follow_calls, relay_for
 
 PRESETS = {
     "precise": dict(token_repetition_penalty_max=1.176,
@@ -18,10 +22,12 @@ PRESETS = {
 }
 
 
-def make_handler(generator, max_new_tokens=200):
+def make_handler(generator, max_new_tokens=200, lock=None):
     """A request handler class that answers POST /infer_<preset> with the
-    completion of the JSON body's "prompt" (or the raw body)."""
+    completion of the JSON body's "prompt" (or the raw body), one at a time
+    under ``lock``."""
     cfg = generator.model.config
+    lock = lock or threading.Lock()
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):
@@ -39,12 +45,13 @@ def make_handler(generator, max_new_tokens=200):
                 prompt = json.loads(body)["prompt"]
             except (json.JSONDecodeError, KeyError, TypeError):
                 prompt = body  # raw text too
-            for k, v in PRESETS[preset].items():
-                setattr(generator.settings, k, v)
-            generator.settings.token_repetition_penalty_sustain = \
-                cfg.max_seq_len
-            data = generator.generate_simple(
-                prompt, max_new_tokens=max_new_tokens).encode()
+            with lock:
+                for k, v in PRESETS[preset].items():
+                    setattr(generator.settings, k, v)
+                generator.settings.token_repetition_penalty_sustain = \
+                    cfg.max_seq_len
+                data = generator.generate_simple(
+                    prompt, max_new_tokens=max_new_tokens).encode()
             self.send_response(200)
             self.send_header("Content-Type", "text/plain; charset=utf-8")
             self.send_header("Content-Length", str(len(data)))
@@ -62,11 +69,23 @@ def main(argv=None):
     args, cfg, model, tokenizer, cache = build_from_args(
         "inference API", extra_args=extra, argv=argv)
     generator = ExLlamaGenerator(model, tokenizer, cache)
+    relay = relay_for(model)
+    if relay is not None and not relay.leader:
+        follow_calls(generator, relay)
+        return
+    if relay is not None:
+        generator = Mirrored(generator, relay)
     print(f"serving /infer_precise /infer_creative /infer_sphinx on "
           f"{args.port}")
-    ThreadingHTTPServer((args.host, args.port),
-                        make_handler(generator, args.max_new or 200)
-                        ).serve_forever()
+    lock = threading.Lock()
+    try:
+        ThreadingHTTPServer((args.host, args.port),
+                            make_handler(generator, args.max_new or 200, lock)
+                            ).serve_forever()
+    finally:
+        if relay is not None:
+            with lock:
+                relay.stop()
 
 
 if __name__ == "__main__":

@@ -14,8 +14,9 @@ context can outgrow one card's memory:
     write, the same program on every rank), bf16, int8 and int4 alike;
   * prefill (``ring_attend_prefill``): each rank keeps its block of
     queries while the K / V blocks travel around the ring of ranks
-    (``torch.distributed.batch_isend_irecv``); causality comes from the
-    blocks' global positions;
+    (``torch.distributed.batch_isend_irecv``; under gloo a CUDA block
+    passes through host copies); causality comes from the blocks' global
+    positions;
   * ``make_sp_decode_fn``: the whole-model decode step over such a cache,
     the weights whole on every rank; its projections go through
     ``q4_matmul`` (K1 at decode).
@@ -156,9 +157,24 @@ def sp_update_kv_cache(k_shard, v_shard, new_k, new_v, past_len, mesh: Mesh,
     return k_shard, v_shard
 
 
+def _host_staged(device: torch.device, group) -> bool:
+    """Whether a ring pass of blocks on ``device`` over ``group`` goes
+    through host copies: CUDA blocks under gloo."""
+    return device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
 def _ring_pass(tensors, nxt: int, prv: int, group):
     """Send each tensor to rank ``nxt`` and take its twin from ``prv``
-    (global ranks), all in one batch of point-to-point operations."""
+    (global ranks), all in one batch of point-to-point operations. gloo
+    does not send from or receive into device memory, so under gloo CUDA
+    tensors pass through host copies (as gloo's own collectives stage
+    them): device -> host, the batch on the host copies, host -> device.
+    Any other backend (NCCL), and CPU tensors, pass directly; a pass that
+    fails raises."""
+    dev = tensors[0].device
+    staged = _host_staged(dev, group)
+    if staged:
+        tensors = [x.cpu() for x in tensors]
     got = [torch.empty_like(x) for x in tensors]
     ops = []
     for x, y in zip(tensors, got):
@@ -166,7 +182,7 @@ def _ring_pass(tensors, nxt: int, prv: int, group):
         ops.append(dist.P2POp(dist.irecv, y, prv, group))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return got
+    return [y.to(dev) for y in got] if staged else got
 
 
 def ring_attend_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

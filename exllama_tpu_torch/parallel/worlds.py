@@ -15,6 +15,10 @@ values and numpy arrays) and returns plain values and numpy arrays.
   * :func:`sp_decode`: the whole-model sequence-parallel decode step over a
     cache whose positions split over the ranks;
   * :func:`engine_tokens`: the continuous-batching engine over a mesh;
+  * :func:`front_ends`: ``serve.api``, ``serve.ws`` and the web UI over a
+    mesh through ``parallel.relay`` (rank 0 serves, the other ranks
+    follow), each against the same requests or calls made directly on
+    every rank, and the beam-search refusal through the relay;
   * :func:`collectives`: which collectives the backend runs on the
     device's tensors;
   * :func:`refusals` (LoRA and beams under tp), :func:`benchmark_build`
@@ -28,6 +32,7 @@ Each runs its tensors on the card unless its spec names another device
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -249,9 +254,37 @@ def sp_ops(spec: dict) -> dict:
             q, k, v = (_positions(_t(x, device), mesh, 1) for x in arrays)
             got = ring_attend_prefill(q, k, v, mesh)
             out[name] = got.to(torch.float32).cpu().numpy()
+            out.setdefault("timing", {})[name] = _ring_times(q, k, v, mesh)
         else:
             raise ValueError(f"sp_ops: case kind {kind!r}")
     return out
+
+
+def _ring_times(q, k, v, mesh) -> dict:
+    """This rank's ms for the whole ring prefill (a second run) and for
+    one pass of its two K / V blocks ([B, Hkv, T/sp, D], the median of
+    three), host clock, the device synchronised; the bytes a pass sends."""
+    from exllama_tpu_torch.parallel.sequence import (
+        _ring_pass,
+        ring_attend_prefill,
+    )
+
+    ranks, idx = mesh.ranks("sp"), mesh.sp_rank
+    nxt, prv = ranks[(idx + 1) % mesh.sp], ranks[(idx - 1) % mesh.sp]
+    blocks = [x.transpose(1, 2).contiguous() for x in (k, v)]
+
+    def ms(fn):
+        _sync(q.device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(q.device)
+        return (time.perf_counter() - t0) * 1e3
+
+    ring = ms(lambda: ring_attend_prefill(q, k, v, mesh))
+    passes = [ms(lambda: _ring_pass(blocks, nxt, prv, mesh.group("sp")))
+              for _ in range(3)]
+    return dict(ring_ms=ring, pass_ms=float(np.median(passes)),
+                pass_bytes=sum(b.numel() * b.element_size() for b in blocks))
 
 
 def sp_decode(spec: dict) -> dict:
@@ -356,6 +389,336 @@ def engine_tokens(spec: dict) -> dict:
                 per_step=counted["step"], per_chunk=counted["chunk"],
                 free=len(eng.free), rows=[eng._rows.start, eng._rows.stop],
                 cache_rows=eng.cache.batch_size, rank=dist.get_rank())
+
+
+# ---------------------------------------------------------------------------
+# The front ends over a mesh
+# ---------------------------------------------------------------------------
+
+# the clients' sampler: greedy (the HTTP fields of serve.api)
+API_GREEDY = dict(top_k=1, temperature=1.0, repetition_penalty=1.0)
+
+
+def tag_tokenizer():
+    """The byte tokenizer with a decode that is injective per token
+    (``<id>`` pieces): every token of any vocabulary shows in the text."""
+    from exllama_tpu_torch.tokenizer import FakeTokenizer
+
+    class TagTokenizer(FakeTokenizer):
+        def decode(self, ids, **kw):
+            ids = np.asarray(ids)
+            if ids.ndim == 2:
+                return [self.decode(r) for r in ids]
+            return "".join(f"<{int(t)}>" for t in ids.reshape(-1))
+
+    return TagTokenizer()
+
+
+def _counted_engine(eng) -> dict:
+    """Wrap ``eng``'s submit, step, decode and admission chunk: the
+    requests in submission order, the steps, and the launches of each
+    decode step and each admission chunk."""
+    rec = {"reqs": [], "steps": 0, "step": [], "chunk": []}
+    submit, step = eng.submit, eng.step
+
+    def counted(kind, fn):
+        def call(*a):
+            c0 = _counts()
+            r = fn(*a)
+            rec[kind].append(_since(c0))
+            return r
+        return call
+
+    def submit_(*a, **kw):
+        req = submit(*a, **kw)
+        rec["reqs"].append(req)
+        return req
+
+    def step_():
+        rec["steps"] += 1
+        return step()
+
+    eng.submit, eng.step = submit_, step_
+    eng._run_decode = counted("step", eng._run_decode)
+    eng._prefill_chunk = counted("chunk", eng._prefill_chunk)
+    return rec
+
+
+def http_call(address, method, path, body=None):
+    """One request to the server at ``address`` (``body`` sent as JSON):
+    (status, the body's text)."""
+    import http.client
+    conn = http.client.HTTPConnection(*address, timeout=600)
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    r = conn.getresponse()
+    data = r.read().decode()
+    conn.close()
+    return r.status, data
+
+
+def api_clients(address, clients: int, new: int) -> dict:
+    """``clients`` JSON and as many SSE clients at once, greedy, ``new``
+    tokens each, client i's two the same prompt: {(i, stream): (status,
+    body)}."""
+    import threading
+
+    out = {}
+
+    def client(i, stream):
+        out[(i, stream)] = http_call(
+            address, "POST", "/v1/completions",
+            dict(API_GREEDY, prompt=f"client {i} asks the engine something",
+                 max_tokens=new, stream=stream))
+
+    threads = [threading.Thread(target=client, args=(i, st))
+               for i in range(clients) for st in (False, True)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out
+
+
+def sse_text(body: str) -> tuple:
+    """(the joined text of an SSE body's deltas, whether it ended in
+    [DONE])."""
+    lines = [x[len("data: "):] for x in body.splitlines()
+             if x.startswith("data: ")]
+    done = bool(lines) and lines[-1] == "[DONE]"
+    return "".join(json.loads(x)["choices"][0]["text"]
+                   for x in lines[:-1]), done
+
+
+def _front_api(model, tok, spec) -> dict:
+    """``serve.api`` over the mesh: rank 0's server on 127.0.0.1:0 with
+    its clients (:func:`api_clients`), the other ranks ``follow``; then the
+    same requests, in rank 0's order, submitted directly to a fresh engine
+    on every rank. Each request's tokens both ways, the steps and launches,
+    and (rank 0) the answers and the relay's messages and seconds."""
+    from exllama_tpu_torch.parallel.relay import Relay
+    from exllama_tpu_torch.serve import api as serve_api
+    from exllama_tpu_torch.serve.engine import ContinuousBatchingEngine
+
+    relay = Relay(timeout=spec.get("relay_timeout", 300.0))
+    slots = spec["slots"]
+    out = {}
+    t0 = time.perf_counter()
+    if relay.leader:
+        api, httpd, _ = serve_api.make_server(model, tok, max_slots=slots,
+                                              relay=relay)
+        rec = _counted_engine(api.engine)
+        try:
+            answers = api_clients(httpd.server_address, spec["clients"],
+                                   spec["new"])
+            health = http_call(httpd.server_address, "GET", "/health")
+        finally:
+            httpd.shutdown()
+            api.shutdown()
+        texts = []
+        for i in range(spec["clients"]):
+            (s1, body), (s2, sse) = answers[(i, False)], answers[(i, True)]
+            joined, done = sse_text(sse)
+            texts.append(dict(status=[s1, s2], done=done, stream=joined,
+                              json=json.loads(body)["choices"][0]["text"]
+                              if s1 == 200 else body))
+        out.update(texts=texts, health=[health[0], json.loads(health[1])],
+                   messages=relay.messages, relay_s=relay.seconds)
+    else:
+        eng = ContinuousBatchingEngine(model, tok, max_slots=slots)
+        rec = _counted_engine(eng)
+        out["follow_steps"] = serve_api.follow(eng, relay)
+        out.update(messages=relay.messages, relay_s=relay.seconds)
+    out["seconds"] = time.perf_counter() - t0
+    reqs = rec["reqs"]
+    direct = ContinuousBatchingEngine(model, tok, max_slots=slots)
+    again = [direct.submit(r.prompt_ids, r.max_new_tokens,
+                           settings=r.settings, stop_tokens=r.stop_tokens,
+                           stop_strings=r.stop_strings, lora_id=r.lora_id)
+             for r in reqs]
+    direct.run()
+    out.update(prompts=[r.prompt_ids.tolist() for r in reqs],
+               req_ids=[r.req_id for r in reqs],
+               tokens=[list(r.new_tokens) for r in reqs],
+               direct=[list(r.new_tokens) for r in again],
+               steps=rec["steps"], per_step=rec["step"],
+               per_chunk=rec["chunk"])
+    return out
+
+
+class WsConn:
+    """A websocket connection in process: an async iterator of ``msgs``
+    (JSON-encoded), the frames sent kept in ``sent``."""
+
+    def __init__(self, msgs):
+        self.msgs, self.sent = msgs, []
+
+    def __aiter__(self):
+        async def gen():
+            for m in self.msgs:
+                yield json.dumps(m)
+        return gen()
+
+    async def send(self, frame):
+        self.sent.append(json.loads(frame))
+
+
+def _ws_msgs(new: int) -> list:
+    """estimateToken, a greedy oneShotInfer and streamInfer of one prompt,
+    and a sampled streamInfer."""
+    greedy = dict(maxNew=new, top_k=1, temperature=1.0, rep_pen=1.0)
+    return [dict(action="estimateToken", request_id="a",
+                 text="count these tokens"),
+            dict(action="oneShotInfer", request_id="b", text="one shot",
+                 **greedy),
+            dict(action="streamInfer", request_id="c", text="one shot",
+                 **greedy),
+            dict(action="streamInfer", request_id="d", text="sampled",
+                 maxNew=new, top_k=20, temperature=0.8, rep_pen=1.1)]
+
+
+def _ws_run(proto, new) -> list:
+    import asyncio
+
+    conn = WsConn(_ws_msgs(new))
+    asyncio.run(proto.handle(conn))
+    return conn.sent
+
+
+def _front_ws(model, tok, spec) -> dict:
+    """``serve.ws`` over the mesh: rank 0's protocol (a mirrored
+    generator) through an in-process connection, the other ranks
+    ``follow_calls``; then the same messages through a plain protocol on
+    every rank. Rank 0's frames both ways; every rank's sequence after the
+    mirrored run."""
+    from exllama_tpu_torch.alt_generator import ExLlamaAltGenerator
+    from exllama_tpu_torch.cache import ExLlamaCache
+    from exllama_tpu_torch.parallel.relay import Relay, follow_calls
+    from exllama_tpu_torch.serve.ws import WsProtocol
+
+    relay = Relay(timeout=spec.get("relay_timeout", 300.0))
+    out = {}
+    t0 = time.perf_counter()
+    new = spec.get("gen_new", spec["new"])
+    if relay.leader:
+        proto = WsProtocol(model, tok, ExLlamaCache(model), relay)
+        try:
+            out["frames"] = _ws_run(proto, new)
+        finally:
+            relay.stop()
+        gen = proto.generator
+    else:
+        gen = ExLlamaAltGenerator(model, tok, ExLlamaCache(model))
+        out["follow"] = follow_calls(gen, relay)
+    out.update(seconds=time.perf_counter() - t0, messages=relay.messages,
+               relay_s=relay.seconds, sequence=gen.sequence_ids.tolist())
+    out["direct"] = _ws_run(WsProtocol(model, tok, ExLlamaCache(model)), new)
+    return out
+
+
+def _webui_text(body: str) -> str:
+    return "".join(p.get("text", "") for p in map(json.loads, filter(
+        str.strip, body.splitlines())) if p["cmd"] == "append")
+
+
+def _front_webui(model, tok, spec) -> dict:
+    """The web UI over the mesh: rank 0's server (a temporary sessions
+    directory) with two streamed /api/userinput turns (the session's
+    sampled settings, ``new`` response tokens), the other ranks
+    ``follow``; then the same two turns through a fresh session on every
+    rank, directly. The texts both ways; every rank's sequence after the
+    mirrored run."""
+    import tempfile
+
+    from exllama_tpu_torch.cache import ExLlamaCache
+    from exllama_tpu_torch.generator import ExLlamaGenerator
+    from exllama_tpu_torch.parallel.relay import Relay, follow_calls
+    from exllama_tpu_torch.webui import app as webui_app
+    from exllama_tpu_torch.webui import session as webui_session
+
+    turns = ("hi there", "and again")
+    new = spec.get("gen_new", spec["new"])
+    relay = Relay(timeout=spec.get("relay_timeout", 300.0))
+    out = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as sdir:
+        if relay.leader:
+            httpd, _ = webui_app.make_server(model, tok, s_dir=sdir,
+                                             relay=relay)
+            webui_app.session.max_response_tokens = new
+            try:
+                answers = [http_call(httpd.server_address, "POST",
+                                 "/api/userinput", {"user_input": t})
+                           for t in turns]
+            finally:
+                httpd.shutdown()
+                with webui_app.generate_lock:
+                    relay.stop()
+            out.update(status=[a[0] for a in answers],
+                       texts=[_webui_text(a[1]) for a in answers])
+            gen = webui_session.generator
+        else:
+            gen = ExLlamaGenerator(model, tok, ExLlamaCache(model))
+            out["follow"] = follow_calls(gen, relay)
+        out.update(seconds=time.perf_counter() - t0,
+                   messages=relay.messages, relay_s=relay.seconds,
+                   sequence=gen.sequence.tolist())
+    with tempfile.TemporaryDirectory() as sdir:
+        webui_session.prepare_sessions(model, tok, sdir)
+        sess = webui_session.new_session()
+        sess.max_response_tokens = new
+        out["direct"] = ["".join(sess.respond_multi(t)) for t in turns]
+    out["direct"] = [_webui_text(d) for d in out["direct"]]
+    return out
+
+
+def _beam_refusal(model, tok, spec) -> dict:
+    """Beam search through a mirrored generator on a tp mesh: rank 0's
+    call raises (as the JAX package refuses it), the followers note the
+    same error and stop at rank 0's stop message."""
+    from exllama_tpu_torch.cache import ExLlamaCache
+    from exllama_tpu_torch.generator import ExLlamaGenerator
+    from exllama_tpu_torch.parallel.relay import (
+        Mirrored,
+        Relay,
+        follow_calls,
+    )
+
+    relay = Relay(timeout=spec.get("relay_timeout", 300.0))
+    gen = ExLlamaGenerator(model, tok, ExLlamaCache(model))
+    if not relay.leader:
+        return follow_calls(gen, relay)
+    gen = Mirrored(gen, relay)
+    gen.settings.beams, gen.settings.beam_length = 2, 2
+    try:
+        gen.begin_beam_search()
+        raised = None
+    except NotImplementedError as e:
+        raised = f"{type(e).__name__}: {e}"
+    finally:
+        relay.stop()
+    return {"raised": raised}
+
+
+def front_ends(spec: dict) -> dict:
+    """The front ends over a mesh, SPMD (``spec``: a model as
+    :func:`tp_forward`'s with ``vocab_size`` >= 260 for the byte-level
+    encoding; ``slots``, ``clients``, ``new`` tokens a request,
+    ``gen_new`` a generation of ws and the web UI (default ``new``),
+    ``relay_timeout`` seconds): ``serve.api`` (:func:`_front_api`),
+    ``serve.ws`` (:func:`_front_ws`), the web UI (:func:`_front_webui`) and
+    the beam-search refusal under tp (:func:`_beam_refusal`), each on a
+    relay of its own, rank 0 serving and the other ranks following; text
+    through :func:`tag_tokenizer`."""
+    device = torch.device(spec.get("device", "cuda"))
+    model = build_model(spec, _mesh(spec), device)
+    tok = tag_tokenizer()
+    out = {"rank": dist.get_rank()}
+    for name, fn in (("api", _front_api), ("ws", _front_ws),
+                     ("webui", _front_webui), ("beams", _beam_refusal)):
+        out[name] = fn(model, tok, spec)
+        dist.barrier()
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,20 @@ engine and so the only one that touches a tensor on the card; HTTP threads
 submit requests under the lock and wait on host-side request state, so many
 clients batch together in one decode step.
 
+Over a mesh (``--tp`` / ``--dp`` under ``torchrun``) every rank holds its
+shard and runs the engine in lockstep; rank 0 alone binds the server. Under
+its lock, before every ``step()``, it sends the requests its engine took
+since the last step on the relay (``parallel.relay``: prompt ids,
+``max_new_tokens``, sampler settings, stop tokens and strings, adapter id;
+an empty list where none is new; nothing while idle). The other ranks
+(:func:`follow`) submit the same requests in the same order and step, so
+request ids, slots and the seeded sampling stay the same on every rank.
+``shutdown()`` sends the stop message.
+
     python -m exllama_tpu_torch.serve.api --synthetic tiny --cpu -l 128
     python -m exllama_tpu_torch.serve.api -d MODEL_DIR --port 8000
+    torchrun --nproc-per-node 2 -m exllama_tpu_torch.serve.api -d MODEL_DIR \
+        --tp 2 --backend nccl
 
 (on the card unless ``--cpu`` is given; ``--synthetic`` draws a model of
 one of the benchmark's shapes from seed 0.)
@@ -31,15 +43,29 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from exllama_tpu_torch.ops.sampling import SamplerSettings
+from exllama_tpu_torch.parallel.relay import STOP, quiet_follower, relay_for
 from exllama_tpu_torch.serve.engine import ContinuousBatchingEngine
 
 
+def _relayed(req) -> dict:
+    """What a follower's ``engine.submit`` takes of ``req``: all but the
+    callbacks."""
+    return dict(prompt=req.prompt_ids, max_new_tokens=req.max_new_tokens,
+                settings=req.settings, stop_tokens=req.stop_tokens,
+                stop_strings=req.stop_strings, lora_id=req.lora_id)
+
+
 class ServingAPI:
-    def __init__(self, model, tokenizer, max_slots: int = 8):
+    """``relay``: rank 0's ``parallel.relay.Relay`` over a mesh (None
+    off one)."""
+
+    def __init__(self, model, tokenizer, max_slots: int = 8, relay=None):
         self.engine = ContinuousBatchingEngine(
             model, tokenizer, max_slots=max_slots
         )
         self.tokenizer = tokenizer
+        self.relay = relay
+        self._new: list = []        # taken since the last relayed step
         self._lock = threading.Lock()
         self._wake = threading.Event()
         self._stop = False
@@ -51,6 +77,9 @@ class ServingAPI:
             with self._lock:
                 worked = False
                 if self.engine.has_work():
+                    if self.relay is not None:
+                        self.relay.send([_relayed(r) for r in self._new])
+                        self._new = []
                     self.engine.step()
                     worked = True
             if not worked:
@@ -61,6 +90,9 @@ class ServingAPI:
         self._stop = True
         self._wake.set()
         self._thread.join(timeout=5)
+        if self.relay is not None:
+            with self._lock:
+                self.relay.stop()
 
     def submit(self, prompt, max_tokens, settings, stream_q=None):
         on_token = None
@@ -72,6 +104,8 @@ class ServingAPI:
                 prompt, max_new_tokens=max_tokens, settings=settings,
                 on_token=on_token,
             )
+            if self.relay is not None:
+                self._new.append(req)
         self._wake.set()
         return req
 
@@ -185,15 +219,44 @@ def make_handler(api: ServingAPI):
     return Handler
 
 
-def serve(model, tokenizer, host="0.0.0.0", port=8000, max_slots=8):
-    api = ServingAPI(model, tokenizer, max_slots=max_slots)
+def follow(engine, relay) -> int:
+    """A follower rank's loop over a mesh: for each of rank 0's messages,
+    submit its requests to ``engine`` in order and ``step()``; return the
+    number of steps at the stop message."""
+    steps = 0
+    while True:
+        msg = relay.recv()
+        if msg == STOP:
+            return steps
+        for fields in msg:
+            engine.submit(**fields)
+        engine.step()
+        steps += 1
+
+
+def serve(model, tokenizer, host="0.0.0.0", port=8000, max_slots=8,
+          relay=None):
+    """Serve until interrupted. Over a mesh (``relay``) rank 0 serves and
+    the other ranks follow its engine until the stop message."""
+    if relay is not None and not relay.leader:
+        follow(ContinuousBatchingEngine(model, tokenizer,
+                                        max_slots=max_slots), relay)
+        return
+    api = ServingAPI(model, tokenizer, max_slots=max_slots, relay=relay)
     httpd = ThreadingHTTPServer((host, port), make_handler(api))
     print(f" -- serving completions on http://{host}:{port}")
-    httpd.serve_forever()
+    try:
+        httpd.serve_forever()
+    finally:
+        api.shutdown()
 
 
-def make_server(model, tokenizer, host="127.0.0.1", port=0, max_slots=8):
-    api = ServingAPI(model, tokenizer, max_slots=max_slots)
+def make_server(model, tokenizer, host="127.0.0.1", port=0, max_slots=8,
+                relay=None):
+    """Rank 0's server on a thread: (api, httpd, thread). Over a mesh the
+    other ranks run :func:`follow` meanwhile; ``api.shutdown()`` stops
+    them."""
+    api = ServingAPI(model, tokenizer, max_slots=max_slots, relay=relay)
     httpd = ThreadingHTTPServer((host, port), make_handler(api))
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
     thread.start()
@@ -212,8 +275,10 @@ def main(argv=None):
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--max_slots", type=int, default=8)
     args = parser.parse_args(argv)
-    model, tokenizer = benchmark.load(args)
-    serve(model, tokenizer, args.host, args.port, args.max_slots)
+    with quiet_follower(args):
+        model, tokenizer = benchmark.load(args)
+        serve(model, tokenizer, args.host, args.port, args.max_slots,
+              relay_for(model))
 
 
 if __name__ == "__main__":

@@ -11,6 +11,13 @@ needs the ``websockets`` package, imported when it is called.
 
     python -m exllama_tpu_torch.serve.ws --synthetic tiny --cpu -l 128
 
+Over a mesh (``--tp`` / ``--dp`` under ``torchrun``) rank 0 alone serves;
+its generator is mirrored (``parallel.relay.Mirrored``: each call that runs
+the model goes to the other ranks first, from the event loop's thread, the
+one thread that generates), and the other ranks apply the same calls to
+their own generators (``parallel.relay.follow_calls``) until the stop
+message.
+
 Actions:
   echo            {}                              → ack
   getConfig       {}                              → model/config summary
@@ -33,16 +40,24 @@ import asyncio
 import json
 
 from exllama_tpu_torch.alt_generator import ExLlamaAltGenerator
+from exllama_tpu_torch.parallel.relay import (
+    Mirrored,
+    follow_calls,
+    quiet_follower,
+    relay_for,
+)
 
 
 class WsProtocol:
     """One generator-backed protocol endpoint; ``handle`` is the
     websockets-compatible connection coroutine."""
 
-    def __init__(self, model, tokenizer, cache):
+    def __init__(self, model, tokenizer, cache, relay=None):
         self.model = model
         self.tokenizer = tokenizer
         self.generator = ExLlamaAltGenerator(model, tokenizer, cache)
+        if relay is not None:
+            self.generator = Mirrored(self.generator, relay)
         self.stop_requested = False
 
     # ------------------------------------------------------------- helpers
@@ -168,19 +183,28 @@ class WsProtocol:
                         break
 
 
-def serve(model, tokenizer, cache, host="0.0.0.0", port=8765):
+def serve(model, tokenizer, cache, host="0.0.0.0", port=8765, relay=None):
     """Blocking websocket server (``main``;
-    ``python -m exllama_tpu_torch.examples.example_ws``)."""
-    import websockets
-
-    proto = WsProtocol(model, tokenizer, cache)
+    ``python -m exllama_tpu_torch.examples.example_ws``). Over a mesh
+    (``relay``) rank 0 serves and the other ranks follow its generator
+    until the stop message."""
+    if relay is not None and not relay.leader:
+        follow_calls(ExLlamaAltGenerator(model, tokenizer, cache), relay)
+        return
+    proto = WsProtocol(model, tokenizer, cache, relay)
 
     async def main():
+        import websockets
+
         async with websockets.serve(proto.handle, host, port):
             print(f"websocket server on {host}:{port}")
             await asyncio.Future()
 
-    asyncio.run(main())
+    try:
+        asyncio.run(main())
+    finally:
+        if relay is not None:
+            relay.stop()
 
 
 def main(argv=None):
@@ -195,8 +219,10 @@ def main(argv=None):
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8765)
     args = parser.parse_args(argv)
-    model, tokenizer = benchmark.load(args)
-    serve(model, tokenizer, ExLlamaCache(model), args.host, args.port)
+    with quiet_follower(args):
+        model, tokenizer = benchmark.load(args)
+        serve(model, tokenizer, ExLlamaCache(model), args.host, args.port,
+              relay_for(model))
 
 
 if __name__ == "__main__":

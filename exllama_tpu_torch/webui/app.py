@@ -18,17 +18,30 @@ ThreadingHTTPServer, over the port's generator and cache. Routes:
 Generation runs under a global lock. The static files are the package's
 own copies (``webui/static``).
 
+Over a mesh (``--tp`` / ``--dp`` under ``torchrun``) rank 0 alone serves;
+its session's generator is mirrored to the other ranks
+(``parallel.relay``), which follow it (:func:`follow`) until the stop
+message. Every POST route then runs under ``generate_lock``, so that no
+relay message of one route falls between those of a generation.
+
     python -m exllama_tpu_torch.webui.app --synthetic tiny --cpu -l 512
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from exllama_tpu_torch.parallel.relay import (
+    follow_calls,
+    quiet_follower,
+    relay_for,
+)
+from exllama_tpu_torch.webui import session as session_mod
 from exllama_tpu_torch.webui.session import (
     get_initial_session,
     load_session,
@@ -99,7 +112,6 @@ class Handler(BaseHTTPRequestHandler):
             self._send(b"not found", "text/plain", 404)
 
     def do_POST(self):
-        global session
         try:
             data = self._json_body()
         except (json.JSONDecodeError, ValueError):
@@ -109,6 +121,15 @@ class Handler(BaseHTTPRequestHandler):
             )
             return
         route = self.path
+        # over a mesh every route that may call the generator holds the
+        # lock (the user input's takes it itself)
+        mirrored = (session_mod.relay is not None
+                    and route != "/api/userinput")
+        with generate_lock if mirrored else contextlib.nullcontext():
+            self._route(route, data)
+
+    def _route(self, route, data):
+        global session
         ok = json.dumps({"result": "ok"}).encode() + b"\n"
 
         try:
@@ -161,24 +182,47 @@ class Handler(BaseHTTPRequestHandler):
         self._send(ok)
 
 
+def follow(model, tokenizer, relay) -> dict:
+    """A follower rank's loop over a mesh: rank 0's session's generator
+    calls on this rank's own generator, until the stop message
+    (``parallel.relay.follow_calls``)."""
+    from exllama_tpu_torch.cache import ExLlamaCache
+    from exllama_tpu_torch.generator import ExLlamaGenerator
+
+    return follow_calls(ExLlamaGenerator(model, tokenizer,
+                                         ExLlamaCache(model)), relay)
+
+
 def serve(model, tokenizer, host="0.0.0.0", port=5000,
-          s_dir="~/exllama_sessions", verbose=True):
+          s_dir="~/exllama_sessions", verbose=True, relay=None):
     """Start the chat server (blocking). Returns the server object if you
-    start it in a thread yourself via ``make_server``."""
+    start it in a thread yourself via ``make_server``. Over a mesh
+    (``relay``) rank 0 serves and the other ranks :func:`follow`."""
     global session
-    prepare_sessions(model, tokenizer, s_dir)
-    session = get_initial_session()
-    httpd = ThreadingHTTPServer((host, port), Handler)
-    if verbose:
-        print(f" -- serving on http://{host}:{port}")
-    httpd.serve_forever()
+    if relay is not None and not relay.leader:
+        follow(model, tokenizer, relay)
+        return
+    try:
+        prepare_sessions(model, tokenizer, s_dir, relay)
+        session = get_initial_session()
+        httpd = ThreadingHTTPServer((host, port), Handler)
+        if verbose:
+            print(f" -- serving on http://{host}:{port}")
+        httpd.serve_forever()
+    finally:
+        if relay is not None:
+            with generate_lock:
+                relay.stop()
 
 
 def make_server(model, tokenizer, host="127.0.0.1", port=0,
-                s_dir="~/exllama_sessions"):
-    """Non-blocking variant for tests/embedding: returns (httpd, thread)."""
+                s_dir="~/exllama_sessions", relay=None):
+    """Non-blocking variant for tests/embedding: returns (httpd, thread).
+    Over a mesh the other ranks :func:`follow` meanwhile; the caller ends
+    them with ``relay.stop()`` (under ``generate_lock``) once the server is
+    shut down."""
     global session
-    prepare_sessions(model, tokenizer, s_dir)
+    prepare_sessions(model, tokenizer, s_dir, relay)
     session = get_initial_session()
     httpd = ThreadingHTTPServer((host, port), Handler)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -196,8 +240,10 @@ def main(argv=None):
     parser.add_argument("--sessions_dir", type=str,
                         default="~/exllama_sessions")
     args = parser.parse_args(argv)
-    model, tokenizer = benchmark.load(args)
-    serve(model, tokenizer, args.host, args.port, args.sessions_dir)
+    with quiet_follower(args):
+        model, tokenizer = benchmark.load(args)
+        serve(model, tokenizer, args.host, args.port, args.sessions_dir,
+              relay=relay_for(model))
 
 
 if __name__ == "__main__":

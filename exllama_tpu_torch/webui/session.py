@@ -10,6 +10,12 @@ history JSON per mutation under a sessions dir with a _last_session pointer
 (:405-454); the NDJSON streaming protocol and multibot behavior match
 (:506-755). The streaming implementation itself is this repo's own design —
 see the comments at the `streaming` section divider.
+
+Over a mesh (``prepare_sessions(relay=)``, rank 0's
+``parallel.relay.Relay``) the session's generator is mirrored: each call
+that runs the model goes first to the other ranks, which apply it to their
+own generators (``parallel.relay.follow_calls``). The session files and the
+history stay on rank 0.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ tokenizer = None
 cache = None
 generator = None
 sessions_dir = None
+relay = None
 
 
 def _sessions_dir(filename=None):
@@ -42,12 +49,13 @@ def _sessions_dir(filename=None):
     return path
 
 
-def prepare_sessions(_model, _tokenizer, _s_dir):
-    global model, tokenizer, cache, generator, sessions_dir
+def prepare_sessions(_model, _tokenizer, _s_dir, _relay=None):
+    global model, tokenizer, cache, generator, sessions_dir, relay
     model = _model
     tokenizer = _tokenizer
     cache = None
     generator = None
+    relay = _relay
     sessions_dir = os.path.expanduser(_s_dir)
     os.makedirs(sessions_dir, exist_ok=True)
 
@@ -114,6 +122,7 @@ class Session:
         global cache, generator
         from exllama_tpu_torch.cache import ExLlamaCache
         from exllama_tpu_torch.generator import ExLlamaGenerator
+        from exllama_tpu_torch.parallel.relay import Mirrored
 
         self.filename = filename
         saved = {}
@@ -127,6 +136,8 @@ class Session:
             cache.current_seq_len = 0
         if generator is None:
             generator = ExLlamaGenerator(model, tokenizer, cache)
+            if relay is not None:
+                generator = Mirrored(generator, relay)
         else:
             generator.reset()
 

@@ -8,7 +8,11 @@ dp = 2 model (per-rank fused projections, an intermediate of 13 groups that
 tp = 2 does not split into whole groups, an int8 KV cache, batch 2), a
 tp = 4 act-order model (o's gather over tp, down folded at load), the pod
 mesh (dcn 1 x dp 2 x tp 2), the continuous-batching engine at dp = 2 x
-tp = 2, the refusals, and ``benchmark --synthetic tiny --tp 2 --dp 2``. The
+tp = 2, the refusals, ``benchmark --synthetic tiny --tp 2 --dp 2``, and the
+front ends over the dp = 2 x tp = 2 mesh (``worlds.front_ends``: rank 0
+serves ``serve.api``, ``serve.ws`` and the web UI, the other ranks follow
+through ``parallel.relay``; each held against the same requests or
+generator calls made directly on every rank). The
 JAX references run here, in the parent, on the 8-device CPU mesh of
 tests/conftest.py with ``matmul_impl="xla"``: ``forward`` on
 ``make_mesh(tp, dp)`` / ``make_pod_mesh`` over params from the same seed
@@ -88,6 +92,12 @@ ENGINE = dict(CPU, cfg=dict(FIELDS, max_seq_len=64, max_input_len=64,
               new=ENGINE_NEW)
 BENCH_ARGV = ["--synthetic", "tiny", "--cpu", "--tp", "2", "--dp", "2",
               "--backend", "gloo", "-l", "64"]
+# the front ends: the byte-level FakeTokenizer's vocabulary, room for the
+# web UI's fixed prompt (~300 tokens); 2 JSON + 2 SSE clients
+FRONT = dict(CPU, cfg=dict(FIELDS, vocab_size=260, max_seq_len=512,
+                           max_input_len=128, max_attention_size=512 * 512),
+             tuning=dict(attn_len_bucket=16), tp=2, dp=2, gs=32, seed=17,
+             slots=4, clients=2, new=6, relay_timeout=300)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -101,7 +111,8 @@ def _one_torch_thread():
 RUNS = ([(name, "tp_forward", spec) for name, spec in SCENARIOS.items()]
         + [("refusals", "refusals", SCENARIOS["tp4_act"]),
            ("engine", "engine_tokens", ENGINE),
-           ("benchmark", "benchmark_build", BENCH_ARGV)])
+           ("benchmark", "benchmark_build", BENCH_ARGV),
+           ("front", "front_ends", FRONT)])
 
 
 @pytest.fixture(scope="module")
@@ -258,19 +269,12 @@ def unsharded():
     return _unsharded_engine_and_model()
 
 
-@pytest.mark.parametrize("i", range(len(ENGINE_PROMPTS)))
-def test_engine_over_dp_tp_matches_unsharded(world, unsharded, i):
-    """dp = 2 x tp = 2, 4 slots: every rank emits the same tokens; each
-    token lies within 3% of the logit scale of the unsharded model's best,
-    teacher-forced, and the tokens equal the unsharded engine's up to the
-    first step where that margin is not clear (random weights)."""
-    toks = [r["tokens"][i] for r in world["engine"]]
-    assert all(t == toks[0] for t in toks)
-    got = toks[0]
-    ref, model = unsharded
-    assert len(got) == ENGINE_NEW
+def _hold_by_margin(model, prompt, got, ref):
+    """Each of the tokens ``got`` lies within MARGIN of the logit scale of
+    ``model``'s best, teacher-forced after ``prompt``, and equals ``ref``'s
+    up to the first step where that margin is not clear (random
+    weights)."""
     cache = port.ExLlamaCache(model)
-    prompt = ENGINE_PROMPTS[i]
     if len(prompt) > 1:
         model.forward(prompt[None, :-1], cache, preprocess_only=True)
     last = prompt[-1]
@@ -283,10 +287,24 @@ def test_engine_over_dp_tp_matches_unsharded(world, unsharded, i):
         assert gap <= MARGIN, (j, float(gap))
         top2 = torch.topk(row, 2).values
         if (top2[0] - top2[1]) / scale > MARGIN:
-            assert tok == ref[i][j], (j, got, ref[i])
+            assert tok == ref[j], (j, got, ref)
         else:
             break
         last = tok
+
+
+@pytest.mark.parametrize("i", range(len(ENGINE_PROMPTS)))
+def test_engine_over_dp_tp_matches_unsharded(world, unsharded, i):
+    """dp = 2 x tp = 2, 4 slots: every rank emits the same tokens; each
+    token lies within 3% of the logit scale of the unsharded model's best,
+    teacher-forced, and the tokens equal the unsharded engine's up to the
+    first step where that margin is not clear (random weights)."""
+    toks = [r["tokens"][i] for r in world["engine"]]
+    assert all(t == toks[0] for t in toks)
+    got = toks[0]
+    ref, model = unsharded
+    assert len(got) == ENGINE_NEW
+    _hold_by_margin(model, ENGINE_PROMPTS[i], got, ref[i])
 
 
 def test_engine_slots_split_over_dp(world):
@@ -312,6 +330,197 @@ def test_benchmark_tp_dp_builds(world):
         assert (r["tp_size"], r["dp_size"]) == (2, 2)
         assert r["o"] == [128, 256]
         _close(r["logits"], ref.numpy())
+
+
+# ------------------------------------------------------- the front ends
+
+N_FRONT_REQS = 2 * FRONT["clients"]
+
+
+def _front(world, part):
+    return [r[part] for r in world["front"]]
+
+
+@pytest.mark.parametrize("i", range(FRONT["clients"]))
+def test_api_over_mesh_answers(world, i):
+    """serve.api on rank 0 of the dp = 2 x tp = 2 world, its JSON and SSE
+    clients at once: every answer 200, the stream ends in [DONE] and joins
+    to the JSON text of the same prompt; /health answers."""
+    api = _front(world, "api")[0]
+    got = api["texts"][i]
+    assert got["status"] == [200, 200] and got["done"]
+    assert got["stream"] == got["json"] and got["json"]
+    assert api["health"][0] == 200 and api["health"][1]["status"] == "ok"
+
+
+def test_api_over_mesh_tokens_equal_direct_engine(world):
+    """Every rank submitted the same requests (ids, prompts) in rank 0's
+    order and drew the same tokens, bit for bit those of the same requests
+    submitted directly to a fresh engine on every rank."""
+    ranks = _front(world, "api")
+    first = ranks[0]
+    assert len(first["tokens"]) == N_FRONT_REQS
+    for r in ranks:
+        assert r["req_ids"] == first["req_ids"]
+        assert r["prompts"] == first["prompts"]
+        assert r["tokens"] == first["tokens"]
+        assert r["direct"] == first["tokens"]
+
+
+def test_api_over_mesh_steps_in_lockstep(world):
+    """Every rank ran the same number of steps with the same launches;
+    rank 0 sent one relay message a step and the stop message, and each
+    follower's loop ended at it."""
+    ranks = _front(world, "api")
+    first = ranks[0]
+    assert first["steps"] > 0
+    assert first["messages"] == first["steps"] + 1
+    for r in ranks:
+        assert (r["steps"], r["messages"]) == (first["steps"],
+                                               first["messages"])
+        assert r["per_step"] == first["per_step"]
+        assert r["per_chunk"] == first["per_chunk"]
+    assert all(r["follow_steps"] == first["steps"] for r in ranks[1:])
+
+
+@pytest.fixture(scope="module")
+def front_unsharded(world):
+    """The unsharded engine (4 slots, serve.api's buckets) on the front
+    ends' model and rank 0's requests, greedy; and the model."""
+    from exllama_tpu_torch.parallel.worlds import make_config
+
+    cfg = make_config(FRONT["cfg"], FRONT["tuning"])
+    params = port.make_synthetic_params(cfg, FRONT["gs"], seed=FRONT["seed"],
+                                        device="cpu")
+    model = port.ExLlama(cfg, params=params, device="cpu")
+    tok = port.FakeTokenizer()
+    eng = ContinuousBatchingEngine(model, tok, max_slots=FRONT["slots"])
+    greedy = SamplerSettings(
+        temperature=1.0, top_k=1, top_p=0.0, token_repetition_penalty_max=1.0)
+    reqs = [eng.submit(np.asarray(p, np.int32), FRONT["new"],
+                       settings=greedy, stop_tokens=(tok.eos_token_id,))
+            for p in _front(world, "api")[0]["prompts"]]
+    eng.run()
+    return [list(r.new_tokens) for r in reqs], model
+
+
+@pytest.mark.parametrize("i", range(N_FRONT_REQS))
+def test_api_over_mesh_matches_unsharded(world, front_unsharded, i):
+    """Each request served over the mesh, held against the port's
+    unsharded engine by the margin rule of
+    test_engine_over_dp_tp_matches_unsharded."""
+    api = _front(world, "api")[0]
+    ref, model = front_unsharded
+    got = api["tokens"][i]
+    assert len(got) == FRONT["new"]
+    _hold_by_margin(model, np.asarray(api["prompts"][i], np.int32), got,
+                    ref[i])
+
+
+def test_ws_over_mesh_matches_direct_calls(world):
+    """serve.ws through rank 0's mirrored generator (estimateToken, a
+    greedy one-shot and stream, a sampled stream): rank 0's frames equal
+    those of the same messages through a plain protocol on every rank,
+    which agree; each follower applied every relayed call without
+    error."""
+    ranks = _front(world, "ws")
+    frames = ranks[0]["frames"]
+    assert frames == ranks[0]["direct"]
+    assert all(r["direct"] == frames for r in ranks)
+    done = [f for f in frames if f.get("eos")]
+    assert len(done) == 2 and all(f["fullResponse"] for f in done)
+    one = next(f for f in frames if f["action"] == "oneShotInfer")
+    assert done[0]["fullResponse"] == one["response"]
+    for r in ranks[1:]:
+        assert r["follow"]["calls"] > 0 and r["follow"]["errors"] == []
+        assert r["follow"]["calls"] + 1 == ranks[0]["messages"]
+
+
+def test_webui_over_mesh_matches_direct_calls(world):
+    """The web UI's two streamed turns through rank 0's mirrored generator
+    (the session's sampled settings): every answer 200, rank 0's texts
+    equal those of the same turns through a fresh session on every rank,
+    which agree."""
+    ranks = _front(world, "webui")
+    first = ranks[0]
+    assert first["status"] == [200, 200]
+    assert all(first["texts"]) and first["texts"] == first["direct"]
+    assert all(r["direct"] == first["texts"] for r in ranks)
+    for r in ranks[1:]:
+        assert r["follow"]["errors"] == []
+        assert r["follow"]["calls"] + 1 == first["messages"]
+
+
+@pytest.mark.parametrize("part", ["ws", "webui"])
+def test_mirrored_generator_same_sequence_on_every_rank(world, part):
+    ranks = _front(world, part)
+    assert len(ranks[0]["sequence"][0]) > 1
+    assert all(r["sequence"] == ranks[0]["sequence"] for r in ranks)
+
+
+def test_beam_refusal_over_the_relay(world):
+    """Beam search through a mirrored generator under tp: the refusal
+    surfaces on rank 0; each follower hit the same error, noted it and
+    ended at the stop message."""
+    ranks = _front(world, "beams")
+    assert ranks[0]["raised"].startswith("NotImplementedError")
+    for r in ranks[1:]:
+        assert r["calls"] == 1
+        assert r["errors"] == [ranks[0]["raised"]]
+
+
+@pytest.mark.parametrize("device,backend,staged", [
+    ("cpu", "gloo", False), ("cuda", "gloo", True), ("cuda", "nccl", False),
+    ("cpu", "nccl", False)])
+def test_ring_pass_route(monkeypatch, device, backend, staged):
+    """The ring prefill's pass goes through host copies only for CUDA
+    blocks under gloo; CPU blocks, and NCCL, pass directly (the route from
+    the group's backend and the blocks' device)."""
+    from exllama_tpu_torch.parallel import sequence
+
+    monkeypatch.setattr(sequence.dist, "get_backend", lambda group: backend)
+    assert sequence._host_staged(torch.device(device), None) is staged
+
+
+def test_ring_pass_hands_cpu_blocks_over_directly(monkeypatch):
+    """Under gloo a CPU block goes to batch_isend_irecv itself (no copy),
+    and the received twins come back as they arrived."""
+    import torch.distributed as dist
+
+    from exllama_tpu_torch.parallel import sequence
+
+    blocks = [torch.arange(6.0).reshape(2, 3), torch.ones(4)]
+    handed = []
+
+    class Done:
+        def wait(self):
+            pass
+
+    def batch(ops):
+        for op in ops:
+            handed.append(op)
+            if op.op is dist.irecv:
+                op.tensor.fill_(7.0)
+        return [Done() for _ in ops]
+
+    class Op:           # dist.P2POp checks its group, which needs a world
+        def __init__(self, op, tensor, peer, group):
+            self.op, self.tensor = op, tensor
+
+    monkeypatch.setattr(sequence.dist, "get_backend", lambda group: "gloo")
+    monkeypatch.setattr(sequence.dist, "batch_isend_irecv", batch)
+    monkeypatch.setattr(sequence.dist, "P2POp", Op)
+    got = sequence._ring_pass(blocks, 1, 1, None)
+    assert all(op.tensor is b for op, b in zip(handed[0::2], blocks))
+    assert all(op.tensor is g for op, g in zip(handed[1::2], got))
+    assert all(bool((g == 7.0).all()) for g in got)
+
+
+def test_version_matches_jax():
+    import exllama_tpu.version as jax_version
+
+    assert port.__version__ == jax_version.__version__
+    assert "__version__" in port.__all__
 
 
 # ------------------------------------------------- one rank, no world
