@@ -55,7 +55,9 @@ Phases, one line or block of output each; any failure exits non-zero:
      configuration and with fuse_qkv + commit_impl="pallas", and the greedy
      head's tokens held against the CPU logits; then the same comparison
      under matmul_impl="pallas_a8x2" and "pallas_a8t", and under an int8
-     and an int4 KV cache in both configurations; then 2-layer full-width
+     and an int4 KV cache in both configurations (the CPU's plain forward
+     runs once for every configuration that computes the same function:
+     the two fuse configurations, and a8x2 beside the exact mode); then 2-layer full-width
      models at groupsize 256, at head_dim 256 and at head_dim 100
      (OpenLlama-3B, attn_impl "auto": the einsum route) against the CPU;
      then with f32 scales, with a 4-bit lm_head at V = 32001 and with
@@ -176,15 +178,37 @@ Phases, one line or block of output each; any failure exits non-zero:
      K3 1 a prefill; no K6 / K7; sp: K1 4 a layer); then K1 and K3 at the
      shard shapes against their plain versions, timed beside their bounds.
 
-Each phase prints its seconds. Each of phases 5-13 sets every launch counter
-to 0 just before it drives its path (phase 10: each benchmark run) and reads
-them just after; phase 14's ranks are fresh processes (every counter at 0)
-that read their counters around each step, prefill and admission chunk; a
-kernel its path must run that shows no launch fails the run. The line before
-the last is a JSON summary of the kernels; the last line is ``{"ok": true,
-"device": {...}}``. Needs exactly one visible CUDA device.
+ 15. the compiled steps: every route that the JAX package runs through a
+     compiled executable replays a CUDA graph (``ExLlama.forward``'s
+     chunks of up to 64 rows, ``gen_single_token`` through the decode
+     loop, the engine's speculative step), each run graphed and eagerly
+     (``model.capture = False``) from the same state and held bit for bit
+     in tokens and state (caches, histories) and in launches: on phase
+     12's 32-layer model gen_single_token greedy under adapter Q and
+     sampled, each over a second gen_begin turn of the same shapes with a
+     new temperature and top-p that must capture no graph; a streamed web
+     UI reply, a websocket streamInfer and the chatbot example's loop;
+     the speculative generator (n-gram, top-k 1); five web UI replies in
+     turns to user inputs of growing length, each reply's time and the
+     graphs it captured (a new row or attend bucket only); the engine's six greedy
+     requests of phase 13 through 64-token admission chunks and its
+     speculative step (every chunk K2 128, K3 32; every verify step K2
+     128, K3 32); on phase 4's 2-layer model CFG and beam search with 3
+     beams alive; each route's graphed and eager rate in turns, one
+     replayed verify step of the engine timed and traced (its device time
+     by kernel), and the allocator's reserved bytes before and after.
+
+Each phase prints its seconds. Each of phases 5-13 and 15 sets every launch
+counter to 0 just before it drives its path (phase 10: each benchmark run)
+and reads them just after; phase 14's ranks are fresh processes (every
+counter at 0) that read their counters around each step, prefill and
+admission chunk; a kernel its path must run that shows no launch fails the
+run. The line before the last is a JSON summary of the kernels; the last
+line is ``{"ok": true, "device": {...}}``. Needs exactly one visible CUDA
+device.
 """
 
+import copy
 import dataclasses
 import json
 import math
@@ -2074,9 +2098,11 @@ PHASE4_STEPS, PHASE4_MODEL_STEPS, PHASE4_TOKENS = 4, 2, 4
 
 
 def model_vs_cpu(device):
-    """2 layers at full 7B width, one seed, on the card and on the CPU, in
-    the default configuration and with fuse_qkv + the K8 commit. Returns the
-    worst logit difference over the logit scale."""
+    """2 layers at full 7B width, one seed, on the card in the default
+    configuration and with fuse_qkv + the K8 commit, against the CPU's
+    plain forward, run once (the knobs choose how the card computes the
+    function, not the function). Returns the worst logit difference over
+    the logit scale."""
     import exllama_tpu_torch as port
     from exllama_tpu_torch.models.llama import forward_chunk
 
@@ -2091,16 +2117,18 @@ def model_vs_cpu(device):
     ids = rng.integers(0, cfg.vocab_size, size=(1, 64)).astype(np.int32)
     steps = [ids] + [rng.integers(0, cfg.vocab_size, size=(1, 1)).astype(
         np.int32) for _ in range(PHASE4_STEPS)]
+    c_cpu = port.ExLlamaCache(cpu_model)
+    refs = [cpu_model.forward(tok, c_cpu, last_id_only=i > 0)
+            for i, tok in enumerate(steps)]
     worst = 0.0
     for qkv_fuse, commit in ((False, "auto"), (True, "pallas")):
         cfg.tuning.fuse_qkv = qkv_fuse
         cfg.tuning.commit_impl = commit
-        c_cpu, c_gpu = port.ExLlamaCache(cpu_model), port.ExLlamaCache(gpu_model)
+        c_gpu = port.ExLlamaCache(gpu_model)
         # 3% of the logit scale: the kernels round at other places than the
         # CPU plain path (see tests/test_torch_model.py for the JAX package's
         # own 2.1% spread between its two paths)
-        for i, tok in enumerate(steps):
-            ref = cpu_model.forward(tok, c_cpu, last_id_only=i > 0)
+        for i, (tok, ref) in enumerate(zip(steps, refs)):
             got = gpu_model.forward(tok, c_gpu, last_id_only=i > 0).cpu()
             rel = ((got - ref).abs().max() / ref.abs().max()).item()
             if not torch.isfinite(got).all() or rel > 0.03:
@@ -2109,19 +2137,18 @@ def model_vs_cpu(device):
                     f"CPU logits rel {rel:.4f}")
             worst = max(worst, rel)
         # the greedy head (K5) on the card against the CPU logits of the
-        # same state: its token's logit is within the same 3% of the max
+        # same state (the last step's): its token's logit is within the
+        # same 3% of the max
         tok = torch.as_tensor(steps[-1], device=device)
         kw = dict(attend_len=cfg.max_seq_len, last_token_only=True,
                   preprocess_only=False, heads=cfg.num_attention_heads,
                   kv_heads=cfg.num_key_value_heads, head_dim=cfg.head_dim,
                   eps=cfg.rms_norm_eps, qkv_fuse=qkv_fuse, commit_impl=commit)
         c_gpu.current_seq_len -= 1
-        c_cpu.current_seq_len -= 1
         pick = forward_chunk(gpu_model.params, c_gpu, tok,
                              c_gpu.current_seq_len, None, head_mode="argmax",
                              **kw).cpu()
-        ref = forward_chunk(cpu_model.params, c_cpu, tok.cpu(),
-                            c_cpu.current_seq_len, None, **kw)[0, 0]
+        ref = refs[-1][0, -1]
         gap = (ref.max() - ref[pick.reshape(-1)[0].long()]).item()
         if gap > 0.03 * ref.abs().max().item():
             raise AssertionError(f"greedy head: token logit {gap:.3g} below "
@@ -2129,7 +2156,8 @@ def model_vs_cpu(device):
     cfg.tuning.fuse_qkv = False
     cfg.tuning.commit_impl = "auto"
     features = generator_vs_cpu(cpu_model, gpu_model, ids[:, :24])
-    return (worst, turbo_model_vs_cpu(cfg, cpu_params, steps[:5], device),
+    return (worst,
+            turbo_model_vs_cpu(cfg, cpu_params, steps[:5], refs[:5], device),
             kv_model_vs_cpu(cfg, cpu_model, gpu_model, steps[:3]), features)
 
 
@@ -2448,21 +2476,28 @@ KV_MODEL_TOL = {"int8": (0.03, 0.03), "int4": (0.03, 0.03)}
 def kv_model_vs_cpu(cfg, cpu_model, gpu_model, steps):
     """The same 2-layer model under an int8 and an int4 KV cache, default
     configuration and fuse_qkv + K8 commit: prefill + 2 decode steps, card
-    vs CPU. Returns {kind: (worst prefill, worst decode)}."""
+    vs CPU (the CPU's logits and cache after each step computed once a
+    cache type). Returns {kind: (worst prefill, worst decode)}."""
     import exllama_tpu_torch as port
 
     worst = {}
     for kind, (lim_prefill, lim_decode) in KV_MODEL_TOL.items():
         cfg.tuning.kv_cache_dtype = kind
         worst[kind] = [0.0, 0.0]
+        cfg.tuning.fuse_qkv = False
+        cfg.tuning.commit_impl = "auto"
+        c_cpu = port.ExLlamaCache(cpu_model)
+        refs = []
+        for i, tok in enumerate(steps):
+            ref = cpu_model.forward(tok, c_cpu, last_id_only=i > 0)
+            refs.append((ref, [[t.clone() for t in ts]
+                               for ts in c_cpu._tensor_lists()]))
         for qkv_fuse, commit in ((False, "auto"), (True, "pallas")):
             cfg.tuning.fuse_qkv = qkv_fuse
             cfg.tuning.commit_impl = commit
-            c_cpu = port.ExLlamaCache(cpu_model)
             c_gpu = port.ExLlamaCache(gpu_model)
             assert c_gpu.k[0].dtype == torch.int8 and c_gpu.k_scale
-            for i, tok in enumerate(steps):
-                ref = cpu_model.forward(tok, c_cpu, last_id_only=i > 0)
+            for i, (tok, (ref, state)) in enumerate(zip(steps, refs)):
                 got = gpu_model.forward(tok, c_gpu, last_id_only=i > 0).cpu()
                 rel = ((got - ref).abs().max() / ref.abs().max()).item()
                 lim = lim_decode if i else lim_prefill
@@ -2473,8 +2508,7 @@ def kv_model_vs_cpu(cfg, cpu_model, gpu_model, steps):
                         f"{rel:.4f} > {lim}")
                 worst[kind][i > 0] = max(worst[kind][i > 0], rel)
                 same = 0.0
-                for dst, src in zip(c_gpu._tensor_lists(),
-                                    c_cpu._tensor_lists()):
+                for dst, src in zip(c_gpu._tensor_lists(), state):
                     for t, a in zip(dst, src):
                         a = a.to(t.device)
                         same += (t == a).float().mean().item() / (4 * len(dst))
@@ -2491,16 +2525,18 @@ def kv_model_vs_cpu(cfg, cpu_model, gpu_model, steps):
 
 # card vs CPU logits over the logit scale under the W4A8 modes. a8x2 is
 # exact-grade (its quantization error is ~2^-14 of a group's maximum): the
-# exact mode's 3%. a8t quantizes every prefill activation to int8, so a
-# bf16 step of difference between kernel and plain version can draw
-# another int8 rounding downstream; at this depth it stays inside the same
-# 3% (0.44% measured on an H100).
+# exact mode's 3%, against the exact mode's CPU reference. a8t quantizes
+# every prefill activation to int8, so a bf16 step of difference between
+# kernel and plain version can draw another int8 rounding downstream; at
+# this depth it stays inside the same 3% (0.44% measured on an H100),
+# against its own plain version on the CPU.
 TURBO_MODEL_TOL = {"pallas_a8x2": 0.03, "pallas_a8t": 0.03}
 
 
-def turbo_model_vs_cpu(cfg, cpu_params, steps, device):
+def turbo_model_vs_cpu(cfg, cpu_params, steps, exact_refs, device):
     """The same 2-layer model under "pallas_a8x2" and "pallas_a8t" (int8
-    images attached on both sides): prefill + 4 decode steps, card vs CPU.
+    images attached on both sides): prefill + 4 decode steps, card vs CPU
+    (a8x2 against ``exact_refs``, the exact CPU logits of the same steps).
     Returns {impl: worst relative difference}."""
     import exllama_tpu_torch as port
     from exllama_tpu_torch.models.llama import _attach_prefill_w8
@@ -2512,15 +2548,17 @@ def turbo_model_vs_cpu(cfg, cpu_params, steps, device):
         params = cpu_params
         if impl == "pallas_a8t":
             params = _attach_prefill_w8(cpu_params, cfg)
-        cpu_model = port.ExLlama(cfg, params=params, device="cpu")
         gpu_model = port.ExLlama(cfg, params=params.to(device), device=device)
+        refs = exact_refs
         if impl == "pallas_a8t":
             assert gpu_model.params.layers[0].down.w8 is not None
-        c_cpu = port.ExLlamaCache(cpu_model)
+            cpu_model = port.ExLlama(cfg, params=params, device="cpu")
+            c_cpu = port.ExLlamaCache(cpu_model)
+            refs = [cpu_model.forward(tok, c_cpu, last_id_only=i > 0)
+                    for i, tok in enumerate(steps)]
         c_gpu = port.ExLlamaCache(gpu_model)
         worst[impl] = 0.0
-        for i, tok in enumerate(steps):
-            ref = cpu_model.forward(tok, c_cpu, last_id_only=i > 0)
+        for i, (tok, ref) in enumerate(zip(steps, refs)):
             got = gpu_model.forward(tok, c_gpu, last_id_only=i > 0).cpu()
             rel = ((got - ref).abs().max() / ref.abs().max()).item()
             if not torch.isfinite(got).all() or rel > tol:
@@ -3257,7 +3295,7 @@ def captured(loop):
     """{attend_len: {counter name: launches a replay}} of a DecodeLoop."""
     names = counter_names()
     return {a: {**{k: 0 for k in launch_counters()},
-                **{names[k]: n for k, n in e[1].items()}}
+                **{names[k]: n for k, n in e.counts.items()}}
             for a, e in sorted(loop.graphs.items())}
 
 
@@ -3268,20 +3306,27 @@ def same_caches(label, a, b):
                 raise AssertionError(f"phase 11 {label}: caches differ")
 
 
+def eager_twin(model):
+    """The same model (parameters, config) with ``capture = False``: every
+    step of what runs on it is eager."""
+    twin = copy.copy(model)
+    twin.capture = False
+    return twin
+
+
 def generator_pair(mp, batch=1, **settings):
     """Two generators on fresh caches of the 32-layer model, one seed: the
     first replays captured graphs, the second runs the same step eagerly
-    (``DecodeLoop.capture = False``)."""
+    (on the model's ``eager_twin``)."""
     port, tok = mp.port, mp.tok
     gens = []
-    for capture in (True, False):
+    for model in (mp.model, eager_twin(mp.model)):
         g = port.ExLlamaGenerator(
-            mp.model, tok, port.ExLlamaCache(mp.model, batch_size=batch),
+            model, tok, port.ExLlamaCache(model, batch_size=batch),
             seed=SEED)
         g.disallow_tokens([tok.eos_token_id])
         for k, v in settings.items():
             setattr(g.settings, k, v)
-        g._loop.capture = capture
         gens.append(g)
     return gens
 
@@ -3407,8 +3452,8 @@ def compiled_decode(mp):
         f"{took[0] * 1e3:.1f} ms; at a captured one (a replay): "
         f"{took[1] * 1e3:.2f} ms (host clock, the token fetched)")
     entry = g._loop.graphs[2048]
-    for label, step in (("sampled", entry[0].replay),
-                        ("greedy", loop.graphs[cfg.max_seq_len][0].replay)):
+    for label, step in (("sampled", entry.graph.replay),
+                        ("greedy", loop.graphs[cfg.max_seq_len].graph.replay)):
         want = STEP_KERNELS[label]
         names, idle = trace_step(step)
         if names is None:
@@ -3613,7 +3658,7 @@ def lora_generators(mp, loras):
     for a, cc in caps.items():
         require(f"phase 12 adapter Q graph at attend_len {a}", cc,
                 LORA_STEP["Q"])
-    held = {a: entry[0] for a, entry in g._loop.graphs.items()}
+    held = {a: entry.graph for a, entry in g._loop.graphs.items()}
     # the adapter changes between two gen_tokens calls of one sequence
     for x in (g, e):
         x.lora = loras["A"]
@@ -3624,7 +3669,8 @@ def lora_generators(mp, loras):
         raise AssertionError(f"phase 12 Q -> A: graph {got.tolist()} vs "
                              f"eager {ref.tolist()}")
     same_caches("adapter Q -> A (phase 12)", g.cache, e.cache)
-    if any(entry[0] is held.get(a) for a, entry in g._loop.graphs.items()):
+    if any(entry.graph is held.get(a)
+           for a, entry in g._loop.graphs.items()):
         raise AssertionError("phase 12: a graph captured under adapter Q "
                              "replayed under adapter A")
     require("phase 12 gen_tokens under A (graphs and eager)", c_a,
@@ -3674,7 +3720,7 @@ def lora_generators(mp, loras):
     for name, x in gens.items():
         entry = next(iter(x._loop.graphs.values()), None)
         names, idle = (None, None) if entry is None else trace_step(
-            entry[0].replay)
+            entry.graph.replay)
         if names is None:
             log(f"  [12] adapter {name}: replay not traced (no graph or no "
                 f"device activity in the trace: not measured)")
@@ -4065,10 +4111,10 @@ def serve_engine(mp, lora, capture=True, **kw):
     step's and verify step's launches recorded apart."""
     from exllama_tpu_torch.serve import ContinuousBatchingEngine
 
-    eng = ContinuousBatchingEngine(mp.model, mp.tok, max_slots=SERVE_SLOTS,
-                                   prefill_bucket=64, attn_bucket=256,
-                                   seed=SEED, **kw)
-    eng.capture = capture
+    eng = ContinuousBatchingEngine(
+        mp.model if capture else eager_twin(mp.model), mp.tok,
+        max_slots=SERVE_SLOTS, prefill_bucket=64, attn_bucket=256, seed=SEED,
+        **kw)
     eng.lora_id = eng.register_lora(lora)
     eng.counted = {"chunk": [], "step": [], "spec": []}
 
@@ -4197,8 +4243,11 @@ def greedy_step_rates(eng, specs):
 
     graph_ms = timed(20)
     names, idle = trace_step(lambda: decode(al))
-    eng.capture = False
-    eager_ms = timed(5)
+    eng.model.capture = False
+    try:
+        eager_ms = timed(5)
+    finally:
+        eng.model.capture = True
     return step_ms, graph_ms, eager_ms, names, idle
 
 
@@ -4571,8 +4620,12 @@ SP_CONTEXT, SP_STEPS = 2048, 4
 ENGINE_SLOTS, ENGINE_NEW = 8, 32
 # the front ends over tp = 2: 4 JSON + 4 SSE clients, 16 greedy tokens each;
 # ws and the web UI 8 tokens a generation; a follower that misses the stop
-# message fails its relay after RELAY_S seconds, inside the world's timeout
+# message fails its relay after RELAY_S seconds, inside the world's timeout.
+# Their model's depth is cut to FRONT_LAYERS (the checks compare ranks with
+# each other and with direct calls on the same ranks, not with a reference)
+# to keep the script inside its time limit on a slow host
 FRONT_CLIENTS, FRONT_NEW, FRONT_GEN_NEW, RELAY_S = 4, 16, 8, 300
+FRONT_LAYERS = 16
 PAR_DEVICE = "cuda"            # where the ranks run their tensors
 PAR_BACKEND = "gloo"           # NCCL refuses two ranks on one device
 # the collectives the parallel paths need from the backend on CUDA tensors
@@ -4815,10 +4868,10 @@ def check_front_ends(ranks, card) -> dict:
     if bad or lead["health"][0] != 200:
         raise AssertionError(f"phase 14 api over tp = 2: {bad} "
                              f"{lead['health']}")
-    step = per_layer(32, q4_gemv=4, flash_attn=1, dense_gemv=1, layer_tail=0,
-                     q4_mlp=0)
-    chunk = per_layer(32, q4_dequant_matmul=4, flash_attn=1, layer_tail=0,
-                      q4_mlp=0)
+    step = per_layer(FRONT_LAYERS, q4_gemv=4, flash_attn=1, dense_gemv=1,
+                     layer_tail=0, q4_mlp=0)
+    chunk = per_layer(FRONT_LAYERS, q4_dequant_matmul=4, flash_attn=1,
+                      layer_tail=0, q4_mlp=0)
     for r in api:
         if (r["tokens"] != lead["tokens"] or r["direct"] != lead["tokens"]
                 or r["req_ids"] != lead["req_ids"]
@@ -4863,7 +4916,8 @@ def check_front_ends(ranks, card) -> dict:
             for part, r in (("api", lead), ("ws", gens["ws"]),
                             ("webui", gens["webui"]))}
     cost["api"]["messages_a_step"] = (lead["messages"] - 1) / lead["steps"]
-    log(f"  [14] serve.api over tp = 2 (32 layers at 7B width, rank 0 "
+    log(f"  [14] serve.api over tp = 2 ({FRONT_LAYERS} layers at 7B width, "
+        f"rank 0 "
         f"serving on 127.0.0.1:0, the other rank following): "
         f"{FRONT_CLIENTS} JSON + {FRONT_CLIENTS} SSE clients at once, "
         f"greedy, {FRONT_NEW} tokens: every answer 200, each stream joined "
@@ -4971,7 +5025,8 @@ def parallel_path(device, card, launches, res):
                   slots=ENGINE_SLOTS, bucket=64, attn_bucket=256,
                   prompts=[ids(int(n)) for n in rng.integers(32, 129, 4)],
                   new=ENGINE_NEW)
-    front = dict(cfg=par_fields(), tuning={}, tp=2, gs=128, seed=PAR_SEED + 4,
+    front = dict(cfg=par_fields(FRONT_LAYERS), tuning={}, tp=2, gs=128,
+                 seed=PAR_SEED + 4,
                  fast=True, centered=True, device=PAR_DEVICE,
                  slots=SERVE_SLOTS, clients=FRONT_CLIENTS, new=FRONT_NEW,
                  gen_new=FRONT_GEN_NEW, relay_timeout=RELAY_S)
@@ -5170,6 +5225,602 @@ for _name, _case in (("q4_gemv", "qkv g128 M=1 norm"),
                      ("q4_prefill_a8", "4096->4096 g128 M=1919"),
                      ("q4_matmul_glu", "11008->4096 g128 M=1919")):
     SOURCES[f"{_name}_f32"] = (*SOURCES[_name][:2], _case)
+
+
+# -------------------------------------------------------------- phase 15
+
+P15_NEW = 16            # tokens a generator route decodes in a run
+P15_FRONT = 8           # response tokens of a web UI / websocket / chatbot
+# turn
+
+
+def graphs_held(*owners) -> int:
+    """Graphs held by ``owners``: caches (the forward's chunk graphs),
+    decode loops and engines (``.graphs``), generators (their cache's and
+    their loop's)."""
+    n = 0
+    for o in owners:
+        for x in (o, getattr(o, "cache", None), getattr(o, "_loop", None),
+                  getattr(o, "_beam_store", None),
+                  getattr(o, "scratch", None)):
+            n += len(getattr(x, "graphs", None) or ())
+    return n
+
+
+def run_mode(model, capture, fn):
+    """``fn()`` with ``model.capture`` set (False: every step eagerly), the
+    card synchronised after; returns (its result, the launches during it)."""
+    model.capture = capture
+    try:
+        c0 = counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, since(c0)
+    finally:
+        model.capture = True
+
+
+def same_run(label, got, ref, c_graph, c_eager):
+    """Graph and eager runs of one route from the same state: the tokens
+    (np arrays or lists) and tensors (caches, histories) bit-equal, and
+    the launches equal (each replay adds the captured step's counts, the
+    eager run counts its own)."""
+    if len(got["tokens"]) != len(ref["tokens"]) or any(
+            not np.array_equal(np.asarray(a), np.asarray(b))
+            for a, b in zip(got["tokens"], ref["tokens"])):
+        raise AssertionError(f"phase 15 {label}: graph tokens "
+                             f"{got['tokens']} vs eager {ref['tokens']}")
+    if len(got["tensors"]) != len(ref["tensors"]) or any(
+            not torch.equal(a, b)
+            for a, b in zip(got["tensors"], ref["tensors"])):
+        raise AssertionError(f"phase 15 {label}: graph and eager state "
+                             f"differ")
+    if ({k: v for k, v in c_graph.items() if v}
+            != {k: v for k, v in c_eager.items() if v}):
+        raise AssertionError(f"phase 15 {label}: launches graph {c_graph} "
+                             f"vs eager {c_eager}")
+    if not got["graphs"]:
+        raise AssertionError(f"phase 15 {label}: no graph captured")
+
+
+def cache_tensors(cache):
+    return [t for ts in cache._tensor_lists() for t in ts]
+
+
+def turns15(model, run, n):
+    """``run()`` (n tokens) under graphs and eagerly in turns, A B B A,
+    fenced; the faster of each as tok/s."""
+    best = {}
+    for capture in (True, False, False, True):
+        model.capture = capture
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+        finally:
+            model.capture = True
+        dt = time.perf_counter() - t0
+        key = "graphs" if capture else "eager"
+        best[key] = min(best.get(key, dt), dt)
+    return {k: n / v for k, v in best.items()}
+
+
+def single_token_route(mp, lora, label, **settings):
+    """gen_single_token, P15_NEW tokens after a 64-token prompt (its
+    63-row prefill one chunk), on a fresh cache; a second turn on the same
+    generator with a new temperature and top-p and another prompt of the
+    same length. Returns the two runs' results and the generator."""
+    port = mp.port
+
+    def make():
+        g = port.ExLlamaGenerator(mp.model, mp.tok,
+                                  port.ExLlamaCache(mp.model), seed=SEED)
+        g.lora = lora
+        for k, v in settings.items():
+            setattr(g.settings, k, v)
+        return g
+
+    def turn(g, ids):
+        g.gen_begin(ids)
+        toks = [g.gen_single_token() for _ in range(P15_NEW)]
+        return dict(tokens=toks, graphs=graphs_held(g),
+                    tensors=cache_tensors(g.cache) + [g._seq_buf])
+
+    ids1, ids2 = mp.ids[:, :64], mp.ids[:, 64:128]
+    runs = {}
+    for capture in (True, False):
+        g = make()
+        r1, c1 = run_mode(mp.model, capture, lambda: turn(g, ids1))
+        g.settings.temperature, g.settings.top_p = 0.7, 0.9
+        r2, c2 = run_mode(mp.model, capture, lambda: turn(g, ids2))
+        runs[capture] = (g, r1, c1, r2, c2)
+    (g, r1, c1, r2, c2), (e, q1, d1, q2, d2) = runs[True], runs[False]
+    same_run(f"{label} turn 1", r1, q1, c1, d1)
+    same_run(f"{label} turn 2 (temperature 0.7, top-p 0.9)", r2, q2, c2, d2)
+    new = r2["graphs"] - r1["graphs"]
+    if new:
+        raise AssertionError(f"phase 15 {label}: the second turn captured "
+                             f"{new} graphs")
+    return dict(captures=[r1["graphs"], new], launches_turn=c1,
+                tokens=[int(t[0, 0]) for t in r1["tokens"][:6]]), g
+
+
+def webui_replies(mp, modes, grow=False):
+    """One web-UI server (a fresh session), one streamed /api/userinput a
+    mode, ``model.capture`` set per reply; with ``grow`` the i-th user
+    input is 12 i characters longer than the first. Returns [(reply text,
+    seconds, graphs held after it)], the session generator's sequence, its
+    cache's tensors and its graphs."""
+    import http.client
+
+    from exllama_tpu_torch.webui import app as webui_app
+    from exllama_tpu_torch.webui import session as webui_session
+
+    out = []
+    with tempfile.TemporaryDirectory() as sdir:
+        httpd, _ = webui_app.make_server(mp.model, mp.tok, s_dir=sdir)
+        webui_app.session.max_response_tokens = P15_FRONT
+        try:
+            for i, capture in enumerate(modes):
+                conn = http.client.HTTPConnection(*httpd.server_address,
+                                                  timeout=600)
+                mp.model.capture = capture
+                try:
+                    t0 = time.perf_counter()
+                    more = ", and further" * i if grow else ""
+                    conn.request("POST", "/api/userinput", json.dumps(
+                        {"user_input": f"hello there{more}, number {i}"}),
+                        {"Content-Type": "application/json"})
+                    r = conn.getresponse()
+                    data = r.read()
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                finally:
+                    mp.model.capture = True
+                    conn.close()
+                if r.status != 200:
+                    raise AssertionError(f"phase 15 webui: {r.status}")
+                text = "".join(p.get("text", "") for p in (
+                    json.loads(x) for x in data.decode().splitlines()
+                    if x.strip()) if p.get("cmd") == "append")
+                out.append((text, dt,
+                            graphs_held(webui_session.generator)))
+            gen = webui_session.generator
+            state = (gen.sequence_actual.copy(), cache_tensors(gen.cache),
+                     graphs_held(gen))
+        finally:
+            httpd.shutdown()
+    return out, state
+
+
+def ws_streams(mp, proto, modes):
+    """One greedy streamInfer of P15_FRONT tokens a mode on ``proto``
+    (``serve.ws.WsProtocol``), ``model.capture`` set per message. Returns
+    [(the frames, seconds)]."""
+    import asyncio
+
+    from exllama_tpu_torch.parallel import worlds
+
+    out = []
+    for i, capture in enumerate(modes):
+        msg = dict(action="streamInfer", request_id=f"s{i}",
+                   text=f"stream number {i % 2}", maxNew=P15_FRONT, top_k=1,
+                   temperature=1.0, rep_pen=1.0)
+        conn = worlds.WsConn([msg])
+        mp.model.capture = capture
+        try:
+            t0 = time.perf_counter()
+            asyncio.run(proto.handle(conn))
+            torch.cuda.synchronize()
+            out.append((conn.sent, time.perf_counter() - t0))
+        finally:
+            mp.model.capture = True
+    return out
+
+
+def chatbot_turns(mp, g, lines):
+    """The chatbot example's loop (examples/example_chatbot.py) on ``g``:
+    its sampler settings, a persona prompt, then per line the user's turn
+    fed and up to P15_FRONT response tokens by gen_single_token, broken on
+    a newline or on the model speaking for the user. Returns the response
+    tokens a line."""
+    tok = mp.tok
+    s = g.settings
+    s.temperature, s.top_k, s.top_p = 0.95, 20, 0.65
+    s.token_repetition_penalty_max = 1.15
+    s.token_repetition_penalty_sustain = mp.cfg.max_seq_len // 2
+    g.gen_begin(tok.encode("This is a conversation between User and a "
+                           "curious chatbot named Chatbort.\n"))
+    out = []
+    for line in lines:
+        g.gen_feed_tokens(tok.encode(f"User: {line}\nChatbort:"))
+        toks = []
+        for _ in range(P15_FRONT):
+            tid = int(g.gen_single_token()[0, 0])
+            toks.append(tid)
+            if tid in (tok.eos_token_id, tok.newline_token_id):
+                break
+        out.append(toks)
+    return out
+
+
+def front_end_routes(mp, res):
+    """A web UI reply, a websocket streamInfer and the chatbot loop, each
+    graphed and eagerly from the same state, then timed in turns."""
+    port = mp.port
+    # web UI: a fresh server for each mode, one reply each
+    (got, g_state), c_g = run_mode(mp.model, True,
+                                   lambda: webui_replies(mp, [True]))
+    (ref, e_state), c_e = run_mode(mp.model, False,
+                                   lambda: webui_replies(mp, [False]))
+    same_run("web UI reply", dict(tokens=[g_state[0]], tensors=g_state[1],
+                                  graphs=g_state[2]),
+             dict(tokens=[e_state[0]], tensors=e_state[1], graphs=0), c_g,
+             c_e)
+    if got[0][0] != ref[0][0] or not got[0][0]:
+        raise AssertionError(f"phase 15 web UI: {got[0][0]!r} vs "
+                             f"{ref[0][0]!r}")
+    # in turns, each user input longer than the last: a reply replays the
+    # graphs of the chunk rows (16, 32, 64) and buckets it has seen and
+    # captures the others, whose cost its time includes
+    timed, _ = webui_replies(mp, [True, True, False, False, True], grow=True)
+    # the tag tokenizer decodes each token to one "<id>"
+    tps = [text.count("<") / dt for text, dt, _ in timed]
+    held = [0] + [n for _, _, n in timed]
+    res["webui"] = dict(graphs=g_state[2], tokens=got[0][0].count("<"),
+                        turns_ms=[dt * 1e3 for _, dt, _ in timed],
+                        new_graphs=[b - a for a, b in zip(held, held[1:])],
+                        reply_s={"graphs": min(timed[1][1], timed[4][1]),
+                                 "eager": min(timed[2][1], timed[3][1])},
+                        tps={"graphs": max(tps[1], tps[4]),
+                             "eager": max(tps[2], tps[3])})
+    # websocket: one protocol on a cache of its own a mode
+    from exllama_tpu_torch.serve.ws import WsProtocol
+
+    runs = {}
+    for capture in (True, False):
+        proto = WsProtocol(mp.model, mp.tok, port.ExLlamaCache(mp.model))
+        frames, c = run_mode(mp.model, capture,
+                             lambda: ws_streams(mp, proto, [capture])[0][0])
+        gen = proto.generator
+        runs[capture] = (dict(tokens=[json.dumps(frames)],
+                              tensors=cache_tensors(gen.cache),
+                              graphs=graphs_held(gen)), c, proto)
+    same_run("websocket streamInfer", runs[True][0], runs[False][0],
+             runs[True][1], runs[False][1])
+    timed = ws_streams(mp, runs[True][2], [True, False, False, True])
+    tps = [frames[-1]["fullResponse"].count("<") / dt
+           for frames, dt in timed]
+    res["ws"] = dict(graphs=runs[True][0]["graphs"],
+                     stream_s={"graphs": min(timed[0][1], timed[3][1]),
+                               "eager": min(timed[1][1], timed[2][1])},
+                     tps={"graphs": max(tps[0], tps[3]),
+                          "eager": max(tps[1], tps[2])})
+    del runs
+    # the chatbot loop: two user lines, graphed and eager generators
+    lines = ["hi there", "tell me more"]
+    runs = {}
+    for capture in (True, False):
+        g = port.ExLlamaGenerator(mp.model, mp.tok,
+                                  port.ExLlamaCache(mp.model), seed=SEED)
+        toks, c = run_mode(mp.model, capture,
+                           lambda: chatbot_turns(mp, g, lines))
+        runs[capture] = (dict(tokens=[np.asarray(t) for t in toks]
+                              + [g.sequence_actual],
+                              tensors=cache_tensors(g.cache) + [g._seq_buf],
+                              graphs=graphs_held(g)), c, g)
+    same_run("chatbot loop", runs[True][0], runs[False][0], runs[True][1],
+             runs[False][1])
+    g = runs[True][2]
+    base = g.sequence.shape[1]
+    n = P15_FRONT
+
+    def chat_run():
+        for _ in range(n):
+            g.gen_single_token()
+        g.gen_rewind(n)
+
+    res["chatbot"] = dict(graphs=runs[True][0]["graphs"],
+                          tokens=[len(t) for t in runs[True][0]["tokens"][:2]],
+                          tps=turns15(mp.model, chat_run, n))
+    if g.sequence.shape[1] != base:
+        raise AssertionError("phase 15 chatbot: the timed turns moved the "
+                             "sequence")
+
+
+def speculative_route(mp, res):
+    """SpeculativeGenerator with the n-gram proposer at top-k 1: 32
+    tokens after a 256-token repeating prompt graphed and eagerly (fresh
+    caches, one seed), then 128 tokens after phase 12's 1,024-token
+    prompt in turns."""
+    from exllama_tpu_torch.speculative import NgramProposer
+
+    port = mp.port
+    rng = np.random.default_rng(SEED + 12)
+    pattern = rng.integers(4, 260, size=64)
+    runs = {}
+    for capture in (True, False):
+        spec = port.SpeculativeGenerator(mp.model, mp.tok,
+                                         port.ExLlamaCache(mp.model),
+                                         NgramProposer(), seed=SEED)
+        spec.settings.top_k = 1
+        ids = np.tile(pattern, 4).astype(np.int32)
+        seq, c = run_mode(mp.model, capture,
+                          lambda: spec.generate_tokens(ids, 32))
+        runs[capture] = (dict(tokens=[seq], tensors=cache_tensors(spec.cache),
+                              graphs=graphs_held(spec)), c, spec)
+    same_run("speculative generator", runs[True][0], runs[False][0],
+             runs[True][1], runs[False][1])
+    spec = runs[True][2]
+    ids = np.tile(pattern, 16).astype(np.int32)
+    tps = turns15(mp.model, lambda: spec.generate_tokens(ids, 128), 128)
+    res["speculative"] = dict(graphs=graphs_held(spec),
+                              stats=dict(spec.stats), tps=tps)
+
+
+def cfg_beam_routes(device, res):
+    """CFG (alpha 0.3, top-k 1, P15_NEW tokens) and beam search with 3
+    beams alive (top-k 3, top-p off, beam length 4) on phase 4's 2-layer
+    full-width model, graphed and eagerly from one seed: tokens, caches
+    and launches equal; the beam steps at 3 rows replay the graphs on the
+    kept beam cache."""
+    import exllama_tpu_torch as port
+
+    cfg = port.ExLlamaConfig()
+    cfg.num_hidden_layers = 2
+    cfg.max_seq_len = 128
+    model = port.ExLlama(cfg, params=port.make_synthetic_params(
+        cfg, 128, False, seed=1, device=device, fast=True), device=device)
+    rng = np.random.default_rng(SEED)
+    ids = rng.integers(0, cfg.vocab_size, size=(1, 24)).astype(np.int32)
+    prompts = ["a cheerful story about", "a sad and dull report on"]
+
+    def cfg_run():
+        g = _generator(model, batch=2, top_k=1)
+        g.generate_cfg(prompts, 0.3, P15_NEW)
+        return dict(tokens=[g.sequence], tensors=cache_tensors(g.cache),
+                    graphs=graphs_held(g))
+
+    def beam_run():
+        g = _generator(model, top_k=3, top_p=0.0, beams=3, beam_length=4)
+        g.gen_begin(ids)
+        g.begin_beam_search()
+        rows = []
+        step = g._beam_step
+
+        def counted(n_out):
+            rows.append(g._beam_seqs.shape[0])
+            return step(n_out)
+
+        g._beam_step = counted
+        toks = [int(g.beam_search()[0, 0]) for _ in range(P15_NEW)]
+        held = graphs_held(g)
+        g.end_beam_search()
+        return dict(tokens=[np.asarray(toks), g.sequence], graphs=held,
+                    tensors=cache_tensors(g.cache), rows=rows)
+
+    for label, fn in (("CFG", cfg_run), ("beams at 3", beam_run)):
+        got, c_g = run_mode(model, True, fn)
+        ref, c_e = run_mode(model, False, fn)
+        same_run(label, got, ref, c_g, c_e)
+        res[label] = dict(graphs=got["graphs"], launches=c_g)
+        if label == "beams at 3":
+            if 3 not in got["rows"]:
+                raise AssertionError(f"phase 15 beams: no step at 3 rows "
+                                     f"({got['rows']})")
+            res[label]["steps_at_3"] = got["rows"].count(3)
+
+
+def engine_routes(mp, lora, res):
+    """The engine's six greedy requests of phase 13 (prompts of 32-512
+    tokens: 64-token admission chunks; one under adapter Q; no stop
+    strings) through its speculative step (n-gram, lookahead 4), graphed
+    then eagerly, then graphed again (replays only): tokens, slot caches
+    and histories bit-equal, each chunk SERVE_CHUNK and each verify step
+    SERVE_SPEC in every run."""
+    import gc
+
+    from exllama_tpu_torch.speculative import NgramProposer
+
+    specs = [dict(s, stop=False, stop_string=None)
+             for s in serve_specs(mp.cfg.vocab_size) if s["greedy"]]
+    runs, engines = [], {}
+    for capture in (True, False, True):
+        eng = engines.get(capture)
+        if eng is None:
+            eng = engines[capture] = serve_engine(
+                mp, lora, capture, spec_proposer=NgramProposer(),
+                spec_lookahead=4)
+        seen = {k: len(v) for k, v in eng.counted.items()}
+
+        def go():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            reqs = [serve_submit(eng, s) for s in specs]
+            eng.run()
+            torch.cuda.synchronize()
+            return reqs, time.perf_counter() - t0
+
+        graphs0 = len(eng.graphs) + len(eng.scratch.graphs)
+        (reqs, secs), c = run_mode(mp.model, capture, go)
+        new = {k: v[seen[k]:] for k, v in eng.counted.items()}
+        for kind, want in (("spec", SERVE_SPEC), ("chunk", SERVE_CHUNK)):
+            if not new[kind]:
+                raise AssertionError(f"phase 15 engine: no {kind} ran")
+            for cc in new[kind]:
+                require(f"phase 15 engine {kind} (capture {capture})", cc,
+                        want)
+        n_tok = sum(len(r.new_tokens) for r in reqs)
+        runs.append(dict(
+            tokens=[r.new_tokens for r in reqs], secs=secs, tps=n_tok / secs,
+            graphs=len(eng.graphs) + len(eng.scratch.graphs) - graphs0,
+            launches=c, spec=len(new["spec"]), chunks=len(new["chunk"]),
+            tensors=cache_tensors(eng.cache) + [eng._hist]))
+        if len(runs) == 2:
+            g, e = runs
+            same_run("engine, admission chunks and speculative step",
+                     g, dict(e, graphs=0), g["launches"], e["launches"])
+            for r in runs:
+                r.pop("tensors")
+            del engines[False], eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    if runs[2]["tokens"] != runs[0]["tokens"]:
+        raise AssertionError("phase 15 engine: the second graphed run "
+                             "differs")
+    # one verify step's graph alone (the slots are free by now: a replay
+    # writes rows that no request reads): ms a replay, fenced, and a trace
+    eng = engines[True]
+    graph = eng.graphs[max((k for k in eng.graphs if len(k) == 3),
+                           key=lambda k: k[1])].graph
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        graph.replay()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e2
+    names, idle = trace_step(graph.replay)
+    res["engine_verify_step"] = dict(
+        replay_ms=step_ms, launches=None if names is None
+        else sum(names.values()), top=kernel_times(graph.replay),
+        **(idle or {}))
+    res["engine"] = dict(
+        tokens=sum(len(t) for t in runs[0]["tokens"]),
+        verify_steps=runs[0]["spec"], chunks=runs[0]["chunks"],
+        graphs=[runs[0]["graphs"], runs[2]["graphs"]],
+        tps={"graphs (captures)": runs[0]["tps"], "eager": runs[1]["tps"],
+             "graphs (replays)": runs[2]["tps"]})
+    del engines, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def kernel_times(step, top=6):
+    """One call of ``step`` traced by torch.profiler: [(kernel name, its
+    device time in us)] of the ``top`` largest totals, or None where the
+    trace shows no device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            name = e.name[:70]
+            by[name] = by.get(name, 0.0) + e.time_range.elapsed_us()
+    return sorted(by.items(), key=lambda kv: -kv[1])[:top] or None
+
+
+def graphs_path(mp, lora, device, launches, card):
+    """Phase 15: every route the JAX package runs compiled, graphed and
+    eagerly from the same state on phase 12's zero-mean 32-layer model
+    (adapter Q) and phase 4's 2-layer model. Returns its results; adds its
+    launches to ``launches``."""
+    import gc
+
+    res = {}
+    zero_counts()
+    t_phase = time.time()
+    gc.collect()                # what earlier phases left goes first
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    allocated0 = torch.cuda.memory_allocated()
+    greedy, g = single_token_route(mp, lora, "gen_single_token greedy (Q)",
+                                   top_k=1)
+    sampled, s = single_token_route(mp, None, "gen_single_token sampled")
+    for name, r, gen in (("greedy", greedy, g), ("sampled", sampled, s)):
+        def one_run(gen=gen):
+            for _ in range(P15_NEW):
+                gen.gen_single_token()
+            gen.gen_rewind(P15_NEW)
+        r["tps"] = turns15(mp.model, one_run, P15_NEW)
+        res[f"gen_single_token {name}"] = r
+        turn = {k: v for k, v in r["launches_turn"].items() if v}
+        log(f"  [15] gen_single_token {name}: {P15_NEW} tokens after a "
+            f"64-token prompt, graphs = eager bit for bit (tokens, cache, "
+            f"history) and in launches ({turn}); "
+            f"captures per turn {r['captures']} (turn 2: temperature 0.7, "
+            f"top-p 0.9, another prompt of the same length); tok/s in turns "
+            f"graphs {r['tps']['graphs']:.2f}, eager {r['tps']['eager']:.2f} "
+            f"[{card}]")
+    del g, s
+    front_end_routes(mp, res)
+    w, ws, cb = res["webui"], res["ws"], res["chatbot"]
+    log(f"  [15] web UI reply ({w['tokens']} tokens, /api/userinput "
+        f"streamed): graphs = eager (text, session sequence, cache), "
+        f"{w['graphs']} graphs; a reply in turns graphs "
+        f"{w['reply_s']['graphs'] * 1e3:.1f} ms, eager "
+        f"{w['reply_s']['eager'] * 1e3:.1f} ms (tok/s "
+        f"{w['tps']['graphs']:.2f} / {w['tps']['eager']:.2f}; five replies "
+        f"to user inputs 12 characters apart, graphs graphs eager eager "
+        f"graphs: ms {[round(x, 1) for x in w['turns_ms']]}, graphs "
+        f"captured {w['new_graphs']}); websocket "
+        f"streamInfer ({P15_FRONT} tokens): graphs = eager (frames, "
+        f"cache), {ws['graphs']} graphs; a stream in turns graphs "
+        f"{ws['stream_s']['graphs'] * 1e3:.1f} ms, eager "
+        f"{ws['stream_s']['eager'] * 1e3:.1f} ms (tok/s "
+        f"{ws['tps']['graphs']:.2f} / {ws['tps']['eager']:.2f}); chatbot "
+        f"loop (2 lines, "
+        f"{cb['tokens']} tokens): graphs = eager, {cb['graphs']} graphs, "
+        f"tok/s in turns graphs {cb['tps']['graphs']:.2f}, eager "
+        f"{cb['tps']['eager']:.2f} [{card}]")
+    speculative_route(mp, res)
+    sp = res["speculative"]
+    log(f"  [15] speculative generator (n-gram, top-k 1): 32 tokens after "
+        f"256 graphs = eager (sequence, cache, launches); 128 tokens after "
+        f"1,024 in turns graphs {sp['tps']['graphs']:.2f}, eager "
+        f"{sp['tps']['eager']:.2f} tok/s ({sp['graphs']} graphs, "
+        f"{sp['stats']}) [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_beam_routes(device, res)
+    log(f"  [15] phase 4's 2-layer model: CFG ({P15_NEW} tokens, B = 2) and "
+        f"beams (3 alive, {res['beams at 3']['steps_at_3']} steps at 3 "
+        f"rows) graphs = eager (tokens, cache, launches); graphs "
+        f"{res['CFG']['graphs']} / {res['beams at 3']['graphs']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    engine_routes(mp, lora, res)
+    en = res["engine"]
+    log(f"  [15] engine, the six greedy requests through the speculative "
+        f"step: {en['tokens']} tokens, {en['chunks']} admission chunks, "
+        f"{en['verify_steps']} verify steps, graphs captured in the first / "
+        f"the second graphed run {en['graphs']}; graphs = "
+        f"eager (tokens, slot caches, histories, launches: {SERVE_CHUNK} a "
+        f"chunk, {SERVE_SPEC} a verify step); tok/s graphs (with captures) "
+        f"{en['tps']['graphs (captures)']:.1f}, eager "
+        f"{en['tps']['eager']:.1f}, graphs (replays) "
+        f"{en['tps']['graphs (replays)']:.1f} [{card}]")
+    vs = res["engine_verify_step"]
+    log(f"  [15] one replayed verify step (8 slots x 5 rows, the last "
+        f"bucket): {vs['replay_ms']:.3f} ms"
+        + ("; trace: no device activity (not measured)"
+           if vs["launches"] is None else
+           f"; traced: {vs['launches']} device launches, busy "
+           f"{vs['busy_us']:.1f} of {vs['window_us']:.1f} us, idle "
+           f"{vs['idle_share']:.1%}; the most device time: "
+           + "; ".join(f"{us:.0f} us {name}" for name, us in vs["top"] or ()))
+        + f" [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["reserved_bytes"] = dict(before=reserved0,
+                                 after=torch.cuda.memory_reserved())
+    res["allocated_bytes"] = dict(before=allocated0,
+                                  after=torch.cuda.memory_allocated())
+    log(f"  [15] memory reserved by the allocator (graph pools included): "
+        f"{reserved0} bytes before the phase, "
+        f"{res['reserved_bytes']['after']} after; allocated {allocated0} "
+        f"before, {res['allocated_bytes']['after']} after (the web UI's "
+        f"session keeps its cache and generator) "
+        f"({time.time() - t_phase:.1f} s in the phase) [{card}]")
+    c = counts()
+    launches.update({k: launches.get(k, 0) + v for k, v in c.items()})
+    return res
 
 
 def main() -> int:
@@ -5384,7 +6035,8 @@ def main() -> int:
         "admission chunks, 256-key buckets) on phase 12's 32-layer model; "
         "its HTTP, websocket and web-UI front ends; benchmark -cs 8")
     t0 = time.time()
-    p13 = serving_path(p12.pop("mp"), p12.pop("lora_q"), launches, smi)
+    mp12, lora_q = p12.pop("mp"), p12.pop("lora_q")
+    p13 = serving_path(mp12, lora_q, launches, smi)
     log("  phase 13 results: " + json.dumps(p13, default=str))
     log(f"[13 serving] done ({time.time() - t0:.1f} s)")
 
@@ -5397,6 +6049,17 @@ def main() -> int:
     p14 = parallel_path(device, smi, launches, res)
     log("  phase 14 results: " + json.dumps(p14, default=str))
     log(f"[14 parallel] done ({time.time() - t0:.1f} s)")
+
+    log("[15 compiled steps] every route the JAX package runs compiled, "
+        "graphed and eagerly from the same state: gen_single_token, the web "
+        "UI, the websocket server, the chatbot loop, the speculative "
+        "generator, CFG and beams, the engine's admission chunks and "
+        "speculative step")
+    t0 = time.time()
+    p15 = graphs_path(mp12, lora_q, device, launches, smi)
+    del mp12, lora_q
+    log("  phase 15 results: " + json.dumps(p15, default=str))
+    log(f"[15 compiled steps] done ({time.time() - t0:.1f} s)")
 
     # K3's prefill path beside its decode path (the summary names decode)
     log("  flash_attn prefill T=1919: " + "; ".join(

@@ -32,13 +32,26 @@ part: kv_heads / tp heads and, where dp divides the batch, B / dp rows
 
 Beam search keeps a second cache whose rows are the beams: ``take_rows``
 gathers its rows by parent and ``keep_rows`` cuts it to the first k (the
-JAX package's ``_map_state`` with ``take`` / a slice), on every member.
+JAX package's ``_map_state`` with ``take`` / a slice), on every member, in
+place: the gather goes through a temporary that is copied back into the
+first rows of the same storage, and every member becomes a view of those
+rows. So the tensors' addresses, and ``kv_ptrs``, stay those that a
+captured graph holds, and beam steps replay the forward's graphs (one per
+batch size). Only a gather to more rows than the storage holds
+(``capacity``) allocates anew, and drops the cache's graphs.
+
+``graphs`` (a ``graphs.GraphTable``) holds the graphs ``ExLlama.forward``
+captured on this cache (models/llama.py), keyed by the chunk's shape and
+static choices; they die with the cache.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from exllama_tpu_torch.graphs import GraphTable
 from exllama_tpu_torch.ops.attention import kv_ptr_array
 
 
@@ -87,11 +100,13 @@ class ExLlamaCache:
             if copy_from.k_scale is not None:
                 self.k_scale = [t.clone() for t in copy_from.k_scale]
                 self.v_scale = [t.clone() for t in copy_from.v_scale]
-            self.kv_ptrs = kv_ptr_array(self.k, self.v, self.k_scale,
-                                        self.v_scale)
-            self.rows = torch.empty_like(copy_from.rows)
+            self._rows_flat = torch.empty(
+                (copy_from.rows.numel(),), dtype=copy_from.rows.dtype,
+                device=copy_from.rows.device)
+            self.rows = self._rows_flat.view(copy_from.rows.shape)
             self.cursor = torch.zeros_like(copy_from.cursor)
             self.current_seq_len = copy_from.current_seq_len
+            self._adopt_storage()
             return
 
         if model is None:
@@ -128,12 +143,25 @@ class ExLlamaCache:
         if quantized:
             self.k_scale = layers(layer_shape[:3], torch.float32)
             self.v_scale = layers(layer_shape[:3], torch.float32)
-        self.kv_ptrs = kv_ptr_array(self.k, self.v, self.k_scale, self.v_scale)
         d_rows = shape[4] if tune.kv_cache_dtype == "int4" else d_store
-        self.rows = torch.empty((2, shape[0], shape[1], 1, shape[3], d_rows),
-                                dtype=torch.bfloat16, device=self.device)
+        rows = (2, shape[0], shape[1], 1, shape[3], d_rows)
+        self._rows_flat = torch.empty((math.prod(rows),),
+                                      dtype=torch.bfloat16, device=self.device)
+        self.rows = self._rows_flat.view(rows)
         self.cursor = torch.zeros((1,), dtype=torch.int32, device=self.device)
         self.current_seq_len = 0
+        self._adopt_storage()
+
+    def _adopt_storage(self):
+        """Take the members as they are as the cache's storage (its
+        ``capacity`` rows), build ``kv_ptrs`` over them, and start with no
+        graphs (also after a member was reassigned elsewhere:
+        ``parallel.sequence.shard_cache_sp``)."""
+        self._full = [list(ts) for ts in self._tensor_lists()]
+        self.capacity = self.batch_size
+        self.kv_ptrs = kv_ptr_array(self.k, self.v, self.k_scale,
+                                    self.v_scale)
+        self.graphs = GraphTable()
 
     def _tensor_lists(self):
         """The two or four per-layer lists; axes 0..2 of every tensor are
@@ -166,24 +194,55 @@ class ExLlamaCache:
     def take_rows(self, index):
         """Keep the batch rows ``index`` (a [k] int tensor or list, in that
         order, repeats allowed) of every member -- K, V, the scales and the
-        staged rows -- as new tensors: the gather of beam rows by parent
-        (exllama_tpu/generator.py:819-823). ``batch_size``, ``shape`` and
-        ``kv_ptrs`` follow; the shared [1] cursor stays."""
+        staged rows: the gather of beam rows by parent
+        (exllama_tpu/generator.py:819-823). In place within ``capacity``
+        rows (see the module docstring); ``batch_size`` and ``shape``
+        follow; the shared [1] cursor stays."""
         idx = torch.as_tensor(index, dtype=torch.long).to(self.device)
-        self._set_rows(lambda t: t.index_select(0, idx), idx.numel())
+        self._set_rows(lambda t, dim=0: t.index_select(dim, idx), idx.numel())
 
     def keep_rows(self, k: int):
-        """Cut every member to its first ``k`` batch rows (views; the JAX
-        ``_map_state(lambda x: x[:k])``, generator.py:786-799)."""
-        self._set_rows(lambda t: t[:k], k)
+        """Every member cut to its first ``k`` batch rows (views of the same
+        storage; the JAX ``_map_state(lambda x: x[:k])``,
+        generator.py:786-799). Within ``capacity`` a larger ``k`` widens
+        the views again; the rows past the last ``batch_size`` hold stale
+        values."""
+        if k > self.capacity:
+            raise ValueError(f"keep_rows({k}): the cache holds "
+                             f"{self.capacity} rows")
+        self._set_rows(None, k)
 
-    def _set_rows(self, fn, b: int):
-        for ts in self._tensor_lists():
-            ts[:] = [fn(t) for t in ts]
-        self.rows = fn(self.rows.transpose(0, 2)).transpose(0, 2).contiguous()
+    def _set_rows(self, gather, b: int):
+        """Every member as the first ``b`` rows of its storage, those rows
+        first written with ``gather(member)`` where it is given (a new
+        tensor: the storage is written after it is read)."""
+        grow = b > self.capacity
+        for ts, full in zip(self._tensor_lists(), self._full):
+            for i, t in enumerate(ts):
+                new = None if gather is None else gather(t)
+                if grow:
+                    full[i] = torch.empty((b, *t.shape[1:]), dtype=t.dtype,
+                                          device=t.device)
+                ts[i] = full[i][:b]
+                if new is not None:
+                    ts[i].copy_(new)
+        shape = (*self.rows.shape[:2], b, *self.rows.shape[3:])
+        # the staged rows: batch is their third axis, so a cut re-lays them
+        # out in the storage (a copy; widened rows hold stale values)
+        new = (gather(self.rows, 2) if gather is not None
+               else self.rows[:, :, :b].clone() if b <= self.rows.shape[2]
+               else None)
+        if grow:
+            self._rows_flat = torch.empty((math.prod(shape),),
+                                          dtype=self.rows.dtype,
+                                          device=self.rows.device)
+        self.rows = self._rows_flat[:math.prod(shape)].view(shape)
+        if new is not None:
+            self.rows.copy_(new)
         self.batch_size = b
         self.shape = (self.shape[0], b, *self.shape[2:])
-        self.kv_ptrs = kv_ptr_array(self.k, self.v, self.k_scale, self.v_scale)
+        if grow:
+            self._adopt_storage()
 
     def copy_states(
         self,

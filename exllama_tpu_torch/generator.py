@@ -9,17 +9,27 @@ the last cache position has a place), and each step is forward ->
 repetition penalty -> BOS ban -> sampler -> history update. Randomness is
 an explicit ``torch.Generator`` on the model's device.
 
-``gen_tokens`` runs its n steps through :class:`DecodeLoop`, the
-counterpart of the JAX ``_decode_loop_n``: on the card one captured CUDA
-graph per attend-length bucket, replayed step after step with no host read
-between steps; on the CPU the same step function, eagerly. A capture that
-fails raises: there is no fallback to an eager loop on the card. The graphs
-are dropped on ``reset()``, on ``gen_begin`` and when the settings, the
-disallowed tokens or the adapter change. Beam search runs the beams as the
-batch of a second cache (``ExLlamaCache.take_rows`` / ``keep_rows``),
-eagerly. ``generator.lora`` (a ``lora.ExLlamaLora``, or None) reaches
-every forward: prefill, feed, single tokens, the decode loop, CFG and the
-beams.
+``gen_tokens`` and ``gen_single_token`` run their steps through
+:class:`DecodeLoop`, the counterpart of the JAX ``_decode_loop_n`` and of
+the jitted ``_sample_step``: on the card one captured CUDA graph per
+attend-length bucket holds the forward and the sampler, replayed step after
+step with no host read between steps; on the CPU the same step function,
+eagerly. A capture that fails raises: there is no fallback to an eager
+loop on the card. The sampler's values (temperature, top-k, top-p, min-p,
+typical, the penalty) are a device operand of the step, as the JAX
+package traces them, so a new value recaptures nothing; only what the JAX
+package makes static keys the graphs (the penalty's sustain and decay, the
+BOS id, whether a bias is set and whether typical sampling is on -- the JAX
+step leaves it out with ``lax.cond`` -- the mask's shape, the batch, the
+forward knobs, the parameters and the adapter). The graphs outlive
+``gen_begin``, as the jit cache outlives a turn, and go with ``reset()``. Every other forward -- prefill and feed
+chunks of up to 64 rows, CFG's two rows, the beams -- goes through
+``ExLlama.forward``, which replays a graph per chunk key (models/llama.py).
+Beam search runs the beams as the batch of a second cache, reordered in
+place (``ExLlamaCache.take_rows`` / ``keep_rows``), which is kept between
+beam searches so that its graphs replay; its scoring runs eagerly.
+``generator.lora`` (a ``lora.ExLlamaLora``, or None) reaches every
+forward: prefill, feed, single tokens, the decode loop, CFG and the beams.
 """
 
 from __future__ import annotations
@@ -30,14 +40,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from exllama_tpu_torch import kernels
 from exllama_tpu_torch.cache import ExLlamaCache
+from exllama_tpu_torch.graphs import GraphTable
 from exllama_tpu_torch.models.llama import forward_chunk
 from exllama_tpu_torch.ops.sampling import (
     SamplerSettings,
     apply_rep_penalty,
     filter_probs,
     sample,
+    sample_operands,
+    settings_operand,
 )
 
 
@@ -64,26 +76,36 @@ def _sample_step(
     settings: SamplerSettings,
     bos_token_id: int,
     logit_bias: Optional[torch.Tensor],   # [V] f32 additive, or None
+    ops: Optional[torch.Tensor] = None,   # [6] f32 settings operand
 ) -> torch.Tensor:
     """Penalize, filter and sample one token per row; the tokens are written
     to ``seq_buf[:, seq_len]``. Returns int32 tokens [B]. No host read, so
-    a graph can capture it."""
+    a graph can capture it. With ``ops`` (``sampling.settings_operand``)
+    the values are read from it on the device and ``settings`` gives only
+    the penalty's sustain and decay and whether typical sampling runs;
+    without, ``settings`` gives all."""
     s = settings
     lg = logits[:, -1, :].to(torch.float32)
     lg = apply_rep_penalty(
-        lg, seq_buf, seq_len, s.token_repetition_penalty_max,
+        lg, seq_buf, seq_len,
+        s.token_repetition_penalty_max if ops is None else ops[5:6],
         s.token_repetition_penalty_sustain, s.token_repetition_penalty_decay,
     )
     lg[:, bos_token_id] -= 10000.0          # ban BOS like the reference
-    tokens, _ = sample(lg, generator, s, logit_bias=logit_bias)
+    if ops is None:
+        tokens, _ = sample(lg, generator, s, logit_bias=logit_bias)
+    else:
+        tokens = sample_operands(lg, generator, ops, logit_bias,
+                                 typical=s.typical > 0)
     _put_column(seq_buf, seq_len, tokens)
     return tokens
 
 
 class DecodeLoop:
     """n decode steps on static buffers, the counterpart of the JAX
-    ``_decode_loop_n`` (exllama_tpu/generator.py:70-125) and of the root
-    ``bench.py``'s jitted greedy loop.
+    ``_decode_loop_n`` (exllama_tpu/generator.py:70-125), of its jitted
+    ``_sample_step`` (:28-67) and of the root ``bench.py``'s jitted greedy
+    loop.
 
     One step: ``forward_chunk`` at T = 1 on the cache's device cursor ->
     with a sampler, repetition penalty -> BOS ban -> logit bias -> sample
@@ -91,25 +113,29 @@ class DecodeLoop:
     token written into the history at the device position -> fed back ->
     cursor and position + 1, all on the device. The static buffers: the
     token [B, 1], the cache's ``cursor``, the history position [1], the
-    history (the caller's [B, >= S_max + 1] int32), the input mask and the
-    [V] logit bias (copied in on every run where given); a LoRA adapter's
-    tensors are read where they lie (a graph holds them).
+    history (the caller's [B, >= S_max + 1] int32), the input mask, the
+    [V] logit bias and the sampler's values (``ops``, f32 [6]: temperature,
+    top-k, top-p, min-p, typical, penalty), copied in on every run where
+    given; a LoRA adapter's tensors are read where they lie (a graph holds
+    them).
 
     On the card each step runs one ``torch.cuda.CUDAGraph`` per key: the
     attend-length bucket (``ExLlama._attend_len(past + 1)``, or the fixed
-    ``attend_len``), under one epoch of the rest -- batch, head mode, the
-    sampler settings, the mask's shape, whether a bias is set, the forward
-    knobs, the parameters and the adapter. A new epoch drops every graph.
-    The first step of a new bucket runs eagerly on the capture stream -- it
+    ``attend_len``), under one epoch of what the JAX package makes static
+    -- batch, head mode, the penalty's sustain and decay, the BOS id,
+    whether typical sampling is on, the mask's shape, whether a bias is
+    set, the forward knobs, the parameters and the adapter. A new epoch
+    drops every graph; the sampler's other values do not make one. The
+    first step of a new bucket runs eagerly on the capture stream -- it
     builds the kernels' libraries and sizes their scratch -- and is then
-    captured; all graphs share one memory pool (they keep nothing
-    allocated there between replays, so they may replay in any order).
-    Capture records the launch counts of the step; each replay adds them to
-    the counters (``kernels.add_launches``). A capture that fails raises. With
-    ``capture=False``, on the CPU, or on a mesh of more than one rank the
-    same step runs eagerly: a gloo collective cannot be captured in a CUDA
-    graph, and the capture of an NCCL one is not checked yet (the kernels
-    still run on the card).
+    captured (``graphs.GraphTable``); all graphs share one memory pool
+    (they keep nothing allocated there between replays, so they may replay
+    in any order). Capture records the launch counts of the step; each
+    replay adds them to the counters (``kernels.add_launches``). A capture
+    that fails raises. With the model's ``capture = False``, on the CPU, or
+    on a mesh of more than one rank the same step runs eagerly: a gloo
+    collective cannot be captured in a CUDA graph, and the capture of an
+    NCCL one is not checked yet (the kernels still run on the card).
     """
 
     def __init__(self, model, cache: ExLlamaCache, hist: torch.Tensor, *,
@@ -124,23 +150,21 @@ class DecodeLoop:
         self.model, self.cache, self.hist = model, cache, hist
         self.head_mode, self.generator = head_mode, generator
         self.attend_len, self.knobs = attend_len, knobs
-        self.capture = True
         dev = cache.cursor.device
         self.tok = torch.zeros((cache.batch_size, 1), dtype=torch.int32,
                                device=dev)
         self.pos = torch.zeros((1,), dtype=torch.int32, device=dev)
+        self.ops = torch.zeros((6,), dtype=torch.float32, device=dev)
         self.mask: Optional[torch.Tensor] = None
         self.bias: Optional[torch.Tensor] = None
         self.lora: Optional[list] = None
-        self.graphs: dict = {}
+        self.graphs = GraphTable()
         self._epoch = None
-        self._stream = self._pool = None
 
     def reset(self):
         """Drop every graph (and with them their pool)."""
-        self.graphs = {}
+        self.graphs.clear()
         self._epoch = None
-        self._pool = None
 
     def _forward_kwargs(self) -> dict:
         cfg = self.model.config
@@ -167,7 +191,7 @@ class DecodeLoop:
         else:
             settings, bos = sampler
             tokens = _sample_step(out, self.hist, self.pos, self.generator,
-                                  settings, bos, self.bias)
+                                  settings, bos, self.bias, ops=self.ops)
         self.tok.copy_(tokens.reshape(-1, 1))
         self.cache.cursor.add_(1)
         self.pos.add_(1)
@@ -207,14 +231,15 @@ class DecodeLoop:
         self.mask = self._static(self.mask, mask)
         self.bias = self._static(self.bias, bias)
         self.lora = lora
+        static = None
+        if sampler is not None:
+            settings, bos = sampler
+            settings_operand(settings, None, out=self.ops)
+            static = (settings.token_repetition_penalty_sustain,
+                      settings.token_repetition_penalty_decay, bos,
+                      settings.typical > 0)
         kw = self._forward_kwargs()
-        dev = self.cache.k[0].device
-        mesh = getattr(self.model, "mesh", None)
-        graphs = (self.capture and dev.type == "cuda"
-                  and (mesh is None or mesh.tp * mesh.dp == 1))
-        epoch = (self.cache.batch_size, self.head_mode,
-                 None if sampler is None else
-                 (dataclasses.astuple(sampler[0]), sampler[1]),
+        epoch = (self.cache.batch_size, self.head_mode, static,
                  None if mask is None else tuple(mask.shape),
                  bias is not None, tuple(sorted(kw.items())),
                  id(self.model.params), None if lora is None else id(lora))
@@ -224,67 +249,12 @@ class DecodeLoop:
         for i in range(n):
             attend_len = (self.attend_len
                           or self.model._attend_len(past + i + 1))
-            if not graphs:
-                self._step(attend_len, sampler, kw)
-                continue
-            entry = self.graphs.get(attend_len)
-            if entry is None:
-                self.graphs[attend_len] = self._capture(attend_len, sampler, kw)
-            else:
-                entry[0].replay()
-                kernels.add_launches(entry[1])
+            self.graphs.run(
+                self.model, attend_len,
+                lambda: self._step(attend_len, sampler, kw),
+                generator=None if sampler is None else self.generator,
+                keep=(self.mask, self.bias, self.lora))
         return self.hist[:, hist_len:hist_len + n]
-
-    def _capture(self, attend_len: int, sampler, kw: dict):
-        """Run this step eagerly on the capture stream, then capture it.
-        Returns (graph, its launch counts, what it must keep alive)."""
-        dev = self.cache.k[0].device
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph, counts = capture_step(
-            lambda: self._step(attend_len, sampler, kw), dev, self._stream,
-            self._pool, None if sampler is None else self.generator)
-        keep = (kernels.scratch_in_use(dev), self.model.params, self.mask,
-                self.bias, self.lora)
-        return graph, counts, keep
-
-
-def capture_step(step, dev, stream, pool, generator=None):
-    """Run ``step()`` eagerly on ``stream`` (it builds the kernels'
-    libraries and sizes their scratch), then capture it into a new
-    ``torch.cuda.CUDAGraph`` in ``pool``, with ``generator``'s state
-    registered where the step draws from it. Returns (graph, the launch
-    counts of one step): the capture records them and takes them back off
-    the counters, since a capture launches nothing."""
-    cur = torch.cuda.current_stream(dev)
-    stream.wait_stream(cur)
-    with torch.cuda.stream(stream):
-        step()
-    cur.wait_stream(stream)
-    # the eager step done before the capture starts: without this sync
-    # a sampled step's replays drew other tokens than the eager step
-    # (tests/test_torch_kernels.py, a sampled case after a greedy one)
-    torch.cuda.synchronize(dev)
-    graph = torch.cuda.CUDAGraph()
-    if generator is not None:
-        graph.register_generator_state(generator)
-    before = kernels.launch_counts()
-    # capture_begin / _end rather than the torch.cuda.graph context,
-    # which also empties the allocator's cache at every capture: the
-    # next prefill would cudaMalloc its buffers again
-    with torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool)
-        try:
-            step()
-        finally:
-            graph.capture_end()
-    after = kernels.launch_counts()
-    counts = {k: after[k] - before[k] for k in after
-              if after[k] != before[k]}
-    kernels.add_launches(counts, -1)      # capture launched nothing
-    return graph, counts
 
 
 class ExLlamaGenerator:
@@ -316,6 +286,7 @@ class ExLlamaGenerator:
                                 generator=self.generator)
         self._mask = None
         self._beam_cache: Optional[ExLlamaCache] = None
+        self._beam_store: Optional[ExLlamaCache] = None
         self._beam_seqs: Optional[np.ndarray] = None
         self._beam_lps: Optional[np.ndarray] = None
         self._beam_prefix = 0
@@ -339,7 +310,6 @@ class ExLlamaGenerator:
     def gen_begin(self, in_tokens, mask=None):
         """Reset and prefill all but the last token."""
         self.end_beam_search()
-        self._loop.reset()
         in_tokens = np.asarray(in_tokens, dtype=np.int32)
         self.sequence = in_tokens.copy()
         self.sequence_actual = in_tokens.copy()
@@ -455,7 +425,6 @@ class ExLlamaGenerator:
 
     def disallow_tokens(self, tokens):
         self.disallowed_tokens = tokens
-        self._loop.reset()
 
     # ------------------------------------------------------------- sampling
 
@@ -474,11 +443,48 @@ class ExLlamaGenerator:
             bias[np.asarray(constraints)] += 10000.0
         return torch.from_numpy(bias).to(self.model.device)
 
+    def _loop_bias(self, constraints=None) -> Optional[torch.Tensor]:
+        """The decode loop's bias operand: :meth:`_logit_bias` (None where
+        there is no bias: the loop's step then adds none, and whether a
+        bias is set keys its graphs). The last one made is kept: the same
+        tokens upload nothing."""
+        key = (tuple(self.disallowed_tokens or ()),
+               None if constraints is None else tuple(
+                   np.asarray(constraints).reshape(-1).tolist()))
+        cached = getattr(self, "_bias_cache", None)
+        if cached is None or cached[0] != key:
+            self._bias_cache = cached = (key, self._logit_bias(constraints))
+        return cached[1]
+
+    def _loop_run(self, n: int, settings, mask,
+                  constraints=None) -> np.ndarray:
+        """n steps of :class:`DecodeLoop` from the sequence's last token,
+        under ``settings``, ``mask`` and the bias of ``constraints``;
+        advances the cache's cursor and returns the tokens, np [B, n],
+        fetched to the host once."""
+        past = self.cache.current_seq_len
+        assert past + n <= self.cache.max_seq_len, (past, n)
+        out = self._loop.run(
+            n, torch.from_numpy(self.sequence[:, -1:].copy()), past,
+            self.sequence.shape[1],
+            sampler=(settings, self.tokenizer.bos_token_id), mask=mask,
+            bias=self._loop_bias(constraints),
+            lora=None if self.lora is None else self.lora.stacked,
+        )
+        toks = out.cpu().numpy().astype(np.int32)
+        self.cache.current_seq_len = past + n
+        return toks
+
     def gen_single_token(self, constraints=None, mask=None) -> np.ndarray:
-        """Forward the last token -> penalty -> sample -> accept. Returns np
-        [B, 1] tokens. With ``constraints`` (allowed token ids) the bias
-        forces the token into that set and min_p rises by 0.01; with an
-        empty sequence the token is ``constraints[0]`` (or BOS)."""
+        """Forward the last token -> penalty -> sample -> accept: one step
+        of :class:`DecodeLoop` (forward and sampler in one graph on the
+        card). Returns np [B, 1] tokens. With ``constraints`` (allowed
+        token ids) the bias forces the token into that set and min_p rises
+        by 0.01 (operands: a new set of tokens captures no new graph, but
+        the first step with constraints after one without, or the other way
+        round, starts a new epoch of the loop); with an empty sequence the
+        token is ``constraints[0]`` (or BOS). ``mask`` overrides the
+        input mask for this step."""
         self.end_beam_search()
         if self.sequence is None:
             first = (self.tokenizer.bos_token_id if constraints is None
@@ -486,19 +492,12 @@ class ExLlamaGenerator:
             token = np.array([[first]], np.int32)
             self.gen_accept_token(token)
             return token
-        logits = self.model.forward(
-            self.sequence[:, -1:], self.cache,
-            input_mask=self._mask if mask is None else self._as_mask(mask),
-            lora=self.lora,
-        )
         s = self.settings
         if constraints is not None:
             s = dataclasses.replace(s, min_p=s.min_p + 0.01)
-        tokens = _sample_step(
-            logits, self._seq_buf, self.sequence.shape[1], self.generator,
-            s, self.tokenizer.bos_token_id, self._logit_bias(constraints),
-        )
-        token = tokens.cpu().numpy().reshape(-1, 1)
+        token = self._loop_run(
+            1, s, self._mask if mask is None else self._as_mask(mask),
+            constraints)
         self.gen_accept_token(token)
         return token
 
@@ -515,17 +514,7 @@ class ExLlamaGenerator:
         their padding."""
         self.end_beam_search()
         assert self.sequence is not None and self.sequence.shape[1] > 0
-        past = self.cache.current_seq_len
-        assert past + n <= self.model.config.max_seq_len, (past, n)
-        out = self._loop.run(
-            n, torch.from_numpy(self.sequence[:, -1:].copy()), past,
-            self.sequence.shape[1],
-            sampler=(self.settings, self.tokenizer.bos_token_id),
-            mask=self._mask, bias=self._logit_bias(),
-            lora=None if self.lora is None else self.lora.stacked,
-        )
-        toks = out.cpu().numpy().astype(np.int32)                # [B, n]
-        self.cache.current_seq_len = past + n
+        toks = self._loop_run(n, self.settings, self._mask)
         self.sequence = np.concatenate([self.sequence, toks], axis=1)
         self.sequence_actual = self.sequence
         return toks
@@ -711,28 +700,15 @@ class ExLlamaGenerator:
 
     def _beam_step(self, n_out: int):
         """One lookahead step: a batched forward of every beam over the beam
-        cache at its int cursor, the penalty over each beam's history, the
-        filter, a joint top-k over [n * V] by cumulative log-prob, and the
-        beam cache's rows gathered by parent. The host fetches 3 * n_out
-        numbers (parents, tokens, scores), not [n, V] probabilities."""
-        cfg, t = self.model.config, self.model.config.tuning
+        cache (``ExLlama.forward``: a graph per beam count on the card),
+        the penalty over each beam's history, the filter, a joint top-k
+        over [n * V] by cumulative log-prob, and the beam cache's rows
+        gathered by parent, in place. The host fetches 3 * n_out numbers
+        (parents, tokens, scores), not [n, V] probabilities."""
         n = self._beam_seqs.shape[0]
-        past = self._beam_cache.current_seq_len
         hist, hist_len = self._beam_hist(n)
-        toks = torch.from_numpy(self._beam_seqs[:, -1:].copy()).to(
-            self.model.device)
-        logits = forward_chunk(
-            self.model.params, self._beam_cache, toks, past, None,
-            attend_len=self.model._attend_len(past + 1),
-            last_token_only=True, preprocess_only=False,
-            heads=cfg.num_attention_heads, kv_heads=cfg.num_key_value_heads,
-            head_dim=cfg.head_dim, eps=cfg.rms_norm_eps,
-            mlp_fuse=t.fuse_mlp, attn_fuse=t.fuse_attn, qkv_fuse=t.fuse_qkv,
-            commit_impl=t.commit_impl, matmul_impl=t.matmul_impl,
-            attn_impl=t.attn_impl,
-            lora=None if self.lora is None else self.lora.stacked,
-        )
-        self._beam_cache.current_seq_len = past + 1
+        logits = self.model.forward(self._beam_seqs[:, -1:],
+                                    self._beam_cache, lora=self.lora)
         probs = self._beam_filter(logits, hist, hist_len)
         v = probs.shape[1]
         lps = torch.from_numpy(self._beam_lps.astype(np.float32)).to(
@@ -778,12 +754,17 @@ class ExLlamaGenerator:
                 self._beam_seqs = toks[:k, None]
                 self._beam_lps = lps[:k]
 
-                # beam cache: the main cache's prefix broadcast to k rows
-                if (self._beam_cache is None
-                        or self._beam_cache.batch_size != k):
-                    self._beam_cache = ExLlamaCache(
-                        self.model, batch_size=k,
+                # beam cache: the main cache's prefix broadcast to k rows;
+                # its storage (n_beams rows) is kept between beam searches,
+                # so that the graphs captured on it replay
+                store = self._beam_store
+                if (store is None or store.capacity < n_beams
+                        or store.max_seq_len != self.cache.max_seq_len):
+                    store = self._beam_store = ExLlamaCache(
+                        self.model, batch_size=n_beams,
                         max_seq_len=self.cache.max_seq_len)
+                store.keep_rows(k)
+                self._beam_cache = store
                 pref = self.cache.current_seq_len
                 self.cache.copy_states(
                     self._beam_cache, 0, pref, 0, pref,

@@ -274,6 +274,9 @@ def scratch_in_use(dev) -> list:
     from exllama_tpu_torch.ops import attention, dense, quant
 
     dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        # filed under the tensors' device, which has its index
+        dev = torch.device("cuda", torch.cuda.current_device())
     held = [*attention._SCRATCH.get(dev, ()), *quant._GEMV_SCRATCH.get(dev, ())]
     keys = dense._HEAD_KEYS.get(dev)
     return held + ([keys] if keys is not None else [])

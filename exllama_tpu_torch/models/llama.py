@@ -31,9 +31,11 @@ would skip it off, as the JAX gates do: any adapter refuses K7's whole-layer
 launch, an adapted o K7 altogether (K3 then attends and K1 projects), an
 adapted gate / up / down K6 and K7's MLP phases, and an adapted q / k / v
 takes the input norm out of K1's prologue (the adapter reads the same normed
-x). Everything between kernels is plain tensor code. PyTorch
-runs eagerly, so there is no jit: the layer loop is a Python loop and the
-cache is updated in place. On a mesh (``parallel.mesh``) each rank runs the
+x). Everything between kernels is plain tensor code, and the cache is
+updated in place. ``ExLlama.forward`` is the counterpart of the JAX
+package's jitted ``forward_chunk``: on the card each chunk of up to
+``GRAPH_MAX_T`` rows replays a CUDA graph captured at its first call (see
+``ExLlama.forward``). On a mesh (``parallel.mesh``) each rank runs the
 same forward on its shard: local heads, the separate kernels (K1 and K3 a
 step, K2 and K3 a prefill; K6 / K7 off), one all-reduce after o and one
 after down, and the batch split over dp (``forward_chunk``).
@@ -57,6 +59,7 @@ from exllama_tpu_torch.formats.gptq import (
     with_w8,
     with_w8_scale,
 )
+from exllama_tpu_torch.graphs import one_rank
 from exllama_tpu_torch.ops.attention import (
     attend,
     attend_xla,
@@ -177,8 +180,11 @@ def _decoder_layer(
     rows_out=None,
     lora=None,
     tp_group=None,
+    valid_rows: Optional[torch.Tensor] = None,
 ):
     """One decoder layer (exllama_tpu/models/llama.py:_decoder_layer).
+    ``valid_rows``: a padded chunk's count of real rows, a [1] int device
+    tensor; only those are written into the cache.
     ``lora``: the layer's ``lora.LayerLora`` or None. ``tp_group``: the
     tensor-parallel group of a rank's shard (``heads`` / ``kv_heads`` are
     then the rank's): o and down give partial sums, each all-reduced once
@@ -290,7 +296,7 @@ def _decoder_layer(
     else:
         # the chunk is quantized as it is written and attended from the
         # cache: its queries see their own keys quantized (llama.py:328)
-        update_kv_cache(kc, vc, k, v, past_len, ksc, vsc)
+        update_kv_cache(kc, vc, k, v, past_len, ksc, vsc, valid_rows)
         attn = attend_fn(q, kc, vc, past_len, attend_len, input_mask,
                          k_scale=ksc, v_scale=vsc)
     if attn is not None:
@@ -425,6 +431,7 @@ def _forward_rank(
     attn_impl: str = "auto",
     lora=None,
     tp_group=None,
+    valid_rows: Optional[torch.Tensor] = None,
 ):
     """One forward chunk over all layers on one rank (exllama_tpu/models/
     llama.py:_forward_impl): embedding -> layers -> final
@@ -442,7 +449,10 @@ def _forward_rank(
     ``attn_impl`` are the JAX package's knobs; ``matmul_impl`` defaults to
     the exact kernels, ``attn_impl`` to K3 where it takes the head dim.
     ``lora``: an adapter's per-layer ``LayerLora`` list
-    (``ExLlamaLora.stacked``) or None."""
+    (``ExLlamaLora.stacked``) or None. ``valid_rows``: for a chunk padded
+    past its real rows, their count as a [1] int64 device tensor: only
+    they are written into the cache, and ``last_token_only`` keeps the
+    last of them."""
     if head_mode not in ("logits", "argmax"):
         raise ValueError(f"head_mode {head_mode!r}")
     b, t = tokens.shape
@@ -481,6 +491,7 @@ def _forward_rank(
             mlp_fuse=mlp_fuse, attn_fuse=attn_fuse, qkv_fuse=qkv_fuse,
             matmul_impl=matmul_impl, attn_impl=attn_impl, rows_out=rows,
             lora=None if lora is None else lora[li], tp_group=tp_group,
+            valid_rows=valid_rows,
         )
         k_rows.append(k_row)
         v_rows.append(v_row)
@@ -500,7 +511,8 @@ def _forward_rank(
     if preprocess_only:
         return None
     if last_token_only:
-        h = h[:, -1:, :]
+        h = (h[:, -1:, :] if valid_rows is None
+             else h.index_select(1, valid_rows - 1))
     if isinstance(params.lm_head, QuantTensor):
         # llama.py:581-588: K1 at <= 32 rows, K2 above ("xla": plain)
         logits = q4_matmul(rms_norm(h, params.norm, eps), params.lm_head,
@@ -591,6 +603,21 @@ def _attach_prefill_w8(params: ModelParams, config,
     return dataclasses.replace(params, layers=layers)
 
 
+# chunks of up to this many rows replay a captured graph (the engine's
+# admission chunk, a speculative verify, every decode step); longer ones
+# (prompt prefill) run eagerly
+GRAPH_MAX_T = 64
+# a chunk of more rows than this is padded to the next power of two (16, 32
+# or 64), so that fed turns of any length share a few graphs
+GRAPH_EXACT_T = 8
+
+
+def graph_rows(t: int) -> int:
+    """The rows a graphed chunk of ``t`` rows runs at: ``t`` up to
+    GRAPH_EXACT_T, else the next power of two."""
+    return t if t <= GRAPH_EXACT_T else 1 << (t - 1).bit_length()
+
+
 class ExLlama:
     """Model wrapper: owns params + config, exposes ``forward``.
 
@@ -598,7 +625,9 @@ class ExLlama:
     fails rather than falling back to the CPU. ``mesh``
     (``parallel.mesh.make_mesh``): this rank loads (or, given whole
     ``params``, keeps) its shard, ``parallel.mesh.shard_params``; params
-    that are already a rank's shard carry their mesh.
+    that are already a rank's shard carry their mesh. ``capture = False``
+    runs every step of the model eagerly: ``forward``'s chunks, and the
+    ``generator.DecodeLoop`` and ``serve.engine`` steps over it.
     """
 
     def __init__(
@@ -633,6 +662,7 @@ class ExLlama:
             params = _attach_prefill_w8(
                 params, config, 1 if self.mesh is None else self.mesh.tp)
         self.params = params
+        self.capture = True
 
     def _attend_len(self, upto: int) -> int:
         bucket = self.config.tuning.attn_len_bucket
@@ -670,9 +700,33 @@ class ExLlama:
     ):
         """Chunked forward. Advances ``cache.current_seq_len`` and writes the
         cache in place. Returns f32 logits [B, 1, vocab] / [B, T, vocab], or
-        None with ``preprocess_only``."""
+        None with ``preprocess_only``.
+
+        Each chunk of up to ``GRAPH_MAX_T`` rows is the counterpart of the
+        JAX package's jitted ``forward_chunk`` (exllama_tpu/models/
+        llama.py:621-641, called at :974): one step function that reads
+        its position from ``cache.cursor`` and its tokens and mask from
+        static buffers. On the card it replays a ``torch.cuda.CUDAGraph``
+        per key -- B, the rows, ``attend_len``, ``last_token_only``,
+        ``preprocess_only``, the mask's shape, the adapter's identity, the
+        forward knobs and the parameters -- held in ``cache.graphs``
+        (``graphs.GraphTable``: the first call of a key runs eagerly, then
+        is captured). A chunk of more than ``GRAPH_EXACT_T`` rows runs at
+        ``graph_rows`` (16, 32 or 64), its tokens padded with id 0 where
+        the cache has room: the pad rows sit after the chunk's own, so no
+        real row attends to them, and the count of real rows is an operand,
+        so only those are written into the cache and the last of them gives
+        the logits of ``last_id_only``. The host checks the position first,
+        so a chunk outside the cache raises. The output lives in the
+        graph's pool and the next replay overwrites it, so the logits
+        returned are a copy. On the CPU and with ``capture = False`` the same step runs
+        eagerly, padded alike; on a mesh of more than one rank the chunk
+        runs at an int cursor, eagerly, unpadded. The one deviation from
+        the JAX package, which compiles every shape: a chunk of more than
+        ``GRAPH_MAX_T`` rows (a prompt's prefill) runs eagerly at an int
+        cursor, since a prompt length is seldom repeated and its matmuls
+        (K2) and attention (K3) take most of its time."""
         cfg = self.config
-        tune = cfg.tuning
         tokens = torch.as_tensor(input_ids, dtype=torch.int32).to(self.device)
         if input_mask is not None:
             input_mask = torch.as_tensor(input_mask, dtype=torch.bool).to(
@@ -694,23 +748,11 @@ class ExLlama:
                 )
                 chunk = max(min(chunk, cs), 1)
             is_last = start + chunk >= q_len
-            logits = forward_chunk(
-                self.params, cache, tokens[:, start : start + chunk], past,
-                input_mask,
-                attend_len=self._attend_len(past + chunk),
+            logits = self._chunk(
+                cache, tokens[:, start : start + chunk], past, input_mask,
+                lora=None if lora is None else lora.stacked,
                 last_token_only=last_id_only,
                 preprocess_only=preprocess_only and is_last or not is_last,
-                heads=cfg.num_attention_heads,
-                kv_heads=cfg.num_key_value_heads,
-                head_dim=cfg.head_dim,
-                eps=cfg.rms_norm_eps,
-                mlp_fuse=tune.fuse_mlp,
-                attn_fuse=tune.fuse_attn,
-                qkv_fuse=tune.fuse_qkv,
-                commit_impl=tune.commit_impl,
-                matmul_impl=tune.matmul_impl,
-                attn_impl=tune.attn_impl,
-                lora=None if lora is None else lora.stacked,
             )
             cache.current_seq_len += chunk
             if is_last:
@@ -718,3 +760,62 @@ class ExLlama:
             start += chunk
             remaining -= chunk
         return result
+
+    def _chunk_kwargs(self, **kw) -> dict:
+        cfg = self.config
+        tune = cfg.tuning
+        return dict(
+            heads=cfg.num_attention_heads,
+            kv_heads=cfg.num_key_value_heads,
+            head_dim=cfg.head_dim,
+            eps=cfg.rms_norm_eps,
+            mlp_fuse=tune.fuse_mlp,
+            attn_fuse=tune.fuse_attn,
+            qkv_fuse=tune.fuse_qkv,
+            commit_impl=tune.commit_impl,
+            matmul_impl=tune.matmul_impl,
+            attn_impl=tune.attn_impl,
+            **kw,
+        )
+
+    def _chunk(self, cache: ExLlamaCache, tokens: torch.Tensor, past: int,
+               input_mask, **kw):
+        """One chunk of ``forward``: the graph of its key replayed (captured
+        at the key's first call), the same step eagerly, or (T >
+        GRAPH_MAX_T, a mesh) ``forward_chunk`` at the int cursor."""
+        t = tokens.shape[1]
+        if t > GRAPH_MAX_T or not one_rank(self):
+            return forward_chunk(self.params, cache, tokens, past, input_mask,
+                                 **self._chunk_kwargs(
+                                     attend_len=self._attend_len(past + t),
+                                     **kw))
+        # the host checks the position that the step reads on the device
+        if not (0 <= past and past + t <= cache.max_seq_len):
+            raise ValueError(f"forward: {t} rows at position {past} outside "
+                             f"the cache ({cache.max_seq_len})")
+        rows = graph_rows(t)
+        if past + rows > cache.max_seq_len:
+            rows = t
+        tokens = F.pad(tokens, (0, rows - t))
+        valid = None
+        if rows > GRAPH_EXACT_T:
+            valid = torch.full((1,), t, dtype=torch.long,
+                               device=tokens.device)
+        kw = self._chunk_kwargs(attend_len=self._attend_len(past + rows),
+                                **kw)
+        cache.cursor.fill_(past)
+        key = (tuple(tokens.shape),
+               None if input_mask is None else tuple(input_mask.shape),
+               tuple(sorted((k, id(v) if k == "lora" else v)
+                            for k, v in kw.items())),
+               id(self.params))
+
+        def step(tokens, mask, valid):
+            return forward_chunk(self.params, cache, tokens, cache.cursor,
+                                 mask, valid_rows=valid, **kw)
+
+        out = cache.graphs.run(self, key, step, tokens, input_mask, valid,
+                               keep=(kw.get("lora"),))
+        if out is not None and not kw["last_token_only"]:
+            out = out[:, :t]
+        return out

@@ -147,12 +147,15 @@ def unpack_kv4(packed: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
     return torch.cat([lo, hi], dim=-1)
 
 
-def _write_at(cache, new, past_len):
+def _write_at(cache, new, past_len, valid=None):
     """new [B, T, Hkv, ...] into cache [B, Hkv, S, ...] at ``past_len``, in
     place. An int cursor is one slice write, and one outside the cache
     raises. A [1] / [B] tensor cursor is one indexed write that reads it on
     the device (no host sync); a row whose T positions do not lie in
-    [0, S) is left as it was, as K8 (``kv_commit``) leaves it.
+    [0, S) is left as it was, as K8 (``kv_commit``) leaves it. ``valid``
+    (a [1] int tensor, read on the device): only the first ``valid`` of
+    the T positions are written, the others left as they were (a padded
+    chunk's pad rows).
 
     A stated deviation from the JAX package: its ``update_kv_cache``
     (attention.py:106-122) writes through a vmapped
@@ -162,23 +165,29 @@ def _write_at(cache, new, past_len):
     cache are written identically (tests/test_torch_knobs.py pins both)."""
     b, t, hkv = new.shape[:3]
     new = new.transpose(1, 2)
-    if isinstance(past_len, int):
-        cache[:, :, past_len : past_len + t] = new
-        return
     dev = cache.device
+    if isinstance(past_len, int):
+        if valid is None:
+            cache[:, :, past_len : past_len + t] = new
+            return
+        past_len = torch.full((1,), past_len, dtype=torch.long, device=dev)
     p = past_len.to(device=dev, dtype=torch.long).reshape(-1, 1, 1)
     inside = (p >= 0) & (p + t <= cache.shape[2])             # [1|B, 1, 1]
     pos = torch.where(inside, p, 0) + torch.arange(t, device=dev)
     rows = torch.arange(b, device=dev).reshape(b, 1, 1)
     heads = torch.arange(hkv, device=dev).reshape(1, hkv, 1)
+    if valid is not None:                                     # [1|B, 1, T]
+        inside = inside & (torch.arange(t, device=dev)
+                           < valid.to(dev).reshape(-1, 1, 1))
     keep = inside.reshape(*inside.shape, *[1] * (new.dim() - 3))
     cache[rows, heads, pos] = torch.where(keep, new, cache[rows, heads, pos])
 
 
 def update_kv_cache(k_cache, v_cache, new_k, new_v, past_len, k_scale=None,
-                    v_scale=None):
+                    v_scale=None, valid=None):
     """Write T new rows [B, T, Hkv, D] at position ``past_len`` (an int or a
-    [1] / [B] tensor: ``_write_at``). For a quantized cache (``k_scale`` / ``v_scale`` given; int4
+    [1] / [B] tensor: ``_write_at``), with ``valid`` the first ``valid``
+    of them only. For a quantized cache (``k_scale`` / ``v_scale`` given; int4
     where the cache is narrower than the rows) the rows are quantized per
     (token, head) and the scales written alongside. Updates the tensors IN
     PLACE (the JAX version is functional and relies on buffer donation) and
@@ -189,12 +198,12 @@ def update_kv_cache(k_cache, v_cache, new_k, new_v, past_len, k_scale=None,
         for cache, scale, new in ((k_cache, k_scale, new_k),
                                   (v_cache, v_scale, new_v)):
             q, s = quant(new)
-            _write_at(cache, q, past_len)
-            _write_at(scale, s, past_len)
+            _write_at(cache, q, past_len, valid)
+            _write_at(scale, s, past_len, valid)
         return k_cache, v_cache, k_scale, v_scale
     kv_mode(k_cache, new_k.shape[-1], None)
-    _write_at(k_cache, new_k, past_len)
-    _write_at(v_cache, new_v, past_len)
+    _write_at(k_cache, new_k, past_len, valid)
+    _write_at(v_cache, new_v, past_len, valid)
     return k_cache, v_cache, None, None
 
 

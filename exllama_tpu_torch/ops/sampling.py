@@ -12,9 +12,13 @@ exllama_tpu/ops/sampling.py).
 Randomness comes from an explicit ``torch.Generator``; its draws differ from
 JAX's PRNG for the same seed, so tests compare the deterministic parts.
 Everything here runs on the device without a host read, so a CUDA graph can
-capture it (``generator.DecodeLoop``): the sampler settings are Python
-numbers, fixed in the capture, and ``torch.multinomial`` draws from the
-generator registered with the graph, the same numbers as eagerly.
+capture it, and ``torch.multinomial`` draws from the generator registered
+with the graph, the same numbers as eagerly. The captured steps take the
+sampler's values as a device operand (:func:`settings_operand`, sampled by
+:func:`sample_operands`): temperature, top-k, top-p, min-p, typical and the
+penalty, as the JAX ``_sample_step`` traces them, so a new value is a copy
+into the operand and recaptures nothing; the penalty's sustain and decay
+stay Python numbers (static in the JAX package too).
 """
 
 from __future__ import annotations
@@ -163,6 +167,58 @@ def sample(
                       settings.top_p, settings.min_p, settings.typical)
     tokens = torch.multinomial(sp, 1, generator=generator)[:, 0]
     return tokens.to(torch.int32), sp.gather(1, tokens[:, None])[:, 0]
+
+
+# the settings a captured step reads from its device operand, in its order
+OPERAND_FIELDS = ("temperature", "top_k", "top_p", "min_p", "typical",
+                  "token_repetition_penalty_max")
+
+
+def settings_operand(settings: SamplerSettings, device,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The values of ``settings`` named by OPERAND_FIELDS as an f32 [6]
+    tensor on ``device``, copied into ``out`` (in place) where it is
+    given."""
+    vals = torch.tensor([float(getattr(settings, f)) for f in OPERAND_FIELDS],
+                        dtype=torch.float32)
+    if out is None:
+        return vals.to(device)
+    return out.copy_(vals)
+
+
+def filter_operands(logits: torch.Tensor, ops: torch.Tensor,
+                    typical: bool = True) -> torch.Tensor:
+    """:func:`filter_rows` of [B, V] f32 logits under the settings of the
+    device operand ``ops`` (:func:`settings_operand`), the same for every
+    row: normalized probabilities [B, V]. ``typical=False`` leaves the
+    typical stage out (the JAX ``lax.cond(typical > 0)``); the caller
+    knows the setting to be 0."""
+    return filter_rows(logits, ops[0:1], ops[1:2], ops[2:3], ops[3:4],
+                       ops[4:5] if typical else 0.0)
+
+
+def sample_operands(
+    logits: torch.Tensor,             # [B, V] f32, penalties applied
+    generator: torch.Generator,
+    ops: torch.Tensor,                # [6] f32: settings_operand
+    logit_bias: Optional[torch.Tensor] = None,  # [B, V] or [V] additive
+    typical: bool = True,
+) -> torch.Tensor:
+    """:func:`sample` with the settings read from the device operand
+    ``ops`` (the JAX ``_sample_step`` / ``_sample_grid`` with traced
+    settings): every stage of :func:`filter_rows` runs and a disabled one
+    leaves the distribution as it was, but for typical sampling, which
+    ``typical=False`` leaves out (as the JAX step's ``lax.cond`` does). A row at top-k 1 returns the argmax
+    of the biased logits, bit for bit (the filter's one candidate can
+    differ from it only by a tie in the f32 softmax); the draw is made
+    either way, so the generator advances alike. Returns int32 [B]."""
+    lg = logits.to(torch.float32)
+    if logit_bias is not None:
+        lg = lg + logit_bias
+    sp = filter_operands(lg, ops, typical)
+    drawn = torch.multinomial(sp, 1, generator=generator)[:, 0]
+    best = torch.argmax(lg, dim=-1)
+    return torch.where(ops[1] == 1, best, drawn).to(torch.int32)
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:

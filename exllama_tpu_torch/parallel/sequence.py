@@ -38,7 +38,6 @@ from exllama_tpu_torch.ops import full_f32_matmul
 from exllama_tpu_torch.ops.attention import (
     MASK_VALUE,
     _past_tensor,
-    kv_ptr_array,
     quantize_kv_rows,
     quantize_kv_rows4,
     unpack_kv4,
@@ -239,8 +238,7 @@ def shard_cache_sp(cache, mesh: Mesh):
     for ts in cache._tensor_lists():
         ts[:] = [t[:, :, lo:lo + per].contiguous() for t in ts]
     cache.shape = cache.shape[:2] + (per,) + cache.shape[3:]
-    cache.kv_ptrs = kv_ptr_array(cache.k, cache.v, cache.k_scale,
-                                 cache.v_scale)
+    cache._adopt_storage()          # new tensors: kv_ptrs, no graphs
     return cache
 
 

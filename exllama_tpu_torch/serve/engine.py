@@ -16,20 +16,21 @@ decode, per-slot sampler settings and LoRA adapters, stop strings.
     between steps and are refreshed from the host only when the slot map
     changes;
   * on the card that step is one ``torch.cuda.CUDAGraph`` per attend-length
-    bucket, captured by ``generator.capture_step`` (the recipe of
+    bucket, captured and replayed by a ``graphs.GraphTable`` (as in
     ``generator.DecodeLoop``) under an epoch of the static choices: penalty
     on or off, greedy-all, the candidate cap, the adapter on or off with
     the stacked adapter's identity and rank, the forward knobs and the
     parameters. The pending tokens, cursors, lengths, active flags, sampler
     vectors, bias, history and stacked adapter are static buffers that the
     host copies into when the slot map changes; each replay adds its
-    captured launch counts to the counters. Admission chunks and the
-    speculative step run eagerly. ``capture = False`` (and the CPU) runs
-    the same step eagerly;
+    captured launch counts to the counters. The model's ``capture =
+    False``, the CPU and a mesh of more than one rank run the same step
+    eagerly;
   * admission prefill is chunked: each ``step()`` runs at most one
     ``prefill_bucket``-token chunk of one request into a B = 1 scratch
     cache (``ExLlama.forward(preprocess_only=True)`` under the request's
-    adapter), and the finished prompt is copied into its slot with
+    adapter: on the card a graph per chunk key on the scratch cache,
+    models/llama.py), and the finished prompt is copied into its slot with
     ``ExLlamaCache.copy_states`` (int8 / int4 scales included);
   * per-request LoRA: adapters registered once (``register_lora``) are
     stacked per slot as [slots, in, rmax] / [slots, rmax, out] (zero rows
@@ -41,11 +42,13 @@ decode, per-slot sampler settings and LoRA adapters, stop strings.
     freed at a stop token, a stop string, ``max_new_tokens`` or the end of
     the cache;
   * speculative mode (``spec_proposer=NgramProposer()``): each step drafts
-    up to ``spec_lookahead`` tokens per slot on the host, verifies them in
-    one K+1-token forward at the [B] cursor, samples the target at every
-    position, accepts the matching prefix on the device, writes the
-    history under a mask and reads one packed result. It runs eagerly (its
-    graph is a later item of ROADMAP.md queue 2).
+    up to ``spec_lookahead`` tokens per slot on the host and uploads them
+    (with each slot's draft length) into a static buffer in one copy; the
+    device step -- one K+1-token forward at the [B] cursor, the target
+    sampled at every position, the matching prefix accepted, the history
+    written under a mask, the cursors advanced and the result packed --
+    is one graph per (epoch, attend-length bucket, K), the counterpart of
+    the JAX ``_engine_spec_step``; then one packed read.
 
 Threads and streams: the engine's forwards, admissions, captures and
 replays all run on the one thread that calls ``step()``, in the order it
@@ -72,8 +75,9 @@ logits over dp, so every rank samples every slot, from the same seeded
 generator, alike. Admission chunks run on every replica into the B = 1
 scratch (heads split, rows whole) and a finished prompt is copied into the
 slot's row by the replica that owns it. The decode step runs eagerly
-there (``generator.DecodeLoop`` says why). A relay of HTTP submissions
-from one rank to the others is the front ends' part, not done yet.
+there (``generator.DecodeLoop`` says why), as do the admission chunks. The
+front ends relay their submissions from rank 0 to the other ranks
+(``parallel.relay``).
 """
 
 from __future__ import annotations
@@ -86,9 +90,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from exllama_tpu_torch import kernels
 from exllama_tpu_torch.cache import ExLlamaCache
-from exllama_tpu_torch.generator import capture_step
+from exllama_tpu_torch.graphs import GraphTable
 from exllama_tpu_torch.lora import _PROJ_NAMES, LayerLora
 from exllama_tpu_torch.models.llama import forward_chunk
 from exllama_tpu_torch.ops.sampling import (
@@ -212,7 +215,6 @@ class ContinuousBatchingEngine:
         self.cache = ExLlamaCache(model, batch_size=max_slots)
         self.scratch = ExLlamaCache(model, batch_size=1)
         self._rows = local_batch_slice(max_slots, self.mesh)
-        self._ranks = 1 if self.mesh is None else self.mesh.tp * self.mesh.dp
         self.generator = torch.Generator(device=dev).manual_seed(seed)
 
         s_max = cfg.max_seq_len
@@ -245,6 +247,10 @@ class ContinuousBatchingEngine:
         bos = getattr(tokenizer, "bos_token_id", 1) if tokenizer else 1
         self._bias[:, bos] = -10000.0
         self._packed = torch.zeros((3, max_slots), **i32)  # tokens, pos, lens
+        # the speculative step's static buffers, one pair per K + 1: in
+        # [B, 2K + 2] (pending token and K drafts, the K drafts, the draft
+        # length), out [B, K + 4] (K + 1 tokens, count, cursor, length)
+        self._spec_bufs: dict = {}
         self._sched_dirty = True
         self._use_rep = False
         self._greedy_all = True
@@ -257,11 +263,9 @@ class ContinuousBatchingEngine:
         self._lora_rank = 0
         self._lora_on = False
 
-        # the decode step's graphs: {(epoch, attend_len): (graph, counts,
-        # what it keeps alive)}; one stream and one pool for all of them
-        self.capture = True
-        self.graphs: dict = {}
-        self._stream = self._pool = None
+        # the decode and speculative steps' graphs, by (epoch, attend_len)
+        # and (epoch, attend_len, K + 1)
+        self.graphs = GraphTable()
 
     # --------------------------------------------------------------- LoRA
 
@@ -510,8 +514,8 @@ class ContinuousBatchingEngine:
             return best
         rows = lg.reshape(-1, vocab)
         sets = self._settings[:5]
-        if k1:
-            sets = sets.repeat_interleave(k1, dim=1)
+        if k1:          # each slot's settings at each of its k1 positions
+            sets = sets[:, :, None].expand(-1, -1, k1).reshape(len(sets), -1)
         drawn = filter_sample_rows(rows, self.generator, *sets,
                                    candidate_cap=self.sampler_candidate_cap)
         # a row at top-k 1 keeps the argmax (the filter's one candidate up
@@ -537,30 +541,24 @@ class ContinuousBatchingEngine:
 
     def _run_decode(self, attend_len: int):
         """The decode step: replayed from its graph, captured at the first
-        step of a new (epoch, bucket), or eager (CPU, ``capture=False``)."""
+        step of a new (epoch, bucket), or eager (``graphs.eager``)."""
         kw = self._forward_kwargs()
-        dev = self._tok.device
-        if not (self.capture and dev.type == "cuda") or self._ranks > 1:
-            self._decode_step(attend_len, kw)
-            return
+        self._run_graph((attend_len,),
+                        lambda: self._decode_step(attend_len, kw))
+
+    def _run_graph(self, key: tuple, step):
+        """``step()`` replayed from the graph of (epoch, ``key``), captured
+        at its first call, or run eagerly (``graphs.eager``: the CPU, the
+        model's ``capture = False``, a mesh of more than one rank)."""
         epoch = (self._use_rep, self._greedy_all, self.sampler_candidate_cap,
                  self._lora_on, id(self._lora_stack) if self._lora_on else None,
                  self._lora_rank if self._lora_on else 0,
-                 tuple(sorted(kw.items())), id(self.model.params))
-        entry = self.graphs.get((epoch, attend_len))
-        if entry is not None:
-            entry[0].replay()
-            kernels.add_launches(entry[1])
-            return
-        if self._stream is None:
-            self._stream = torch.cuda.Stream(dev)
-            self._pool = torch.cuda.graph_pool_handle()
-        graph, counts = capture_step(
-            lambda: self._decode_step(attend_len, kw), dev, self._stream,
-            self._pool, None if self._greedy_all else self.generator)
-        self.graphs[(epoch, attend_len)] = (
-            graph, counts, (kernels.scratch_in_use(dev), self.model.params,
-                            self._lora_stack if self._lora_on else None))
+                 tuple(sorted(self._forward_kwargs().items())),
+                 id(self.model.params))
+        self.graphs.run(
+            self.model, (epoch, *key), step,
+            generator=None if self._greedy_all else self.generator,
+            keep=(self._lora_stack if self._lora_on else None,))
 
     def _retire(self, slot: int, req: Request, tok: int) -> bool:
         """Account one emitted token of ``req``; True if it finishes."""
@@ -629,10 +627,9 @@ class ContinuousBatchingEngine:
         return results
 
     def _step_spec(self, active, max_pos) -> list[tuple[Request, int, bool]]:
-        """Speculative step: host-side drafts per slot, one batched K+1
-        verify forward at the [B] cursor, target samples at every position,
-        the accepted prefix (+ the correction) committed on the device, one
-        packed read."""
+        """Speculative step: host-side drafts per slot uploaded in one copy,
+        the device step (:meth:`_spec_device_step`, a graph per (epoch,
+        bucket, K)), one packed read."""
         cfg = self.model.config
         kd = self.spec_lookahead
         k1 = kd + 1
@@ -655,36 +652,16 @@ class ContinuousBatchingEngine:
         # buffers are refreshed from them every spec step
         self._upload(active)
         self._sched_dirty = True
-        dev_ints = torch.from_numpy(ints).to(self._tok.device)
-        tokens, draft = dev_ints[:, :k1], dev_ints[:, k1 : k1 + kd]
-        k_valid = dev_ints[:, -1]
-        logits = forward_chunk(
-            self.model.params, self.cache, tokens, self._cursor, None,
-            attend_len=attend_len, last_token_only=False,
-            preprocess_only=False,
-            lora=self._lora_stack if self._lora_on else None,
-            **self._forward_kwargs())
-        samples = self._sample(logits.to(torch.float32), k1)    # [B, K+1]
-
-        # prefix acceptance: position i survives while the target's sample
-        # equals the draft; m = the surviving prefix's length
-        i_k = torch.arange(kd, device=samples.device)[None, :]
-        match = (samples[:, :kd] == draft) & (i_k < k_valid[:, None])
-        m = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
-        corr = samples.gather(1, m[:, None].to(torch.int64))
-        i_all = torch.arange(k1, device=samples.device)[None, :]
-        draft_pad = torch.nn.functional.pad(draft, (0, 1))
-        out_tokens = torch.where(i_all < m[:, None], draft_pad, corr)
-        counts = (m + 1).to(torch.int32) * self._active
-        # masked history append: K+1 candidate rows, only counts of them
-        # real; cache rows past counts lie beyond the committed length and
-        # the next step's writes at the advanced cursor overwrite them
-        _put_rows(self._hist, self._lens, out_tokens, counts)
-        self._cursor.add_(counts)
-        self._lens.add_(counts)
-        packed = torch.cat([out_tokens.to(torch.int32), counts[:, None],
-                            self._cursor[:, None], self._lens[:, None]],
-                           dim=1).cpu().numpy()         # the ONE host read
+        bufs = self._spec_bufs.get(k1)
+        if bufs is None:
+            i32 = dict(dtype=torch.int32, device=self._tok.device)
+            bufs = self._spec_bufs[k1] = (torch.zeros(ints.shape, **i32),
+                                          torch.zeros((b, k1 + 3), **i32))
+        bufs[0].copy_(torch.from_numpy(ints))
+        kw = self._forward_kwargs()
+        self._run_graph((attend_len, k1), lambda: self._spec_device_step(
+            bufs, kd, attend_len, kw))
+        packed = bufs[1].cpu().numpy()                  # the ONE host read
         out_tokens = packed[:, :k1]
         counts = packed[:, k1]
         self.pos = packed[:, k1 + 1].copy()
@@ -708,6 +685,44 @@ class ContinuousBatchingEngine:
             if finished:
                 self._free(slot, req)
         return results
+
+    def _spec_device_step(self, bufs, kd: int, attend_len: int, kw: dict):
+        """The speculative step on the device, no host read (the JAX
+        ``_engine_spec_step``): one K+1-row forward at the [B] cursor from
+        ``bufs[0]``, the target sampled at every position under each slot's
+        settings and committed history's penalty, the longest prefix where
+        the samples equal the drafts accepted plus the target's token after
+        it, the history written under a mask, cursors and lengths advanced,
+        the result packed into ``bufs[1]``."""
+        k1 = kd + 1
+        ints, packed = bufs
+        tokens, draft = ints[:, :k1], ints[:, k1 : k1 + kd]
+        k_valid = ints[:, -1]
+        logits = forward_chunk(
+            self.model.params, self.cache, tokens, self._cursor, None,
+            attend_len=attend_len, last_token_only=False,
+            preprocess_only=False,
+            lora=self._lora_stack if self._lora_on else None, **kw)
+        samples = self._sample(logits.to(torch.float32), k1)    # [B, K+1]
+        # prefix acceptance: position i survives while the target's sample
+        # equals the draft; m = the surviving prefix's length
+        i_k = torch.arange(kd, device=samples.device)[None, :]
+        match = (samples[:, :kd] == draft) & (i_k < k_valid[:, None])
+        m = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        corr = samples.gather(1, m[:, None].to(torch.int64))
+        i_all = torch.arange(k1, device=samples.device)[None, :]
+        draft_pad = torch.nn.functional.pad(draft, (0, 1))
+        out_tokens = torch.where(i_all < m[:, None], draft_pad, corr)
+        counts = (m + 1).to(torch.int32) * self._active
+        # masked history append: K+1 candidate rows, only counts of them
+        # real; cache rows past counts lie beyond the committed length and
+        # the next step's writes at the advanced cursor overwrite them
+        _put_rows(self._hist, self._lens, out_tokens, counts)
+        self._cursor.add_(counts)
+        self._lens.add_(counts)
+        packed.copy_(torch.cat([out_tokens.to(torch.int32), counts[:, None],
+                                self._cursor[:, None], self._lens[:, None]],
+                               dim=1))
 
     def run(self) -> list[Request]:
         """Drain the queue and the active slots; returns finished

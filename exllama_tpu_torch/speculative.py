@@ -15,18 +15,22 @@ Two proposers:
     rewinding.
 
 Verification accepts by exact match: at every drafted position a token is
-sampled from the target's distribution (``ops.sampling.sample`` with the
-generator's ``torch.Generator``); the draft survives while it equals that
-sample. Emitted tokens are always samples of the target, so drafting
+sampled from the target's distribution (``ops.sampling.sample_operands``
+with the generator's ``torch.Generator``, the settings a device operand as
+the JAX ``_sample_grid`` traces them); the draft survives while it equals
+that sample. Emitted tokens are always samples of the target, so drafting
 changes the throughput, never the output distribution (greedy decoding
 accepts while the draft equals the argmax).
 
 The verify forward is ``model.forward(ids [1, k+1], cache,
-last_id_only=False)``: on the card K1 on its tensor-core route, K3's
-split-KV decode at T = k + 1 query rows over the cache, K6 at M = k + 1 and
-K4 at k + 1 rows. It appends k + 1 cache rows; after a partial acceptance
-the cursor rewinds to the committed length, and the stale rows past it are
-dead (the causal mask ignores them and the next forward overwrites them).
+last_id_only=False)``: on the card a CUDA graph per (k + 1, attend-length
+bucket) replayed (models/llama.py), holding K1 on its tensor-core route,
+K3's split-KV decode at T = k + 1 query rows over the cache, K6 at M = k +
+1 and K4 at k + 1 rows; the draft model's one-token forwards replay its
+own graphs the same way. It appends k + 1 cache rows; after a partial
+acceptance the cursor rewinds to the committed length, and the stale rows
+past it are dead (the causal mask ignores them and the next forward
+overwrites them).
 """
 
 from __future__ import annotations
@@ -35,7 +39,11 @@ import numpy as np
 import torch
 
 from exllama_tpu_torch.cache import ExLlamaCache
-from exllama_tpu_torch.ops.sampling import SamplerSettings, sample
+from exllama_tpu_torch.ops.sampling import (
+    SamplerSettings,
+    sample_operands,
+    settings_operand,
+)
 
 
 class NgramProposer:
@@ -123,12 +131,16 @@ class SpeculativeGenerator:
         self.lookahead = 8
         self.stats = {"drafted": 0, "accepted": 0, "forwards": 0,
                       "tokens": 0}
+        self._ops = settings_operand(self.settings, model.device)
 
     def _sample_positions(self, logits: torch.Tensor) -> np.ndarray:
         """One token a position from [T, V] target logits (the sampler,
-        no repetition penalty)."""
-        toks, _ = sample(logits, self.generator, self.settings)
-        return toks.cpu().numpy()
+        no repetition penalty), the settings copied into the device
+        operand first."""
+        settings_operand(self.settings, None, out=self._ops)
+        return sample_operands(logits, self.generator, self._ops,
+                               typical=self.settings.typical > 0
+                               ).cpu().numpy()
 
     def generate_tokens(self, ids: np.ndarray, max_new_tokens: int,
                         stop_tokens=()) -> np.ndarray:

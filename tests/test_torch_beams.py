@@ -138,7 +138,9 @@ def _cache_pair(kind, batch=3, seed=0, s_max=16):
             else:
                 a = rng.normal(size=tuple(t.shape)).astype(np.float32)
             t.copy_(torch.from_numpy(a))
-            arrays.append(jnp.asarray(t.float().numpy(), _jdtype(t)))
+            # a copy: jnp.asarray may alias an f32 numpy buffer on the CPU,
+            # and the port's take_rows writes its storage in place
+            arrays.append(jnp.asarray(t.float().numpy().copy(), _jdtype(t)))
         state[name] = tuple(arrays)
     jc.state = KVCacheState(**state)
     return jc, pc

@@ -240,11 +240,14 @@ def test_greedy_loop_equals_forward_chunk_argmax(pair, attend_len):
 
 
 def test_graphs_are_dropped_when_the_settings_change(pair):
-    """The loop's epoch: the same settings keep the graphs; a change of the
-    sampler settings or of the mask's presence starts a new epoch (no
-    graph kept), and so do disallow_tokens, gen_begin and reset. (The CPU
-    runs the step eagerly and captures nothing; a held entry stands in for
-    a graph.)"""
+    """The loop's epoch holds what the JAX package makes static: the same
+    settings keep the graphs, and so do new sampler values (top-k,
+    temperature, top-p, typical while it stays on: device operands), a new
+    set of disallowed or constrained tokens and gen_begin; setting a bias
+    where there was none, turning typical sampling on, a change of the
+    penalty's sustain or of the mask's presence start a new epoch (no graph
+    kept), and so does reset. (The CPU runs the step eagerly and captures
+    nothing; a held entry stands in for a graph.)"""
     pm = _port_model(pair[1])
     g = _gen(pm, top_k=1)
     g.gen_begin(_ids(20))
@@ -252,18 +255,33 @@ def test_graphs_are_dropped_when_the_settings_change(pair):
     g._loop.graphs[32] = "held"
     g.gen_tokens(1)
     assert g._loop.graphs == {32: "held"}
-    g.settings.top_k = 2
+    for keep in (lambda: setattr(g.settings, "top_k", 2),
+                 lambda: setattr(g.settings, "temperature", 0.5),
+                 lambda: setattr(g.settings, "top_p", 0.9),
+                 lambda: g.gen_begin(_ids(20))):
+        keep()
+        g.gen_tokens(1)
+        assert g._loop.graphs == {32: "held"}
+    for drop in (lambda: g.disallow_tokens([5]),
+                 lambda: setattr(g.settings, "typical", 0.2)):
+        drop()
+        g.gen_tokens(1)
+        assert g._loop.graphs == {}
+        g._loop.graphs[32] = "held"
+    for keep in (lambda: g.disallow_tokens([6]),
+                 lambda: g.gen_single_token(constraints=[7, 9]),
+                 lambda: setattr(g.settings, "typical", 0.3),
+                 lambda: g.gen_begin(_ids(20))):
+        keep()
+        g.gen_tokens(1)
+        assert g._loop.graphs == {32: "held"}
+    g.settings.token_repetition_penalty_sustain = 64
     g.gen_tokens(1)
     assert g._loop.graphs == {}
     g._loop.graphs[32] = "held"
     g._mask = torch.ones((1, 96), dtype=torch.bool)
     g.gen_tokens(1)
     assert g._loop.graphs == {}
-    for drop in (lambda: g.disallow_tokens([5]),
-                 lambda: g.gen_begin(_ids(20))):
-        g._loop.graphs[32] = "held"
-        drop()
-        assert g._loop.graphs == {}
     loop = g._loop
     g.reset()
     assert g._loop is not loop and g._loop.hist is g._seq_buf

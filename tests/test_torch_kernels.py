@@ -1108,6 +1108,16 @@ def _graph_model(**tuning):
     return port.ExLlama(cfg, params=params, device="cuda")
 
 
+def _eager_twin(model):
+    """The same model (parameters, config) with ``capture = False``: every
+    step of what runs on it is eager."""
+    import copy
+
+    twin = copy.copy(model)
+    twin.capture = False
+    return twin
+
+
 def test_decode_graphs_replay_the_eager_step_under_an_adapter(gen, tmp_path):
     """gen_tokens under a LoRA adapter on all seven projections (K1 on qkv,
     o, gate|up and down, K3; no K6 or K7) through the graphs against the
@@ -1126,12 +1136,11 @@ def test_decode_graphs_replay_the_eager_step_under_an_adapter(gen, tmp_path):
     lora = port.ExLlamaLora(model, *files)
     ids = (np.arange(27, dtype=np.int32)[None] * 37 + 11) % 1000
     runs = []
-    for capture in (True, False):
-        g = port.ExLlamaGenerator(model, port.FakeTokenizer(),
-                                  port.ExLlamaCache(model), seed=0)
+    for m in (model, _eager_twin(model)):
+        g = port.ExLlamaGenerator(m, port.FakeTokenizer(),
+                                  port.ExLlamaCache(m), seed=0)
         g.lora = lora
         g.settings.top_k = 1
-        g._loop.capture = capture
         g.gen_begin(ids)
         before = kernels.launch_counts()
         toks = g.gen_tokens(40)                # positions 26..65
@@ -1144,7 +1153,7 @@ def test_decode_graphs_replay_the_eager_step_under_an_adapter(gen, tmp_path):
         for s, t in zip(x, y):
             assert torch.equal(s, t)
     assert c_graph == c_eager
-    step = next(iter(g._loop.graphs.values()))[1]
+    step = next(iter(g._loop.graphs.values())).counts
     assert {(fn.__name__, a): n for (fn, a), n in step.items()} == {
         ("q4_gemv", "launches"): 8, ("attend", "launches"): 2,
         ("dense_gemv", "launches"): 1}
@@ -1169,12 +1178,11 @@ def test_decode_graphs_replay_the_eager_step(gen, settings, tuning):
     model = _graph_model(**tuning)
     ids = (np.arange(27, dtype=np.int32)[None] * 37 + 11) % 1000
     runs = []
-    for capture in (True, False):
-        g = port.ExLlamaGenerator(model, port.FakeTokenizer(),
-                                  port.ExLlamaCache(model), seed=0)
+    for m in (model, _eager_twin(model)):
+        g = port.ExLlamaGenerator(m, port.FakeTokenizer(),
+                                  port.ExLlamaCache(m), seed=0)
         for k, v in settings.items():
             setattr(g.settings, k, v)
-        g._loop.capture = capture
         g.gen_begin(ids)
         before = kernels.launch_counts()
         toks = g.gen_tokens(40)                # positions 26..65
@@ -1188,9 +1196,132 @@ def test_decode_graphs_replay_the_eager_step(gen, settings, tuning):
         for s, t in zip(x, y):
             assert torch.equal(s, t)
     assert c_graph == c_eager and sum(c_graph.values()) > 0
-    step = next(iter(g._loop.graphs.values()))[1]
+    step = next(iter(g._loop.graphs.values())).counts
     assert {k: 40 * n for k, n in step.items()} == {
         k: n for k, n in c_graph.items() if n}
+
+
+@pytest.mark.parametrize("t,batch,prefix", [(1, 1, 20), (5, 2, 20),
+                                             (12, 2, 20), (64, 1, 0)])
+def test_forward_chunk_graphs_replay_the_eager_chunk(gen, t, batch, prefix):
+    """ExLlama.forward's chunk graphs (B = 2 with a left-pad mask): after a
+    prefix, chunks of T rows up to the cache's end (T = 12 padded to 16
+    rows but for the last, which the cache has no room to pad), twice over
+    the same positions (the second pass replays every graph the first
+    captured), against the same chunks run eagerly (``model.capture =
+    False``) from the same state: logits and caches bit-equal, the
+    launches equal, every graph holding the kernels' scratch; a chunk
+    outside the cache raises before anything runs."""
+    import numpy as np
+
+    import exllama_tpu_torch as port
+    from exllama_tpu_torch import kernels
+
+    model = _graph_model()
+    n = (128 - prefix) // t if t > 1 else 3
+    ids = (np.arange(batch * (prefix + n * t), dtype=np.int32)
+           .reshape(batch, -1) * 37 + 11) % 1000
+    mask = None
+    if batch == 2:
+        ids[1, :2] = 0
+        mask = np.ones((2, 128), bool)
+        mask[1, :2] = False
+    runs = []
+    for capture in (True, False):
+        model.capture = capture
+        try:
+            c = port.ExLlamaCache(model, batch_size=batch)
+            if prefix:
+                model.forward(ids[:, :prefix], c, preprocess_only=True,
+                              input_mask=mask)
+            before = kernels.launch_counts()
+            outs, held = [], []
+            for _ in range(2):
+                c.current_seq_len = prefix
+                outs += [model.forward(
+                    ids[:, prefix + i * t:prefix + (i + 1) * t], c,
+                    last_id_only=False, input_mask=mask) for i in range(n)]
+                held.append(len(c.graphs))
+            after = kernels.launch_counts()
+        finally:
+            model.capture = True
+        runs.append((c, outs, held, {k: after[k] - before[k] for k in after}))
+    (g, got, held, c_graph), (e, ref, _, c_eager) = runs
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    for x, y in zip(g._tensor_lists(), e._tensor_lists()):
+        for s_, t_ in zip(x, y):
+            assert torch.equal(s_, t_)
+    assert c_graph == c_eager and sum(c_graph.values()) > 0
+    assert held[0] == held[1] > 0 and not e.graphs
+    # every graph holds the kernels' scratch it writes (a scratch it does
+    # not hold is freed when a later step grows it, and its replays then
+    # write into whatever takes that memory)
+    assert all(entry.keep[0] for entry in g.graphs.values())
+    # the [1] device cursor at T rows reaches K2 / K3 and the commit as the
+    # int cursor does: the last pass's chunks again at int positions
+    from exllama_tpu_torch.models.llama import forward_chunk, graph_rows
+
+    for i in range(n):
+        past = prefix + i * t
+        rows = graph_rows(t) if past + graph_rows(t) <= 128 else t
+        chunk = np.zeros((batch, rows), np.int32)
+        chunk[:, :t] = ids[:, past:past + t]
+        by_int = forward_chunk(
+            model.params, e, torch.as_tensor(chunk, device="cuda"), past,
+            None if mask is None else torch.as_tensor(mask, device="cuda"),
+            valid_rows=(torch.tensor([t], device="cuda") if rows > 8
+                        else None),
+            **model._chunk_kwargs(attend_len=model._attend_len(past + rows),
+                                  last_token_only=False,
+                                  preprocess_only=False))
+        assert torch.equal(by_int[:, :t], ref[n + i])
+    g.current_seq_len = 128 - t + 1
+    with pytest.raises(ValueError, match="outside"):
+        model.forward(ids[:, :t], g)
+
+
+def test_engine_speculative_graphs_replay_the_eager_step(gen):
+    """The engine's speculative step (n-gram drafts, lookahead 4; two
+    greedy and one sampled request, prompts that repeat) through its
+    graphs against the same engine run eagerly: tokens, caches and
+    histories bit-equal, the launches equal, graphs per (bucket, K)."""
+    import numpy as np
+
+    import exllama_tpu_torch as port
+    from exllama_tpu_torch import kernels
+    from exllama_tpu_torch.ops.sampling import SamplerSettings
+    from exllama_tpu_torch.serve import ContinuousBatchingEngine
+    from exllama_tpu_torch.speculative import NgramProposer
+
+    model = _graph_model()
+    greedy = SamplerSettings(temperature=1.0, top_k=1, top_p=0.0,
+                             token_repetition_penalty_max=1.0)
+    prompts = [np.tile((np.arange(p, dtype=np.int32) * 37 + 11) % 1000,
+                       30 // p) for p in (3, 5, 7)]
+    runs = []
+    for m in (model, _eager_twin(model)):
+        eng = ContinuousBatchingEngine(m, port.FakeTokenizer(),
+                                       max_slots=4, prefill_bucket=16,
+                                       attn_bucket=32, seed=5,
+                                       spec_proposer=NgramProposer(),
+                                       spec_lookahead=4)
+        before = kernels.launch_counts()
+        reqs = [eng.submit(p, 24, settings=greedy if i < 2
+                           else SamplerSettings(), stop_tokens=(-1,))
+                for i, p in enumerate(prompts)]
+        eng.run()
+        after = kernels.launch_counts()
+        runs.append((eng, [r.new_tokens for r in reqs],
+                     {k: after[k] - before[k] for k in after}))
+    (g, got, c_graph), (e, ref, c_eager) = runs
+    assert got == ref and all(len(x) >= 24 for x in got)
+    assert any(len(k) == 3 for k in g.graphs) and not e.graphs
+    for x, y in zip(g.cache._tensor_lists(), e.cache._tensor_lists()):
+        for s_, t_ in zip(x, y):
+            assert torch.equal(s_, t_)
+    assert torch.equal(g._hist, e._hist)
+    assert c_graph == c_eager and g.spec_stats["steps"] > 0
 
 
 # ------------------------------------- the serving engine's decode graphs
@@ -1222,11 +1353,10 @@ def test_engine_graphs_replay_the_eager_step(gen, tmp_path, mixed):
     prompts = [(np.arange(n, dtype=np.int32) * 37 + 11 + n) % 1000
                for n in (27, 5, 40, 12, 33)]
     runs = []
-    for capture in (True, False):
-        eng = ContinuousBatchingEngine(model, port.FakeTokenizer(),
+    for m in (model, _eager_twin(model)):
+        eng = ContinuousBatchingEngine(m, port.FakeTokenizer(),
                                        max_slots=4, prefill_bucket=16,
                                        attn_bucket=32, seed=5)
-        eng.capture = capture
         lid = eng.register_lora(lora) if mixed else -1
         before = kernels.launch_counts()
         reqs = []
@@ -1250,7 +1380,7 @@ def test_engine_graphs_replay_the_eager_step(gen, tmp_path, mixed):
             assert torch.equal(s, t)
     assert torch.equal(g._hist, e._hist)
     assert c_graph == c_eager and sum(c_graph.values()) > 0
-    steps = [{(fn.__name__, a): n for (fn, a), n in v[1].items()}
+    steps = [{(fn.__name__, a): n for (fn, a), n in v.counts.items()}
              for v in g.graphs.values()]
     if not mixed:
         assert {("q4_gemv", "launches"): 2, ("layer_tail", "launches"): 2,
