@@ -331,7 +331,7 @@ def check_close(name, got, ref, rel_tol):
 
 # timings a case may carry beside kernel / plain / library / bound
 EXTRA_TIMES = ("separate_ms", "k2_ms", "library_int8_ms", "floor_ms",
-               "bf16_ms")
+               "bf16_ms", "parent_ms")
 
 
 def make_recorder(timer, res):
@@ -404,41 +404,7 @@ def kernel_cases(device, timer, res):
                    lambda: torch.matmul(x, w), nbytes, 2 * m * k * n)
         del w
 
-    # K2: rel tol 1e-2 -- same bf16 weights on both sides; f32 sums in
-    # another order and the bf16 output rounding (2^-8)
-    for nm, k, n, gs, act in qcases:
-        qt = random_qt(gen, k, n, gs, act, device)
-        w = dequantize_t(qt)
-        for m in ((127, 1919) if gs == 128 and not act else (127,)):
-            x = torch.randn((m, k), generator=gen, device=device).bfloat16()
-            if act:       # the caller gathers act-order x (ops/quant.py)
-                x = x.index_select(1, qt.x_map.long())
-            got = quant.q4_dequant_matmul(x, qt)
-            ref = quant._q4_matmul_plain(x, qt)
-            err, rel = check_close(f"q4_dequant_matmul {nm} M={m}", got, ref,
-                                   TOL["q4_dequant_matmul"])
-            nbytes = q4_bytes(k, n, gs) + m * k * 2 + m * n * 2
-            record("q4_dequant_matmul", f"{nm} g{gs} M={m}", err, rel,
-                   lambda: quant.q4_dequant_matmul(x, qt),
-                   lambda: quant._q4_matmul_plain(x, qt),
-                   lambda: torch.matmul(x, w), nbytes, 2 * m * k * n)
-        del w
-    # K2 at the edges of its 128 x 128 tile: the smallest M it takes (33),
-    # M = 127 / 129 around a tile, and an N that is not a multiple of 128
-    for m, k, n in ((33, 4096, 4096), (129, 4096, 4096), (1919, 4096, 4168)):
-        qt = random_qt(gen, k, n, 128, False, device)
-        w = dequantize_t(qt)
-        x = torch.randn((m, k), generator=gen, device=device).bfloat16()
-        got = quant.q4_dequant_matmul(x, qt)
-        ref = quant._q4_matmul_plain(x, qt)
-        err, rel = check_close(f"q4_dequant_matmul {k}->{n} M={m}", got, ref,
-                               TOL["q4_dequant_matmul"])
-        record("q4_dequant_matmul", f"edge {k}->{n} g128 M={m}", err, rel,
-               lambda: quant.q4_dequant_matmul(x, qt),
-               lambda: quant._q4_matmul_plain(x, qt),
-               lambda: torch.matmul(x, w),
-               q4_bytes(k, n, 128) + m * k * 2 + m * n * 2, 2 * m * k * n)
-        del w
+    k2_cases(device, timer, res)
 
     # K3: rel tol 2e-2 -- the kernel rounds p to bf16 inside the online
     # softmax (against a running max), the plain version once against the
@@ -564,6 +530,112 @@ def kernel_cases(device, timer, res):
                    lambda: torch.matmul(x, w), 4096 * v * 2 + m * 4096 * 2
                    + m * v * 4, 2 * m * 4096 * v)
         del w
+
+
+def ring_parent(x, qt):
+    """K2's parent: the mma.sync ring's Exact mode (csrc/q4_ring.cuh,
+    entry q4_matmul_ring_launch), K2's kernel before the Hopper one,
+    timed beside it; no wrapper of the package reaches it."""
+    from exllama_tpu_torch import kernels
+
+    m, k = x.shape
+    out = torch.empty((m, qt.out_features), dtype=torch.bfloat16,
+                      device=x.device)
+    kernels.check(kernels.launcher("q4_matmul_ring")(
+        x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
+        qt.zscale.data_ptr(), out.data_ptr(), m, k, qt.out_features,
+        qt.groupsize, kernels.stream_of(x)), "q4_matmul_ring")
+    return out
+
+
+def ring_launches() -> int:
+    from exllama_tpu_torch import kernels
+
+    return kernels.launcher("q4_matmul_ring_launches")()
+
+
+# the row counts K2 meets on the main path: the engine's 40-row verify
+# step, a 64-row admission chunk, a 127-row chunk, the 1919-token prefill
+K2_ROWS = (40, 64, 127, 1919)
+
+
+def k2_cases(device, timer, res):
+    """K2 (csrc/q4_wgmma.cuh) against its plain version, 1e-2 -- the same
+    bf16 weights on both sides; f32 sums in another order and the bf16
+    output rounding (2^-8) -- and timed beside its parent (the ring's Exact
+    mode, ``ring_parent``, in the same call), one library call and its
+    bound: at 40, 64, 127 and 1919 rows on the four Llama-7B projections at
+    g128; g32 and act-order at 127 rows; the edges of its row tiles (33,
+    64 / 65, 128 / 129, 256 / 257), ragged and unaligned N (4168, 130,
+    100); the tp = 2 / 4 shard shapes at 40 and 1919 rows. A second call on
+    the same inputs is bit-equal (stream-K's fixed combine order)."""
+    from exllama_tpu_torch import kernels
+    from exllama_tpu_torch.formats.gptq import dequantize_t, tp_chunk
+    from exllama_tpu_torch.ops import quant
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    record = make_recorder(timer, res)
+    shapes = [("qkv", 4096, 12288), ("o", 4096, 4096),
+              ("gateup", 4096, 22016), ("down", 11008, 4096)]
+    cases = [(f"{nm} g128 M={m}", m, k, n, 128, False)
+             for nm, k, n in shapes for m in K2_ROWS]
+    cases += [("gateup-g32 g32 M=127", 127, 4096, 22016, 32, False),
+              ("down-actorder g128 M=127", 127, 11008, 4096, 128, True)]
+    cases += [(f"edge {k}->{n} g128 M={m}", m, k, n, 128, False)
+              for m, k, n in ((33, 4096, 4096), (65, 4096, 4096),
+                              (128, 4096, 4096), (129, 4096, 4096),
+                              (256, 4096, 4096), (257, 4096, 4096),
+                              (1919, 4096, 4168), (40, 4096, 130),
+                              (1919, 4096, 100))]
+    for tp in (2, 4):
+        for nm, k, n in (("qkv", 4096, 12288 // tp), ("o", 4096 // tp, 4096),
+                         ("gateup", 4096, 22016 // tp),
+                         ("down", tp_chunk(11008, tp, 128), 4096)):
+            cases += [(f"tp{tp} {nm} {k}->{n} g128 M={m}", m, k, n, 128,
+                       False) for m in (40, 1919)]
+    weights = {}
+    for label, m, k, n, gs, act in cases:
+        key = (k, n, gs, act)
+        if key not in weights:
+            weights.clear()
+            torch.cuda.empty_cache()
+            qt = random_qt(gen, k, n, gs, act, device)
+            weights[key] = (qt, dequantize_t(qt))
+        qt, w = weights[key]
+        x = torch.randn((m, k), generator=gen, device=device).bfloat16()
+        if act:       # the caller gathers act-order x (ops/quant.py)
+            x = x.index_select(1, qt.x_map.long())
+        got = quant.q4_dequant_matmul(x, qt)
+        ref = quant._q4_matmul_plain(x, qt)
+        err, rel = check_close(f"q4_dequant_matmul {label}", got, ref,
+                               TOL["q4_dequant_matmul"])
+        if not torch.equal(quant.q4_dequant_matmul(x, qt), got):
+            raise AssertionError(f"q4_dequant_matmul {label}: two calls "
+                                 f"on the same inputs differ")
+        record("q4_dequant_matmul", label, err, rel,
+               lambda: quant.q4_dequant_matmul(x, qt),
+               lambda: quant._q4_matmul_plain(x, qt),
+               lambda: torch.matmul(x, w),
+               q4_bytes(k, n, gs) + m * k * 2 + m * n * 2, 2 * m * k * n,
+               extra={"parent_ms": lambda: ring_parent(x, qt)})
+        r = res["q4_dequant_matmul"][-1]
+        plan = quant.q4_matmul_plan(m, n, k, kernels.sm_count(device))
+        r.update(share=r["bound_ms"] / r["ms"], tile=f"{plan.bm}x{plan.bn}",
+                 stream_k=plan.stream_k, grid=plan.grid)
+    weights.clear()
+    torch.cuda.empty_cache()
+    log("  K2 against its parent (the ring's Exact mode), ms: " + "; ".join(
+        f"{r['case']} {r['ms']:.4f} / parent {r['parent_ms']:.4f} / library "
+        f"{r['library_ms']:.4f} / bound {r['bound_ms']:.4f} ({r['bound_by']},"
+        f" share {r['share']:.1%}, {r['tile']}"
+        f"{' stream-K' if r['stream_k'] else ''})"
+        for r in res["q4_dequant_matmul"]))
+    slow = [r["case"] for r in res["q4_dequant_matmul"]
+            if r["case"].endswith(tuple(f" M={m}" for m in K2_ROWS))
+            and r["case"].split()[0] in ("qkv", "o", "gateup", "down")
+            and "g128" in r["case"] and r["ms"] >= r["parent_ms"]]
+    if slow:
+        log(f"  K2 not faster than its parent at: {slow}")
 
 
 def fused_cases(device, timer, res):
@@ -2766,6 +2838,25 @@ def main_path(mp):
         "q4_gemv": 32, "layer_tail": 32})
     r1["peak_bytes"] = torch.cuda.max_memory_allocated()
     log(f"  max_memory_allocated {r1['peak_bytes'] / 2**30:.2f} GiB")
+
+    # where the 1918-token prefill's device time goes: one prefill traced,
+    # the kernels' totals against the host clock's fenced prefill
+    gen.gen_begin(mp.ids)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gen.gen_begin(mp.ids)
+    torch.cuda.synchronize()
+    wall_ms = (time.time() - t0) * 1e3
+    top = kernel_times(lambda: gen.gen_begin(mp.ids), top=40) or []
+    busy = sum(us for _, us in top) / 1e3
+    k2 = sum(us for name, us in top if "q4_wgmma" in name) / 1e3
+    k3 = sum(us for name, us in top if "prefill_kernel" in name) / 1e3
+    r1["prefill_split"] = dict(wall_ms=wall_ms, device_ms=busy, k2_ms=k2,
+                               k3_ms=k3, top=top[:6])
+    log(f"  a {mp.ids.shape[1] - 1}-token prefill: {wall_ms:.1f} ms fenced; "
+        f"traced, its kernels {busy:.1f} ms of device time, K2 {k2:.1f} ms "
+        f"({k2 / max(busy, 1e-9):.1%}), K3 {k3:.1f} ms; the most: "
+        + "; ".join(f"{us / 1e3:.2f} ms {name}" for name, us in top[:6]))
     return r1
 
 
@@ -3520,7 +3611,8 @@ ADAPTERS = {"Q": dict(targets=("q", "v"), r=8, alpha=16.0),
 LORA_SCALE = 0.3
 LORA_TOL = 0.03        # phase 4's: card vs CPU logits over the logit scale
 # launches per decode step on the 32-layer model: adapter Q keeps K7's
-# layer tail (q and v adapted: K1 without its norm prologue), adapter A
+# layer tail (q and v adapted: K1 with its norm prologue, the adapters
+# on the plainly normed x), adapter A
 # refuses K7 (o) and K6 (the MLP): K1 on qkv, o, gate|up and down, K3
 LORA_STEP = {"Q": {"q4_gemv": 32, "layer_tail": 32, "dense_gemv": 1,
                    "flash_attn": 0, "q4_mlp": 0},
@@ -5867,6 +5959,7 @@ def main() -> int:
         + "; ".join(f"{k} {c['case']} {c['ms']:.4f} / {c['bf16_ms']:.4f}"
                     for k in F32_KERNELS for c in res[f"{k}_f32"]))
     log(f"[3 kernels] all agree ({time.time() - t0:.1f} s)")
+    ring_after3 = ring_launches()   # the parent's timings, phase 3 only
 
     t0 = time.time()
     worst, worst_turbo, worst_kv, features = model_vs_cpu(device)
@@ -6104,6 +6197,12 @@ def main() -> int:
                 for c in res[entry["name"]] if " M=18" in c["case"]
                 and "g128" in c["case"]]
     log(f"  K1 vs K2 (ms): {json.dumps(crossover)}")
+    if ring_launches() != ring_after3:
+        raise AssertionError(
+            f"the ring's Exact mode launched {ring_launches() - ring_after3} "
+            f"times after phase 3: a wrapper reached K2's parent")
+    log(f"  the ring's Exact mode (K2's parent): {ring_after3} launches, all "
+        f"in phase 3's parent timings")
     log(f"  phase 5 request 2 prefill {fused['request2_prefill_ms']:.3f} ms, "
         f"request 3 decode step {fused['request3_decode_step_ms']:.3f} ms; "
         f"the einsum attention route (head_dim 100) ran {xla_route} times")

@@ -74,7 +74,13 @@ for _stem in ("q4_gemv", "q4_mlp", "layer_tail"):
 # stream, "i" int, "f" float)
 _SIGNATURES = {
     "q4_gemv": ("q4_gemv", "q4_gemv_launch", "p" * 9 + "i" * 5 + "f" + "p"),
-    "q4_matmul": ("q4_matmul", "q4_matmul_launch", "ppppp" + "iiii" + "p"),
+    "q4_matmul": ("q4_matmul", "q4_matmul_launch",
+                  "p" * 7 + "i" * 8 + "p"),
+    # K2's parent, the ring's Exact mode (chip_smoke.py's yardstick only),
+    # and the count of its launches
+    "q4_matmul_ring": ("q4_matmul", "q4_matmul_ring_launch",
+                       "ppppp" + "iiii" + "p"),
+    "q4_matmul_ring_launches": ("q4_matmul", "q4_matmul_ring_launches", ""),
     "q4_matmul_glu": ("q4_matmul", "q4_matmul_glu_launch",
                       "ppppp" + "i" * 6 + "p"),
     "flash_attn": ("flash_attn", "flash_attn_launch",
@@ -287,6 +293,6 @@ def no_growth_under_capture(name: str):
     or replaced while the current stream is being captured: the buffer
     would come from the graph's pool and the eager callers would share it.
     The eager step before each capture sizes every scratch."""
-    if torch.cuda.is_current_stream_capturing():
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         raise RuntimeError(f"{name} would grow under CUDA graph capture: "
                            f"run the step eagerly first, which sizes it")

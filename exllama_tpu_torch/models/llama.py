@@ -250,9 +250,14 @@ def _decoder_layer(
         k = fused[..., nq : nq + nkv]
         v = fused[..., nq + nkv :]
     elif lp.qkv is not None:
-        # the adapters read the same normed x as the kernel (llama.py:245)
+        # the adapters read the normed x (llama.py:245); the kernel takes
+        # the norm in its prologue as it does without an adapter, so that a
+        # row's projection does not depend on whether another row of the
+        # batch has an adapter (the serving engine's slots; on the card
+        # the prologue and rms_norm can round a value apart)
         a = rms_norm(h, lp.input_norm, eps)
-        fused = q4_matmul(a, lp.qkv, impl)
+        fused = q4_matmul(h, lp.qkv, impl, norm_w=lp.input_norm,
+                          norm_eps=eps)
         q = lora_add(fused[..., :nq], a, "q")
         k = lora_add(fused[..., nq : nq + nkv], a, "k")
         v = lora_add(fused[..., nq + nkv :], a, "v")

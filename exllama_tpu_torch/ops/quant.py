@@ -16,17 +16,20 @@ threshold measured on a TPU and kept for now):
     (the a8 builds of the same source) -- int8 activations per (row, group)
     against the nibbles in integer arithmetic; a8x2 adds a residual pass;
   * M > 32, exact and "pallas_a8" / "pallas_a8x2": K2 ``q4_dequant_matmul``
-    (csrc/q4_matmul.cu) -- bf16 tile dequant + tensor-core products;
+    (csrc/q4_matmul.cu, csrc/q4_wgmma.cuh) -- TMA, the weight dequantized
+    into wgmma's register operand, the row tile by M, a persistent grid and
+    stream-K where the tiles do not fill the card (``q4_matmul_plan``);
   * M > 32, "pallas_a8t": K11 ``w8_matmul`` (csrc/w8_matmul.cu) against the
     tensor's resident int8 image, or K10 ``q4_prefill_a8``
     (csrc/q4_prefill_a8.cu), which re-quantizes the 4-bit tile to int8 in
     the kernel, where the tensor has none; both int8 tensor-core products
     of row-quantized activations;
-  * ``glu=(ni, ou)`` at M > 32: K12 ``q4_matmul_glu`` (K2's GLU mode) forms
+  * ``glu=(ni, ou)`` at M > 32: K12 ``q4_matmul_glu`` (the ring's GLU mode) forms
     silu(gate)*up from the raw fused gate|up output inside the kernel.
 
-K2, K12, K10 and K11 are the exact, GLU, int8 and W8 modes of one
-pipelined tensor-core kernel (csrc/q4_ring.cuh). ``lora=(A, B)`` adds a
+K12, K10 and K11 are the GLU, int8 and W8 modes of one pipelined
+mma.sync kernel (csrc/q4_ring.cuh), whose exact mode was K2's before the
+Hopper kernel and is reached by no wrapper here. ``lora=(A, B)`` adds a
 LoRA adapter's low-rank term after any of them (``lora_delta``: two
 f32-accumulated products in plain tensor code, which is where the JAX
 package computes it too).
@@ -48,6 +51,9 @@ kernels' noise.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -226,8 +232,8 @@ _GEMV_SCRATCH: dict = {}
 def gemv_scratch(dev, n_part: int, n_ticket: int):
     """The tensor-core GEMV's split partials (f32) and column-tile tickets
     (int32, zero between launches: the last block of each tile resets its
-    own), grown per device and kept, as K3's decode scratch. K1, K9, K4-K7
-    run on one stream and share them. A graph holds the buffers it
+    own), grown per device and kept, as K3's decode scratch. K1, K2, K9,
+    K4-K7 run on one stream and share them. A graph holds the buffers it
     captured (``kernels.scratch_in_use``); growing under capture raises."""
     part, ticket = _GEMV_SCRATCH.get(dev, (None, None))
     if part is None or part.numel() < n_part:
@@ -406,6 +412,126 @@ def q4_gemv_a8(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_eps=1e-6,
 q4_gemv_a8.launches = q4_gemv_a8.launches_f32 = 0
 
 
+# K2 (csrc/q4_wgmma.cuh): output tiles of a row tile chosen by M (wgmma's
+# N) by a column tile, k in 64-deep slabs; the tiles it is built for
+Q4MM_BK = 64
+Q4MM_TILES = {64: 256, 128: 128, 256: 128}   # row tile -> column tile
+Q4MM_TILE_ROWS = 64   # a tile's fixed work (its weight dequantized), in rows
+Q4MM_FILL = 0.9       # stream-K below this share of the last wave filled
+
+
+@dataclass(frozen=True)
+class Q4MatmulPlan:
+    """K2's plan for an [m, k] x [k, n] product on ``grid`` blocks: tiles
+    of ``bm`` rows x ``bn`` columns, row tile fastest (tile t is row tile
+    t % mtiles of column tile t // mtiles), ``ktiles`` slabs deep; whole
+    tiles data-parallel (block b takes tiles b, b + grid, ...), or, under
+    ``stream_k``, the tiles x ktiles (tile, slab) units shared out as
+    contiguous ranges (``stream_k_ranges``)."""
+    m: int
+    n: int
+    k: int
+    bm: int
+    bn: int
+    grid: int
+    stream_k: bool
+
+    @property
+    def mtiles(self):
+        return -(-self.m // self.bm)
+
+    @property
+    def tiles(self):
+        return self.mtiles * -(-self.n // self.bn)
+
+    @property
+    def ktiles(self):
+        return -(-self.k // Q4MM_BK)
+
+    def ranges(self):
+        """Each block's ranges [(tile, first slab, end slab, slot)]: slot
+        None for a whole tile, else the scratch slot (0: the block's first
+        range, 1: its last) of a tile cut between blocks."""
+        if self.stream_k:
+            return stream_k_ranges(self.tiles, self.ktiles, self.grid)
+        return [[(t, 0, self.ktiles, None)
+                 for t in range(b, self.tiles, self.grid)]
+                for b in range(self.grid)]
+
+
+def q4_matmul_row_tile(m: int) -> int:
+    """K2's row tile for m rows: the one of Q4MM_TILES with the least
+    padded work, counting Q4MM_TILE_ROWS rows of fixed work a tile (each
+    row tile dequantizes its weight columns again); the larger on a tie."""
+    return min(Q4MM_TILES,
+               key=lambda bm: (-(-m // bm) * (bm + Q4MM_TILE_ROWS), -bm))
+
+
+@functools.lru_cache(maxsize=1024)
+def q4_matmul_plan(m: int, n: int, k: int, sms: int) -> Q4MatmulPlan:
+    """K2's plan on a card of ``sms`` SMs (one block an SM): the tile by M
+    (64 x 256 up to 64 rows: each x slab serves twice the weight columns
+    where the weight's bytes bound the time), then whole tiles
+    data-parallel if their last wave is at least Q4MM_FILL full (the
+    blocks in flight then share their weight columns and x in L2), else
+    stream-K over (tile, slab) units, which fills the card whatever the
+    tile count (M <= 256 on o and down, the tp shards)."""
+    bm = q4_matmul_row_tile(m)
+    bn = Q4MM_TILES[bm]
+    tiles = -(-m // bm) * -(-n // bn)
+    waves = -(-tiles // sms)
+    if tiles >= Q4MM_FILL * waves * sms:
+        return Q4MatmulPlan(m, n, k, bm, bn, min(sms, tiles), False)
+    units = tiles * -(-k // Q4MM_BK)
+    return Q4MatmulPlan(m, n, k, bm, bn, min(sms, units), True)
+
+
+def q4_dequant_matmul_split_plain(x, qt, plan: Q4MatmulPlan, drop=None):
+    """K2's decomposition in plain tensor code: the bf16 dequantized weight
+    (``_q4_matmul_plain``'s), each block's ranges of ``plan`` as f32
+    products over their slabs' k, a tile cut between blocks added from
+    its pieces in block order (the order of k, as the tile's last block
+    adds them), one bf16 rounding. ``drop`` = (block, range index) leaves
+    that range out (a planted fault the tests must see)."""
+    m, k = x.shape
+    n = qt.out_features
+    if (plan.m, plan.n, plan.k) != (m, n, k):
+        raise ValueError(f"plan for {plan.m}x{plan.k}x{plan.n}, x {m}x{k}")
+    w = dequantize_t(qt, torch.bfloat16).to(torch.float32)
+    xf = x.to(torch.bfloat16).to(torch.float32)
+    out = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+    parts: dict = {}
+    for b, ranges in enumerate(plan.ranges()):
+        for i, (t, kb, ke, slot) in enumerate(ranges):
+            if drop == (b, i):
+                continue
+            r0, c0 = (t % plan.mtiles) * plan.bm, (t // plan.mtiles) * plan.bn
+            rows = slice(r0, min(r0 + plan.bm, m))
+            cols = slice(c0, min(c0 + plan.bn, n))
+            ks = slice(kb * Q4MM_BK, min(ke * Q4MM_BK, k))
+            with full_f32_matmul():
+                p = xf[rows, ks] @ w[ks, cols]
+            if slot is None:
+                out[rows, cols] = p
+            else:
+                parts.setdefault(t, []).append((rows, cols, p))
+    for pieces in parts.values():
+        rows, cols, total = pieces[0]
+        for _, _, p in pieces[1:]:
+            total = total + p
+        out[rows, cols] = total
+    return out.to(x.dtype)
+
+
+def q4_matmul_scratch(dev, plan: Q4MatmulPlan):
+    """K2's stream-K scratch (the GEMVs' per-device partials and tickets,
+    grown to the plan's need and kept, so that a captured graph holds
+    them): two [bm, bn] f32 slots a block, one ticket a tile."""
+    if not plan.stream_k:
+        return gemv_scratch(dev, 0, 0)
+    return gemv_scratch(dev, 2 * plan.grid * plan.bm * plan.bn, plan.tiles)
+
+
 def _prefill_input(name, x, qt):
     _check_qt(x, qt)
     if x.shape[1] % 32:
@@ -424,13 +550,16 @@ def q4_dequant_matmul(x: torch.Tensor, qt: QuantTensor) -> torch.Tensor:
         raise RuntimeError(f"q4_dequant_matmul: unsupported device {x.device}")
     x = _prefill_input("q4_dequant_matmul", x, qt)
     m, k = x.shape
-    out = torch.empty((m, qt.out_features), dtype=torch.bfloat16,
-                      device=x.device)
+    n = qt.out_features
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    plan = q4_matmul_plan(m, n, k, kernels.sm_count(x.device))
+    part, ticket = q4_matmul_scratch(x.device, plan)
     lib = kernels.scaled("q4_matmul", qt.scales)
     kernels.check(kernels.launcher(lib)(
         x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
-        qt.zscale.data_ptr(), out.data_ptr(), m, k, qt.out_features,
-        qt.groupsize, kernels.stream_of(x),
+        qt.zscale.data_ptr(), out.data_ptr(), part.data_ptr(),
+        ticket.data_ptr(), m, k, n, qt.groupsize, plan.bm, plan.bn,
+        plan.grid, int(plan.stream_k), kernels.stream_of(x),
     ), lib)
     count_launch(q4_dequant_matmul, qt)
     return out

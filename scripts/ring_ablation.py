@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Where the time of the ring kernel goes (exllama_tpu_torch/csrc/q4_ring.cuh:
-K2, K10, K11 and K12), how its W8 mode (K11) and the lm_head GEMV K4
+K10, K11, K12 and its Exact mode, K2's parent), how its W8 mode (K11) and the lm_head GEMV K4
 (csrc/dense_stream.cuh) fare at other ring depths, and where the decode
 layer kernel K7 (csrc/layer_tail.cu) spends its time, on one CUDA card.
 
@@ -9,7 +9,9 @@ layer kernel K7 (csrc/layer_tail.cu) spends its time, on one CUDA card.
 
 Builds copies of the kernel sources with parts of the work cut out or the
 geometry changed, each into its own git-ignored directory
-(exllama_tpu_torch/_build/ablation/), and times K2, K10, K11 and K12 at
+(exllama_tpu_torch/_build/ablation/), and times K2's parent (the ring's
+Exact mode: K2 itself runs csrc/q4_wgmma.cuh, which
+scripts/k2_ablation.py takes apart), K10, K11 and K12 at
 Llama-7B shapes (M = 1919; K12 also at 33 rows) or K4 (lm_head 4096 x
 32000 at M = 1, 2, 32) with each copy, one process a copy, in turns (the
 whole kernels first and last):
@@ -483,8 +485,8 @@ def time_ring(timer, gen, dev, stems, ms):
         ws = w8_col_scale(qt) if qt.w8_scale is None else qt.w8_scale
         x = torch.randn((1919, k), generator=gen, device=dev).bfloat16()
         if "q4_matmul" in stems and nm != "qkv":
-            ms[f"K2 {nm} M=1919"] = timer(
-                lambda: quant.q4_dequant_matmul(x, qt), 10)
+            ms[f"K2's parent (the ring's Exact mode) {nm} M=1919"] = timer(
+                lambda: cs.ring_parent(x, qt), 10)
         if "q4_prefill_a8" in stems and nm != "qkv":
             ms[f"K10 {nm} M=1919"] = timer(
                 lambda: quant.q4_prefill_a8(x, qt, ws), 10)

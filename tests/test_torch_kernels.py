@@ -225,16 +225,26 @@ def test_q4_matmul_glu_matches_plain(gen, m, ni, n, gs, gap, tail):
 @pytest.mark.parametrize("m,k,n,gs,act", [
     (33, 256, 520, 32, False), (130, 512, 136, 64, False),
     (257, 1024, 384, 128, False),
-    # M around the 128-row tile, M = 1919; K % 64 == 32 (a half slab) at
+    # M around the row tiles, M = 1919; K % 64 == 32 (a half slab) at
     # g32 and g64 ... 128; N % 8 != 0 (plain loads of weights and scales)
     (127, 256, 264, 128, False), (129, 96, 200, 32, False),
     (1919, 384, 264, 128, False), (64, 256, 100, 64, False),
     (40, 128, 130, 32, False), (200, 512, 136, 128, True),
     (33, 512, 264, 256, False), (64, 1024, 136, 1024, False),
+    # stream-K at the verify step's 40 rows and a 64-row chunk on o's
+    # shape (16 tiles of 64 x 256 cut among the blocks); the edges of the
+    # row tiles (64 / 65, 256 / 257) with ragged column tiles; N = 130 and
+    # a 4-bit lm_head's odd vocab on the plain-load producer
+    (40, 4096, 4096, 128, False), (64, 4096, 4096, 128, False),
+    (65, 1024, 520, 64, False), (256, 512, 264, 32, False),
+    (257, 2048, 1032, 128, False), (40, 512, 130, 32, False),
+    (1919, 256, 130, 256, False), (33, 4096, 32001, 128, False),
 ])
 def test_q4_dequant_matmul_matches_plain(gen, m, k, n, gs, act):
     """1e-2: the same bf16 weights, f32 sums in another order, bf16 out.
-    Act-order: the caller gathers x (ops/quant.py:q4_matmul)."""
+    Act-order: the caller gathers x (ops/quant.py:q4_matmul). A second
+    call on the same inputs is bit-equal (the split tiles' sums are added
+    in a fixed order)."""
     qt = _qt(gen, k, n, gs, act)
     x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
     if act:
@@ -243,6 +253,68 @@ def test_q4_dequant_matmul_matches_plain(gen, m, k, n, gs, act):
     got = quant.q4_dequant_matmul(x, qt)
     assert quant.q4_dequant_matmul.launches == before + 1
     _close(got, quant._q4_matmul_plain(x, qt), 1e-2)
+    assert torch.equal(quant.q4_dequant_matmul(x, qt), got)
+
+
+def test_q4_dequant_matmul_graph_holds_its_split_scratch(gen):
+    """K2 at 40 rows (stream-K: f32 partials and tickets in the per-device
+    scratch) captured in a graph: the graph holds the scratch it writes
+    (``kernels.scratch_in_use``), so after the scratch is replaced by a
+    larger one (as another kernel's call grows it) and an eager call at
+    another shape has written the new one, its replays still give the
+    eager output, bit for bit."""
+    from exllama_tpu_torch import graphs, kernels
+
+    qt = _qt(gen, 4096, 4096, 128, False)
+    x = torch.randn((40, 4096), generator=gen, device="cuda").bfloat16()
+    plan = quant.q4_matmul_plan(40, 4096, 4096, kernels.sm_count(x.device))
+    assert plan.stream_k
+    eager = quant.q4_dequant_matmul(x, qt)
+    part, ticket = quant.q4_matmul_scratch(x.device, plan)
+    outs = []
+    graph, counts = graphs.capture_step(
+        lambda: outs.append(quant.q4_dequant_matmul(x, qt)), x.device,
+        torch.cuda.Stream(x.device), torch.cuda.graph_pool_handle())
+    assert counts == {(quant.q4_dequant_matmul, "launches"): 1}
+    held = kernels.scratch_in_use(x.device)
+    assert any(t is part for t in held) and any(t is ticket for t in held)
+    grown = quant.gemv_scratch(x.device, part.numel() + 1, ticket.numel() + 1)
+    assert grown[0] is not part and grown[1] is not ticket
+    # a 200-row call (256 x 128 tiles, stream-K) on the new scratch
+    big = torch.randn((200, 4096), generator=gen, device="cuda").bfloat16()
+    _close(quant.q4_dequant_matmul(big, qt), quant._q4_matmul_plain(big, qt),
+           1e-2)
+    outs[1].zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(outs[1], eager)
+    del held
+
+
+def test_no_wrapper_launches_the_ring_exact_mode(gen):
+    """The mma.sync ring's Exact mode, K2's kernel before the Hopper one,
+    is chip_smoke.py's yardstick only: every route of ops/quant.py at M >
+    32 (each matmul mode, the GLU route, act-order, f32 scales) leaves its
+    launch count where it was."""
+    from exllama_tpu_torch import kernels
+
+    ring = kernels.launcher("q4_matmul_ring_launches")
+    before = ring()
+    for act in (False, True):
+        qt = _qt(gen, 512, 264, 128, act)
+        f32 = dataclasses.replace(qt, scales=qt.scales.float(),
+                                  zscale=qt.zscale.float())
+        for m in (33, 64, 130, 300):
+            x = torch.randn((m, 512), generator=gen, device="cuda").bfloat16()
+            for impl in ("auto", "pallas", "pallas_a8", "pallas_a8x2",
+                         "pallas_a8t"):
+                quant.q4_matmul(x, qt, impl=impl)
+            quant.q4_matmul(x, f32)
+            gu = torch.randn((m, 1024), generator=gen,
+                             device="cuda").bfloat16()
+            quant.q4_matmul(gu, qt, glu=(512, 512))
+    torch.cuda.synchronize()
+    assert ring() == before
 
 
 @pytest.mark.parametrize("b,t,h,hkv,d,past,deferred,masked", [

@@ -415,13 +415,16 @@ def gate_model(tmp_path_factory):
 # refuses K7; :297-298, :353-359 an adapted gate / up / down refuses K6
 # and K7's MLP), and how many projections take the input norm in their
 # prologue (none under an adapted q / k / v, :234-251)
+# under a q / k / v adapter the qkv product keeps the input norm in its
+# prologue (the adapters read the plainly normed x), as without one, so
+# that a row's projection does not depend on its batch-mates' adapters
 GATE_ROUTES = {
     (None, False): dict(layer_tail=2, prologue=2),
     (None, True): dict(layer_step=2),
-    ("Q", False): dict(layer_tail=2),
-    ("Q", True): dict(layer_tail=2),
-    ("A", False): dict(attend=2),
-    ("A", True): dict(attend=2),
+    ("Q", False): dict(layer_tail=2, prologue=2),
+    ("Q", True): dict(layer_tail=2, prologue=2),
+    ("A", False): dict(attend=2, prologue=2),
+    ("A", True): dict(attend=2, prologue=2),
     ("o", True): dict(attend=2, q4_mlp=2, prologue=2),
     ("mlp", True): dict(attn_block_o=2, prologue=2),
 }
