@@ -62,13 +62,12 @@
 // column tiles, which would halve the L2 reads of x at long prefill.
 #pragma once
 
-#include <cuda.h>
-
-#include "async_mma.cuh"
-#include "stream_k.cuh"
+#include "hopper.cuh"
 
 namespace wg {
 SCALE_NS_BEGIN
+
+using namespace hop;
 
 constexpr int BK = 64;
 // two consumer warpgroups and a producer warpgroup, of which one warp works
@@ -110,167 +109,6 @@ struct Args {
   int mtiles, tiles, ktiles;  // row tiles; row tiles x column tiles; 64-deep slabs
   int stream_k;
 };
-
-// ------------------------------------------------------ PTX building blocks
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(tc::smem_addr(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(tc::smem_addr(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   tc::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-// Spin until the barrier's phase differs from `parity`. Built with
-// -DWG_WATCHDOG=1 (a first run of a changed kernel), a wait that never ends
-// traps instead, so that a hang comes back as a launch failure.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = tc::smem_addr(bar);
-  uint32_t done;
-#if WG_WATCHDOG
-  long long spins = 0;
-#endif
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-#if WG_WATCHDOG
-    if (++spins > (1ll << 26)) __trap();
-#endif
-  } while (!done);
-}
-// A 2-D TMA load of the box at (c0 inner, c1 outer) into dst, completing on bar.
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0, int c1,
-                                       uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(tc::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(tc::smem_addr(bar))
-      : "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keep the compiler from moving accesses of these registers across the
-// asynchronous products (wgmma reads and writes them behind its back).
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
-  uint32_t r;
-  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
-  return r;
-}
-
-// The shared-memory descriptor of a K-major operand whose rows are 128
-// bytes (64 bf16 of k), 128-byte swizzled in 8-row atoms of 1024 bytes, as
-// TMA leaves it under CU_TENSOR_MAP_SWIZZLE_128B; the k-step of 16 moves
-// the start address by 32 bytes (2 in the 16-byte units of the field).
-__device__ __forceinline__ uint64_t kmajor_sw128(const void* p) {
-  const uint64_t a = tc::smem_addr(p);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// D[64 x N] += A[64 x 16] (registers: the m16n8k16 A fragment of the
-// warp's 16 rows) * B[16 x N] (K-major in shared memory, descriptor).
-template <int N>
-struct Mma;
-
-template <>
-struct Mma<64> {
-  static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct Mma<128> {
-  static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
-template <>
-struct Mma<256> {
-  static __device__ __forceinline__ void run(float (&d)[128], const uint32_t (&a)[4], uint64_t desc) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-          "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-          "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-          "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-          "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-  }
-};
-
 
 // Two weights of one column, k and k + 1, from their packed word w (its
 // byte q holds their nibbles, the lower k in the low one), as the bf16
@@ -326,35 +164,6 @@ __device__ __forceinline__ uint32_t dequant2(uint32_t w, uint32_t pick, const Co
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 #endif
-
-// A block's work: output tiles (data-parallel: tiles b, b + grid, ...,
-// each whole) or, under stream-K, its contiguous range [u0, u1) of the
-// tiles x ktiles (tile, slab) units cut at tile edges. Producer and
-// consumers walk the same ranges.
-struct Walk {
-  int KT, tiles, grid, t, u0, u1, u;
-  long long U;
-  bool sk;
-  __device__ __forceinline__ explicit Walk(const Args& p)
-      : KT(p.ktiles), tiles(p.tiles), grid(gridDim.x), t(blockIdx.x), sk(p.stream_k != 0) {
-    U = (long long)p.tiles * p.ktiles;
-    u0 = u = sk ? streamk::unit_begin(blockIdx.x, U, grid) : 0;
-    u1 = sk ? streamk::unit_begin(blockIdx.x + 1, U, grid) : 0;
-  }
-  // The next range: tile, slabs [kb, ke). False when the block is done.
-  __device__ __forceinline__ bool next(int& tile, int& kb, int& ke) {
-    if (sk) {
-      if (u >= u1) return false;
-      tile = u / KT;
-      const int e = min(u1, (tile + 1) * KT);
-      kb = u - tile * KT, ke = e - tile * KT, u = e;
-      return true;
-    }
-    if (t >= tiles) return false;
-    tile = t, kb = 0, ke = KT, t += grid;
-    return true;
-  }
-};
 
 // A consumer thread's share of the slabs: wait for a slab's slot,
 // dequantize its A fragments (NW products x 4 k-steps of 16) into one of
@@ -471,7 +280,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (warp >= CONSUMERS / 32) {  // the producer warpgroup: its first warp works
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (warp != CONSUMERS / 32 || (VEC && lane != 0)) return;
-    Walk w(p);
+    Walk w(p.tiles, p.ktiles, p.stream_k);
     int tile, kb, ke, st = 0;
     uint32_t phase = 0;  // of slot st; its first wait passes at once (the slots start free)
     while (w.next(tile, kb, ke)) {
@@ -523,55 +332,43 @@ __global__ void __launch_bounds__(THREADS, 1)
                         lane};
     float acc[NW][NACC];
     bf16* Cs = reinterpret_cast<bf16*>(smem + C::C_OFF);
-    Walk w(p);
+    Walk w(p.tiles, p.ktiles, p.stream_k);
     int tile, kb, ke;
     while (w.next(tile, kb, ke)) {
       cs.range(acc, kb, ke);
       const int m0 = (tile % p.mtiles) * BM, n0 = (tile / p.mtiles) * BN;
 
-      if (kb != 0 || ke != p.ktiles) {
-        // a part of the tile (stream-K): this block's first (slot 0) or last
-        // (slot 1) range, published as a grid barrier does it; the partial
-        // sums stay in the accumulators' layout, thread by thread
-        const int KT = p.ktiles, seg0 = tile * KT + kb;
-        float4* mine = reinterpret_cast<float4*>(
-                           p.part + (size_t)(2 * blockIdx.x + (seg0 == w.u0 ? 0 : 1)) * BM * BN) +
-                       tid;
+      // a part of the tile (stream-K): this block's first (slot 0) or last
+      // (slot 1) range; the partial sums stay in the accumulators' layout,
+      // thread by thread, and the tile's last block adds them
+      const bool emit = finish_piece<1>(
+          w, tile, kb, ke, p.ticket, answer, tid, CONSUMERS,
+          [&](int slot) {
+            float4* mine =
+                reinterpret_cast<float4*>(p.part + (size_t)(2 * blockIdx.x + slot) * BM * BN) +
+                tid;
 #pragma unroll
-        for (int j = 0; j < NW; ++j)
+            for (int j = 0; j < NW; ++j)
 #pragma unroll
-          for (int i = 0; i < NACC / 4; ++i)
-            mine[(j * (NACC / 4) + i) * CONSUMERS] =
-                make_float4(acc[j][4 * i], acc[j][4 * i + 1], acc[j][4 * i + 2], acc[j][4 * i + 3]);
-        bar_sync(1, CONSUMERS);
-        if (tid == 0) {
-          __threadfence();
-          *answer = (int)atomicAdd(p.ticket + tile, 1u);
-          __threadfence();
-        }
-        bar_sync(1, CONSUMERS);
-        const int first = streamk::block_of((long long)tile * KT, w.U, w.grid);
-        const int last = streamk::block_of((long long)(tile + 1) * KT - 1, w.U, w.grid);
-        if (*answer != last - first) continue;  // another block finishes the tile
+              for (int i = 0; i < NACC / 4; ++i)
+                mine[(j * (NACC / 4) + i) * CONSUMERS] = make_float4(
+                    acc[j][4 * i], acc[j][4 * i + 1], acc[j][4 * i + 2], acc[j][4 * i + 3]);
+          },
+          [&](int blk, int, bool first) {
+            const float4* src = reinterpret_cast<const float4*>(
+                                    p.part + (size_t)(2 * blk + w.slot_of(blk, tile)) * BM * BN) +
+                                tid;
 #pragma unroll
-        for (int j = 0; j < NW; ++j)
+            for (int j = 0; j < NW; ++j)
 #pragma unroll
-          for (int i = 0; i < NACC; ++i) acc[j][i] = 0.f;
-        for (int blk = first; blk <= last; ++blk) {  // in the order of k
-          const int slot = streamk::unit_begin(blk, w.U, w.grid) >= tile * KT ? 0 : 1;
-          const float4* src =
-              reinterpret_cast<const float4*>(p.part + (size_t)(2 * blk + slot) * BM * BN) + tid;
-#pragma unroll
-          for (int j = 0; j < NW; ++j)
-#pragma unroll
-            for (int i = 0; i < NACC / 4; ++i) {
-              const float4 v = __ldcg(src + (j * (NACC / 4) + i) * CONSUMERS);
-              acc[j][4 * i] += v.x, acc[j][4 * i + 1] += v.y;
-              acc[j][4 * i + 2] += v.z, acc[j][4 * i + 3] += v.w;
-            }
-        }
-        if (tid == 0) p.ticket[tile] = 0u;  // ready for the next launch
-      }
+              for (int i = 0; i < NACC / 4; ++i) {
+                const float4 v = __ldcg(src + (j * (NACC / 4) + i) * CONSUMERS);
+                float* x = acc[j] + 4 * i;
+                if (first) x[0] = x[1] = x[2] = x[3] = 0.f;
+                x[0] += v.x, x[1] += v.y, x[2] += v.z, x[3] += v.w;
+              }
+          });
+      if (!emit) continue;
 
       // the output tile: bf16 in registers, transposed through shared memory
       // (Cs[m][n]), out in 16-byte stores

@@ -74,6 +74,12 @@ for _stem in ("q4_gemv", "q4_mlp", "layer_tail"):
 # stream, "i" int, "f" float)
 _SIGNATURES = {
     "q4_gemv": ("q4_gemv", "q4_gemv_launch", "p" * 9 + "i" * 5 + "f" + "p"),
+    # K1 at 2..32 rows on Hopper (the exact builds only)
+    "q4_gemv_wg": ("q4_gemv", "q4_gemv_wg_launch", "p" * 9 + "i" * 7 + "f" + "p"),
+    # its parent, the mma.sync route (chip_smoke.py's yardstick only), and
+    # the count of its launches
+    "q4_gemv_tc": ("q4_gemv", "q4_gemv_tc_launch", "p" * 9 + "i" * 5 + "f" + "p"),
+    "q4_gemv_tc_launches": ("q4_gemv", "q4_gemv_tc_launches", ""),
     "q4_matmul": ("q4_matmul", "q4_matmul_launch",
                   "p" * 7 + "i" * 8 + "p"),
     # K2's parent, the ring's Exact mode (chip_smoke.py's yardstick only),
@@ -87,7 +93,13 @@ _SIGNATURES = {
                    "p" * 12 + "i" * 12 + "f" + "p"),
     "flash_attn_d256": ("flash_attn_d256", "flash_attn_launch",
                         "p" * 12 + "i" * 12 + "f" + "p"),
-    "dense_gemv": ("dense_gemv", "dense_gemv_launch", "ppppp" + "iiii" + "p"),
+    "dense_gemv": ("dense_gemv", "dense_gemv_launch", "ppppp" + "i" * 7 + "p"),
+    # K4's parent, the stream-K loop K5 runs (chip_smoke.py's yardstick
+    # only), and the count of its launches
+    "dense_gemv_stream": ("dense_gemv", "dense_gemv_stream_launch",
+                          "ppppp" + "iiii" + "p"),
+    "dense_gemv_stream_launches": ("dense_gemv", "dense_gemv_stream_launches",
+                                   ""),
     "head_argmax": ("head_argmax", "head_argmax_launch",
                     "p" * 7 + "iiii" + "f" + "p"),
     "q4_mlp": ("q4_mlp", "q4_mlp_launch", "p" * 13 + "iiii" + "f" + "p"),

@@ -10,11 +10,16 @@ threshold measured on a TPU and kept for now):
     act-order gather in its prologue; by ``gemv_tc_route``, one row at
     groupsize 32 / 64 / 128 takes the streaming GEMV (csrc/q4_stream.cuh,
     stream-K over the grid; K6 and K7 run it at every row count), 2..32
-    rows (or another groupsize) the tensor-core route (csrc/q4_gemv_tc.cuh),
-    K split across blocks as ``gemv_split_plan`` says;
+    rows (or another groupsize) the Hopper kernel (csrc/q4_gemv_wg.cuh:
+    TMA, wgmma with the nibbles as its register operand and x's rows as its
+    N, stream-K as ``q4_gemv_plan`` says);
   * M <= 32, "pallas_a8" / "pallas_a8x2" / "pallas_a8t": K9 ``q4_gemv_a8``
     (the a8 builds of the same source) -- int8 activations per (row, group)
     against the nibbles in integer arithmetic; a8x2 adds a residual pass;
+    at 2..32 rows on the mma.sync tensor-core route (csrc/q4_gemv_tc.cuh),
+    its K split across blocks as ``gemv_split_plan`` says (that route's
+    exact mode, K1's kernel before the Hopper one, is reached by no wrapper
+    here);
   * M > 32, exact and "pallas_a8" / "pallas_a8x2": K2 ``q4_dequant_matmul``
     (csrc/q4_matmul.cu, csrc/q4_wgmma.cuh) -- TMA, the weight dequantized
     into wgmma's register operand, the row tile by M, a persistent grid and
@@ -192,11 +197,11 @@ def _gemv_checks(name, x, qt, norm_w):
 
 
 def gemv_tc_route(m: int, gs: int) -> bool:
-    """Whether K1 / K9 take the tensor-core route for m rows at groupsize
-    gs (else the streaming GEMV): 2..32 rows, or one row at a groupsize
-    outside the streaming GEMV's (csrc/q4_gemv.cu makes the same choice;
-    PERF.md §6 says why K1 / K9 keep the tensor-core route at 2..32 rows,
-    where K6 and K7 run the streaming GEMV)."""
+    """Whether K1 / K9 leave the streaming GEMV for m rows at groupsize gs:
+    2..32 rows, or one row at a groupsize outside the streaming GEMV's --
+    K1 then takes its Hopper kernel (``q4_gemv_plan``), K9 its tensor-core
+    route (csrc/q4_gemv.cu makes the same choice; PERF.md §6 says why
+    neither runs the streaming GEMV at 2..32 rows, where K6 and K7 do)."""
     return m > 1 or gs not in STREAM_GROUPSIZES
 
 
@@ -208,7 +213,8 @@ def stream_row_tile(m: int) -> int:
 
 
 def gemv_split_plan(n: int, k: int, sms: int) -> int:
-    """Splits of K for the tensor-core GEMV of an N-column, K-deep weight on
+    """Splits of K for the tensor-core GEMV (K9 at 2..32 rows, and K1's
+    parent) of an N-column, K-deep weight on
     a card of ``sms`` SMs: as many (128-column tile, split) blocks as fit
     in one wave of two an SM (the kernel's residency), each split at least
     8 units of 32 k, none empty (the normalisation of
@@ -278,6 +284,32 @@ def q4_stream_plan(n: int, k: int, grid: int):
     tiles, ku = -(-n // STREAM_BN), -(-k // STREAM_UNIT)
     g = min(grid, tiles * ku)
     return stream_k_ranges(tiles, ku, g) + [[] for _ in range(grid - g)]
+
+
+def tile_grid(tiles: int, ktiles: int, sms: int, max_pieces=None):
+    """The grid of a persistent kernel of one block an SM over ``tiles``
+    output tiles ``ktiles`` slabs deep (K1, K2, K4): whole tiles
+    data-parallel if their last wave is at least Q4MM_FILL full, else
+    stream-K over the (tile, slab) units on at most ``sms`` blocks, and at
+    most ``max_pieces`` blocks a tile. (grid, stream_k)."""
+    waves = -(-tiles // sms)
+    if tiles >= Q4MM_FILL * waves * sms:
+        return min(sms, tiles), False
+    grid = min(sms, tiles * ktiles)
+    if max_pieces is not None:
+        grid = min(grid, tiles * max_pieces)
+    return grid, True
+
+
+def tile_ranges(tiles: int, ktiles: int, grid: int, stream_k: bool):
+    """Each block's ranges [(tile, first slab, end slab, slot)] under
+    ``tile_grid``'s plan: slot None for a whole tile, else the scratch slot
+    (0: the block's first range, 1: its last) of a tile cut between
+    blocks."""
+    if stream_k:
+        return stream_k_ranges(tiles, ktiles, grid)
+    return [[(t, 0, ktiles, None) for t in range(b, tiles, grid)]
+            for b in range(grid)]
 
 
 def fused_gemv_split_plain(x, qt, blocks: int, norm_w=None, eps=1e-6,
@@ -376,6 +408,147 @@ def _gemv_launch(lib, x, qt, norm_w, norm_eps):
     return out
 
 
+# K1 at 2..32 rows on Hopper (csrc/q4_gemv_wg.cuh): tiles of Q4GV_BN weight
+# columns, k in Q4GV_BK-deep slabs, x's rows in a row tile of 16 or 32
+# (wgmma's N); 256 consumer threads, each of which leaves a quarter of the
+# row tile's sums of x^2 beside its partial sums in a stream-K piece
+Q4GV_BN, Q4GV_BK, Q4GV_ROW_TILES = 256, 64, (16, 32)
+Q4GV_CONSUMERS = 256
+# the most blocks a stream-K tile of K1 or K4 is cut among: its last block
+# reads every piece back, so a narrow weight (one or two tiles) takes fewer
+# blocks rather than a long combine
+SPLIT_MAX_PIECES = 16
+
+
+@dataclass(frozen=True)
+class Q4GemvPlan:
+    """K1's Hopper plan for an [m <= 32, k] x [k, n] GEMV on ``grid``
+    blocks: one row tile of ``bm`` rows, tiles of Q4GV_BN columns, k in
+    ``ktiles`` slabs of Q4GV_BK; whole tiles data-parallel (block b takes
+    tiles b, b + grid, ...) or, under ``stream_k``, the tiles x ktiles
+    (tile, slab) units shared out as contiguous ranges
+    (``stream_k_ranges``)."""
+    m: int
+    n: int
+    k: int
+    bm: int
+    grid: int
+    stream_k: bool
+
+    @property
+    def tiles(self):
+        return -(-self.n // Q4GV_BN)
+
+    @property
+    def ktiles(self):
+        return -(-self.k // Q4GV_BK)
+
+    @property
+    def piece(self):
+        """f32 of a stream-K piece: the partial sums, then the rows' sums
+        of x^2 (csrc/q4_gemv_wg.cuh: Cfg::PIECE)."""
+        return self.bm * Q4GV_BN + self.bm // 4 * Q4GV_CONSUMERS
+
+    def ranges(self):
+        """Each block's ranges (``tile_ranges``)."""
+        return tile_ranges(self.tiles, self.ktiles, self.grid, self.stream_k)
+
+
+@functools.lru_cache(maxsize=1024)
+def q4_gemv_plan(m: int, n: int, k: int, sms: int) -> Q4GemvPlan:
+    """K1's Hopper plan on a card of ``sms`` SMs (one block an SM): the row
+    tile 16 or 32 (m padded to it), then whole column tiles data-parallel if
+    their last wave is at least Q4MM_FILL full, else stream-K over (tile,
+    slab) units, which fills the card whatever the tile count (every
+    Llama-7B projection and its tp shards: 12-86 tiles), on at most
+    SPLIT_MAX_PIECES blocks a tile."""
+    if not 1 <= m <= GEMV_MAX_M:
+        raise ValueError(f"q4_gemv_plan takes 1..{GEMV_MAX_M} rows, got {m}")
+    bm = next(t for t in Q4GV_ROW_TILES if m <= t)
+    grid, stream_k = tile_grid(-(-n // Q4GV_BN), -(-k // Q4GV_BK), sms,
+                               SPLIT_MAX_PIECES)
+    return Q4GemvPlan(m, n, k, bm, grid, stream_k)
+
+
+def q4_gemv_split_plain(x, qt, plan: Q4GemvPlan, norm_w=None, eps=1e-6,
+                        drop=None):
+    """K1's Hopper decomposition in plain tensor code: x staged as the kernel
+    stages it (bf16(x * w) under the norm, gathered by x_map); per 32-deep
+    half slab (one group each) the f32 products with the nibbles as 128 + q,
+    folded as s * p - (zs + 128 s) * sum(x_half); each block's ranges of
+    ``plan`` summed over their halves, a tile cut between blocks added from
+    its pieces in block order (the order of k, as the tile's last block adds
+    them); under the norm each row times 1 / sqrt(mean(x^2) + eps) last; one
+    bf16 rounding. ``drop`` = (block, range index) leaves that range out (a
+    planted fault the tests must see)."""
+    m, k = x.shape
+    n, gs = qt.out_features, qt.groupsize
+    if (plan.m, plan.n, plan.k) != (m, n, k):
+        raise ValueError(f"plan for {plan.m}x{plan.k}x{plan.n}, x {m}x{k}")
+    f32 = torch.float32
+    xf = x.to(f32)
+    xs = xf if norm_w is None else (xf * norm_w.to(f32)).to(torch.bfloat16)
+    xs = xs.to(torch.bfloat16).to(f32)
+    if qt.x_map is not None:
+        xs = xs.index_select(1, qt.x_map.to(torch.long))
+    halves = k // 32
+    xh = xs.reshape(m, halves, 32)
+    q = unpack_qweight(qt.qweight).to(f32).reshape(halves, 32, n) + 128.0
+    with full_f32_matmul():
+        p = torch.einsum("mhk,hkn->hmn", xh, q)
+    grp = torch.arange(halves, device=x.device) * 32 // gs
+    s = qt.scales.to(f32)[grp][:, None, :]
+    zc = 128.0 * s + qt.zscale.to(f32)[grp][:, None, :]
+    contrib = s * p - zc * xh.sum(-1).t()[:, :, None]          # [H, m, n]
+    out = torch.zeros((m, n), dtype=f32, device=x.device)
+    parts: dict = {}
+    for b, ranges in enumerate(plan.ranges()):
+        for i, (t, kb, ke, slot) in enumerate(ranges):
+            if drop == (b, i):
+                continue
+            cols = slice(t * Q4GV_BN, min((t + 1) * Q4GV_BN, n))
+            piece = contrib[2 * kb:min(2 * ke, halves), :, cols].sum(dim=0)
+            if slot is None:
+                out[:, cols] = piece
+            else:
+                parts.setdefault(t, []).append(piece)
+    for t, ps in parts.items():                       # in block order
+        total = ps[0]
+        for piece in ps[1:]:
+            total = total + piece
+        out[:, t * Q4GV_BN:min((t + 1) * Q4GV_BN, n)] = total
+    if norm_w is not None:
+        out = out * torch.rsqrt((xf * xf).sum(-1, keepdim=True) / k + eps)
+    return out.to(x.dtype)
+
+
+def q4_gemv_scratch(dev, plan: Q4GemvPlan):
+    """K1's stream-K scratch (the GEMVs' per-device partials and tickets,
+    grown to the plan's need and kept, so that a captured graph holds
+    them): two pieces a block, one ticket a tile."""
+    if not plan.stream_k:
+        return gemv_scratch(dev, 0, 0)
+    return gemv_scratch(dev, 2 * plan.grid * plan.piece, plan.tiles)
+
+
+def _q4_gemv_wg(x, qt, norm_w, norm_eps):
+    """K1's Hopper kernel on checked operands."""
+    m, k = x.shape
+    n = qt.out_features
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    plan = q4_gemv_plan(m, n, k, kernels.sm_count(x.device))
+    part, ticket = q4_gemv_scratch(x.device, plan)
+    lib = kernels.scaled("q4_gemv_wg", qt.scales)
+    kernels.check(kernels.launcher(lib)(
+        x.data_ptr(), qt.qweight.data_ptr(), qt.scales.data_ptr(),
+        qt.zscale.data_ptr(), kernels.ptr(norm_w), kernels.ptr(qt.x_map),
+        out.data_ptr(), part.data_ptr(), ticket.data_ptr(), m, k, n,
+        qt.groupsize, plan.bm, plan.grid, int(plan.stream_k),
+        float(norm_eps), kernels.stream_of(x),
+    ), lib)
+    return out
+
+
 def q4_gemv(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_eps=1e-6):
     """K1: rms_norm(x)·w (optional) -> gather by x_map (optional) -> x @ W.
 
@@ -385,7 +558,10 @@ def q4_gemv(x: torch.Tensor, qt: QuantTensor, norm_w=None, norm_eps=1e-6):
     if x.device.type != "cuda":
         raise RuntimeError(f"q4_gemv: unsupported device {x.device}")
     x, norm_w = _gemv_checks("q4_gemv", x, qt, norm_w)
-    out = _gemv_launch("q4_gemv", x, qt, norm_w, norm_eps)
+    if gemv_tc_route(x.shape[0], qt.groupsize):
+        out = _q4_gemv_wg(x, qt, norm_w, norm_eps)
+    else:
+        out = _gemv_launch("q4_gemv", x, qt, norm_w, norm_eps)
     count_launch(q4_gemv, qt)
     return out
 
@@ -449,14 +625,8 @@ class Q4MatmulPlan:
         return -(-self.k // Q4MM_BK)
 
     def ranges(self):
-        """Each block's ranges [(tile, first slab, end slab, slot)]: slot
-        None for a whole tile, else the scratch slot (0: the block's first
-        range, 1: its last) of a tile cut between blocks."""
-        if self.stream_k:
-            return stream_k_ranges(self.tiles, self.ktiles, self.grid)
-        return [[(t, 0, self.ktiles, None)
-                 for t in range(b, self.tiles, self.grid)]
-                for b in range(self.grid)]
+        """Each block's ranges (``tile_ranges``)."""
+        return tile_ranges(self.tiles, self.ktiles, self.grid, self.stream_k)
 
 
 def q4_matmul_row_tile(m: int) -> int:
@@ -478,12 +648,9 @@ def q4_matmul_plan(m: int, n: int, k: int, sms: int) -> Q4MatmulPlan:
     tile count (M <= 256 on o and down, the tp shards)."""
     bm = q4_matmul_row_tile(m)
     bn = Q4MM_TILES[bm]
-    tiles = -(-m // bm) * -(-n // bn)
-    waves = -(-tiles // sms)
-    if tiles >= Q4MM_FILL * waves * sms:
-        return Q4MatmulPlan(m, n, k, bm, bn, min(sms, tiles), False)
-    units = tiles * -(-k // Q4MM_BK)
-    return Q4MatmulPlan(m, n, k, bm, bn, min(sms, units), True)
+    grid, stream_k = tile_grid(-(-m // bm) * -(-n // bn), -(-k // Q4MM_BK),
+                               sms)
+    return Q4MatmulPlan(m, n, k, bm, bn, grid, stream_k)
 
 
 def q4_dequant_matmul_split_plain(x, qt, plan: Q4MatmulPlan, drop=None):

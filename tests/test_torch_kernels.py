@@ -74,10 +74,18 @@ def _close(got, ref, rel):
     (1, 512, 264, 512, False, False),
     (17, 2048, 384, 2048, False, True),
     (18, 8192, 256, 128, False, False),
+    # the Hopper kernel's row tiles (16 / 32) at their edges, K % 64 == 32,
+    # a tile cut among many blocks, data-parallel whole tiles, N % 8 != 0
+    (9, 1024, 520, 64, False, True),
+    (24, 320, 264, 32, True, False),
+    (25, 4096, 4096, 128, False, True),
+    (32, 256, 40000, 128, False, False),
+    (17, 512, 130, 128, True, True),
 ])
 def test_q4_gemv_matches_plain(gen, m, k, n, gs, act, norm):
     """1e-2 of the output scale: f32 group sums of exact nibbles vs a
-    product of bf16-rounded weights, both rounded to bf16."""
+    product of bf16-rounded weights, both rounded to bf16; the same bits
+    from a second call (the split tiles' combine has a fixed order)."""
     qt = _qt(gen, k, n, gs, act)
     x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
     nw = (torch.rand(k, generator=gen, device="cuda") + 0.5).bfloat16() \
@@ -86,6 +94,7 @@ def test_q4_gemv_matches_plain(gen, m, k, n, gs, act, norm):
     got = quant.q4_gemv(x, qt, nw, 1e-5)
     assert quant.q4_gemv.launches == before + 1
     _close(got, quant.q4_gemv_plain(x, qt, nw, 1e-5), 1e-2)
+    assert torch.equal(quant.q4_gemv(x, qt, nw, 1e-5), got)
 
 
 def _outliers(gen, x, gs, factor=50.0):
@@ -412,6 +421,9 @@ def test_attend_xla_route_on_the_card(gen, d, kind):
     # the 32-row unit; odd vocabularies (the scalar loads)
     (1, 4096, 32000), (2, 4096, 1000), (8, 200, 4096), (16, 1000, 520),
     (1, 4096, 32001), (3, 512, 257), (32, 300, 1001), (2, 100, 1),
+    # above 32 rows (K4 takes any M): the verify step's 40, several row
+    # tiles, data-parallel whole tiles, an odd vocab
+    (40, 4096, 32000), (64, 512, 1000), (130, 256, 1001), (1919, 256, 4096),
 ])
 def test_dense_gemv_matches_plain(gen, m, k, v):
     """1e-4: f32 output of the same bf16 inputs, sums in another order;
@@ -424,6 +436,68 @@ def test_dense_gemv_matches_plain(gen, m, k, v):
     assert got.shape == (m, v) and got.dtype == torch.float32
     _close(got, dense.dense_gemv_plain(x, w), 1e-4)
     assert torch.equal(dense.dense_gemv(x, w), got)
+
+
+@pytest.mark.parametrize("m", [40, 1919])
+def test_lm_head_above_32_rows_runs_k4(gen, m, monkeypatch):
+    """On the card the lm_head of more than 32 rows (a verify step, a
+    perplexity chunk) is one K4 launch and no plain product, for the logits
+    (dense_matmul) and the greedy head (head_argmax: rms_norm, K4, argmax),
+    within K4's 1e-4 of the plain product."""
+    x = torch.randn((m, 4096), generator=gen, device="cuda").bfloat16()
+    nw = (torch.rand(4096, generator=gen, device="cuda") + 0.5).bfloat16()
+    w = (torch.randn((4096, 32000), generator=gen, device="cuda")
+         * 0.02).bfloat16()
+    ref = dense.dense_gemv_plain(x, w)
+    ref_ids_logits = dense.dense_gemv_plain(norms.rms_norm(x, nw, 1e-6), w)
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on the card")
+
+    monkeypatch.setattr(dense, "dense_gemv_plain", refuse)
+    monkeypatch.setattr(dense, "head_argmax_plain", refuse)
+    before = (dense.dense_gemv.launches, dense.head_argmax.launches)
+    got = dense.dense_matmul(x[None], w)[0]
+    assert (dense.dense_gemv.launches, dense.head_argmax.launches) == (
+        before[0] + 1, before[1])
+    _close(got, ref, 1e-4)
+    ids = dense.head_argmax(x[None], nw, w, 1e-6)
+    assert (dense.dense_gemv.launches, dense.head_argmax.launches) == (
+        before[0] + 2, before[1])
+    assert ids.shape == (1, m) and ids.dtype == torch.int32
+    picked = ref_ids_logits.gather(1, ids[0].long()[:, None])[:, 0]
+    assert ((ref_ids_logits.amax(1) - picked).max()
+            <= 1e-4 * ref_ids_logits.abs().max())
+
+
+def test_no_wrapper_launches_the_k1_or_k4_parents(gen):
+    """The mma.sync route's exact mode (K1's kernel at 2..32 rows before the
+    Hopper one) and the stream-K loop as K4 (K4's before), chip_smoke.py's
+    yardsticks only: every route of the wrappers at 1..1919 rows (each
+    matmul mode, act-order, f32 scales, the logits and the greedy head)
+    leaves their C launch counts where they were."""
+    from exllama_tpu_torch import kernels
+
+    names = ("q4_gemv_tc_launches", "q4_gemv_tc_launches_f32",
+             "dense_gemv_stream_launches")
+    before = [kernels.launcher(n)() for n in names]
+    for act in (False, True):
+        qt = _qt(gen, 512, 264, 128, act)
+        f32 = dataclasses.replace(qt, scales=qt.scales.float(),
+                                  zscale=qt.zscale.float())
+        for m in (1, 2, 9, 17, 32, 40):
+            x = torch.randn((m, 512), generator=gen, device="cuda").bfloat16()
+            for impl in ("auto", "pallas", "pallas_a8", "pallas_a8x2"):
+                quant.q4_matmul(x, qt, impl=impl)
+            quant.q4_matmul(x, f32)
+    w = torch.randn((512, 1001), generator=gen, device="cuda").bfloat16()
+    nw = torch.ones(512, dtype=torch.bfloat16, device="cuda")
+    for m in (1, 8, 33, 300):
+        x = torch.randn((1, m, 512), generator=gen, device="cuda").bfloat16()
+        dense.dense_matmul(x, w)
+        dense.head_argmax(x, nw, w, 1e-6)
+    torch.cuda.synchronize()
+    assert [kernels.launcher(n)() for n in names] == before
 
 
 @pytest.mark.parametrize("m,k,v", [(1, 256, 1000), (5, 512, 130),
