@@ -11,7 +11,14 @@ Phases, one line or block of output each; any failure exits non-zero:
   3. each kernel against its plain PyTorch version on the card at the shapes
      of the Llama-7B main path (K2 also at the edges of its tile, K3's
      split-KV decode at the edges of its 64-key splits and at B = 4 with
-     distinct cursors), with its time beside the plain version, one
+     distinct cursors; K3's prefill path at T = 1919, at 64- and 127-row
+     chunks behind a cursor, with a left-pad mask, at GQA 8 (g = 4) behind
+     a cursor and at head_dim 64, 128 and 256 over each cache format, after
+     a dropped causal mask, the V scale also on l and swapped int4 halves
+     have each moved the plain output by more than 3x its limit, beside
+     its parent -- FlashAttention-2 tiles on mma.sync -- and beside SDPA
+     with a boolean mask and, where the function allows it, is_causal),
+     with its time beside the plain version, one
      PyTorch library call computing the same function where there is one
      (timed here only; the port never calls it), the least time the card
      could take and, for the fused kernels K6/K7, the port's own chain of
@@ -33,7 +40,8 @@ Phases, one line or block of output each; any failure exits non-zero:
      output by more than 3x its limit (w8_cases); K4 at M = 1, 2, 8, 32,
      40, 64, 1919 (beside its parent, the stream-K loop, at <= 32 rows) and
      K5 at M = 1, 2, 8, 32 on the 4096 x 32000 lm_head and at V = 32001
-     (an odd vocab), two calls on the same inputs bit-equal; K12 at 33,
+     (an odd vocab; beside its parent, the stream-K loop, and K4 at the
+     same M), two calls on the same inputs bit-equal; K12 at 33,
      127 and 1919 rows beside K2 alone and K2 +
      the plain silu*up, after up negated and a dropped silu have each moved
      the plain output by more than 3x its 1e-2 (turbo_cases); K3, K7 and K8
@@ -336,7 +344,8 @@ def check_close(name, got, ref, rel_tol):
 
 # timings a case may carry beside kernel / plain / library / bound
 EXTRA_TIMES = ("separate_ms", "k2_ms", "library_int8_ms", "floor_ms",
-               "bf16_ms", "parent_ms")
+               "bf16_ms", "parent_ms", "library_mask_ms", "library_causal_ms",
+               "k4_ms")
 
 
 def make_recorder(timer, res):
@@ -433,6 +442,9 @@ def kernel_cases(device, timer, res):
         ("prefill B=2 T=64 past=[1000,1100]", 2, 64, 32, [1000, 1100], 1280,
          False, False),
         ("prefill B=2 T=64 left-pad mask", 2, 64, 32, 0, 256, False, True),
+        # a 127-row chunk behind a cursor, GQA-8 (g = 4) behind a cursor
+        ("prefill T=127 past=300", 1, 127, 32, 300, 512, False, False),
+        ("prefill gqa8 T=512 past=300", 1, 512, 8, 300, 1024, False, False),
         # the speculative verify forward: T = k + 1 query rows of a chunk
         # written at the cursor, on the split-KV decode path
         ("verify T=4 past=1024", 1, 4, 32, 1024, 1280, False, False),
@@ -458,12 +470,16 @@ def kernel_cases(device, timer, res):
         if masked:
             mask = torch.ones((b, s_max), dtype=torch.bool, device=device)
             mask[0, :17] = False          # row 0 left-padded by 17 tokens
-        if label.startswith("verify"):
+        if label.startswith("verify") or label == "prefill T=127 past=300":
             plant_chunk_keys(q, kc, past)
         got = attention.attend(q, kc, vc, past_t, alen, mask, new_kv)
         ref = attention.attend_plain(q, kc, vc, past_t, alen, mask, new_kv)
         err, rel = check_close(f"flash_attn {label}", got, ref,
                                TOL["flash_attn"])
+        prefill = label.startswith("prefill")
+        if label in ("prefill T=127 past=300", "prefill gqa8 T=512 past=300"):
+            require_fault_moves(f"flash_attn {label}", ref, prefill_faults(
+                q, kc, vc, past_t, alen, mask), TOL["flash_attn"])
         if label.startswith("verify"):
             # the fault: the causal mask inside the chunk dropped, every
             # row seeing the whole chunk
@@ -506,12 +522,19 @@ def kernel_cases(device, timer, res):
             return torch.nn.functional.scaled_dot_product_attention(
                 qh, ks, vs, attn_mask=allow, enable_gqa=hkv != h)
 
+        causal = prefill and past == 0 and mask is None
         record("flash_attn", label, err, rel,
                lambda: attention.attend(q, kc, vc, past_t, alen, mask,
                                         new_kv),
                lambda: attention.attend_plain(q, kc, vc, past_t, alen, mask,
                                               new_kv),
-               lib, nbytes, flops, iters=10)
+               None, nbytes, flops, iters=10, extra={
+                   "library_mask_ms": lib,
+                   "library_causal_ms": (sdpa_causal(qh, kc, vc, t, hkv != h)
+                                         if causal else None),
+                   "parent_ms": (lambda: k3_prefill_parent(
+                       q, kc, vc, past_t, alen, mask)) if prefill else None})
+        library_pair(res["flash_attn"][-1])
 
     # K4: rel tol 1e-4 -- f32 output of the same bf16 inputs; only the
     # order of the f32 sums differs, and it is fixed: two calls on the same
@@ -607,13 +630,95 @@ def k1_parent(x, qt, nw, eps):
 
 
 def parent_launches() -> dict:
-    """The C launch counters of the parents of K1 (both scale builds), K2
-    and K4: phase 3's timings are their only callers."""
+    """The C launch counters of the parents of K1 (both scale builds), K2,
+    K3's prefill path (both head-dim libraries), K4 and K5: phase 3's
+    timings are their only callers."""
     from exllama_tpu_torch import kernels
 
     return {name: kernels.launcher(name)() for name in (
         "q4_gemv_tc_launches", "q4_gemv_tc_launches_f32",
-        "q4_matmul_ring_launches", "dense_gemv_stream_launches")}
+        "q4_matmul_ring_launches", "dense_gemv_stream_launches",
+        "flash_attn_prefill_fa2_launches",
+        "flash_attn_d256_prefill_fa2_launches", "head_argmax_stream_launches")}
+
+
+def k3_prefill_parent(q, kc, vc, past, alen, mask=None, ks=None, vs=None):
+    """K3's prefill parent: FlashAttention-2 tiles on mma.sync with a
+    2-stage cp.async ring (csrc/flash_attn.cu: prefill_kernel, entry
+    flash_attn_prefill_fa2_launch), K3's prefill kernel before the Hopper
+    one, timed beside it; no wrapper of the package reaches it."""
+    from exllama_tpu_torch import kernels
+    from exllama_tpu_torch.ops import attention
+
+    b, t, h, d = q.shape
+    mode = attention.kv_mode(kc, d, ks)
+    past_t = attention._past_tensor(past, b, q.device).contiguous()
+    mask = None if mask is None else mask.to(torch.bool).contiguous()
+    out = torch.empty_like(q)
+    lib = ("flash_attn_d256" if d == 256 else "flash_attn") + "_prefill_fa2"
+    kernels.check(kernels.launcher(lib)(
+        q.data_ptr(), kc.data_ptr(), vc.data_ptr(), kernels.ptr(ks),
+        kernels.ptr(vs), past_t.data_ptr(), kernels.ptr(mask), out.data_ptr(),
+        b, t, h, kc.shape[1], d, kc.shape[2], alen,
+        0 if mask is None else mask.shape[1], mode, 1.0 / math.sqrt(d),
+        kernels.stream_of(q)), lib)
+    return out
+
+
+def k5_parent(x, nw, w, eps):
+    """K5's parent: the stream-K loop of csrc/dense_stream.cuh with the
+    argmax keys (entry head_argmax_stream_launch), K5's kernel before the
+    Hopper one, timed beside it; no wrapper of the package reaches it."""
+    from exllama_tpu_torch import kernels
+    from exllama_tpu_torch.ops import dense, quant
+
+    m, k = x.shape
+    v = w.shape[1]
+    tiles, grid = dense.dense_grid(k, v, kernels.sm_count(x.device))
+    part, ticket = quant.gemv_scratch(
+        x.device, grid * 2 * dense._pow2(m) * dense.DENSE_BN, tiles)
+    ids = torch.empty((m,), dtype=torch.int32, device=x.device)
+    kernels.check(kernels.launcher("head_argmax_stream")(
+        x.data_ptr(), nw.data_ptr(), w.data_ptr(),
+        dense.head_argmax_scratch(x.device).data_ptr(), ids.data_ptr(),
+        part.data_ptr(), ticket.data_ptr(), m, k, v, grid, float(eps),
+        kernels.stream_of(x)), "head_argmax_stream")
+    return ids
+
+
+def prefill_faults(q, kc, vc, past, alen, mask=None, ks=None, vs=None):
+    """K3's prefill path in plain code (attention.attend_prefill_tiles_plain)
+    with each fault its kernel could make planted: the causal mask dropped
+    in the tiles that cross a block's diagonal, and over a quantized cache
+    the V scale also applied to the softmax denominator and (int4) the two
+    halves of a head read swapped. {fault: output}"""
+    from exllama_tpu_torch.ops import attention
+
+    faults = {"causal mask dropped": "causal"}
+    if ks is not None:
+        faults["V scale also on l"] = "v_scale_on_l"
+    if kc.shape[-1] != q.shape[-1]:
+        faults["int4 halves swapped"] = "halves"
+    return {name: attention.attend_prefill_tiles_plain(
+        q, kc, vc, past, alen, mask, ks, vs, fault=fault)
+        for name, fault in faults.items()}
+
+
+def sdpa_causal(qh, k, v, t, gqa):
+    """The library call PyTorch makes for causal attention of T rows over
+    the first T keys (past 0, no padding): scaled_dot_product_attention
+    with is_causal, which may take its flash backend."""
+    ks, vs = k[:, :, :t], v[:, :, :t]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qh, ks, vs, is_causal=True, enable_gqa=gqa)
+
+
+def library_pair(r):
+    """Fold a case's two SDPA timings (boolean mask; is_causal where the
+    function allows it) into library_ms, the faster, keeping both."""
+    both = [r[k] for k in ("library_mask_ms", "library_causal_ms")
+            if r.get(k) is not None]
+    r["library_ms"] = min(both) if both else None
 
 
 def ring_parent(x, qt):
@@ -769,8 +874,15 @@ def fused_cases(device, timer, res):
                    lambda: dense.head_argmax_plain(x, nw, w, eps),
                    lambda: torch.argmax(torch.matmul(xn, w), dim=-1),
                    hidden * v * 2 + m * hidden * 2 + hidden * 2 + m * 4,
-                   2 * m * hidden * v)
+                   2 * m * hidden * v, extra={
+                       "parent_ms": lambda: k5_parent(x, nw, w, eps),
+                       "k4_ms": lambda: dense.dense_gemv(xn, w)})
         del w
+    log("  K5 against its parent (the stream-K loop) and K4 at the same M, "
+        "ms: " + "; ".join(
+            f"{r['case']} {r['ms']:.4f} / parent {r['parent_ms']:.4f} / K4 "
+            f"{r['k4_ms']:.4f} / library {r['library_ms']:.4f}"
+            for r in res["head_argmax"]))
 
     # K6: rel tol 2e-2 -- K1's 1e-2 twice over (gate|up, then down), the
     # same bf16 cast points on both sides; one row and the row tiles 8 /
@@ -1644,6 +1756,12 @@ def kv_cases(device, timer, res):
             aargs = (q, kc, vc, pst, s_max, mask, new_kv, ks, vs)
             got = attention.attend(*aargs)
             ref = attention.attend_plain(*aargs)
+            prefill = "prefill" in label
+            if prefill:
+                require_fault_moves(
+                    f"flash_attn_{kind} {label}", ref,
+                    prefill_faults(q, kc, vc, pst, s_max, mask, ks, vs),
+                    TOL["flash_attn"])
             err, rel = check_close(f"flash_attn_{kind} {label}", got, ref,
                                    TOL["flash_attn"])
             lim = [min(s_max, pst + ti + (0 if deferred else 1))
@@ -1666,10 +1784,18 @@ def kv_cases(device, timer, res):
                 return torch.nn.functional.scaled_dot_product_attention(
                     qh, kd, vd, attn_mask=allow, enable_gqa=hkv != heads)
 
+            causal = prefill and pst == 0 and mask is None
             record(f"flash_attn_{kind}", label, err, rel,
                    lambda: attention.attend(*aargs),
-                   lambda: attention.attend_plain(*aargs), lib, nbytes,
-                   4 * d * heads * vis, iters=10)
+                   lambda: attention.attend_plain(*aargs), None, nbytes,
+                   4 * d * heads * vis, iters=10, extra={
+                       "library_mask_ms": lib,
+                       "library_causal_ms": (sdpa_causal(
+                           qh, kd, vd, t, hkv != heads) if causal else None),
+                       "parent_ms": (lambda: k3_prefill_parent(
+                           q, kc, vc, pst, s_max, mask, ks, vs))
+                       if prefill else None})
+            library_pair(res[f"flash_attn_{kind}"][-1])
             del kd, vd
 
         # ---- K7 at the main path's shapes, exact and a8 builds
@@ -2034,8 +2160,11 @@ def groupsize_cases(device, timer, res):
 def head_dim_cases(device, timer, res):
     """K3 at head_dim 256 (16 heads of 256 at 7B width): split-KV decode
     at past 2000 (and B = 2 with GQA 4:1) and the prefill tiles at T =
-    1919, over bf16, int8 and int4 caches, each against its plain version
-    (2e-2) with kernel / plain / SDPA / bound times; then head_dim 100
+    1919, over bf16, int8 and int4 caches, and the prefill at head_dim 64
+    (64 heads of 64) over each, each against its plain version (2e-2,
+    after the prefill faults have moved the plain output by more than 3x
+    that) with kernel / plain / SDPA (boolean mask and causal) / parent /
+    bound times; then head_dim 100
     (OpenLlama-3B: 32 heads of 100), which attn_impl "auto" routes to the
     einsum attention: its counter moves and K3's does not. Returns the
     route's launches."""
@@ -2043,13 +2172,15 @@ def head_dim_cases(device, timer, res):
 
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
     record = make_recorder(timer, res)
-    d, h, s_max = 256, 16, 2048
-    cases = [("decode past=2000", 1, 1, 16, 2000, 2048, True),
-             ("decode B=2 past=2000 gqa4", 2, 1, 4, 2000, 2048, True),
-             ("prefill T=1919 past=0", 1, 1919, 16, 0, 2048, False)]
+    s_max = 2048
+    cases = [(256, "decode past=2000", 1, 1, 16, 2000, 2048, True),
+             (256, "decode B=2 past=2000 gqa4", 2, 1, 4, 2000, 2048, True),
+             (256, "prefill T=1919 past=0", 1, 1919, 16, 0, 2048, False),
+             (64, "prefill T=1919 past=0", 1, 1919, 64, 0, 2048, False)]
     for kind in ("bf16",) + KV_KINDS:
         kname = "flash_attn" if kind == "bf16" else f"flash_attn_{kind}"
-        for label, b, t, hkv, past, alen, deferred in cases:
+        for d, label, b, t, hkv, past, alen, deferred in cases:
+            h = 4096 // d
             q = torch.randn((b, t, h, d), generator=gen,
                             device=device).bfloat16()
             ks = vs = None
@@ -2068,10 +2199,16 @@ def head_dim_cases(device, timer, res):
                                            device=device).bfloat16()
                                for _ in range(2))
             args = (q, kc, vc, past, alen, None, new_kv, ks, vs)
-            err, rel = check_close(f"{kname} D=256 {label}",
-                                   attention.attend(*args),
-                                   attention.attend_plain(*args),
-                                   TOL[kname])
+            ref = attention.attend_plain(*args)
+            prefill = label.startswith("prefill")
+            if prefill:
+                require_fault_moves(
+                    f"{kname} D={d} {label}", ref,
+                    prefill_faults(q, kc, vc, past, alen, None, ks, vs),
+                    TOL[kname])
+            err, rel = check_close(f"{kname} D={d} {label}",
+                                   attention.attend(*args), ref, TOL[kname])
+            del ref
             keys = past + (0 if deferred else t)
             vis = b * sum(min(alen, past + ti + (0 if deferred else 1))
                           + (1 if deferred else 0) for ti in range(t))
@@ -2088,10 +2225,17 @@ def head_dim_cases(device, timer, res):
                     qh, kd[:, :, :alen], vd[:, :, :alen], attn_mask=allow,
                     enable_gqa=hkv != h)
 
-            record(kname, f"D=256 {label}", err, rel,
+            record(kname, f"D={d} {label}", err, rel,
                    lambda: attention.attend(*args),
-                   lambda: attention.attend_plain(*args), lib, nbytes,
-                   4 * d * h * vis, iters=10)
+                   lambda: attention.attend_plain(*args), None, nbytes,
+                   4 * d * h * vis, iters=10, extra={
+                       "library_mask_ms": lib,
+                       "library_causal_ms": (sdpa_causal(
+                           qh, kd, vd, t, hkv != h) if prefill else None),
+                       "parent_ms": (lambda: k3_prefill_parent(
+                           q, kc, vc, past, alen, None, ks, vs))
+                       if prefill else None})
+            library_pair(res[kname][-1])
     # head_dim 100: the einsum route, on its own counter
     d, h, hkv = 100, 32, 32
     if attention.resolve_attn_impl("auto", d) != "xla":
@@ -2821,6 +2965,11 @@ def launch_counters():
     for name in ("flash_attn", "layer_tail", "layer_tail_a8", "kv_commit"):
         for kind in KV_KINDS:
             out[f"{name}_{kind}"] = (fns[name], f"launches_{kind}")
+    # K3's launches on its prefill path (a subset of flash_attn*'s)
+    out["flash_attn_prefill"] = (attention.attend, "launches_prefill")
+    for kind in KV_KINDS:
+        out[f"flash_attn_prefill_{kind}"] = (attention.attend,
+                                             f"launches_prefill_{kind}")
     # and those of the f32-scale builds apart from both
     for name in F32_KERNELS + ("q4_mlp_a8", "layer_tail_a8"):
         out[f"{name}_f32"] = (fns[name], "launches_f32")
@@ -3003,12 +3152,13 @@ def main_path(mp):
     top = kernel_times(lambda: gen.gen_begin(mp.ids), top=40) or []
     busy = sum(us for _, us in top) / 1e3
     k2 = sum(us for name, us in top if "q4_wgmma" in name) / 1e3
-    k3 = sum(us for name, us in top if "prefill_kernel" in name) / 1e3
+    k3 = sum(us for name, us in top if "prefill_wg_kernel" in name) / 1e3
     r1["prefill_split"] = dict(wall_ms=wall_ms, device_ms=busy, k2_ms=k2,
-                               k3_ms=k3, top=top[:6])
+                               k3_ms=k3, glue_ms=busy - k2 - k3, top=top[:6])
     log(f"  a {mp.ids.shape[1] - 1}-token prefill: {wall_ms:.1f} ms fenced; "
         f"traced, its kernels {busy:.1f} ms of device time, K2 {k2:.1f} ms "
-        f"({k2 / max(busy, 1e-9):.1%}), K3 {k3:.1f} ms; the most: "
+        f"({k2 / max(busy, 1e-9):.1%}), K3 {k3:.1f} ms, the rest (plain "
+        f"glue) {busy - k2 - k3:.1f} ms; the most: "
         + "; ".join(f"{us / 1e3:.2f} ms {name}" for name, us in top[:6]))
     return r1
 
@@ -3287,7 +3437,8 @@ def kv_path(mp, bf16, launches):
             mp.use_model(model, cache)
             a8 = impl != "auto"
             tail = ("layer_tail_a8_" if a8 else "layer_tail_") + kind
-            prefill = {f"flash_attn_{kind}": n_layers, "flash_attn": 0}
+            prefill = {f"flash_attn_{kind}": n_layers, "flash_attn": 0,
+                       f"flash_attn_prefill_{kind}": n_layers}
             if impl == "pallas_a8t":
                 assert model.params.layers[0].down.w8 is not None
                 prefill.update(w8_matmul=3 * n_layers, q4_prefill_a8=n_layers,
@@ -3526,7 +3677,7 @@ SAMPLED_STEP = {"q4_gemv": 32, "layer_tail": 32, "dense_gemv": 1,
 GREEDY_STEP = {"layer_tail": 32, "head_argmax": 1, "kv_commit": 1,
                "q4_gemv": 0, "flash_attn": 0, "dense_gemv": 0}
 STEP_KERNELS = {"sampled": ("q4_gemv", "layer_tail_kernel", "dense_wg_kernel"),
-                "greedy": ("layer_tail_kernel", "head_argmax", "kv_commit")}
+                "greedy": ("layer_tail_kernel", "ArgmaxEmit", "kv_commit")}
 
 
 def counter_names():
@@ -5461,6 +5612,14 @@ for _kind in KV_KINDS:
                          ("layer_tail", "layer_tail B=1 past=2000"),
                          ("kv_commit", "L=32 B=1 Hkv=32 [1]")):
         SOURCES[f"{_name}_{_kind}"] = (*SOURCES[_name][:2], f"{_kind} {_case}")
+# K3's prefill path on Hopper (flash_prefill_wg.cuh), in each cache format:
+# its cases are filed under flash_attn / _int8 / _int4, its launches apart
+for _kind in ("",) + tuple(f"_{k}" for k in KV_KINDS):
+    SOURCES[f"flash_attn_prefill{_kind}"] = (
+        "exllama_tpu_torch/csrc/flash_prefill_wg.cuh",
+        "exllama_tpu/ops/attention.py:772",
+        f"{_kind[1:] + ' ' if _kind else ''}prefill T=1919 past=0",
+        f"flash_attn{_kind}")
 # and their f32-scale builds (-DSCALE_F32=1), the cases of f32_scale_cases
 for _name, _case in (("q4_gemv", "qkv g128 M=1 norm"),
                      ("q4_dequant_matmul", "4096->22016 g128 M=1919"),
@@ -6170,6 +6329,8 @@ def main() -> int:
         "layer_tail")})
     require("phase 5 decode step", fused["per_decode_step"], {
         "q4_gemv": 32, "layer_tail": 32, "flash_attn": 0, "dense_gemv": 1})
+    require("phase 5 prefill", fused["per_prefill"], {
+        "flash_attn": 32, "flash_attn_prefill": 32})
     launches.update({k: launches.get(k, 0) + v for k, v in c5.items()})
     log(f"[5 main path] done ({time.time() - t0:.1f} s)")
 
@@ -6307,19 +6468,32 @@ def main() -> int:
     log("  phase 15 results: " + json.dumps(p15, default=str))
     log(f"[15 compiled steps] done ({time.time() - t0:.1f} s)")
 
-    # K3's prefill path beside its decode path (the summary names decode)
-    log("  flash_attn prefill T=1919: " + "; ".join(
-        f"{kname} kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
-        f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f}"
-        for kname in ("flash_attn", "flash_attn_int8", "flash_attn_int4")
-        for r in res[kname] if "prefill T=1919" in r["case"]))
+    # K3's prefill path: every case beside its parent and both SDPA calls
+    log("  flash_attn prefill (kernel / parent / SDPA mask / SDPA causal / "
+        "bound, ms): " + "; ".join(
+            f"{kname} {r['case']} {r['ms']:.4f} / {r['parent_ms']:.4f} / "
+            f"{r['library_mask_ms']:.4f} / "
+            + ("n/a" if r.get("library_causal_ms") is None
+               else f"{r['library_causal_ms']:.4f}")
+            + f" / {r['bound_ms']:.4f}"
+            for kname in ("flash_attn", "flash_attn_int8", "flash_attn_int4")
+            for r in res[kname] if "prefill" in r["case"]))
+    slow = [f"{kname} {r['case']}"
+            for kname in ("flash_attn", "flash_attn_int8", "flash_attn_int4")
+            for r in res[kname]
+            if "prefill" in r["case"] and r["ms"] >= r["parent_ms"]]
+    if slow:
+        log(f"  K3's prefill not faster than its parent at: {slow}")
     log("  flash_attn at the verify forward's shapes: " + "; ".join(
         f"{r['case']} kernel_ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
         f"library_ms {r['library_ms']:.4f} bound_ms {r['bound_ms']:.4f}"
         for r in res["flash_attn"] if r["case"].startswith("verify")))
     summary = []
-    for kname, (src, replaces, rep_case) in SOURCES.items():
-        r = next(c for c in res[kname] if c["case"].startswith(rep_case))
+    for kname, (src, replaces, rep_case, *res_key) in SOURCES.items():
+        cases = res[res_key[0] if res_key else kname]
+        if res_key:         # K3's prefill path: its own cases
+            cases = [c for c in cases if "prefill" in c["case"]]
+        r = next(c for c in cases if c["case"].startswith(rep_case))
         lib = r["library_ms"]
         log(f"  {kname} ({r['case']}): kernel_ms {r['ms']:.4f} plain_ms "
             f"{r['plain_ms']:.4f} library_ms "
@@ -6328,7 +6502,7 @@ def main() -> int:
         entry = dict(
             name=kname, route="cuda", source=src, replaces=replaces,
             launches=launches[kname],
-            max_abs_err=max(c["max_abs_err"] for c in res[kname]),
+            max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=lib, case=r["case"],
         )
@@ -6357,8 +6531,9 @@ def main() -> int:
         raise AssertionError(f"parents launched after phase 3 (a wrapper "
                              f"reached them): {moved}")
     log(f"  the parents of K1 (the mma.sync route), K2 (the ring's Exact "
-        f"mode) and K4 (the stream-K loop): {parents_after3} launches, all "
-        f"in phase 3's parent timings")
+        f"mode), K3's prefill (FlashAttention-2 tiles on mma.sync), K4 and "
+        f"K5 (the stream-K loop): {parents_after3} launches, all in phase "
+        f"3's parent timings")
     log(f"  phase 5 request 2 prefill {fused['request2_prefill_ms']:.3f} ms, "
         f"request 3 decode step {fused['request3_decode_step_ms']:.3f} ms; "
         f"the einsum attention route (head_dim 100) ran {xla_route} times")

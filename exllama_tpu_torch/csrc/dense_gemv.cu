@@ -11,10 +11,11 @@
 // its tensor maps are kept per (pointer, shape) (tma_map.cuh).
 //
 // The stream-K loop of dense_stream.cuh, K4's kernel before the Hopper one
-// (a 5-slab cp.async ring, mma.sync at every M; K5 runs it), stays
+// (a 5-slab cp.async ring, mma.sync at every M; K5's parent runs it), stays
 // reachable here only through dense_gemv_stream_launch, which chip_smoke.py
 // times beside the new K4 as its parent; no wrapper of the package calls
-// it, and dense_gemv_stream_launches counts its launches.
+// it, and dense_gemv_stream_launches counts its launches. K5 runs dense_wg's
+// kernel too, under its own epilogue (head_argmax.cu).
 #include <atomic>
 
 #include "dense_stream.cuh"
@@ -73,26 +74,18 @@ extern "C" int dense_gemv_launch(const void* x, const void* w, void* out, void* 
   if (M < 1 || K < 1 || V < 1 || ldx < K || ldx % 8 || grid < 1 ||
       (bm != 8 && bm != 32 && bm != 64))
     return cudaErrorInvalidValue;
-  const bool vec = V % 8 == 0 && (uintptr_t)w % 16 == 0;
-  if ((uintptr_t)x % 16) return cudaErrorMisalignedAddress;
   const int mtiles = (M + bm - 1) / bm, ktiles = (K + dwg::BK - 1) / dwg::BK;
-  const dwg::Args p{(const bf16*)w, (float*)out, (float*)part, (unsigned int*)ticket, M, K, V,
-                    mtiles, mtiles * ((V + dwg::BV - 1) / dwg::BV), ktiles, stream_k};
+  const dwg::Args p{(const bf16*)w, (float*)part, (unsigned int*)ticket, M, K, V, mtiles,
+                    mtiles * ((V + dwg::BV - 1) / dwg::BV), ktiles, stream_k,
+                    nullptr, nullptr, ldx, 0.f};
   if (stream_k ? (part == nullptr || ticket == nullptr || grid > p.tiles * ktiles)
                : grid > p.tiles)
     return cudaErrorInvalidValue;
-  CUtensorMap maps[2] = {};
-  cudaError_t e = tensor_map(&maps[0], {x, (uint64_t)ldx, (uint64_t)M, (uint32_t)dwg::BK,
-                                        (uint32_t)bm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                                        CU_TENSOR_MAP_SWIZZLE_128B});
-  if (e == cudaSuccess && vec)
-    e = tensor_map(&maps[1], {w, (uint64_t)V, (uint64_t)K, 64u, (uint32_t)dwg::BK,
-                              CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, CU_TENSOR_MAP_SWIZZLE_128B});
-  if (e != cudaSuccess) return e;
+  const dwg::StoreF32 store{(float*)out, V};
   auto st = (cudaStream_t)stream;
-  if (bm == 8) return vec ? dwg::launch<8, true>(maps, p, grid, st) : dwg::launch<8, false>(maps, p, grid, st);
-  if (bm == 32) return vec ? dwg::launch<32, true>(maps, p, grid, st) : dwg::launch<32, false>(maps, p, grid, st);
-  return vec ? dwg::launch<64, true>(maps, p, grid, st) : dwg::launch<64, false>(maps, p, grid, st);
+  if (bm == 8) return dwg::launch_plan<8>((const bf16*)x, p, store, grid, st);
+  if (bm == 32) return dwg::launch_plan<32>((const bf16*)x, p, store, grid, st);
+  return dwg::launch_plan<64>((const bf16*)x, p, store, grid, st);
 }
 
 // The parent of K4 (chip_smoke.py's yardstick only): the stream-K loop of

@@ -32,6 +32,15 @@
 //     the order of k (hopper.cuh: finish_piece): the same bits in every run,
 //     graphed or eager, and no float atomics. The epilogue stores f32 from
 //     the accumulators.
+// K5 (head_argmax.cu) runs the same kernel under another epilogue (Emit):
+// with NORM the consumers first compute the rows' 1 / rms (a few KB of x
+// from L2, while the producer's first slabs fly) and the producer
+// warpgroup's warps 1-3, a slab each in turn, stage the normed row
+// bf16(x * rs * w_norm) in place in the x slab that TMA brought (the
+// rounding of the JAX head: the normed row is rounded before the product),
+// with fence.proxy.async before their arrival; the epilogue hands each
+// column's final sum to the Emit (K4 stores f32; K5 keeps its running
+// argmax key) and Emit::finish ends the block.
 // A V that is not a multiple of 8 leaves w's rows off 16-byte boundaries,
 // which TMA needs: the variant VEC = false copies each row's 256 columns by
 // 16-byte cp.async from its start rounded down (33 chunks, the producer
@@ -42,6 +51,7 @@
 #pragma once
 
 #include "hopper.cuh"
+#include "tma_map.cuh"
 
 namespace dwg {
 
@@ -50,6 +60,8 @@ using namespace hop;
 constexpr int BK = 64, BV = 256;
 constexpr int CONSUMERS = 256, THREADS = CONSUMERS + 128;
 constexpr int SMEM_MAX = 232448;
+constexpr int STAGERS = 3;                     // NORM: the producer warps staging x
+constexpr int RED_BYTES = 2048 + 16;           // NORM: the row sums; then Emit::finish's area
 constexpr int W_LD = BV + 8;  // VEC = false: a copied row's elements (33 chunks of 16 bytes)
 
 template <int BM>
@@ -59,11 +71,13 @@ struct Cfg {
   static constexpr int W_BYTES = BK * W_LD * 2;  // a slab of w (VEC: four 8 KB boxes)
   static constexpr int X_BYTES = BM * BK * 2;    // x's slab, swizzled
   static constexpr int STAGE = W_BYTES + X_BYTES;
-  static constexpr int FIT = (SMEM_MAX - 512) / STAGE;
+  static constexpr int FIT = (SMEM_MAX - 512 - RED_BYTES - 160) / STAGE;
   static constexpr int STAGES = FIT < 8 ? FIT : 8;
   static constexpr int X_OFF = STAGES * W_BYTES;  // both 1024-byte aligned
   static constexpr int BAR_OFF = X_OFF + STAGES * X_BYTES;
-  static constexpr int SMEM = BAR_OFF + 2 * STAGES * 8 + 16;
+  static constexpr int RED_OFF = BAR_OFF + 3 * STAGES * 8 + 16;  // full, empty, xfull, answer
+  static constexpr int RS_OFF = RED_OFF + RED_BYTES;               // [32] f32
+  static constexpr int SMEM = RS_OFF + 32 * 4;
   static constexpr int PIECE = BM * BV;  // f32 of a stream-K piece
   static_assert(STAGES >= 4 && SMEM <= SMEM_MAX && W_BYTES % 1024 == 0,
                 "shared memory of one block");
@@ -71,44 +85,161 @@ struct Cfg {
 
 struct Args {
   const bf16* w;          // [K, V] (read here only by the VEC = false producer)
-  float* out;             // [M, V]
   float* part;            // stream-K: [grid][2][PIECE] f32
   unsigned int* ticket;   // stream-K: one zero a tile
   int M, K, V;
   int mtiles, tiles, ktiles, stream_k;
+  const bf16* x;          // NORM: [M, ldx], read for the rows' 1 / rms
+  const bf16* norm_w;     // NORM: [K]
+  int ldx;
+  float eps;
 };
+
+// K4's epilogue: each column's sum stored as f32.
+struct StoreF32 {
+  static constexpr bool NORM = false;
+  float* out;  // [M, V]
+  int V;
+  __device__ __forceinline__ void operator()(int, int m, int c, float v) const {
+    out[(size_t)m * V + c] = v;
+  }
+  __device__ __forceinline__ void finish(const Args&, unsigned char*, int) {}
+};
+
+// rs[m] = 1 / sqrt(mean(x[m]^2) + eps) in f32 (NORM), by the consumers:
+// sixteen rows at a time, each thread's sixteen loads issued before their
+// use; red holds the warps' sums; named barrier 2 among the consumers, then
+// an arrival on barrier 3, which the stagers wait on before their first
+// slab.
+__device__ __forceinline__ void row_scales(const Args& p, float* rs, float* red, int t) {
+  constexpr int NT = CONSUMERS, NWARP = NT / 32, R = 16;
+  const int lane = t & 31, warp = t >> 5;
+  for (int m0 = 0; m0 < p.M; m0 += R) {
+    float ss[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) ss[r] = 0.f;
+    for (int k = t * 8; k < p.ldx; k += NT * 8) {  // the padding past K is zeros
+      uint4 u[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        u[r] = m0 + r < p.M ? __ldg(reinterpret_cast<const uint4*>(p.x + (size_t)(m0 + r) * p.ldx + k))
+                            : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u[r]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(h[e]);
+          ss[r] += f.x * f.x + f.y * f.y;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float v = warp_sum(ss[r]);
+      if (lane == 0 && m0 + r < p.M) red[warp * 32 + m0 + r] = v;
+    }
+  }
+  bar_sync(2, NT);
+  if (t < p.M) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < NWARP; ++w) v += red[w * 32 + t];
+    rs[t] = 1.0f / sqrtf(v / (float)p.K + p.eps);
+  }
+  __threadfence_block();
+  bar_arrive(3, CONSUMERS + 32 * STAGERS);
+}
+
+// Stage the x slab of k0 in place (NORM): bf16(x * rs[m] * w_norm[k]) for
+// the rows below M (TMA left the others, and k past K, zeros). One warp;
+// lane l takes chunk l % 8 of rows l / 8, l / 8 + 4, ...
+template <int BM>
+__device__ __forceinline__ void stage_norm(const Args& p, unsigned char* xs, const float* rs,
+                                           int k0, int lane) {
+  const int c = lane & 7, k = k0 + 8 * c;
+  float wn[8];
+  if (k + 8 <= p.K && ((uintptr_t)(p.norm_w + k) & 15) == 0) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p.norm_w + k));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h[e]);
+      wn[2 * e] = f.x, wn[2 * e + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) wn[e] = k + e < p.K ? bf2f(p.norm_w[k + e]) : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < BM / 4; ++j) {
+    if (4 * j >= p.M) break;  // the same for the whole warp
+    const int m = (lane >> 3) + 4 * j;
+    if (m >= p.M) continue;
+    uint4* at = reinterpret_cast<uint4*>(xs + sw128(m, c));
+    uint4 o = *at;
+    uint32_t* ow = reinterpret_cast<uint32_t*>(&o);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ow[e]));
+      ow[e] = tc::pack_bf16(f.x * rs[m] * wn[2 * e], f.y * rs[m] * wn[2 * e + 1]);
+    }
+    *at = o;
+  }
+}
 
 // The producer warpgroup: w's and x's slabs into the ring. VEC: thread 0
 // alone, by TMA. Else thread 0 loads x by TMA and all 128 threads copy w's
-// rows by cp.async.
-template <int BM, bool VEC>
+// rows by cp.async. NORM: x's slab completes on xfull, and warp 1 + s % 3
+// stages slab s (stage_norm) before its arrival on full; where the stagers
+// also copy w (VEC = false) they stage slab s after issuing slab s + LAG,
+// so that their copies do not wait on x's TMA.
+template <int BM, bool VEC, bool NORM>
 __device__ __forceinline__ void produce(const CUtensorMap* xmap, const CUtensorMap* wmap,
                                         const Args& p, unsigned char* smem, uint64_t* full,
-                                        uint64_t* empty, int pt) {
+                                        uint64_t* xfull, uint64_t* empty, const float* rs,
+                                        int pt) {
   using C = Cfg<BM>;
   Walk w(p.tiles, p.ktiles, p.stream_k);
-  int tile, kb, ke, st = 0;
+  int tile, kb, ke, st = 0, seq = 0;
   uint32_t phase = 0;  // of slot st; its first wait passes at once (the slots start free)
   if (pt == 0) {  // the maps this launch encoded
     prefetch_map(xmap);
     if constexpr (VEC) prefetch_map(wmap);
   }
+  const bool copies = !VEC || pt == 0;
+  constexpr int LAG = VEC ? 0 : 2;
+  static_assert(LAG < C::STAGES, "a slab is staged before its slot is refilled");
+  int k0s[C::STAGES];  // NORM: the k0 of the slab in each slot
+  bool rs_ready = false;
+  auto stage = [&](int n) {  // slab n of the block's walk (NORM, warps 1-3)
+    if (n % STAGERS != (pt >> 5) - 1) return;
+    const int sl = n % C::STAGES;
+    if (!rs_ready) bar_sync(3, CONSUMERS + 32 * STAGERS), rs_ready = true;
+    mbar_wait(xfull + sl, (n / C::STAGES) & 1);
+    stage_norm<BM>(p, smem + C::X_OFF + sl * C::X_BYTES, rs, k0s[sl], pt & 31);
+    fence_proxy_async();  // the rows are read by wgmma (the async proxy)
+    __syncwarp();
+    if ((pt & 31) == 0) mbar_arrive(full + sl);
+  };
   while (w.next(tile, kb, ke)) {
     const int m0 = (tile % p.mtiles) * BM, n0 = (tile / p.mtiles) * BV;
-    for (int kt = kb; kt < ke; ++kt) {
-      mbar_wait(empty + st, phase ^ 1);
+    for (int kt = kb; kt < ke; ++kt, ++seq) {
       unsigned char* ws = smem + st * C::W_BYTES;
       unsigned char* xs = smem + C::X_OFF + st * C::X_BYTES;
       const int k0 = kt * BK;
-      if constexpr (VEC) {
-        mbar_arrive_tx(full + st, BK * BV * 2 + C::X_BYTES);
+      if (copies) mbar_wait(empty + st, phase ^ 1);
+      uint64_t* xbar = NORM ? xfull + st : full + st;
+      if (VEC && pt == 0) {
+        mbar_arrive_tx(full + st, BK * BV * 2 + (NORM ? 0 : C::X_BYTES));
 #pragma unroll
         for (int b = 0; b < BV / 64; ++b) tma_2d(ws + b * 8192, wmap, n0 + 64 * b, k0, full + st);
-        tma_2d(xs, xmap, k0, m0, full + st);
-      } else {
+        if (NORM) mbar_arrive_tx(xbar, C::X_BYTES);
+        tma_2d(xs, xmap, k0, m0, xbar);
+      } else if (!VEC) {
         if (pt == 0) {
-          mbar_arrive_tx(full + st, C::X_BYTES);
-          tma_2d(xs, xmap, k0, m0, full + st);
+          mbar_arrive_tx(xbar, C::X_BYTES);
+          tma_2d(xs, xmap, k0, m0, xbar);
         }
         bf16* raw = reinterpret_cast<bf16*>(ws);
         constexpr int CH = BV / 8 + 1;  // chunks of a row, from its start rounded down
@@ -124,8 +255,15 @@ __device__ __forceinline__ void produce(const CUtensorMap* xmap, const CUtensorM
         }
         mbar_arrive_cp_async(full + st);
       }
+      k0s[st] = k0;
+      if (NORM && pt >= 32 && seq >= LAG) stage(seq - LAG);
       if (++st == C::STAGES) st = 0, phase ^= 1;
     }
+  }
+  if (NORM && pt >= 32) {
+    for (int n = seq > LAG ? seq - LAG : 0; n < seq; ++n) stage(n);
+    // every stager warp meets barrier 3 once, with slabs to stage or not
+    if (!rs_ready) bar_sync(3, CONSUMERS + 32 * STAGERS);
   }
 }
 
@@ -158,9 +296,9 @@ __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const unsigned char* ws
   }
 }
 
-template <int BM, bool VEC>
+template <int BM, bool VEC, class Emit>
 __device__ __forceinline__ void consume(const Args& p, unsigned char* smem, uint64_t* full,
-                                        uint64_t* empty, int* answer, int tid) {
+                                        uint64_t* empty, int* answer, int tid, Emit& out) {
   using C = Cfg<BM>;
   constexpr int NW = C::NW, NACC = C::NACC;
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
@@ -235,39 +373,44 @@ __device__ __forceinline__ void consume(const Args& p, unsigned char* smem, uint
         });
     if (!emit) continue;
 
-    // acc[j][4i + e]: x row m0 + 8i + 2q + (e & 1), column v0 + 64j + g (+ 8 for e >= 2)
+    // acc[j][4i + e]: x row m0 + 8i + 2q + (e & 1), column v0 + 64j + g (+ 8
+    // for e >= 2); the emitter's slot 2i + e is the thread's row
 #pragma unroll
     for (int i = 0; i < NACC / 4; ++i)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int m = 8 * i + 2 * q + e;
         if (m >= rows) continue;
-        float* o = p.out + (size_t)(m0 + m) * p.V;
 #pragma unroll
         for (int j = 0; j < NW; ++j) {
           const int c = n0 + v0 + 64 * j + g;
-          if (c < p.V) o[c] = acc[j][4 * i + e];
-          if (c + 8 < p.V) o[c + 8] = acc[j][4 * i + 2 + e];
+          if (c < p.V) out(2 * i + e, m0 + m, c, acc[j][4 * i + e]);
+          if (c + 8 < p.V) out(2 * i + e, m0 + m, c + 8, acc[j][4 * i + 2 + e]);
         }
       }
   }
 }
 
-template <int BM, bool VEC>
+template <int BM, bool VEC, class Emit>
 __global__ void __launch_bounds__(THREADS, 1)
     dense_wg_kernel(const __grid_constant__ CUtensorMap xmap,
-                    const __grid_constant__ CUtensorMap wmap, const Args p) {
+                    const __grid_constant__ CUtensorMap wmap, const Args p, const Emit epi) {
   using C = Cfg<BM>;
+  constexpr bool NORM = Emit::NORM;
   extern __shared__ __align__(1024) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BAR_OFF);
   uint64_t* empty = full + C::STAGES;
-  int* answer = reinterpret_cast<int*>(empty + C::STAGES);
+  uint64_t* xfull = empty + C::STAGES;
+  int* answer = reinterpret_cast<int*>(xfull + C::STAGES);
+  float* rs = reinterpret_cast<float*>(smem + C::RS_OFF);
   const int tid = threadIdx.x, warp = tid >> 5;
   if (tid == 0) {
     if (tc::smem_addr(smem) & 1023) __trap();
     for (int s = 0; s < C::STAGES; ++s) {
-      mbar_init(full + s, VEC ? 1 : 1 + 128);  // the TMA thread; the cp.async copies
+      // the TMA thread or the cp.async copies of w; x's TMA, or its stager
+      mbar_init(full + s, (VEC ? 1 : 128) + (NORM || !VEC ? 1 : 0));
       mbar_init(empty + s, CONSUMERS / 32);
+      mbar_init(xfull + s, 1);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -276,20 +419,44 @@ __global__ void __launch_bounds__(THREADS, 1)
   if (warp >= CONSUMERS / 32) {  // the producer warpgroup
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     const int pt = tid - CONSUMERS;
-    if (!VEC || pt == 0) produce<BM, VEC>(&xmap, &wmap, p, smem, full, empty, pt);
+    if (!VEC || pt == 0 || (NORM && pt >= 32))
+      produce<BM, VEC, NORM>(&xmap, &wmap, p, smem, full, xfull, empty, rs, pt);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    consume<BM, VEC>(p, smem, full, empty, answer, tid);
+    if constexpr (NORM) row_scales(p, rs, reinterpret_cast<float*>(smem + C::RED_OFF), tid);
+    Emit emit = epi;
+    consume<BM, VEC>(p, smem, full, empty, answer, tid, emit);
+    emit.finish(p, smem + C::RED_OFF, tid);
   }
 }
 
-template <int BM, bool VEC>
-cudaError_t launch(const CUtensorMap (&maps)[2], const Args& p, int grid, cudaStream_t st) {
+template <int BM, bool VEC, class Emit>
+cudaError_t launch(const CUtensorMap (&maps)[2], const Args& p, const Emit& emit, int grid,
+                   cudaStream_t st) {
   using C = Cfg<BM>;
-  static const cudaError_t ok = allow_smem(dense_wg_kernel<BM, VEC>, C::SMEM);
+  static const cudaError_t ok = allow_smem(dense_wg_kernel<BM, VEC, Emit>, C::SMEM);
   if (ok != cudaSuccess) return ok;
-  dense_wg_kernel<BM, VEC><<<grid, THREADS, C::SMEM, st>>>(maps[0], maps[1], p);
+  dense_wg_kernel<BM, VEC, Emit><<<grid, THREADS, C::SMEM, st>>>(maps[0], maps[1], p, emit);
   return cudaGetLastError();
+}
+
+// The plan's launch (ops/dense.py:dense_plan): the maps of x ([M, ldx],
+// boxes of BK x BM) and, where V % 8 == 0 and w is 16-byte aligned (VEC),
+// of w ([K, V], 64 x BK boxes), then the kernel at the row tile BM.
+template <int BM, class Emit>
+cudaError_t launch_plan(const bf16* x, const Args& p, const Emit& emit, int grid,
+                        cudaStream_t st) {
+  const bool vec = p.V % 8 == 0 && (uintptr_t)p.w % 16 == 0;
+  if ((uintptr_t)x % 16) return cudaErrorMisalignedAddress;
+  CUtensorMap maps[2] = {};
+  cudaError_t e = tensor_map(&maps[0], {x, (uint64_t)p.ldx, (uint64_t)p.M, (uint32_t)BK,
+                                        (uint32_t)BM, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                        CU_TENSOR_MAP_SWIZZLE_128B});
+  if (e == cudaSuccess && vec)
+    e = tensor_map(&maps[1], {p.w, (uint64_t)p.V, (uint64_t)p.K, 64u, (uint32_t)BK,
+                              CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, CU_TENSOR_MAP_SWIZZLE_128B});
+  if (e != cudaSuccess) return e;
+  return vec ? launch<BM, true>(maps, p, emit, grid, st) : launch<BM, false>(maps, p, emit, grid, st);
 }
 
 }  // namespace dwg

@@ -49,20 +49,25 @@
 // in-flight row and writes bf16. A split with no visible key carries
 // m = MASK_VALUE, l = 0 and weighs nothing.
 //
-// (b) Prefill, FlashAttention-2 style: one block of 4 warps per 64 query rows
-// (16 a warp) of one (batch row, kv head); the heaviest query tiles are
-// launched first. Q fragments are loaded once by ldmatrix; S = QK^T runs on
-// mma.sync.m16n8k16 bf16 with f32 accumulators in registers; the online
-// softmax works on the S fragment (row max and sum over the lane quad); the
-// S fragment, rounded to bf16, is the A fragment of PV; O stays in
-// registers. Key tiles wholly above the causal diagonal are not read; only
-// tiles that cross it are masked element by element. An int8 / int4 tile is
-// copied raw and converted to bf16 in shared memory before the products;
-// the K scale enters as a per-column factor on S, the V scale on p before
-// it is rounded to bf16.
+// (b) Prefill, on Hopper's own instructions (flash_prefill_wg.cuh): a
+// producer warp keeps TMA loads of K and V tiles in flight into an mbarrier
+// ring (over an int8 / int4 cache three more warps convert each raw tile
+// into bf16 there); one or two consumer warpgroups of 64 query rows run S = QK^T
+// and O += PV on wgmma, P as the register operand of PV and V read
+// MN-major. Key tiles wholly above the causal diagonal are not read; only
+// tiles that cross it are masked element by element; the heaviest query
+// tiles are launched first. Its parent, FlashAttention-2 tiles on
+// mma.sync with a 2-stage cp.async ring (prefill_kernel below: Q fragments
+// by ldmatrix, S = QK^T on mma.sync.m16n8k16, the online softmax on the S
+// fragment, the S fragment rounded to bf16 as PV's A fragment; int8 / int4
+// tiles converted to bf16 in shared memory by all threads), stays
+// reachable only through flash_attn_prefill_fa2_launch, which chip_smoke.py
+// times beside the new kernel; flash_attn_prefill_fa2_launches counts it.
+#include <atomic>
 #include <type_traits>
 
 #include "async_mma.cuh"
+#include "flash_prefill_wg.cuh"
 
 #ifndef FLASH_D256
 #define FLASH_D256 0  // 1: the library of head_dim 256 (one library per set of head dims)
@@ -508,7 +513,7 @@ __global__ void __launch_bounds__(DT) decode_kernel(const Args a) {
   if (tid == 0) a.ticket[bhg] = 0;  // ready for the next launch
 }
 
-// ------------------------------------------------ (b) prefill, FA2 style
+// ------------------------------- (b) prefill, FA2 style: the parent only
 
 constexpr int PW = 4, BR = PW * 16;  // warps of 16 query rows, query rows of a block
 constexpr int P_STAGES = 2;
@@ -739,7 +744,8 @@ cudaError_t launch_decode(const Args& a, cudaStream_t st) {
 }
 
 template <int D, int KV>
-cudaError_t launch(const Args& a, int rows_per_item, cudaStream_t st) {
+cudaError_t launch(const Args& a, const void* k_cache, const void* v_cache, int rows_per_item,
+                   cudaStream_t st) {
   if (a.part != nullptr) {
     switch (rows_per_item) {
       case 1: return launch_decode<D, KV, 1>(a, st);
@@ -750,6 +756,15 @@ cudaError_t launch(const Args& a, int rows_per_item, cudaStream_t st) {
       default: return cudaErrorInvalidValue;
     }
   }
+  const fwg::Args p{a.q, a.k_scale, a.v_scale, a.past, a.mask, a.out,
+                    a.B, a.T, a.H, a.Hkv, a.S, a.attend_len, a.mask_stride, a.scale};
+  if (rows_per_item == 64) return fwg::launch<D, KV, 1>(p, k_cache, v_cache, st);
+  if (rows_per_item == 128) return fwg::launch<D, KV, 2>(p, k_cache, v_cache, st);
+  return cudaErrorInvalidValue;
+}
+
+template <int D, int KV>
+cudaError_t launch_fa2(const Args& a, cudaStream_t st) {
   constexpr int bytes = PreSmem<D, KV>::bytes;
   static const cudaError_t smem_ok = allow_smem(prefill_kernel<D, KV>, bytes);
   if (smem_ok != cudaSuccess) return smem_ok;
@@ -757,6 +772,50 @@ cudaError_t launch(const Args& a, int rows_per_item, cudaStream_t st) {
   prefill_kernel<D, KV><<<(rows + BR - 1) / BR * a.B * a.Hkv, PreShape<D>::NT, bytes, st>>>(a);
   return cudaGetLastError();
 }
+
+// The transposed-B wgmma building block alone: out[64 x N] f32 = a[64 x K]
+// (bf16, row-major; per warp the m16n8k16 A fragment, from device memory)
+// times b[K x N] (bf16, row-major: N contiguous), b staged into boxes of 64
+// columns x K rows, 128-byte swizzled, and read MN-major (imm-trans-b 1)
+// through hop::mnmajor_sw128's descriptor. One warpgroup.
+template <int N>
+__global__ void __launch_bounds__(128) tnsp_check_kernel(const bf16* a, const bf16* b, float* out,
+                                                        int K) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int box = K * 128;
+  for (int i = tid; i < K * (N / 8); i += 128) {
+    const int r = i / (N / 8), c = i % (N / 8);
+    *reinterpret_cast<uint4*>(smem + (c >> 3) * box + hop::sw128(r, c & 7)) =
+        *reinterpret_cast<const uint4*>(b + (size_t)r * N + 8 * c);
+  }
+  hop::fence_proxy_async();
+  __syncthreads();
+  float d[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) d[i] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += 16) {
+    const bf16* ar = a + (size_t)(16 * warp + g) * K + k0 + 2 * q;
+    uint32_t af[4];
+    af[0] = *reinterpret_cast<const uint32_t*>(ar);
+    af[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * K);
+    af[2] = *reinterpret_cast<const uint32_t*>(ar + 8);
+    af[3] = *reinterpret_cast<const uint32_t*>(ar + 8 * K + 8);
+    const uint64_t desc = hop::mnmajor_sw128(smem + k0 * 128, box);
+    hop::wgmma_fence();
+    hop::Mma<N>::template run<1>(d, af, desc);
+    hop::wgmma_commit();
+    hop::wgmma_wait<0>();
+    hop::fence_regs(d);
+  }
+#pragma unroll
+  for (int i = 0; i < N / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      out[(size_t)(16 * warp + g + 8 * (e >> 1)) * N + 8 * i + 2 * q + (e & 1)] = d[4 * i + e];
+}
+
+std::atomic<int> fa2_launches{0};  // the parent's, flash_attn_prefill_fa2_launch
 
 }  // namespace
 
@@ -770,7 +829,9 @@ cudaError_t launch(const Args& a, int rows_per_item, cudaStream_t st) {
 // 8 or 16) at a time; keys in nsplit splits of chunk (a multiple of 64,
 // nsplit * chunk >= attend_len); part holds B*Hkv*ngroups*nsplit*
 // rows_per_item*(D + 2) f32, ticket B*Hkv*ngroups int32 zeros, with ngroups
-// = ceil(T*H/Hkv / rows_per_item). Prefill path: part, ticket NULL.
+// = ceil(T*H/Hkv / rows_per_item). Prefill path: part, ticket NULL,
+// rows_per_item the query rows of a block, 64 or 128
+// (ops/attention.py:prefill_plan); the caches' rows 16-byte aligned.
 extern "C" int flash_attn_launch(const void* q, const void* k_cache, const void* v_cache,
                                  const void* k_scale, const void* v_scale, const void* past,
                                  const void* mask, const void* k_new, const void* v_new,
@@ -797,9 +858,9 @@ extern "C" int flash_attn_launch(const void* q, const void* k_cache, const void*
     constexpr int d = decltype(d_tag)::value;
     const cudaStream_t st = (cudaStream_t)stream;
     switch (kv_mode) {
-      case 0: return launch<d, 0>(a, rows_per_item, st);
-      case 1: return launch<d, 1>(a, rows_per_item, st);
-      case 2: return launch<d, 2>(a, rows_per_item, st);
+      case 0: return launch<d, 0>(a, k_cache, v_cache, rows_per_item, st);
+      case 1: return launch<d, 1>(a, k_cache, v_cache, rows_per_item, st);
+      case 2: return launch<d, 2>(a, k_cache, v_cache, rows_per_item, st);
       default: return cudaErrorInvalidValue;
     }
   };
@@ -809,5 +870,62 @@ extern "C" int flash_attn_launch(const void* q, const void* k_cache, const void*
   if (D == 64) return by_kv(std::integral_constant<int, 64>{});
   if (D == 128) return by_kv(std::integral_constant<int, 128>{});
 #endif
+  return cudaErrorInvalidValue;
+}
+
+// The parent of K3's prefill path (chip_smoke.py's yardstick only): the
+// FlashAttention-2 tiles on mma.sync. Arguments as flash_attn_launch's
+// prefill path; the head dims of this library.
+extern "C" int flash_attn_prefill_fa2_launch(const void* q, const void* k_cache,
+                                             const void* v_cache, const void* k_scale,
+                                             const void* v_scale, const void* past,
+                                             const void* mask, void* out, int B, int T, int H,
+                                             int Hkv, int D, int S, int attend_len,
+                                             int mask_stride, int kv_mode, float scale,
+                                             void* stream) {
+  if ((kv_mode != 0) != (k_scale != nullptr) || (k_scale == nullptr) != (v_scale == nullptr))
+    return cudaErrorInvalidValue;
+  const Args a{(const bf16*)q, k_cache, v_cache, (const float*)k_scale, (const float*)v_scale,
+               (const int32_t*)past, (const uint8_t*)mask, nullptr, nullptr, (bf16*)out,
+               nullptr, nullptr, B, T, H, Hkv, S, attend_len, mask_stride, 0, 0, 0, scale};
+  auto by_kv = [&](auto d_tag) {
+    constexpr int d = decltype(d_tag)::value;
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (kv_mode) {
+      case 0: return launch_fa2<d, 0>(a, st);
+      case 1: return launch_fa2<d, 1>(a, st);
+      case 2: return launch_fa2<d, 2>(a, st);
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  cudaError_t err = cudaErrorInvalidValue;
+#if FLASH_D256
+  if (D == 256) err = by_kv(std::integral_constant<int, 256>{});
+#else
+  if (D == 64) err = by_kv(std::integral_constant<int, 64>{});
+  if (D == 128) err = by_kv(std::integral_constant<int, 128>{});
+#endif
+  if (err == cudaSuccess) ++fa2_launches;
+  return err;
+}
+
+extern "C" int flash_attn_prefill_fa2_launches() { return fa2_launches.load(); }
+
+// hop::Mma's transposed-B product checked alone (the tests): out [64 x n]
+// f32 = a [64 x k] bf16 @ b [k x n] bf16; n 64, 128 or 256, k a multiple of
+// 16 up to 128.
+extern "C" int flash_attn_tnsp_check(const void* a, const void* b, void* out, int k, int n,
+                                     void* stream) {
+  if (k < 16 || k % 16 || k > 128) return cudaErrorInvalidValue;
+  const int smem = (n / 64) * k * 128;
+  auto go = [&](auto kernel) {
+    const cudaError_t ok = allow_smem(kernel, smem);
+    if (ok != cudaSuccess) return ok;
+    kernel<<<1, 128, smem, (cudaStream_t)stream>>>((const bf16*)a, (const bf16*)b, (float*)out, k);
+    return cudaGetLastError();
+  };
+  if (n == 64) return go(tnsp_check_kernel<64>);
+  if (n == 128) return go(tnsp_check_kernel<128>);
+  if (n == 256) return go(tnsp_check_kernel<256>);
   return cudaErrorInvalidValue;
 }

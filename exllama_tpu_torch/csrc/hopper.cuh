@@ -1,7 +1,9 @@
 // Hopper's building blocks, shared by the port's kernels on TMA and wgmma:
-// K2 (q4_wgmma.cuh), K1 at 2..32 rows (q4_gemv_wg.cuh) and K4 (dense_wg.cuh).
-// mbarriers and TMA loads, the wgmma products with A from registers and B
-// from a 128-byte swizzled K-major slab in shared memory, and the walk of a
+// K2 (q4_wgmma.cuh), K1 at 2..32 rows (q4_gemv_wg.cuh), K4 and K5
+// (dense_wg.cuh) and K3's prefill (flash_prefill_wg.cuh). mbarriers and TMA
+// loads, the wgmma products with A from registers (or, Mma64SS, from shared
+// memory) and B from a 128-byte swizzled slab in shared memory, K-major or
+// (the transposed B of O += P V) MN-major, and the walk of a
 // persistent block over its output tiles or its stream-K range of (tile,
 // slab) units (stream_k.cuh's division). Every function is inline; the
 // libraries that include this header each keep their own copy.
@@ -63,6 +65,15 @@ __device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map, int c0
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(tc::smem_addr(bar))
       : "memory");
 }
+// A 3-D TMA load of the box at (c0 inner, c1, c2 outer) into dst.
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0, int c1, int c2,
+                                       uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(tc::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(tc::smem_addr(bar))
+      : "memory");
+}
 // Fetch a tensor map (a __grid_constant__ kernel parameter) ahead of its
 // first TMA load.
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -90,8 +101,22 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+// ... and the register A fragments of products about to be issued: their
+// last writes stay before the wgmma.fence that follows.
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[R][4]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+// Arrive at named barrier id of n threads without waiting (the producers'
+// half of a bar_sync that other threads wait on).
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
   uint32_t r;
@@ -107,61 +132,80 @@ __device__ __forceinline__ uint64_t kmajor_sw128(const void* p) {
   const uint64_t a = tc::smem_addr(p);
   return ((a & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
+// The descriptor of an MN-major operand (wgmma's transposed B, imm-trans-b
+// 1): B[k][n] with n contiguous, in boxes of 64 n (128 bytes a k-row),
+// 128-byte swizzled in 8-row atoms of 1024 bytes, box after box
+// `box_bytes` apart. In the canonical MN-major SW128 layout the stride
+// between the 8-deep groups of k is the SBO (1024 bytes: the atoms of a
+// box follow each other) and the stride between 64-wide groups of n the
+// LBO (the next box); a k-step of 16 moves the start by two atoms.
+__device__ __forceinline__ uint64_t mnmajor_sw128(const void* p, int box_bytes) {
+  const uint64_t a = tc::smem_addr(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((box_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
 // The byte offset of the 16-byte chunk c (0..7) of row r in such a slab
 // (1024-byte aligned): chunk c of row r lies at chunk c ^ (r % 8).
 __device__ __forceinline__ int sw128(int r, int c) { return r * 128 + ((c ^ (r & 7)) << 4); }
 
 // D[64 x N] (+)= A[64 x 16] (registers: the m16n8k16 A fragment of the
-// warp's 16 rows) * B[16 x N] (K-major in shared memory, descriptor);
-// scale_d = 0 starts D afresh.
+// warp's 16 rows) * B[16 x N] (in shared memory, descriptor: K-major, or
+// MN-major with TB = 1); scale_d = 0 starts D afresh. A loop that runs
+// run<0> and run<1> at one N with A fragments of one shape computed its
+// second run<0> from the other product's A registers on the card
+// (flash_prefill_wg.cuh at BN == D); keep such products on different N.
 template <int N>
 struct Mma;
 
 template <>
 struct Mma<8> {
+  template <int TB = 0>
   static __device__ __forceinline__ void run(float (&d)[4], const uint32_t (&a)[4], uint64_t desc,
                                              int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+        "{%4, %5, %6, %7}, %8, p, 1, 1, %10;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
   }
 };
 
 template <>
 struct Mma<16> {
+  template <int TB = 0>
   static __device__ __forceinline__ void run(float (&d)[8], const uint32_t (&a)[4], uint64_t desc,
                                              int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-        "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
   }
 };
 
 template <>
 struct Mma<32> {
+  template <int TB = 0>
   static __device__ __forceinline__ void run(float (&d)[16], const uint32_t (&a)[4], uint64_t desc,
                                              int scale_d = 1) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
   }
 };
 
 template <>
 struct Mma<64> {
+  template <int TB = 0>
   static __device__ __forceinline__ void run(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
                                              int scale_d = 1) {
     asm volatile(
@@ -169,17 +213,18 @@ struct Mma<64> {
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
   }
 };
 
 template <>
 struct Mma<128> {
+  template <int TB = 0>
   static __device__ __forceinline__ void run(float (&d)[64], const uint32_t (&a)[4], uint64_t desc,
                                              int scale_d = 1) {
     asm volatile(
@@ -189,7 +234,7 @@ struct Mma<128> {
         "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
         "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -198,12 +243,13 @@ struct Mma<128> {
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
   }
 };
 
 template <>
 struct Mma<256> {
+  template <int TB = 0>
   static __device__ __forceinline__ void run(float (&d)[128], const uint32_t (&a)[4], uint64_t desc,
                                              int scale_d = 1) {
     asm volatile(
@@ -217,7 +263,7 @@ struct Mma<256> {
         "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
         "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
         "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-        "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        "{%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
           "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -234,10 +280,29 @@ struct Mma<256> {
           "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
           "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
           "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(TB));
   }
 };
 
+// D[64 x 64] (+)= A[64 x 16] * B[16 x 64], both K-major in shared memory
+// (descriptors): K3's S = Q K^T at head_dim 256, where Q's fragments would
+// take 64 registers a thread beside O's 128.
+struct Mma64SS {
+  static __device__ __forceinline__ void run(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                             int scale_d = 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
 
 // A block's work: output tiles (data-parallel: tiles b, b + grid, ...,
 // each whole) or, under stream-K, its contiguous range [u0, u1) of the

@@ -93,6 +93,20 @@ _SIGNATURES = {
                    "p" * 12 + "i" * 12 + "f" + "p"),
     "flash_attn_d256": ("flash_attn_d256", "flash_attn_launch",
                         "p" * 12 + "i" * 12 + "f" + "p"),
+    # K3's prefill parent, FlashAttention-2 tiles on mma.sync (chip_smoke.py's
+    # yardstick only), and the count of its launches; the transposed-B
+    # wgmma product alone (the card tests)
+    "flash_attn_prefill_fa2": ("flash_attn", "flash_attn_prefill_fa2_launch",
+                               "p" * 8 + "i" * 9 + "f" + "p"),
+    "flash_attn_prefill_fa2_launches": (
+        "flash_attn", "flash_attn_prefill_fa2_launches", ""),
+    "flash_attn_d256_prefill_fa2": (
+        "flash_attn_d256", "flash_attn_prefill_fa2_launch",
+        "p" * 8 + "i" * 9 + "f" + "p"),
+    "flash_attn_d256_prefill_fa2_launches": (
+        "flash_attn_d256", "flash_attn_prefill_fa2_launches", ""),
+    "flash_attn_tnsp_check": ("flash_attn", "flash_attn_tnsp_check",
+                              "ppp" + "ii" + "p"),
     "dense_gemv": ("dense_gemv", "dense_gemv_launch", "ppppp" + "i" * 7 + "p"),
     # K4's parent, the stream-K loop K5 runs (chip_smoke.py's yardstick
     # only), and the count of its launches
@@ -101,7 +115,13 @@ _SIGNATURES = {
     "dense_gemv_stream_launches": ("dense_gemv", "dense_gemv_stream_launches",
                                    ""),
     "head_argmax": ("head_argmax", "head_argmax_launch",
-                    "p" * 7 + "iiii" + "f" + "p"),
+                    "p" * 7 + "i" * 7 + "f" + "p"),
+    # K5's parent, the stream-K loop (chip_smoke.py's yardstick only), and
+    # the count of its launches
+    "head_argmax_stream": ("head_argmax", "head_argmax_stream_launch",
+                           "p" * 7 + "iiii" + "f" + "p"),
+    "head_argmax_stream_launches": ("head_argmax", "head_argmax_stream_launches",
+                                    ""),
     "q4_mlp": ("q4_mlp", "q4_mlp_launch", "p" * 13 + "iiii" + "f" + "p"),
     "layer_tail": ("layer_tail", "layer_tail_launch",
                    "p" * 37 + "i" * 12 + "ff" + "p"),

@@ -5,15 +5,18 @@ int4 packed two values a byte -- with one f32 scale per (token, kv head).
 ``attend`` launches kernel K3 ``flash_attn`` (csrc/flash_attn.cu) for any
 query length on CUDA tensors and counts each launch (``attend.launches``
 for a bf16 cache, ``attend.launches_int8`` / ``attend.launches_int4`` for a
-quantized one); ``attend_plain`` is its plain PyTorch version. Head dims
+quantized one; the launches of its prefill path, csrc/flash_prefill_wg.cuh,
+once more on ``attend.launches_prefill`` / ``_prefill_int8`` /
+``_prefill_int4``); ``attend_plain`` is its plain PyTorch version. Head dims
 K3 does not take (``flash_supported_head_dim``) go, as in the JAX package,
 to the einsum attention ``attend_xla`` (plain tensor code on every device,
 its own counter); ``resolve_attn_impl`` picks the route for
 ``TuningParams.attn_impl``. K3 has two
 paths, picked by shape (``decode_rows``): split-KV decode, whose key splits
 ``split_plan`` sizes and whose arithmetic ``attend_split_plain`` writes out
-in plain tensor code, and tensor-core prefill tiles. Semantics, shared by
-all:
+in plain tensor code, and the prefill tiles on Hopper's wgmma, whose blocks
+``prefill_plan`` lists and whose arithmetic ``attend_prefill_tiles_plain``
+writes out. Semantics, shared by all:
 
   * the cache is [B, Hkv, S_max, D]; only ``cache[:, :, :attend_len]`` is read;
   * query t of row b sits at position ``past[b] + t`` and sees key s iff
@@ -49,6 +52,7 @@ write per layer otherwise.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -460,6 +464,149 @@ def split_plan(items: int, attend_len: int, sms: int) -> tuple[int, int]:
     return -(-attend_len // chunk), chunk
 
 
+# K3's prefill path (csrc/flash_prefill_wg.cuh): keys a tile by head width
+# (the kernel's Cfg::BN), and the query rows of a consumer warpgroup
+PREFILL_KEY_TILES = {64: 128, 128: 64, 256: 64}
+PREFILL_WG_ROWS = 64
+
+
+def prefill_rows(rows: int) -> int:
+    """Query rows of a block of K3's prefill path for ``rows`` query rows a
+    kv head: one consumer warpgroup (64) where they fit, so that a 64-row
+    admission chunk carries no empty rows, else two (128)."""
+    return PREFILL_WG_ROWS if rows <= PREFILL_WG_ROWS else 2 * PREFILL_WG_ROWS
+
+
+@dataclass(frozen=True)
+class PrefillItem:
+    """A block of K3's prefill path: batch row ``b``, kv head ``hk``, query
+    tile ``qt``; ``rows`` = [r0, r1), its real query rows (row = t*g +
+    slot); ``tiles`` key tiles [0, tiles * key_tile) loaded; ``masked``, for
+    each consumer warpgroup (64 rows from r0 on), the tiles it masks key by
+    key (those crossing its rows' causal diagonal; every key of the others
+    is visible to all its rows)."""
+    b: int
+    hk: int
+    qt: int
+    rows: tuple
+    tiles: int
+    masked: tuple
+
+
+def prefill_plan(rows: int, g: int, past, attend_len: int, d: int,
+                 batch: int, hkv: int) -> list:
+    """K3's prefill blocks in launch order (``PrefillItem``): query tiles of
+    ``prefill_rows(rows)`` rows for each (batch row, kv head), the heaviest
+    tiles first; ``past`` the [B] cursors. A block loads the key tiles up
+    to its last row's diagonal (none wholly above it) and within
+    attend_len."""
+    br, bn = prefill_rows(rows), PREFILL_KEY_TILES[d]
+    nqt, nbh = -(-rows // br), batch * hkv
+    items = []
+    for blk in range(nqt * nbh):
+        qt, bh = nqt - 1 - blk // nbh, blk % nbh
+        b, hk = divmod(bh, hkv)
+        r0, r1 = qt * br, min(rows, (qt + 1) * br)
+        kv_end = min(attend_len, past[b] + (r1 - 1) // g + 1)
+        tiles = -(-kv_end // bn)
+        masked = []
+        for w in range(br // PREFILL_WG_ROWS):
+            full_end = min(attend_len,
+                           past[b] + (r0 + w * PREFILL_WG_ROWS) // g + 1)
+            masked.append(tuple(j for j in range(tiles)
+                                if (j + 1) * bn > full_end))
+        items.append(PrefillItem(b, hk, qt, (r0, r1), tiles, tuple(masked)))
+    return items
+
+
+def attend_prefill_tiles_plain(q, k_cache, v_cache, past_len, attend_len: int,
+                               input_mask=None, k_scale=None, v_scale=None,
+                               *, p_dtype=torch.bfloat16, out_dtype=None,
+                               fault=None):
+    """K3's prefill path in plain tensor code: the blocks of
+    ``prefill_plan``, each consumer warpgroup's 64 rows over its block's key
+    tiles in order with the kernel's online softmax in f32 -- the K scale
+    then 1/sqrt(D) on the raw integer scores, ``MASK_VALUE`` on the keys of
+    a masked tile past a row's diagonal, the pad bias after it, the running
+    max m, alpha = exp(m - m_new), l summing the unscaled p, the V scale on
+    p, p rounded to ``p_dtype`` before PV -- and O / l (l == 0 -> 1). The
+    rows are independent, so key tile j runs for every row at once; a row
+    whose block does not load tile j takes no part in it (m, l and O stay
+    as they are). ``p_dtype=torch.float32`` is the exact decomposition of
+    the full softmax. ``fault`` plants a kernel's fault for the tests:
+    "causal" (no tile masked), "v_scale_on_l" (l sums the V-scaled p),
+    "halves" (an int4 cache's two nibbles read swapped). Output in
+    ``out_dtype`` (default q.dtype)."""
+    b, t, h, d = q.shape
+    mode = kv_mode(k_cache, d, k_scale)
+    hkv = k_cache.shape[1]
+    g, rows = h // hkv, t * (h // hkv)
+    if decode_rows(t, g) is not None or d not in PREFILL_KEY_TILES:
+        raise ValueError(f"T={t}, {rows} rows a kv head, head_dim {d}: not "
+                         f"K3's prefill path")
+    past = [int(x) for x in _past_tensor(past_len, b, q.device).tolist()]
+    bn = PREFILL_KEY_TILES[d]
+    plan = prefill_plan(rows, g, past, attend_len, d, b, hkv)
+    # each row's loaded tiles and the tiles it masks key by key
+    n_tiles = max(it.tiles for it in plan)
+    loaded = torch.zeros((b, hkv, rows, n_tiles), dtype=torch.bool)
+    masked = torch.zeros_like(loaded)
+    for it in plan:
+        loaded[it.b, it.hk, it.rows[0]:it.rows[1], :it.tiles] = True
+        for w, tiles in enumerate(it.masked):
+            r0 = it.rows[0] + w * PREFILL_WG_ROWS
+            r1 = min(it.rows[1], r0 + PREFILL_WG_ROWS)
+            masked[it.b, it.hk, r0:r1, list(tiles)] = fault != "causal"
+    loaded, masked = loaded.to(q.device), masked.to(q.device)
+    k = k_cache[:, :, :attend_len]
+    v = v_cache[:, :, :attend_len]
+    if mode == 2:
+        k, v = unpack_kv4(k, torch.float32), unpack_kv4(v, torch.float32)
+        if fault == "halves":
+            k, v = (torch.cat([x[..., d // 2:], x[..., :d // 2]], -1)
+                    for x in (k, v))
+    kf, vf = k.to(torch.float32), v.to(torch.float32)
+    qr = (q.reshape(b, t, hkv, g, d).permute(0, 2, 1, 3, 4)
+          .reshape(b, hkv, rows, d).to(torch.float32))
+    pad = (None if input_mask is None else
+           ~input_mask[:, :attend_len].to(q.device, torch.bool))
+    pt = torch.tensor(past, device=q.device)
+    lim = torch.clamp(pt[:, None] + torch.arange(rows, device=q.device) // g
+                      + 1, max=attend_len)[:, None, :, None]    # [B, 1, R, 1]
+    m = torch.full((b, hkv, rows), MASK_VALUE, device=q.device)
+    l = torch.zeros((b, hkv, rows), device=q.device)
+    o = torch.zeros((b, hkv, rows, d), device=q.device)
+    scale = 1.0 / math.sqrt(d)
+    for j in range(n_tiles):
+        s0, s1 = j * bn, min((j + 1) * bn, attend_len)
+        with full_f32_matmul():
+            sc = qr @ kf[:, :, s0:s1].transpose(-1, -2)
+        if mode:
+            sc = sc * k_scale[:, :, None, s0:s1]   # then 1/sqrt(D)
+        sc = sc * scale
+        keys = torch.arange(s0, s1, device=q.device)
+        ok = loaded[..., j, None] & ~(masked[..., j, None] & (keys >= lim))
+        sc = torch.where(ok, sc, MASK_VALUE)
+        if pad is not None:     # the pad bias after the causal mask
+            sc = torch.where(ok & pad[:, None, None, s0:s1], sc + NEG_INF, sc)
+        m_new = torch.maximum(m, sc.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(ok, torch.exp(sc - m_new[..., None]), 0.0)
+        p_l = p                 # l sums the unscaled p
+        if mode:
+            p = p * v_scale[:, :, None, s0:s1]
+            if fault == "v_scale_on_l":
+                p_l = p
+        l = alpha * l + p_l.sum(-1)
+        with full_f32_matmul():
+            o = (alpha[..., None] * o
+                 + p.to(p_dtype).to(torch.float32) @ vf[:, :, s0:s1])
+        m = m_new
+    out = o / torch.where(l == 0.0, 1.0, l)[..., None]
+    out = out.reshape(b, hkv, t, g, d).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, t, h, d).to(out_dtype or q.dtype)
+
+
 _SCRATCH: dict = {}
 
 
@@ -486,7 +633,8 @@ def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
     CUDA tensors, :func:`attend_plain` for CPU ones. ``k_scale`` /
     ``v_scale`` [B, Hkv, S_max] f32 go with an int8 or int4 cache. K3 takes
     its split-KV decode path where :func:`decode_rows` says so (splits from
-    :func:`split_plan`), its tensor-core prefill path elsewhere."""
+    :func:`split_plan`), its prefill path on wgmma elsewhere (blocks of
+    :func:`prefill_rows` query rows, :func:`prefill_plan`)."""
     if q.device.type == "cpu":
         return attend_plain(q, k_cache, v_cache, past_len, attend_len,
                             input_mask, new_kv, k_scale, v_scale)
@@ -535,7 +683,9 @@ def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
     rows = decode_rows(t, h // hkv)
     part = ticket = None
     nsplit = chunk = 0
-    if rows is not None:
+    if rows is None:
+        rows = prefill_rows(t * (h // hkv))
+    else:
         groups = b * hkv * -(-t * (h // hkv) // rows)
         nsplit, chunk = split_plan(groups, attend_len, kernels.sm_count(q.device))
         part, ticket = _decode_scratch(
@@ -549,14 +699,19 @@ def attend(q, k_cache, v_cache, past_len, attend_len: int, input_mask=None,
         kernels.ptr(mask), kernels.ptr(kn), kernels.ptr(vn), out.data_ptr(),
         kernels.ptr(part), kernels.ptr(ticket),
         b, t, h, hkv, d, s_max, attend_len,
-        0 if mask is None else mask.shape[1], mode, rows or 0, nsplit, chunk,
+        0 if mask is None else mask.shape[1], mode, rows, nsplit, chunk,
         1.0 / math.sqrt(d), kernels.stream_of(q),
     ), lib)
     count_launch(attend, mode)
+    if part is None:
+        attr = "launches_prefill" + ("" if mode == 0 else f"_{KV_MODES[mode]}")
+        setattr(attend, attr, getattr(attend, attr) + 1)
     return out
 
 
 init_launch_counters(attend)
+attend.launches_prefill = attend.launches_prefill_int8 = 0
+attend.launches_prefill_int4 = 0
 
 
 # ------------------------------------------------- deferred batched commit

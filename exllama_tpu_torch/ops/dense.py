@@ -8,10 +8,13 @@ gives to K4 too (``dense_plan``: the row tile by M, stream-K where the
 tiles do not fill the card). CPU tensors keep the plain product at every M.
 The greedy head ``head_argmax`` (final norm -> lm_head -> argmax, no logits
 kept) is kernel K5 (csrc/head_argmax.cu), the port of
-``dense.py:_head_argmax_kernel``, on the stream-K loop of
-csrc/dense_stream.cuh (K4's kernel before the Hopper one) with the norm
-applied as x is staged, at <= 32 rows; above, the JAX package's composition
-(dense.py:183-188) with K4 for the product. Both take any vocabulary size.
+``dense.py:_head_argmax_kernel``, on K4's Hopper kernel (csrc/dense_wg.cuh,
+K4's plan) with the norm staged into each x slab and an argmax epilogue, at
+<= 32 rows; above, the JAX package's composition (dense.py:183-188) with K4
+for the product. Both take any vocabulary size. The stream-K loop of
+csrc/dense_stream.cuh, K4's and K5's kernel before the Hopper one, stays as
+their parents (``dense_grid``, ``dense_stream_plan``,
+``dense_gemv_split_plain`` write its decomposition).
 ``impl="xla"`` (the model's ``matmul_impl``) runs the plain versions on any
 device, as the JAX package sends its head to ``jnp.dot`` under "xla": an
 oracle, never a fallback.
@@ -38,7 +41,8 @@ from exllama_tpu_torch.ops.quant import (
 )
 
 GEMV_MAX_M = 32   # the JAX package's switch (a TPU number): K5's rows
-# K5's loop (csrc/dense_stream.cuh; K4's before the Hopper kernel): tiles of
+# the parents' loop (csrc/dense_stream.cuh; K4's and K5's before the Hopper
+# kernel): tiles of
 # DENSE_BN columns, units of DENSE_ROWS rows of k, shared out as contiguous
 # ranges among one block an SM
 DENSE_BN, DENSE_ROWS = 256, 32
@@ -59,15 +63,15 @@ def _pow2(m: int) -> int:
 
 
 def dense_grid(k: int, v: int, sms: int) -> "tuple[int, int]":
-    """K5's (and K4's parent's) column tiles and grid: one block an SM,
-    fewer where there are fewer (tile, unit) items."""
+    """The parents' (K4's and K5's stream-K loop) column tiles and grid: one
+    block an SM, fewer where there are fewer (tile, unit) items."""
     tiles = -(-v // DENSE_BN)
     return tiles, min(sms, tiles * -(-k // DENSE_ROWS))
 
 
 def dense_stream_plan(k: int, v: int, grid: int):
-    """K5's work division (csrc/dense_stream.cuh; K4's parent's) written
-    out: for each
+    """The parents' work division (csrc/dense_stream.cuh) written out: for
+    each
     block, its ranges [(tile, first unit, end unit, slot)], units counted
     within the tile; slot 0 / 1 is the scratch slot of a range that shares
     its tile with other blocks (the block's first / last range), None for a
@@ -77,7 +81,7 @@ def dense_stream_plan(k: int, v: int, grid: int):
 
 def dense_gemv_split_plain(x: torch.Tensor, w: torch.Tensor,
                            grid: int) -> torch.Tensor:
-    """The stream-K loop's decomposition (K5's sums; K4's parent) in plain
+    """The stream-K loop's decomposition (K4's and K5's parents) in plain
     tensor code, f32: each block's range sums over its units, a tile shared
     among blocks then added in the order of its blocks (of k), as the
     kernel's last block does."""
@@ -272,28 +276,17 @@ def ids_of_keys(keys: torch.Tensor) -> torch.Tensor:
 
 def head_argmax_split_plain(h: torch.Tensor, norm_w: torch.Tensor,
                             w: torch.Tensor, eps: float,
-                            grid: int) -> torch.Tensor:
-    """K5's decomposition in plain tensor code: K4's split sums of the
-    normed rows (``dense_gemv_split_plain``), each block's best key per row
-    over the columns it emits (the whole tiles of its ranges, and the
-    tiles whose last block it is), and the max of the blocks' keys, as the
-    kernel's atomicMax combines them. int32 ids [M]."""
+                            plan: DensePlan) -> torch.Tensor:
+    """K5's decomposition in plain tensor code: the normed rows rounded to
+    bf16, K4's split sums over ``plan`` (``dense_split_plain``: a split
+    tile's pieces added in the order of k), each column's 64-bit key
+    emitted once by the block that finishes its tile, each block's best
+    key per row and the max of the blocks' keys, as the kernel's atomicMax
+    combines them. Which block finishes a split tile does not change the
+    max. int32 ids [M]."""
     x = rms_norm(h.reshape(-1, h.shape[-1]), norm_w, eps)
-    k, v = w.shape
-    logits = dense_gemv_split_plain(x, w, grid)
-    keys = argmax_keys(logits)
-    best = torch.full((x.shape[0],), -(1 << 63), dtype=torch.int64,
-                      device=x.device)
-    finisher: dict = {}
-    for b, ranges in enumerate(dense_stream_plan(k, v, grid)):
-        for t, *_ in ranges:
-            finisher[t] = b    # the last block of a shared tile combines it
-    for b in sorted(set(finisher.values())):
-        cols = [t for t, fb in finisher.items() if fb == b]
-        block = torch.cat([keys[:, t * DENSE_BN:min((t + 1) * DENSE_BN, v)]
-                           for t in cols], dim=1)
-        best = torch.maximum(best, block.amax(dim=1))
-    return ids_of_keys(best)
+    keys = argmax_keys(dense_split_plain(x, w, plan))
+    return ids_of_keys(keys.amax(dim=1))
 
 
 _HEAD_KEYS: dict = {}
@@ -313,7 +306,8 @@ def head_argmax_scratch(dev) -> torch.Tensor:
 
 def _head_argmax_rows(x: torch.Tensor, norm_w: torch.Tensor, w: torch.Tensor,
                       eps: float) -> torch.Tensor:
-    """K5 on x [M <= 32, K] bf16 -> int32 [M]."""
+    """K5 on x [M <= 32, K] bf16 -> int32 [M], on K4's plan
+    (``dense_plan``)."""
     m, k = x.shape
     v = w.shape[1]
     if w.shape[0] != k or norm_w.shape != (k,) or 0 in (m, k, v):
@@ -323,16 +317,18 @@ def _head_argmax_rows(x: torch.Tensor, norm_w: torch.Tensor, w: torch.Tensor,
     if not w.is_contiguous() or w.device != x.device:
         raise ValueError("head_argmax: w must be contiguous, on x's device")
     x = x.contiguous()
+    ldx = -(-k // 8) * 8        # TMA reads x's rows: 16-byte strides
+    if ldx != k or x.data_ptr() % 16:
+        x = F.pad(x, (0, ldx - k))
     norm_w = norm_w.to(torch.bfloat16).contiguous()
-    tiles, grid = dense_grid(k, v, kernels.sm_count(x.device))
-    part, ticket = gemv_scratch(x.device, grid * 2 * _pow2(m) * DENSE_BN,
-                                tiles)
+    plan = dense_plan(m, k, v, kernels.sm_count(x.device))
+    part, ticket = dense_scratch(x.device, plan)
     ids = torch.empty((m,), dtype=torch.int32, device=x.device)
     kernels.check(kernels.launcher("head_argmax")(
         x.data_ptr(), norm_w.data_ptr(), w.data_ptr(),
         head_argmax_scratch(x.device).data_ptr(), ids.data_ptr(),
-        part.data_ptr(), ticket.data_ptr(), m, k, v, grid, float(eps),
-        kernels.stream_of(x),
+        part.data_ptr(), ticket.data_ptr(), m, k, v, ldx, plan.bm, plan.grid,
+        int(plan.stream_k), float(eps), kernels.stream_of(x),
     ), "head_argmax")
     head_argmax.launches += 1
     return ids

@@ -525,14 +525,19 @@ def time_dense(timer, gen, dev, ms):
 
 
 def time_head(timer, gen, dev, variant, ms):
-    """K5 beside torch.argmax(torch.matmul(...)) on the normed rows."""
+    """K5's stream-K loop (K5 itself before it moved onto K4's Hopper
+    kernel; its parent since, which these variants patch) beside
+    torch.argmax(torch.matmul(...)) on the normed rows."""
     import ctypes
 
+    import chip_smoke as cs
     from exllama_tpu_torch.ops import dense
     from exllama_tpu_torch.ops.norms import rms_norm
 
     nw = (torch.rand(4096, generator=gen, device=dev) + 0.5).bfloat16()
-    old = "void* part" not in (OUT_DIR / variant / "head_argmax.cu").read_text()
+    src = (OUT_DIR / variant / "head_argmax.cu").read_text()
+    old = "void* part" not in src
+    parent = "head_argmax_stream_launch" in src
     for v in (32000, 32001):
         w = (torch.randn((4096, v), generator=gen, device=dev)
              * 0.02).bfloat16()
@@ -548,6 +553,9 @@ def time_head(timer, gen, dev, variant, ms):
                         keys.data_ptr(), ids.data_ptr(), m, 4096, v, 1e-6,
                         kernels.stream_of(x))
                 ms[f"K5 V={v} M={m}"] = timer(lambda: fn(*args), 20)
+            elif parent:
+                ms[f"K5 V={v} M={m}"] = timer(
+                    lambda: cs.k5_parent(x, nw, w, 1e-6), 20)
             else:
                 ms[f"K5 V={v} M={m}"] = timer(
                     lambda: dense.head_argmax(x, nw, w, 1e-6), 20)

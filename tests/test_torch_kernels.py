@@ -932,6 +932,117 @@ def test_flash_attn_quantized_matches_plain(gen, kind, b, t, h, hkv, d, past,
     _close(got, ref, 2e-2)
 
 
+@pytest.mark.parametrize("n", [64, 128, 256])
+@pytest.mark.parametrize("k", [16, 64, 128])
+def test_wgmma_transposed_b_product(gen, n, k):
+    """hop::Mma's transposed-B product alone (K3's O += P V: B read MN-major
+    through hopper.cuh:mnmajor_sw128 from 128-byte swizzled boxes of 64
+    columns) on planted small integers, so that the f32 product is exact:
+    bit-equal to the plain product; each k-row and column is distinct, so a
+    wrong stride between the 8-row atoms or the 64-column boxes moves it."""
+    from exllama_tpu_torch import kernels
+
+    a = torch.randint(-3, 4, (64, k), generator=gen, device="cuda").bfloat16()
+    b = torch.randint(-3, 4, (k, n), generator=gen, device="cuda").bfloat16()
+    b[torch.arange(k), torch.arange(k) % n] = 8.0     # a planted diagonal
+    out = torch.full((64, n), float("nan"), device="cuda")
+    kernels.check(kernels.launcher("flash_attn_tnsp_check")(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), k, n,
+        kernels.stream_of(a)), "flash_attn_tnsp_check")
+    torch.cuda.synchronize()
+    assert torch.equal(out, a.float() @ b.float())
+
+
+# K3's prefill path on Hopper at the main path's chunks, narrow: T = 1919
+# from 0, 64- and 127-row chunks behind a cursor, a left-padded batch, GQA-8
+# (g = 4) behind a cursor
+PREFILL_CASES = [
+    (1, 1919, 2, 2, 0, 2048, False),
+    (2, 64, 4, 4, [1000, 1100], 1280, False),
+    (1, 127, 2, 2, 300, 512, False),
+    (2, 64, 4, 4, 0, 256, True),
+    (1, 512, 32, 8, 300, 1024, False),
+]
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("d", [64, 128, 256])
+@pytest.mark.parametrize("b,t,h,hkv,past,alen,masked", PREFILL_CASES)
+def test_flash_prefill_matches_plain(gen, b, t, h, hkv, past, alen, masked,
+                                     d, kind):
+    """The prefill kernel (csrc/flash_prefill_wg.cuh) against attend_plain
+    at K3's 2e-2, after the plain decomposition has shown that a dropped
+    causal mask, the V scale also on l and swapped int4 halves each move
+    the output by more than 3x that; its launch counts on the prefill
+    counter of its cache format, and its parent's C counter stays put."""
+    from exllama_tpu_torch import kernels
+
+    s_max = 2048
+    if kind == "bf16":
+        kc = torch.randn((b, hkv, s_max, d), generator=gen,
+                         device="cuda").bfloat16()
+        vc = torch.randn_like(kc)
+        ks = vs = None
+    else:
+        kc, vc, ks, vs = _quantized_cache(gen, kind, b, hkv, s_max, d, s_max)
+    q = torch.randn((b, t, h, d), generator=gen, device="cuda").bfloat16()
+    past_t = (past if isinstance(past, int)
+              else torch.tensor(past, dtype=torch.int32, device="cuda"))
+    mask = None
+    if masked:
+        mask = torch.ones((b, s_max), dtype=torch.bool, device="cuda")
+        mask[0, :17] = False
+    args = (q, kc, vc, past_t, alen, mask)
+    ref = attention.attend_plain(*args, None, ks, vs)
+    scale = ref.float().abs().max()
+    faults = [attention.attend_plain(q, kc, vc, past_t + t - 1, alen, mask,
+                                     None, ks, vs)]
+    if kind != "bf16":
+        faults.append(attention.attend_prefill_tiles_plain(
+            *args, ks, vs, fault="v_scale_on_l"))
+    if kind == "int4":
+        faults.append(attention.attend_prefill_tiles_plain(
+            *args, ks, vs, fault="halves"))
+    for out in faults:
+        assert (out.float() - ref.float()).abs().max() > 3 * 2e-2 * scale
+    lib = "flash_attn_d256" if d == 256 else "flash_attn"
+    parent = kernels.launcher(f"{lib}_prefill_fa2_launches")()
+    counter = "launches_prefill" + ("" if kind == "bf16" else f"_{kind}")
+    before = getattr(attention.attend, counter)
+    got = attention.attend(*args, None, ks, vs)
+    assert getattr(attention.attend, counter) == before + 1
+    _close(got, ref, 2e-2)
+    torch.cuda.synchronize()
+    assert kernels.launcher(f"{lib}_prefill_fa2_launches")() == parent
+
+
+def test_no_wrapper_launches_the_k3_prefill_or_k5_parents(gen):
+    """K3's prefill parent (FlashAttention-2 tiles on mma.sync, both head-dim
+    libraries) and K5's (the stream-K loop), chip_smoke.py's yardsticks
+    only: the wrappers' prefill and greedy-head routes leave their C launch
+    counts where they were."""
+    from exllama_tpu_torch import kernels
+
+    names = ("flash_attn_prefill_fa2_launches",
+             "flash_attn_d256_prefill_fa2_launches",
+             "head_argmax_stream_launches")
+    before = [kernels.launcher(n)() for n in names]
+    for d in (64, 128, 256):
+        kc = torch.randn((1, 2, 256, d), generator=gen,
+                         device="cuda").bfloat16()
+        for t in (17, 64, 200):
+            q = torch.randn((1, t, 2, d), generator=gen,
+                            device="cuda").bfloat16()
+            attention.attend(q, kc, kc, 0, 256)
+    w = torch.randn((512, 1001), generator=gen, device="cuda").bfloat16()
+    nw = torch.ones(512, dtype=torch.bfloat16, device="cuda")
+    for m in (1, 8, 32):
+        x = torch.randn((1, m, 512), generator=gen, device="cuda").bfloat16()
+        dense.head_argmax(x, nw, w, 1e-6)
+    torch.cuda.synchronize()
+    assert [kernels.launcher(n)() for n in names] == before
+
+
 @pytest.mark.parametrize("kind", ["int8", "int4"])
 @pytest.mark.parametrize("entry,b,hkv,past,masked,impl", [
     case + (impl,)

@@ -85,8 +85,8 @@ def _head_case(case):
                                   "tie_across_splits"])
 @pytest.mark.parametrize("grid", [7, 132])
 def test_head_argmax_split_plain_matches_jax(case, grid):
-    """K5's decomposition (K4's split sums of the normed rows, then the
-    blocks' 64-bit keys combined by their max) returns the JAX head's
+    """K5's decomposition (K4's split sums of the normed rows over K4's
+    plan, then the blocks' 64-bit keys combined by their max) returns the JAX head's
     tokens wherever the top-2 margin exceeds 1e-2 of the logit scale (bf16
     rounding of the normed row and the f32 sum order decide nearer ties),
     and exactly the earliest index on the planted exact ties."""
@@ -95,9 +95,9 @@ def test_head_argmax_split_plain_matches_jax(case, grid):
     ref = np.asarray(jdense.head_argmax(
         _jnp_bf16(x), _jnp_bf16(nw), _jnp_bf16(w), 1e-6,
         impl="pallas_interpret")).reshape(-1)
-    _, g = dense.dense_grid(x.shape[1], v, grid)
+    plan = dense.dense_plan(m, x.shape[1], v, grid)   # grid: the SMs
     got = dense.head_argmax_split_plain(_bf16(x), _bf16(nw), _bf16(w), 1e-6,
-                                        g).numpy()
+                                        plan).numpy()
     assert got.shape == (m,) and got.dtype == np.int32
     assert ((got >= 0) & (got < v)).all()
     if case.startswith("tie"):
