@@ -22,7 +22,11 @@ Phases, one line or block of output each; any failure exits non-zero:
      PyTorch library call computing the same function where there is one
      (timed here only; the port never calls it), the least time the card
      could take and, for the fused kernels K6/K7, the port's own chain of
-     separate kernels for the same work; K7's attention is also held at
+     separate kernels for the same work and their parents (the streaming
+     GEMV, -DPARENT=1 libraries) in the same call, K6 at 1, 2, 8, 18, 24 and
+     32 rows and K7 up to B = 8 (GQA 8), each new case after silu applied
+     to up and the residual added twice have moved its plain
+     decomposition by more than 3x the limit; K7's attention is also held at
      its own scale, with no residual and planted keys, after the faults of
      its last-block merge of the key splits (a split dropped or counted
      twice) have moved the plain output by more than 3x its limit
@@ -631,15 +635,43 @@ def k1_parent(x, qt, nw, eps):
 
 def parent_launches() -> dict:
     """The C launch counters of the parents of K1 (both scale builds), K2,
-    K3's prefill path (both head-dim libraries), K4 and K5: phase 3's
-    timings are their only callers."""
+    K3's prefill path (both head-dim libraries), K4, K5, K6 and K7 (both
+    cache builds): phase 3's timings are their only callers."""
     from exllama_tpu_torch import kernels
 
     return {name: kernels.launcher(name)() for name in (
         "q4_gemv_tc_launches", "q4_gemv_tc_launches_f32",
         "q4_matmul_ring_launches", "dense_gemv_stream_launches",
         "flash_attn_prefill_fa2_launches",
-        "flash_attn_d256_prefill_fa2_launches", "head_argmax_stream_launches")}
+        "flash_attn_d256_prefill_fa2_launches", "head_argmax_stream_launches",
+        "q4_mlp_stream_launches", "layer_tail_stream_launches",
+        "layer_tail_stream_kvq_launches")}
+
+
+# the exact-mode K6 / K7 libraries and their parents' (the streaming GEMV
+# phases of csrc/q4_stream.cuh, built with -DPARENT=1)
+PARENT_LIBS = {"q4_mlp": "q4_mlp_stream", "layer_tail": "layer_tail_stream",
+               "layer_tail_kvq": "layer_tail_stream_kvq"}
+
+
+def fused_parent(fn, m, widest):
+    """Run ``fn`` -- a call of the K6 / K7 wrapper in the exact mode on
+    bf16 scales -- on the parents' C entries (q4_mlp_stream_launch,
+    layer_tail_stream_launch), K6 / K7 before the Hopper kernels, timed
+    beside them; no wrapper of the package reaches them. The wrapper's
+    checks and scratch are the same; the parents' split scratch (up to four
+    blocks an SM) is grown first."""
+    from exllama_tpu_torch import kernels
+    from exllama_tpu_torch.ops import quant
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    quant.fused_gemv_scratch(dev, m, widest, tickets=1024)
+    real = kernels.launcher
+    kernels.launcher = lambda name: real(PARENT_LIBS.get(name, name))
+    try:
+        return fn()
+    finally:
+        kernels.launcher = real
 
 
 def k3_prefill_parent(q, kc, vc, past, alen, mask=None, ks=None, vs=None):
@@ -885,19 +917,34 @@ def fused_cases(device, timer, res):
             for r in res["head_argmax"]))
 
     # K6: rel tol 2e-2 -- K1's 1e-2 twice over (gate|up, then down), the
-    # same bf16 cast points on both sides; one row and the row tiles 8 /
-    # 16 (M = 18: three n8 tiles of a 32-row tile) / 32 of the streaming
-    # GEMV
-    for gs, ms in ((128, (1, 2, 8, 18, 32)), (32, (1, 18))):
+    # same bf16 cast points on both sides; the Hopper kernel's row tiles 8
+    # (M = 1, 2, 8), 32 (M = 18, 24, 32) and, beside it, its parent (the
+    # streaming GEMV); each case first shows on the plain decomposition that
+    # silu applied to up and the residual added twice move the output by
+    # more than 3x the limit
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for gs, ms in ((128, (1, 2, 8, 18, 24, 32)), (32, (1, 18))):
         gateup = random_qt(gen, hidden, 2 * inter, gs, False, device)
         down = random_qt(gen, inter, hidden, gs, False, device)
         nw = norm_w()
         for m in ms:
             h = rnd(m, 1, hidden)
+            plan = mlp.q4_mlp_plan(m, hidden, inter, sms)
+            clean = mlp.q4_mlp_split_plain(h, nw, gateup, down, eps,
+                                           plan=plan)
+            require_fault_moves(f"q4_mlp g{gs} M={m}", clean, {
+                f: mlp.q4_mlp_split_plain(h, nw, gateup, down, eps, plan=plan,
+                                          fault=f)
+                for f in ("silu_up", "residual_twice")}, TOL["q4_mlp"])
             got = mlp.q4_mlp(h, nw, gateup, down, eps)
             ref = mlp.q4_mlp_plain(h, nw, gateup, down, eps)
             err, rel = check_close(f"q4_mlp g{gs} M={m}", got, ref,
                                    TOL["q4_mlp"])
+            check_close(f"q4_mlp g{gs} M={m} vs its decomposition", got,
+                        clean, TOL["q4_mlp"])
+            if not torch.equal(got, mlp.q4_mlp(h, nw, gateup, down, eps)):
+                raise AssertionError(f"q4_mlp g{gs} M={m}: two calls on the "
+                                     f"same inputs differ")
 
             def separate():
                 a = rms_norm(h, nw, eps)
@@ -912,8 +959,14 @@ def fused_cases(device, timer, res):
             record("q4_mlp", f"g{gs} M={m}", err, rel,
                    lambda: mlp.q4_mlp(h, nw, gateup, down, eps),
                    lambda: mlp.q4_mlp_plain(h, nw, gateup, down, eps),
-                   None, nbytes, flops, s_fn=separate)
+                   None, nbytes, flops, s_fn=separate, extra={
+                       "parent_ms": lambda: fused_parent(
+                           lambda: mlp.q4_mlp(h, nw, gateup, down, eps), m,
+                           2 * inter)})
         del gateup, down
+    log("  K6 against its parent (the streaming GEMV), ms: " + "; ".join(
+        f"{r['case']} {r['ms']:.4f} / parent {r['parent_ms']:.4f} / bound "
+        f"{r['bound_ms']:.4f}" for r in res["q4_mlp"]))
 
     # K7: rel tol 2e-2 -- K3's bf16 rounding of p (running vs final max)
     # plus the GEMV phases' group-sum order (K1, K6)
@@ -930,6 +983,7 @@ def fused_cases(device, timer, res):
         ("layer_step B=1 past=2000", "layer_step", 1, 32, 2000, False),
         ("layer_tail B=2 gqa8 past=2000 left-pad mask", "layer_tail", 2, 8,
          2000, True),
+        ("layer_tail B=8 gqa8 past=2000", "layer_tail", 8, 8, 2000, False),
     ]
     qkvs = {}
     for label, entry, b, hkv, past, masked in kcases:
@@ -967,6 +1021,18 @@ def fused_cases(device, timer, res):
             got, ref = got[0], ref[0]
         err, rel = check_close(f"layer_tail {label}", got, ref,
                                TOL["layer_tail"])
+        if b == 8:
+            # the new case: first the faults, on the Hopper decomposition
+            tplan, nsplit = attn_block.layer_tail_plan(
+                b, hidden, heads, hkv, inter, s_max, sms)
+            split = lambda f=None: attn_block.layer_tail_split_plain(  # noqa: E731
+                *args, plan=tplan, nsplit=nsplit, fault=f)
+            clean = split()
+            require_fault_moves(f"layer_tail {label}", clean, {
+                f: split(f) for f in ("silu_up", "residual_twice")},
+                TOL["layer_tail"])
+            check_close(f"layer_tail {label} vs its decomposition", got,
+                        clean, TOL["layer_tail"])
 
         def separate(entry=entry, h=h, q=q, kc=kc, vc=vc, new_kv=new_kv,
                      mask=mask, qkv=qkv, sin_t=sin_t, cos_t=cos_t, b=b,
@@ -1002,8 +1068,14 @@ def fused_cases(device, timer, res):
                        + q4_bytes(inter, hidden, gs) + hidden * 2)
             flops += 2 * b * 3 * hidden * inter
         record("layer_tail", label, err, rel, k_fn, p_fn, None, nbytes, flops,
-               iters=10, s_fn=separate)
+               iters=10, s_fn=separate, extra={
+                   "parent_ms": lambda k_fn=k_fn, b=b: fused_parent(
+                       k_fn, b, max(2 * inter, (heads + 2 * 32) * d))})
     del o, gateup, down, qkvs
+    log("  K7 against its parent (the streaming GEMV), ms: " + "; ".join(
+        f"{r['case']} {r['ms']:.4f} / parent {r['parent_ms']:.4f} / bound "
+        f"{r['bound_ms']:.4f}" for r in res["layer_tail"]
+        if r.get("parent_ms") is not None))
     k7_attention_cases(device, timer, res)
 
 
@@ -1082,7 +1154,8 @@ def k7_attention_cases(device, timer, res):
     o = random_qt(gen, heads * d, hidden, gs, False, device)
     for label, b, hkv, n_pad in (
             ("attn_block_o h=0 peaked B=1 past=2000", 1, 32, 0),
-            ("attn_block_o h=0 peaked B=2 gqa8 left-pad", 2, 8, 17)):
+            ("attn_block_o h=0 peaked B=2 gqa8 left-pad", 2, 8, 17),
+            ("attn_block_o h=0 peaked B=8 gqa8 left-pad", 8, 8, 17)):
         q, kc, vc, new_kv, mask = planted_attention(gen, b, heads, hkv,
                                                     s_max, past, n_pad,
                                                     device)
@@ -1839,7 +1912,9 @@ def kv_cases(device, timer, res):
                 else:
                     nbytes += nq * 2 + 2 * nkv * 2
                 record(name, tag, err, rel, k_fn, p_fn, None, nbytes, flops,
-                       iters=10)
+                       iters=10, extra={"parent_ms": None if impl != "auto"
+                                        else lambda k_fn=k_fn: fused_parent(
+                                            k_fn, 1, 2 * inter)})
 
 
 def kv_commit_cases(device, timer, res):
@@ -3676,8 +3751,8 @@ SAMPLED_STEP = {"q4_gemv": 32, "layer_tail": 32, "dense_gemv": 1,
                 "flash_attn": 0, "kv_commit": 0, "head_argmax": 0}
 GREEDY_STEP = {"layer_tail": 32, "head_argmax": 1, "kv_commit": 1,
                "q4_gemv": 0, "flash_attn": 0, "dense_gemv": 0}
-STEP_KERNELS = {"sampled": ("q4_gemv", "layer_tail_kernel", "dense_wg_kernel"),
-                "greedy": ("layer_tail_kernel", "ArgmaxEmit", "kv_commit")}
+STEP_KERNELS = {"sampled": ("q4_gemv", "fused_wg_kernel", "dense_wg_kernel"),
+                "greedy": ("fused_wg_kernel", "ArgmaxEmit", "kv_commit")}
 
 
 def counter_names():
@@ -6532,8 +6607,8 @@ def main() -> int:
                              f"reached them): {moved}")
     log(f"  the parents of K1 (the mma.sync route), K2 (the ring's Exact "
         f"mode), K3's prefill (FlashAttention-2 tiles on mma.sync), K4 and "
-        f"K5 (the stream-K loop): {parents_after3} launches, all in phase "
-        f"3's parent timings")
+        f"K5 (the stream-K loop), K6 and K7 (the streaming GEMV): "
+        f"{parents_after3} launches, all in phase 3's parent timings")
     log(f"  phase 5 request 2 prefill {fused['request2_prefill_ms']:.3f} ms, "
         f"request 3 decode step {fused['request3_decode_step_ms']:.3f} ms; "
         f"the einsum attention route (head_dim 100) ran {xla_route} times")

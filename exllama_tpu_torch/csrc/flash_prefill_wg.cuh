@@ -140,20 +140,6 @@ struct Item {
   }
 };
 
-// The integer of byte e of w (0..3) as an exact f32, without the
-// quarter-rate int-to-float conversion: an unsigned u < 2^8 in the mantissa
-// of 2^23 is the float 2^23 + u. MODE 0: int8 (u = b + 128); 1: an int4
-// low nibble (u = (b & 15), value u - 8); 2: a high nibble (u = (b >> 4) ^
-// 8 on the raw nibble, value u - 8, the two's complement b >> 4).
-template <int MODE>
-__device__ __forceinline__ float int_of(uint32_t w, int e) {
-  uint32_t u = (w >> (8 * e)) & 0xFFu;
-  if constexpr (MODE == 0) u ^= 0x80u;
-  if constexpr (MODE == 1) u &= 15u;
-  if constexpr (MODE == 2) u = (u >> 4) ^ 8u;
-  return __uint_as_float(0x4B000000u | u) - (MODE == 0 ? 8388736.f : 8388616.f);
-}
-
 // 16 integer bytes -> 16 bf16 (exact) at chunks (c, c + 1) of row r of a
 // swizzled tile: int8 dims 16c' .. 16c' + 15, or for int4 one nibble of
 // each byte (lo: (b & 15) - 8; hi: b >> 4).

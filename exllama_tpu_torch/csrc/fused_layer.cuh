@@ -145,6 +145,16 @@ static inline int coop_grid(K kernel, size_t smem) {
   return (per_sm < MAX_BLOCKS_PER_SM ? per_sm : MAX_BLOCKS_PER_SM) * num_sms();
 }
 
+// A barrier counter of the library's own, for the exact mode's parents
+// (-DPARENT=1): the `bar` their callers pass is the Hopper kernel's pair of
+// zeros, which a parent must not leave counted up (coop_launch clears this
+// word before each launch instead).
+__device__ unsigned int own_barrier;
+static inline unsigned int* own_barrier_word() {
+  void* p = nullptr;
+  return cudaGetSymbolAddress(&p, own_barrier) == cudaSuccess ? (unsigned int*)p : nullptr;
+}
+
 // Zero the barrier counter and launch kernel(params) cooperatively.
 template <typename K, typename P>
 static inline cudaError_t coop_launch(K kernel, int grid, const P& params, size_t smem,

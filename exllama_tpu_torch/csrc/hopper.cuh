@@ -74,6 +74,46 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map, int c0
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(tc::smem_addr(bar))
       : "memory");
 }
+// A bulk copy of `bytes` contiguous bytes (a multiple of 16; both addresses
+// 16-byte aligned) from device memory into dst, completing on bar.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(tc::smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(tc::smem_addr(bar))
+      : "memory");
+}
+// The integer of byte e of w (0..3) as an exact f32, without the
+// quarter-rate int-to-float conversion: an unsigned u < 2^8 in the mantissa
+// of 2^23 is the float 2^23 + u. MODE 0: int8 (u = b + 128); 1: an int4
+// low nibble (u = (b & 15), value u - 8); 2: a high nibble (u = (b >> 4) ^
+// 8 on the raw nibble, value u - 8, the two's complement b >> 4).
+template <int MODE>
+__device__ __forceinline__ float int_of(uint32_t w, int e) {
+  uint32_t u = (w >> (8 * e)) & 0xFFu;
+  if constexpr (MODE == 0) u ^= 0x80u;
+  if constexpr (MODE == 1) u &= 15u;
+  if constexpr (MODE == 2) u = (u >> 4) ^ 8u;
+  return __uint_as_float(0x4B000000u | u) - (MODE == 0 ? 8388736.f : 8388616.f);
+}
+// The four integers of w (bytes 0..3; MODE as int_of) as exact f32, the
+// byte-wise part done on the whole word and each byte moved into the
+// mantissa of 2^23 by one prmt: two operations an integer.
+template <int MODE>
+__device__ __forceinline__ void ints_of(uint32_t w, float (&f)[4]) {
+  uint32_t x = w;
+  if constexpr (MODE == 0) x ^= 0x80808080u;
+  if constexpr (MODE == 1) x &= 0x0F0F0F0Fu;
+  if constexpr (MODE == 2) x = ((x >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+  constexpr float bias = MODE == 0 ? 8388736.f : 8388616.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t r;  // bytes: x's byte e, 0, 0, 0x4B
+    asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(x), "r"(0x4B000000u), "r"(0x7440u + e));
+    f[e] = __uint_as_float(r) - bias;
+  }
+}
 // Fetch a tensor map (a __grid_constant__ kernel parameter) ahead of its
 // first TMA load.
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -317,6 +357,16 @@ struct Walk {
     U = (long long)tiles * ktiles;
     u0 = u = sk ? streamk::unit_begin(blockIdx.x, U, grid) : 0;
     u1 = sk ? streamk::unit_begin(blockIdx.x + 1, U, grid) : 0;
+  }
+  // Stream-K over the first `g` blocks of the grid (one phase of a
+  // persistent kernel whose units may be fewer than its blocks, fused_wg.cuh);
+  // the blocks past them have no range.
+  __device__ __forceinline__ Walk(int tiles_, int ktiles, int g, bool /*phase*/)
+      : KT(ktiles), tiles(tiles_), grid(g), t(blockIdx.x), sk(true) {
+    U = (long long)tiles * ktiles;
+    const bool in = (int)blockIdx.x < g;
+    u0 = u = in ? streamk::unit_begin(blockIdx.x, U, g) : 0;
+    u1 = in ? streamk::unit_begin(blockIdx.x + 1, U, g) : 0;
   }
   // The next range: tile, slabs [kb, ke). False when the block is done.
   __device__ __forceinline__ bool next(int& tile, int& kb, int& ke) {

@@ -66,10 +66,38 @@
 // down) runs the W4A8 arithmetic of K9 (attn_block.py's a8 / a8x2 kernels);
 // attention itself keeps K3's arithmetic. One library per mode (and cache
 // kind: bf16, or quantized).
+//
+// In the exact GEMV mode (-DGEMV_MODE=0) the kernel is the Hopper design of
+// fused_wg.cuh: one persistent block an SM, its GEMV phases on K1's wgmma
+// mainloop with a producer warp that streams every phase's weights by TMA
+// across the grid barriers, and the attention phase below (wg::consume) run
+// by the consumer warpgroups on chunks of 16 keys that the x warp brings
+// into a ring of their own (wg::produce: the K tile by TMA, the V rows,
+// scales and pad flags by cp.async.bulk), from the launch's start where
+// attention comes first.
+// The rounding order of each phase is fused_wg.cuh's: the normed rows of
+// phases B and E are rounded to bf16 before the products (not K1's route,
+// whose 1/rms comes after them), the attention row and o as above. The
+// parent, the streaming GEMV phases above, stays reachable in the exact mode
+// only through layer_tail_stream_launch, built with -DPARENT=1 into
+// libraries of its own (layer_tail_stream, layer_tail_stream_kvq), whose
+// launches layer_tail_stream_launches counts; the a8 / a8x2 libraries keep
+// it as their kernel.
 #include "fused_layer.cuh"
 
 #ifndef KV_QUANT
 #define KV_QUANT 0  // 1: the library for int8 / int4 KV caches
+#endif
+#ifndef PARENT
+#define PARENT 0    // 1: the exact mode's parent alone (layer_tail_stream_launch)
+#endif
+#define HOPPER_KERNEL (GEMV_MODE == 0 && !PARENT)
+#if HOPPER_KERNEL
+#include <type_traits>
+
+#include "fused_wg.cuh"
+#else
+#include <atomic>
 #endif
 
 namespace {
@@ -151,12 +179,24 @@ __device__ __forceinline__ float kv_raw(uint32_t w, int e, bool hi) {
   return (float)(hi ? b >> 4 : (b & 15) - 8);
 }
 
+// A barrier of the block's threads, or (WG) of the Hopper kernel's 256
+// consumer threads alone (named barrier 1).
+template <bool WG>
+__device__ __forceinline__ void block_sync() {
+  if constexpr (WG)
+    asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS) : "memory");
+  else
+    __syncthreads();
+}
+
 // The last split block of pair (b, hk): merge the pair's G heads' splits,
 // in split order, into the bf16 attention row. A function of its own, out
 // of line, so that its registers do not add to the attention phase's.
 // (Its operands are passed by value: a reference to the kernel's parameter
-// block would copy it to local memory.)
-__device__ __noinline__ void merge_splits(const float* part, bf16* attn_scr, float* sm,
+// block would copy it to local memory.) wa: 2 G nsplit + G floats of
+// shared memory. WG: the Hopper kernel's consumers.
+template <bool WG>
+__device__ __noinline__ void merge_splits(const float* part, bf16* attn_scr, float* wa,
                                           int nsplit, int G, int H, int b, int hk, int bh) {
   __threadfence();
   // each split's m and l (one load each, all in flight), then per head the
@@ -164,7 +204,7 @@ __device__ __noinline__ void merge_splits(const float* part, bf16* attn_scr, flo
   // splits in order, their loads unrolled
   const float* base = part + (size_t)bh * nsplit * G * (D + 2);
   const size_t stride = (size_t)G * (D + 2);
-  float* wt = sm + ATT_WA;              // [G][nsplit]: the splits' m, then weights
+  float* wt = wa;                       // [G][nsplit]: the splits' m, then weights
   float* lw = wt + G * nsplit;          // [G][nsplit]: the splits' l
   float* lsum = lw + G * nsplit;        // [G]: the merged l
   for (int i = threadIdx.x; i < 2 * G * nsplit; i += THREADS) {
@@ -172,7 +212,7 @@ __device__ __noinline__ void merge_splits(const float* part, bf16* attn_scr, flo
     wt[i] = __ldcg(base + (r % nsplit) * stride + (r / nsplit) * (D + 2) + D +
                    (i >= G * nsplit ? 1 : 0));
   }
-  __syncthreads();
+  block_sync<WG>();
   if (threadIdx.x < G) {
     const int j = threadIdx.x;
     float mm = MASK_VALUE;
@@ -185,7 +225,7 @@ __device__ __noinline__ void merge_splits(const float* part, bf16* attn_scr, flo
     }
     lsum[j] = ll == 0.f ? 1.f : ll;
   }
-  __syncthreads();
+  block_sync<WG>();
   for (int i = threadIdx.x; i < G * D; i += THREADS) {
     const int j = i / D, d = i - j * D;
     const float* pj = base + j * (D + 2) + d;
@@ -196,6 +236,530 @@ __device__ __noinline__ void merge_splits(const float* part, bf16* attn_scr, flo
   }
 }
 
+#if HOPPER_KERNEL
+// Phase C of the Hopper kernel (fused_wg.cuh), run by its 256 consumer
+// threads: the arithmetic, the work items and the merge of attention_phase
+// below, each warp a chunk of 16 keys at a time, lanes l and l + 16 each
+// half of key l's row (their partial scores added by one shuffle), every
+// lane four head dims of each of the chunk's V rows. The chunks come from
+// a ring in shared memory that the x warp of the producer warpgroup
+// (fused_wg.cuh: load_x, lane 0) fills, from the launch's start where
+// attention comes first, else once it has put the qkv phase's x in flight:
+// a slot holds one chunk's K tile by TMA (2-D map of the cache's rows,
+// 128-byte swizzled boxes of 64 dims, int4 rows 64-byte swizzled: eight
+// lanes that read one 16-byte column of eight rows hit different banks,
+// and the queries they multiply stay one broadcast address), its V rows
+// and the 16-byte granules that hold its K and V scales and pad flags by
+// cp.async.bulk (the scale and mask tensors' bases 16-byte aligned, so no
+// granule leaves their allocations). The K/V cache is an input, so the
+// ring fills while the consumers run the qkv phase or wait at a grid
+// barrier; the GEMV ring beside it keeps streaming the o-projection's
+// weights. Integers become f32 through the mantissa (hop::ints_of: a prmt
+// and a subtraction each), not the quarter-rate conversion. The queries live in shared memory as f32, the
+// second half of each head 16 bytes off the first (one wavefront for the
+// two halves' broadcasts).
+namespace wg {
+
+using namespace hop;
+
+constexpr int CH = 16;                 // keys of a warp's chunk
+constexpr int RING_MIN = 32768;        // bytes of the K / V ring, at least
+constexpr int NA_MAX = 32;             // slots of the ring, at most
+constexpr int EXTRA = 192;             // a slot's K, V scale granules (80 bytes each), pad flags (32)
+constexpr int QS = D + 8;              // floats of a head's queries
+constexpr int HALF_PAD = 4;            // floats between a head's two halves
+
+template <int KV>
+struct Ring {
+  static constexpr int RB = KV == 0 ? D * 2 : KV == 1 ? D : D / 2;  // bytes of a row
+  static constexpr int BOX = CH * (KV == 2 ? 64 : 128);              // a K box: 16 rows
+  static constexpr int K_BYTES = CH * RB;                            // the chunk's K tile
+  static constexpr int SLOT = 2 * K_BYTES;                           // K tile, then V rows
+  static_assert(SLOT % 1024 == 0 && RING_MIN >= 4 * SLOT,
+                "K tiles 1024-byte aligned (the swizzle's atoms)");
+  // The warps that read a ring of `ring` bytes, and its slots: chunk a of
+  // the block's sequence lies in slot a % slots, and chunk c of an item is
+  // read by warp c % warps, the slots a multiple of the warps, so that
+  // within an item a slot's previous chunk (a - slots) was read by the same
+  // warp, and before an item the block's barrier saw every earlier chunk
+  // read. A warp then never waits on a slot whose previous fill may still
+  // be landing (TMA completes out of order, and an mbarrier's parity tells
+  // only two phases apart: a wait for the next phase would pass at once).
+  // Which warp sums which keys depends on the item alone, so a row's
+  // attention does not depend on the other rows' keys.
+  static __device__ __forceinline__ int warps(int ring) {
+    return min(WARPS, min(NA_MAX, ring / SLOT));
+  }
+  static __device__ __forceinline__ int slots(int ring) {
+    const int n = min(NA_MAX, ring / SLOT);
+    return n - n % warps(ring);
+  }
+};
+
+// The attention region of the kernel's shared memory (1024-byte aligned):
+// the slots' scale and mask granules, the ring's barriers, the queries and
+// partials (floats), the last-split flag; then, at RING_OFF, the ring (what
+// the kernel's shared memory leaves beside the GEMV ring: fused_wg.cuh Cfg).
+constexpr int EX_OFF = 0;
+constexpr int BAR_OFF = EX_OFF + NA_MAX * EXTRA;
+constexpr int F_OFF = BAR_OFF + 2 * NA_MAX * 8;
+constexpr int F_Q = 0;                         // [GMAX][QS] queries
+constexpr int F_KN = F_Q + GMAX * QS;          // [D] in-flight K row
+constexpr int F_VN = F_KN + D;                 // [D] in-flight V row
+constexpr int F_SN = F_VN + D;                 // [GMAX] in-flight scores
+constexpr int F_WM = F_SN + GMAX;              // [WARPS][GMAX] warp maxima
+constexpr int F_WL = F_WM + WARPS * GMAX;      // [WARPS][GMAX] warp sums
+constexpr int F_WA = F_WL + WARPS * GMAX;      // [WARPS][GMAX][D] warp accumulators
+constexpr int F_FLOATS = F_WA + WARPS * GMAX * D;
+constexpr int RING_OFF = (F_OFF + F_FLOATS * 4 + 16 + 1023) & ~1023;
+
+__device__ __forceinline__ int qi(int j, int d) { return j * QS + d + (d >> 6) * HALF_PAD; }
+
+// The item's keys [s_begin, s_end) of [0, past_b): split `split` of nsplit.
+struct Item {
+  int b, hk, bh, split, s_begin, s_end;
+  __device__ __forceinline__ Item(const TailParams& p, int item) {
+    split = item % p.nsplit, bh = item / p.nsplit;
+    hk = bh % p.Hkv, b = bh / p.Hkv;
+    const int pb = min(p.past[b], p.attend_len);  // keys s < past_b are visible
+    const int cs = ((pb + p.nsplit - 1) / p.nsplit + 31) & ~31;
+    s_begin = split * cs;
+    s_end = min(pb, s_begin + cs);
+  }
+  __device__ __forceinline__ int chunks() const {
+    return s_end > s_begin ? (s_end - s_begin + CH - 1) / CH : 0;
+  }
+};
+
+// The 16-byte granules of [p, p + n bytes): their first address and bytes.
+__device__ __forceinline__ uintptr_t granules(const void* p, int n, uint32_t& bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p), lo = a & ~(uintptr_t)15;
+  bytes = (uint32_t)(((a + n + 15) & ~(uintptr_t)15) - lo);
+  return lo;
+}
+
+// The x warp's lane 0: every chunk of the block's items, in the order the
+// consumers take them, into the ring.
+template <int KV>
+__device__ __forceinline__ void produce(const CUtensorMap* kmap, const TailParams& p,
+                                        unsigned char* ar, int ring) {
+  using R = Ring<KV>;
+  const int NA = R::slots(ring);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ar + BAR_OFF);
+  uint64_t* empty = full + NA_MAX;
+  prefetch_map(kmap);
+  const int items = p.B * p.Hkv * p.nsplit;
+  int a = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const Item it(p, item);
+    const size_t strip = (size_t)it.bh * p.S;
+    for (int c0 = it.s_begin; c0 < it.s_end; c0 += CH, ++a) {
+      const int st = a % NA, nk = min(CH, it.s_end - c0);
+      mbar_wait(empty + st, ((a / NA) & 1) ^ 1);
+      unsigned char* slot = ar + RING_OFF + st * R::SLOT;
+      unsigned char* ex = ar + EX_OFF + st * EXTRA;
+      uint32_t tx = R::K_BYTES + nk * R::RB, sb = 0, mb = 0;
+      uintptr_t ks = 0, vs = 0, ms = 0;
+      if constexpr (KV != 0) {
+        ks = granules(p.k_scale + strip + c0, 4 * nk, sb);
+        vs = ks - reinterpret_cast<uintptr_t>(p.k_scale) + reinterpret_cast<uintptr_t>(p.v_scale);
+        tx += 2 * sb;
+      }
+      if (p.mask != nullptr) {
+        ms = granules(p.mask + (size_t)it.b * p.mask_stride + c0, nk, mb);
+        tx += mb;
+      }
+      mbar_arrive_tx(full + st, tx);
+      const int row = (int)(strip + c0);
+      tma_2d(slot, kmap, 0, row, full + st);
+      if constexpr (KV == 0) tma_2d(slot + R::BOX, kmap, 64, row, full + st);
+      bulk_copy(slot + R::K_BYTES,
+                static_cast<const unsigned char*>(p.v_cache) + (strip + c0) * R::RB, nk * R::RB,
+                full + st);
+      if constexpr (KV != 0) {
+        bulk_copy(ex, reinterpret_cast<const void*>(ks), sb, full + st);
+        bulk_copy(ex + 80, reinterpret_cast<const void*>(vs), sb, full + st);
+      }
+      if (p.mask != nullptr) bulk_copy(ex + 160, reinterpret_cast<const void*>(ms), mb, full + st);
+    }
+  }
+}
+
+// This lane's partial scores of its key (row kl of the slot's K tile, the
+// half `half` of its dims) against the G heads' queries.
+template <int KV>
+__device__ __forceinline__ void scores(const unsigned char* kt, const float* qs, int kl, int half,
+                                       int G, float (&sc)[GMAX]) {
+  if constexpr (KV == 0) {  // box `half`: dims 64 half .. ; chunk v of row kl at v ^ (kl & 7)
+    const unsigned char* row = kt + half * Ring<0>::BOX + kl * 128;
+#pragma unroll
+    for (int v = 0; v < 8; ++v) {
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(row + ((v ^ (kl & 7)) << 4)), f);
+#pragma unroll
+      for (int j = 0; j < GMAX; ++j) {
+        if (j >= G) break;
+        const float* qj = qs + qi(j, half * 64 + v * 8);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sc[j] = fmaf(qj[e], f[e], sc[j]);
+      }
+    }
+  } else if constexpr (KV == 1) {  // bytes = dims 16 c .. of chunk c = 4 half + v
+    const unsigned char* row = kt + kl * 128;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int c = 4 * half + v;
+      const uint4 u = *reinterpret_cast<const uint4*>(row + ((c ^ (kl & 7)) << 4));
+      const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float f[4];
+        ints_of<0>(w4[i], f);
+#pragma unroll
+        for (int j = 0; j < GMAX; ++j) {
+          if (j >= G) break;
+          const float* qj = qs + qi(j, 16 * c + 4 * i);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j] = fmaf(qj[e], f[e], sc[j]);
+        }
+      }
+    }
+  } else {  // 64-byte rows, 64-byte swizzle: chunk c at c ^ ((kl >> 1) & 3); byte
+            // column = low dim, high nibble = dim + 64
+    const unsigned char* row = kt + kl * 64;
+#pragma unroll
+    for (int v = 0; v < 2; ++v) {
+      const int c = 2 * half + v;
+      const uint4 u = *reinterpret_cast<const uint4*>(row + ((c ^ ((kl >> 1) & 3)) << 4));
+      const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float lo[4], hi[4];
+        ints_of<1>(w4[i], lo);
+        ints_of<2>(w4[i], hi);
+#pragma unroll
+        for (int j = 0; j < GMAX; ++j) {
+          if (j >= G) break;
+          const float* ql = qs + qi(j, 16 * c + 4 * i);
+          const float* qh = qs + qi(j, D / 2 + 16 * c + 4 * i);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[j] = fmaf(qh[e], hi[e], fmaf(ql[e], lo[e], sc[j]));
+        }
+      }
+    }
+  }
+}
+
+// Head dims 4 lane .. 4 lane + 3 of V row kk of the slot (int8: bytes
+// 4 lane ..; int4: lanes 0-15 the low nibbles, 16-31 the high nibbles of
+// bytes 4 (lane & 15) ..).
+template <int KV>
+__device__ __forceinline__ void v_dims(const unsigned char* vt, int kk, int lane, float2& v01,
+                                       float2& v23) {
+  const unsigned char* vrow = vt + kk * Ring<KV>::RB;
+  if constexpr (KV == 0) {
+    const uint2 u = *reinterpret_cast<const uint2*>(vrow + 8 * lane);
+    v01 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    v23 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  } else {
+    float f[4];
+    if constexpr (KV == 1) {
+      ints_of<0>(*reinterpret_cast<const uint32_t*>(vrow + 4 * lane), f);
+    } else {
+      const uint32_t w = *reinterpret_cast<const uint32_t*>(vrow + 4 * (lane & 15));
+      if (lane < 16)
+        ints_of<1>(w, f);
+      else
+        ints_of<2>(w, f);
+    }
+    v01 = make_float2(f[0], f[1]);
+    v23 = make_float2(f[2], f[3]);
+  }
+}
+
+template <int KV>
+__device__ __forceinline__ void consume(const TailParams& p, unsigned char* ar, int ring) {
+  using R = Ring<KV>;
+  const int NA = R::slots(ring), W = R::warps(ring);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ar + BAR_OFF);
+  uint64_t* empty = full + NA_MAX;
+  float* sm = reinterpret_cast<float*>(ar + F_OFF);
+  int* last_split = reinterpret_cast<int*>(sm + F_FLOATS);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int G = p.H / p.Hkv;
+  const int nqkv = p.qkv.N;
+  const int items = p.B * p.Hkv * p.nsplit;
+  float* qs = sm + F_Q;
+  float* kn = sm + F_KN;
+  float* vn = sm + F_VN;
+  float* sn = sm + F_SN;
+  const int kl = lane & 15, half = lane >> 4;  // the key and the half of its row a lane reads
+  int a0 = 0;                                  // the ring's sequence number of the item's first chunk
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const Item it(p, item);
+    const int b = it.b, hk = it.hk;
+    block_sync<true>();  // the previous item's shared memory is consumed
+    if (p.in_norm) {
+      const bf16* row = p.qkv_scr + (size_t)b * nqkv;
+      const float* sn_b = p.sin + (size_t)b * p.rope_stride;
+      const float* cs_b = p.cos + (size_t)b * p.rope_stride;
+      for (int i = threadIdx.x; i < G * D; i += THREADS) {
+        const int j = i / D, d = i - j * D;
+        qs[qi(j, d)] = fused::rope_elem<D>(row + (size_t)(hk * G + j) * D, d, sn_b, cs_b);
+      }
+      for (int d = threadIdx.x; d < D; d += THREADS) {
+        kn[d] = fused::rope_elem<D>(row + (size_t)(p.H + hk) * D, d, sn_b, cs_b);
+        vn[d] = q4::ld_cg(row + (size_t)(p.H + p.Hkv + hk) * D + d);
+      }
+    } else {
+      for (int i = threadIdx.x; i < G * D; i += THREADS) {
+        const int j = i / D, d = i - j * D;
+        qs[qi(j, d)] = bf2f(p.q[((size_t)b * p.H + hk * G) * D + i]);
+      }
+      for (int d = threadIdx.x; d < D; d += THREADS) {
+        kn[d] = bf2f(p.k_new[((size_t)b * p.Hkv + hk) * D + d]);
+        vn[d] = bf2f(p.v_new[((size_t)b * p.Hkv + hk) * D + d]);
+      }
+    }
+    block_sync<true>();
+    if (p.in_norm && it.split == 0)
+      for (int d = threadIdx.x; d < D; d += THREADS) {
+        p.k_row[((size_t)b * p.Hkv + hk) * D + d] = f2bf(kn[d]);
+        p.v_row[((size_t)b * p.Hkv + hk) * D + d] = f2bf(vn[d]);
+      }
+    if (it.split == 0 && warp < G) {  // in-flight scores s_new = q . k_new
+      float s = 0.f;
+      for (int d = lane; d < D; d += 32) s += qs[qi(warp, d)] * kn[d];
+      s = warp_sum(s);
+      if (lane == 0) sn[warp] = s * p.scale;
+    }
+
+    float m[GMAX], l[GMAX], acc[GMAX][4];
+#pragma unroll
+    for (int j = 0; j < GMAX; ++j) {
+      m[j] = MASK_VALUE;
+      l[j] = 0.f;
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+    }
+    const size_t strip = (size_t)it.bh * p.S;
+    const int nc = it.chunks();
+    // chunk c: keys s_begin + 16 c .., read by warp c % W
+    for (int c = warp < W ? warp : nc; c < nc; c += W) {
+      const int a = a0 + c, st = a % NA;
+      const int c0 = it.s_begin + c * CH, nk = min(CH, it.s_end - c0);
+      const bool valid = kl < nk;
+      const unsigned char* kt = ar + RING_OFF + st * R::SLOT;
+      const unsigned char* ex = ar + EX_OFF + st * EXTRA;
+      mbar_wait(full + st, (a / NA) & 1);
+      float ksc = 1.f, vsc = 1.f;  // this lane's key's scales (KV != 0)
+      if (KV != 0 && valid) {
+        const int off = (int)((reinterpret_cast<uintptr_t>(p.k_scale + strip + c0) & 15) >> 2);
+        ksc = reinterpret_cast<const float*>(ex)[off + kl];
+        vsc = reinterpret_cast<const float*>(ex + 80)[off + kl];
+      }
+      bool pad = false;
+      if (valid && p.mask != nullptr) {
+        const unsigned char* mrow = p.mask + (size_t)b * p.mask_stride + c0;
+        pad = ex[160 + (reinterpret_cast<uintptr_t>(mrow) & 15) + kl] == 0;
+      }
+      float sc[GMAX];
+#pragma unroll
+      for (int j = 0; j < GMAX; ++j) sc[j] = 0.f;
+      scores<KV>(kt, qs, kl, half, G, sc);
+      float pbf[GMAX];
+#pragma unroll
+      for (int j = 0; j < GMAX; ++j) {
+        if (j >= G) break;
+        sc[j] += __shfl_xor_sync(0xffffffffu, sc[j], 16);  // the two halves
+        float sv = MASK_VALUE;
+        if (valid) {
+          sv = sc[j];
+          if constexpr (KV != 0) sv *= ksc;  // the K scale, then 1/sqrt(D)
+          sv *= p.scale;
+          if (pad) sv += NEG_INF;  // pad bias after the causal mask
+        }
+        const float m_new = fmaxf(m[j], warp_max(sv));
+        const float alpha = expf(m[j] - m_new);
+        const float pj = valid ? expf(sv - m_new) : 0.f;
+        l[j] = alpha * l[j] + warp_sum(half == 0 ? pj : 0.f);
+        m[j] = m_new;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= alpha;
+        // p is rounded to bf16 for the PV product, the V scale folded in
+        // first; l above sums the unscaled p
+        pbf[j] = bf2f(f2bf(KV != 0 ? pj * vsc : pj));
+      }
+      for (int kk = 0; kk < nk; ++kk) {
+        float2 v01, v23;  // head dims 4*lane .. 4*lane+3 of key c0 + kk
+        v_dims<KV>(kt + R::K_BYTES, kk, lane, v01, v23);
+#pragma unroll
+        for (int j = 0; j < GMAX; ++j) {
+          if (j >= G) break;
+          const float pk = __shfl_sync(0xffffffffu, pbf[j], kk);
+          acc[j][0] = fmaf(pk, v01.x, acc[j][0]);
+          acc[j][1] = fmaf(pk, v01.y, acc[j][1]);
+          acc[j][2] = fmaf(pk, v23.x, acc[j][2]);
+          acc[j][3] = fmaf(pk, v23.y, acc[j][3]);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + st);  // the slot is read
+    }
+    a0 += nc;
+    // merge the warps, fold in the in-flight row (split 0), write partials
+#pragma unroll
+    for (int j = 0; j < GMAX; ++j) {
+      if (j >= G) break;
+      if (lane == 0) {
+        sm[F_WM + warp * GMAX + j] = m[j];
+        sm[F_WL + warp * GMAX + j] = l[j];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sm[F_WA + (warp * GMAX + j) * D + lane * 4 + e] = acc[j][e];
+    }
+    block_sync<true>();
+    float* out = p.part + (size_t)item * G * (D + 2);
+    for (int i = threadIdx.x; i < G * D; i += THREADS) {
+      const int j = i / D, d = i - j * D;
+      float mm = MASK_VALUE;
+      for (int w = 0; w < WARPS; ++w) mm = fmaxf(mm, sm[F_WM + w * GMAX + j]);
+      float ll = 0.f, aa = 0.f;
+      for (int w = 0; w < WARPS; ++w) {
+        const float f = expf(sm[F_WM + w * GMAX + j] - mm);
+        ll += f * sm[F_WL + w * GMAX + j];
+        aa += f * sm[F_WA + (w * GMAX + j) * D + d];
+      }
+      if (it.split == 0) {
+        const float s_new = sn[j];
+        const float m_fin = fmaxf(mm, s_new);
+        const float alpha = expf(mm - m_fin);
+        const float p_new = expf(s_new - m_fin);
+        ll = alpha * ll + p_new;
+        aa = aa * alpha + p_new * vn[d];
+        mm = m_fin;
+      }
+      out[j * (D + 2) + d] = aa;
+      if (d == 0) {
+        out[j * (D + 2) + D] = mm;
+        out[j * (D + 2) + D + 1] = ll;
+      }
+    }
+    // the last split of (b, hk) to finish merges its G heads, splits in
+    // order, into the bf16 attention row
+    __threadfence();
+    block_sync<true>();
+    if (threadIdx.x == 0)
+      *last_split = atomicAdd(p.gsc.ticket + it.bh, 1u) == (unsigned)(p.nsplit - 1);
+    block_sync<true>();
+    if (!*last_split) continue;
+    merge_splits<true>(p.part, p.attn_scr, sm + F_WA, p.nsplit, G, p.H, b, hk, it.bh);
+    if (threadIdx.x == 0) p.gsc.ticket[it.bh] = 0u;  // ready for the next phase or launch
+  }
+}
+
+}  // namespace wg
+
+// The Hopper kernel's attention phase (fused_wg.cuh: Attn): the ring's
+// barriers (init), its producer (the x warp, produce) and the consumers
+// (run). The cache format is uniform across the grid.
+struct TailAttn {
+  static constexpr int BYTES = wg::RING_OFF, RING_MIN = wg::RING_MIN;
+  using Params = TailParams;
+  static __device__ __forceinline__ void init(unsigned char* ar) {
+    uint64_t* full = reinterpret_cast<uint64_t*>(ar + wg::BAR_OFF);
+    for (int s = 0; s < wg::NA_MAX; ++s) {
+      hop::mbar_init(full + s, 1);               // the producer's arrival and its bytes
+      hop::mbar_init(full + wg::NA_MAX + s, 1);  // the consuming warp's lane 0
+    }
+  }
+  static __device__ __forceinline__ void produce(const fwg::Maps& mp, const TailParams& p,
+                                                 unsigned char* ar, int ring) {
+    const CUtensorMap* kmap = &mp.m[fwg::ATT_MAP];
+#if KV_QUANT
+    if (p.kv_mode == 1)
+      wg::produce<1>(kmap, p, ar, ring);
+    else
+      wg::produce<2>(kmap, p, ar, ring);
+#else
+    wg::produce<0>(kmap, p, ar, ring);
+#endif
+  }
+  static __device__ __forceinline__ void run(const TailParams& p, unsigned char* ar, int ring) {
+#if KV_QUANT
+    if (p.kv_mode == 1)
+      wg::consume<1>(p, ar, ring);
+    else
+      wg::consume<2>(p, ar, ring);
+#else
+    wg::consume<0>(p, ar, ring);
+#endif
+  }
+};
+
+cudaError_t launch_hopper(const TailParams& p, int nsplit_cap, const bf16* in_norm_w,
+                          const bf16* post_norm_w, cudaStream_t st) {
+  TailParams tp = p;
+  const int grid = fwg::num_sms();
+  int nsplit = grid / (p.B * p.Hkv);  // enough work items to cover the grid
+  if (nsplit > nsplit_cap) nsplit = nsplit_cap;
+  tp.nsplit = nsplit < 1 ? 1 : nsplit;
+  fwg::Plan pl{};
+  fwg::Maps maps;
+  int nmaps = 0;
+  pl.M = p.B, pl.gs = p.gs, pl.eps = p.eps, pl.bar = p.bar;
+  pl.part = p.gsc.part, pl.ticket = p.gsc.ticket;
+  const int bm = fwg::row_tile(p.B);
+  const int hid = p.hidden, nq = p.H * D;
+  int syncs = 0;  // the grid barriers before a phase
+  cudaError_t e = cudaSuccess;
+  if (p.in_norm) {  // phase B: qkv = bf16(rms_norm(h) * w_in) @ Wqkv
+    e = fwg::add_phase(maps, nmaps, pl,
+                       {p.qkv.qweight, p.qkv.scales, p.qkv.zscale, hid, p.qkv.N, p.h, hid, 0,
+                        in_norm_w, p.qkv_scr, nullptr, p.qkv.N},
+                       bm, 0, grid);
+    syncs = 1;
+  }
+  pl.attn_at = pl.nphases;
+  syncs += 1;
+  bf16* hdst = p.post_norm ? p.h1_scr : p.out;
+  if (e == cudaSuccess)  // phase D: h' = h + bf16(attn @ Wo)
+    e = fwg::add_phase(maps, nmaps, pl,
+                       {p.o.qweight, p.o.scales, p.o.zscale, nq, hid, p.attn_scr, nq, 0, nullptr,
+                        hdst, p.h, hid},
+                       bm, syncs, grid);
+  if (p.post_norm) {  // phases E / F: the MLP of h'
+    if (e == cudaSuccess)
+      e = fwg::add_phase(maps, nmaps, pl,
+                         {p.gu.qweight, p.gu.scales, p.gu.zscale, hid, 2 * p.inter, p.h1_scr, hid,
+                          0, post_norm_w, p.gu_scr, nullptr, 2 * p.inter},
+                         bm, ++syncs, grid);
+    if (e == cudaSuccess)
+      e = fwg::add_phase(maps, nmaps, pl,
+                         {p.dn.qweight, p.dn.scales, p.dn.zscale, p.inter, hid, p.gu_scr,
+                          2 * p.inter, p.inter, nullptr, p.out, p.h1_scr, hid},
+                         bm, ++syncs, grid);
+  }
+  // the K cache's rows for attention's ring: [B * Hkv * S, row] in boxes of
+  // 16 rows by 128 bytes (bf16: two boxes of 64 dims), 128-byte swizzled
+  // (int4's 64-byte rows 64-byte swizzled)
+  if (e == cudaSuccess) {
+    const uint64_t rows = (uint64_t)p.B * p.Hkv * p.S;
+    const bool bf = p.kv_mode == 0, i4 = p.kv_mode == 2;
+    if (rows > 0x7FFFFFFFull) return cudaErrorInvalidValue;  // TMA's int32 coordinates
+    e = tensor_map(&maps.m[fwg::ATT_MAP],
+                   {p.k_cache, (uint64_t)(bf ? D : i4 ? D / 2 : D), rows,
+                    (uint32_t)(bf ? 64 : i4 ? 64 : 128), (uint32_t)wg::CH,
+                    bf ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                    bf ? 2 : 1, i4 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B});
+  }
+  // the scale and mask granules of a chunk are copied whole
+  if (e == cudaSuccess && ((uintptr_t)p.k_scale % 16 || (uintptr_t)p.v_scale % 16 ||
+                           (uintptr_t)p.mask % 16 || (uintptr_t)p.v_cache % 16))
+    e = cudaErrorMisalignedAddress;
+  if (e != cudaSuccess) return e;
+  return fwg::launch_by<TailAttn>(bm, p.gs % fwg::BK != 0, maps, pl, tp, grid, st);
+}
+#else
 // Phase C: one work item = (batch row b, kv head hk, key split); the last
 // split of a pair merges them. KV: the cache format (TailParams::kv_mode).
 template <int KV>
@@ -408,7 +972,7 @@ __device__ void attention_phase(const TailParams& p, float* sm) {
       last_split = atomicAdd(p.gsc.ticket + bh, 1u) == (unsigned)(p.nsplit - 1);
     __syncthreads();
     if (!last_split) continue;
-    merge_splits(p.part, p.attn_scr, sm, p.nsplit, G, p.H, b, hk, bh);
+    merge_splits<false>(p.part, p.attn_scr, sm + ATT_WA, p.nsplit, G, p.H, b, hk, bh);
     if (threadIdx.x == 0) p.gsc.ticket[bh] = 0u;  // ready for the next phase or launch
   }
 }
@@ -461,26 +1025,9 @@ cudaError_t launch(TailParams p, int nsplit_cap, cudaStream_t st) {
   p.nsplit = nsplit < 1 ? 1 : nsplit;
   return fused::coop_launch(layer_tail_kernel<MB>, grid, p, smem, p.bar, st);
 }
+#endif  // HOPPER_KERNEL
 
-}  // namespace
-
-// Operands (bf16 unless noted; NULL where a phase is off):
-//   q [B, H, D], k_new / v_new [B, Hkv, D]   (NULL with phase B)
-//   k_cache / v_cache [B, Hkv, S, D] bf16 (kv_mode 0) or int8 (1), or
-//   [B, Hkv, S, D/2] int4 bytes (2); k_scale / v_scale [B, Hkv, S] f32 (NULL
-//   for kv_mode 0); past [B] int32; mask [B, mask_stride]
-//   uint8 or NULL; h [B, hidden]; o: qweight [H*D/8, hidden] int32,
-//   scales / zscale [H*D/gs, hidden]
-//   phase B: in_norm [hidden]; qkv qweight [hidden/8, (H+2*Hkv)*D], scales /
-//   zscale; sin / cos [1 | B, D] f32 (rope_stride 0 or D); k_row / v_row
-//   [B, Hkv, D] outputs
-//   MLP: post_norm [hidden]; gate|up and down as in K6; inter
-//   scratch: qkv_scr [B, (H+2*Hkv)*D] bf16, part [B*Hkv*nsplit_cap*G*(D+2)]
-//   f32, attn_scr [B, H*D], h1_scr [B, hidden], gu_scr [B, 2*inter] bf16,
-//   bar one uint32; gpart, gticket the split scratch of fused::SplitScratch
-//   (ticket >= B*Hkv entries too); out [B, hidden]. D = 128, H / Hkv <= 8; keys at
-//   s >= min(past_b, attend_len) are not read.
-extern "C" int layer_tail_launch(
+int tail_entry(
     const void* q, const void* k_new, const void* v_new, const void* k_cache,
     const void* v_cache, const void* k_scale, const void* v_scale, const void* past,
     const void* mask, const void* h, const void* o_q,
@@ -524,7 +1071,8 @@ extern "C" int layer_tail_launch(
   p.attn_scr = (bf16*)attn_scr;
   p.h1_scr = (bf16*)h1_scr;
   p.gu_scr = (bf16*)gu_scr;
-  p.bar = (unsigned int*)bar;
+  p.bar = PARENT ? fused::own_barrier_word() : (unsigned int*)bar;
+  if (p.bar == nullptr) return cudaErrorInvalidValue;
   p.gsc = fused::SplitScratch{(float*)gpart, (unsigned int*)gticket};
   p.B = B;
   p.H = H;
@@ -541,6 +1089,9 @@ extern "C" int layer_tail_launch(
   p.scale = scale;
   auto st = (cudaStream_t)stream;
   if (B < 1 || B > 32 || gpart == nullptr || gticket == nullptr) return cudaErrorInvalidValue;
+#if HOPPER_KERNEL
+  return launch_hopper(p, nsplit_cap, p.in_norm, p.post_norm, st);
+#else
   switch (fused::fused_mb(B)) {
     case 1: return launch<1>(p, nsplit_cap, st);
     case 8: return launch<8>(p, nsplit_cap, st);
@@ -548,4 +1099,66 @@ extern "C" int layer_tail_launch(
     case 24: return launch<24>(p, nsplit_cap, st);
     default: return launch<32>(p, nsplit_cap, st);
   }
+#endif
 }
+
+#if PARENT
+std::atomic<int> stream_launches{0};  // layer_tail_stream_launch's
+#endif
+
+}  // namespace
+
+// Operands (bf16 unless noted; NULL where a phase is off):
+//   q [B, H, D], k_new / v_new [B, Hkv, D]   (NULL with phase B)
+//   k_cache / v_cache [B, Hkv, S, D] bf16 (kv_mode 0) or int8 (1), or
+//   [B, Hkv, S, D/2] int4 bytes (2); k_scale / v_scale [B, Hkv, S] f32 (NULL
+//   for kv_mode 0); past [B] int32; mask [B, mask_stride]
+//   uint8 or NULL; h [B, hidden]; o: qweight [H*D/8, hidden] int32,
+//   scales / zscale [H*D/gs, hidden]
+//   phase B: in_norm [hidden]; qkv qweight [hidden/8, (H+2*Hkv)*D], scales /
+//   zscale; sin / cos [1 | B, D] f32 (rope_stride 0 or D); k_row / v_row
+//   [B, Hkv, D] outputs
+//   MLP: post_norm [hidden]; gate|up and down as in K6; inter
+//   scratch: qkv_scr [B, (H+2*Hkv)*D] bf16, part [B*Hkv*nsplit_cap*G*(D+2)]
+//   f32, attn_scr [B, H*D], h1_scr [B, hidden], gu_scr [B, 2*inter] bf16,
+//   bar one uint32 (in the exact mode two zeros that the launch leaves
+//   zero, not cleared here); gpart, gticket the split scratch of fused::SplitScratch
+//   (ticket >= B*Hkv entries too); out [B, hidden]. D = 128, H / Hkv <= 8; keys at
+//   s >= min(past_b, attend_len) are not read.
+#if PARENT
+// The parent of the exact mode (chip_smoke.py's yardstick only): the
+// streaming GEMV phases on up to four blocks an SM, with layer_tail_launch's
+// operands and scratch; `bar` is not used (the library's own counter,
+// fused::own_barrier, stands in for it).
+extern "C" int layer_tail_stream_launch(
+    const void* q, const void* k_new, const void* v_new, const void* k_cache,
+    const void* v_cache, const void* k_scale, const void* v_scale, const void* past,
+    const void* mask, const void* h, const void* o_q,
+    const void* o_s, const void* o_z, const void* in_norm, const void* qkv_q,
+    const void* qkv_s, const void* qkv_z, const void* sin, const void* cos, void* k_row,
+    void* v_row, const void* post_norm, const void* gu_q, const void* gu_s,
+    const void* gu_z, const void* dn_q, const void* dn_s, const void* dn_z, void* qkv_scr,
+    void* part, void* attn_scr, void* h1_scr, void* gu_scr, void* bar, void* gpart, void* gticket, void* out, int B,
+    int H, int Hkv, int S, int hidden, int inter, int gs, int mask_stride, int rope_stride,
+    int nsplit_cap, int attend_len, int kv_mode, float eps, float scale, void* stream) {
+  const int e = tail_entry(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, past, mask, h, o_q, o_s, o_z, in_norm, qkv_q, qkv_s, qkv_z, sin, cos, k_row, v_row, post_norm, gu_q, gu_s, gu_z, dn_q, dn_s, dn_z, qkv_scr, part, attn_scr, h1_scr, gu_scr, bar, gpart, gticket, out, B, H, Hkv, S, hidden, inter, gs, mask_stride, rope_stride, nsplit_cap, attend_len, kv_mode, eps, scale, stream);
+  if (e == 0) ++stream_launches;
+  return e;
+}
+
+extern "C" int layer_tail_stream_launches() { return stream_launches.load(); }
+#else
+extern "C" int layer_tail_launch(
+    const void* q, const void* k_new, const void* v_new, const void* k_cache,
+    const void* v_cache, const void* k_scale, const void* v_scale, const void* past,
+    const void* mask, const void* h, const void* o_q,
+    const void* o_s, const void* o_z, const void* in_norm, const void* qkv_q,
+    const void* qkv_s, const void* qkv_z, const void* sin, const void* cos, void* k_row,
+    void* v_row, const void* post_norm, const void* gu_q, const void* gu_s,
+    const void* gu_z, const void* dn_q, const void* dn_s, const void* dn_z, void* qkv_scr,
+    void* part, void* attn_scr, void* h1_scr, void* gu_scr, void* bar, void* gpart, void* gticket, void* out, int B,
+    int H, int Hkv, int S, int hidden, int inter, int gs, int mask_stride, int rope_stride,
+    int nsplit_cap, int attend_len, int kv_mode, float eps, float scale, void* stream) {
+  return tail_entry(q, k_new, v_new, k_cache, v_cache, k_scale, v_scale, past, mask, h, o_q, o_s, o_z, in_norm, qkv_q, qkv_s, qkv_z, sin, cos, k_row, v_row, post_norm, gu_q, gu_s, gu_z, dn_q, dn_s, dn_z, qkv_scr, part, attn_scr, h1_scr, gu_scr, bar, gpart, gticket, out, B, H, Hkv, S, hidden, inter, gs, mask_stride, rope_stride, nsplit_cap, attend_len, kv_mode, eps, scale, stream);
+}
+#endif

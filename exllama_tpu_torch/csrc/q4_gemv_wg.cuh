@@ -404,26 +404,34 @@ __device__ __forceinline__ void fold(float (&acc)[Cfg<BM>::NW][Cfg<BM>::NACC],
   }
 }
 
-// The consumer warpgroups: warpgroup wgi takes weight columns wgi * 128 ..
-// A slab's products go out as one group and are folded once it is done.
-// Where a group spans whole slabs (gs % 64 == 0: HALVES false) the slab's
-// four k-steps go into one accumulator, folded once; where a slab holds two
-// groups (HALVES) each half has an accumulator of its own, folded apart.
-// Folding one slab while the next one's products run measured slower on the
-// H100 (ptxas then serializes the products, C7514 / C7520: PERF.md), so the
-// slabs take turns: products, fold, the next slab's fragments.
-template <int BM, bool VEC, bool HALVES>
-__device__ __forceinline__ void consume(const Args& p, unsigned char* smem, uint64_t* full,
-                                        uint64_t* xfull, uint64_t* empty, int* answer,
-                                        int tid) {
-  using C = Cfg<BM>;
-  constexpr int NW = C::NW, NACC = C::NACC, NP = HALVES ? 2 : 1;
+// The slab loop of one block's range [kb, ke) of a 256-column tile on the
+// consumer warpgroups, K1's and (fused_wg.cuh) K6 / K7's GEMV phases':
+// warpgroup wgi takes weight columns wgi * 128 .. A slab's products go out
+// as one group and are folded once it is done. Where a group spans whole
+// slabs (gs % 64 == 0: HALVES false) the slab's four k-steps go into one
+// accumulator, folded once; where a slab holds two groups (HALVES) each
+// half has an accumulator of its own, folded apart. Folding one slab while
+// the next one's products run measured slower on the H100 (ptxas then
+// serializes the products, C7514 / C7520: PERF.md), so the slabs take
+// turns: products, fold, the next slab's fragments. The caller's ring R
+// holds the slabs: R::SROW, a scale row's elements in a slot, and
+//   slot(), advance()   the slot of the next slab, and past it;
+//   wait(kt)            until slab kt has landed in slot() (x staged);
+//   x(s), words(s), scales(s), sums(s)   slot s's parts (x's rows, the
+//                       packed words [8][256], four scale rows, the halves'
+//                       sums of x);
+//   shifts(kt, sh)      the VEC = false scale rows' shifts;
+//   folded(U, q)        after a slab's fold (its sums U);
+//   release(s)          by lane 0 of each warp, once slot s is read.
+template <int BM, bool VEC, bool HALVES, class R>
+__device__ __forceinline__ void slab_loop(float (&acc)[Cfg<BM>::NW][Cfg<BM>::NACC], int kb,
+                                          int ke, int tid, R& ring) {
+  constexpr int NW = Cfg<BM>::NW, NACC = Cfg<BM>::NACC, NP = HALVES ? 2 : 1, SROW = R::SROW;
   using Frag = uint32_t[NW][4][4];
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
   const int r0 = (warp >> 2) * (BN / 2) + (warp & 3) * 16 + 2 * g;  // A rows g, g + 8
   const uint32_t pick = q | (4 + q) << 8;
-  const bool norm = p.norm_w != nullptr;
-  float acc[NW][NACC], pr[NP][NW][NACC], sq[BM / 4];
+  float pr[NP][NW][NACC];
   Frag a;
 #pragma unroll
   for (int h = 0; h < NP; ++h)
@@ -431,16 +439,9 @@ __device__ __forceinline__ void consume(const Args& p, unsigned char* smem, uint
     for (int j = 0; j < NW; ++j)
 #pragma unroll
       for (int i = 0; i < NACC; ++i) pr[h][j][i] = 0.f;
-  int st = 0;
-  uint32_t phase = 0;
-  // wait for slot st's slab (its TMA rows and its staging)
-  auto wait_slab = [&]() {
-    if (p.xtma) mbar_wait(xfull + st, phase);  // TMA's rows, seen here as well
-    mbar_wait(full + st, phase);
-  };
-  // slot st's words as A fragments
-  auto frags = [&](Frag& f) {
-    const uint32_t* W = reinterpret_cast<const uint32_t*>(smem + C::W_OFF + st * C::W_BYTES);
+  // slot s's words as A fragments
+  auto frags = [&](int s) {
+    const uint32_t* W = ring.words(s);
 #pragma unroll
     for (int j = 0; j < NW; ++j)
 #pragma unroll
@@ -449,16 +450,16 @@ __device__ __forceinline__ void consume(const Args& p, unsigned char* smem, uint
         // r (A row g) and r + 1 (A row g + 8); f[2], f[3]: k + 8
         const uint2 w0 = *reinterpret_cast<const uint2*>(W + (2 * ks) * BN + r0 + 64 * j);
         const uint2 w1 = *reinterpret_cast<const uint2*>(W + (2 * ks + 1) * BN + r0 + 64 * j);
-        f[j][ks][0] = nib2(w0.x, pick), f[j][ks][1] = nib2(w0.y, pick);
-        f[j][ks][2] = nib2(w1.x, pick), f[j][ks][3] = nib2(w1.y, pick);
+        a[j][ks][0] = nib2(w0.x, pick), a[j][ks][1] = nib2(w0.y, pick);
+        a[j][ks][2] = nib2(w1.x, pick), a[j][ks][3] = nib2(w1.y, pick);
       }
   };
-  // slab kt of tile n0 in slot st, its fragments in a; more: a slab follows
-  // in the range, whose fragments then replace them
-  auto slab = [&](int kt, int n0, bool more) {
-    const int cur = st;
-    if (++st == C::STAGES) st = 0, phase ^= 1;
-    const uint64_t desc = kmajor_sw128(smem + cur * C::X_BYTES);
+  ring.wait(kb);
+  frags(ring.slot());
+  for (int kt = kb; kt < ke; ++kt) {
+    const int cur = ring.slot();
+    ring.advance();
+    const uint64_t desc = kmajor_sw128(ring.x(cur));
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
@@ -471,9 +472,56 @@ __device__ __forceinline__ void consume(const Args& p, unsigned char* smem, uint
     for (int h = 0; h < NP; ++h)
 #pragma unroll
       for (int j = 0; j < NW; ++j) fence_regs(pr[h][j]);
-    const scale_t* S = reinterpret_cast<const scale_t*>(smem + C::S_OFF + cur * C::S_BYTES);
-    const float* U = reinterpret_cast<const float*>(smem + C::U_OFF + cur * C::U_BYTES);
+    const scale_t* S = ring.scales(cur);
+    const float* U = ring.sums(cur);
     int sh[4] = {0, 0, 0, 0};  // VEC = false: each copied row's shift
+    ring.shifts(kt, sh);
+    if constexpr (HALVES) {
+      fold<BM, VEC>(acc, pr[0], S, S + 2 * SROW, U, r0, q, nullptr, sh[0], sh[2]);
+      fold<BM, VEC>(acc, pr[1], S + SROW, S + 3 * SROW, U + BM, r0, q, nullptr, sh[1], sh[3]);
+    } else {  // both halves' sums
+      fold<BM, VEC>(acc, pr[0], S, S + 2 * SROW, U, r0, q, U + BM, sh[0], sh[2]);
+    }
+    ring.folded(U, q);
+    __syncwarp();
+    if (lane == 0) ring.release(cur);
+    if (kt + 1 < ke) ring.wait(kt + 1);
+    frags(ring.slot());  // (where none follows: read, never used)
+  }
+}
+
+// K1's ring (slab_loop's R): the slots of Cfg<BM>, taken in turn; a slab
+// is ready once its TMA rows have landed and its former has staged it; the
+// norm's sums of x^2 ride beside each slab.
+template <int BM, bool VEC>
+struct K1Ring {
+  using C = Cfg<BM>;
+  static constexpr int SROW = k1wg::SROW;
+  unsigned char* smem;
+  uint64_t *full, *xfull, *empty;
+  const Args& p;
+  float (&sq)[BM / 4];
+  int n0 = 0, st = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ int slot() const { return st; }
+  __device__ __forceinline__ void advance() {
+    if (++st == C::STAGES) st = 0, phase ^= 1;
+  }
+  __device__ __forceinline__ void wait(int) {
+    if (p.xtma) mbar_wait(xfull + st, phase);  // TMA's rows, seen here as well
+    mbar_wait(full + st, phase);
+  }
+  __device__ __forceinline__ const unsigned char* x(int s) const { return smem + s * C::X_BYTES; }
+  __device__ __forceinline__ const uint32_t* words(int s) const {
+    return reinterpret_cast<const uint32_t*>(smem + C::W_OFF + s * C::W_BYTES);
+  }
+  __device__ __forceinline__ const scale_t* scales(int s) const {
+    return reinterpret_cast<const scale_t*>(smem + C::S_OFF + s * C::S_BYTES);
+  }
+  __device__ __forceinline__ const float* sums(int s) const {
+    return reinterpret_cast<const float*>(smem + C::U_OFF + s * C::U_BYTES);
+  }
+  __device__ __forceinline__ void shifts(int kt, int (&sh)[4]) const {
     if constexpr (!VEC) {
 #pragma unroll
       for (int row = 0; row < 4; ++row) {
@@ -481,25 +529,32 @@ __device__ __forceinline__ void consume(const Args& p, unsigned char* smem, uint
         sh[row] = scale_shift((row >> 1 ? p.zscale : p.scales) + (size_t)g * p.N + n0);
       }
     }
-    if constexpr (HALVES) {
-      fold<BM, VEC>(acc, pr[0], S, S + 2 * SROW, U, r0, q, nullptr, sh[0], sh[2]);
-      fold<BM, VEC>(acc, pr[1], S + SROW, S + 3 * SROW, U + BM, r0, q, nullptr, sh[1], sh[3]);
-    } else {  // both halves' sums
-      fold<BM, VEC>(acc, pr[0], S, S + 2 * SROW, U, r0, q, U + BM, sh[0], sh[2]);
-    }
-    if (norm) {
+  }
+  __device__ __forceinline__ void folded(const float* U, int q) {
+    if (p.norm_w == nullptr) return;
 #pragma unroll
-      for (int i = 0; i < BM / 8; ++i) {
-        if (8 * i >= p.M) break;
-        const float2 u = *reinterpret_cast<const float2*>(U + 2 * BM + 8 * i + 2 * q);
-        sq[2 * i] += u.x, sq[2 * i + 1] += u.y;
-      }
+    for (int i = 0; i < BM / 8; ++i) {
+      if (8 * i >= p.M) break;
+      const float2 u = *reinterpret_cast<const float2*>(U + 2 * BM + 8 * i + 2 * q);
+      sq[2 * i] += u.x, sq[2 * i + 1] += u.y;
     }
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + cur);
-    if (more) wait_slab();
-    frags(a);  // (where none follows: read, never used)
-  };
+  }
+  __device__ __forceinline__ void release(int s) { mbar_arrive(empty + s); }
+};
+
+// The consumer warpgroups: each range of the block's walk through
+// slab_loop, then the stream-K combine and the epilogue.
+template <int BM, bool VEC, bool HALVES>
+__device__ __forceinline__ void consume(const Args& p, unsigned char* smem, uint64_t* full,
+                                        uint64_t* xfull, uint64_t* empty, int* answer,
+                                        int tid) {
+  using C = Cfg<BM>;
+  constexpr int NW = C::NW, NACC = C::NACC;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
+  const int r0 = (warp >> 2) * (BN / 2) + (warp & 3) * 16 + 2 * g;  // A rows g, g + 8
+  const bool norm = p.norm_w != nullptr;
+  float acc[NW][NACC], sq[BM / 4];
+  K1Ring<BM, VEC> ring{smem, full, xfull, empty, p, sq};
   Walk w(p.tiles, p.ktiles, p.stream_k);
   int tile, kb, ke;
   while (w.next(tile, kb, ke)) {
@@ -509,9 +564,8 @@ __device__ __forceinline__ void consume(const Args& p, unsigned char* smem, uint
       for (int i = 0; i < NACC; ++i) acc[j][i] = 0.f;
 #pragma unroll
     for (int i = 0; i < BM / 4; ++i) sq[i] = 0.f;
-    wait_slab();
-    frags(a);
-    for (int kt = kb; kt < ke; ++kt) slab(kt, tile * BN, kt + 1 < ke);
+    ring.n0 = tile * BN;
+    slab_loop<BM, VEC, HALVES>(acc, kb, ke, tid, ring);
 
     constexpr int BATCH = BM == 32 ? 2 : 4;  // pieces loaded together (registers)
     const bool emit = finish_piece<BATCH>(

@@ -4,7 +4,9 @@ Each source compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``; the sources of
 the shared GEMV (K1, K6, K7) compile once per arithmetic mode
 (``-DGEMV_MODE``: exact, a8, a8x2), one library each, and K7 once more per
-mode for the quantized KV caches (``-DKV_QUANT=1``), and K3 once more for
+mode for the quantized KV caches (``-DKV_QUANT=1``), K6 and K7 once more
+for the exact mode's parents (``-DPARENT=1``: ``q4_mlp_stream``,
+``layer_tail_stream``, ``layer_tail_stream_kvq``), and K3 once more for
 head_dim 256 (``-DFLASH_D256=1``); every library that reads the 4-bit
 weights' scales (K1 / K9, K2 / K12, K6, K7, K10) once more for f32 scales
 (``-DSCALE_F32=1``, ``TuningParams.scale_dtype="f32"``; suffix ``_f32``).
@@ -150,6 +152,19 @@ for _lib in SCALED:
 for _name, (_lib, _fn, _sig) in list(_SIGNATURES.items()):
     if _lib in SCALED:
         _SIGNATURES[f"{_name}_f32"] = (f"{_lib}_f32", _fn, _sig)
+# the exact mode's parents of K6 and K7 (the streaming GEMV phases; since
+# the Hopper kernels of csrc/fused_wg.cuh, chip_smoke.py's yardsticks only),
+# built from the same sources with -DPARENT=1 as libraries of their own, and
+# the counts of their launches
+for _stem, _libs_of in (("q4_mlp", ("",)), ("layer_tail", ("", "_kvq"))):
+    for _kv in _libs_of:
+        _lib = f"{_stem}_stream{_kv}"
+        LIBRARIES[_lib] = (_stem, ["-DPARENT=1"]
+                           + (["-DKV_QUANT=1"] if _kv else []))
+        _SIGNATURES[_lib] = (_lib, f"{_stem}_stream_launch",
+                             _SIGNATURES[_stem][2])
+        _SIGNATURES[f"{_lib}_launches"] = (_lib, f"{_stem}_stream_launches",
+                                           "")
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
 
 _libs: dict[str, ctypes.CDLL] = {}

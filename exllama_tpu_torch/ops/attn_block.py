@@ -20,11 +20,16 @@ function instead, and one over f32 weight scales (the ``_f32`` builds) on
 composition (``attend_plain`` and the q4 plain products), which CPU tensors
 take. The caller checks ``attn_o_applicable`` (and, for the MLP and qkv
 phases, ``ops.mlp.fused_mlp_applicable``, ``layer_step_applicable`` and
-``same_groupsize``) first. ``layer_tail_split_plain`` and
-``layer_step_split_plain`` write out the kernel's own decomposition: its
-GEMV phases as ``ops.quant.fused_gemv_split_plain`` (stream-K ranges at
-every row count, silu(gate)*up formed as the down phase stages x) and its
-key splits merged by the last block of each (batch row, kv head) pair
+``same_groupsize``) first. In the exact mode the kernel is the Hopper
+design of csrc/fused_wg.cuh (one persistent block an SM, the GEMV phases on
+K1's wgmma mainloop, the weights streamed by TMA across the grid barriers);
+the a8 modes keep the parent, the streaming GEMV. ``layer_tail_split_plain``
+and ``layer_step_split_plain`` write out the kernel's own decomposition:
+with ``plan=`` (``layer_tail_plan``) the Hopper kernel's GEMV phases as
+``ops.mlp.fused_wg_gemv_split_plain``, with ``blocks=`` the parent's as
+``ops.quant.fused_gemv_split_plain`` (stream-K ranges at every row count,
+silu(gate)*up formed as the down phase stages x); either way the key
+splits merged by the last block of each (batch row, kv head) pair
 (``attention_split_plain``). ``layer_step(..., rows_out=)`` writes the
 step's K/V rows into the caller's tensors (``ExLlamaCache.rows``, which
 the batched commit K8 reads) instead of new ones.
@@ -49,7 +54,14 @@ from exllama_tpu_torch.ops.attention import (
     init_launch_counters,
     kv_mode,
 )
-from exllama_tpu_torch.ops.mlp import gemv_plain_of, q4_mlp_plain
+from exllama_tpu_torch.ops.mlp import (
+    FusedPlan,
+    fused_plan,
+    fused_wg_gemv_split_plain,
+    fused_wg_scratch,
+    gemv_plain_of,
+    q4_mlp_plain,
+)
 from exllama_tpu_torch.ops.quant import (
     GEMV_MAX_M,
     check_qt_tensors,
@@ -71,12 +83,15 @@ def attn_o_applicable(o, hidden: int, heads: int, head_dim: int, t: int,
     (T = 1, deferred commit), B <= 32, an o-proj without act-order whose
     input is the heads and whose output is the residual. K7's own limits:
     head_dim 128, at most 8 query heads per kv head, the groupsizes its
-    GEMV takes."""
+    GEMV takes and, in the exact mode, a width that is a multiple of 8 (the
+    rows its Hopper kernel loads by TMA; the a8 modes take any width)."""
     if check_matmul_impl(impl) == "xla" or has_lora:
         return False
     if o is None or not deferred or t != 1 or batch > GEMV_MAX_M:
         return False
     if o.x_map is not None or o.groupsize not in (32, 64, 128):
+        return False
+    if hidden % 8 and check_matmul_impl(impl) not in A8_IMPLS:
         return False
     if head_dim != HEAD_DIM or o.out_features != hidden:
         return False
@@ -218,23 +233,145 @@ def attention_split_plain(q, k_cache, v_cache, past_len, attend_len: int,
     return torch.stack(rows).to(torch.bfloat16)
 
 
+ATT_CHUNK = 16         # keys of a warp's chunk in the Hopper K7's attention
+ATT_WARPS = 8          # ... the consumer warps that read the chunks
+
+
+def ring_shape(slots: int):
+    """The slots that the Hopper K7's attention ring uses of ``slots`` that
+    fit, and the warps that read them (csrc/layer_tail.cu: wg::Ring): at
+    most 8 warps, the slots a multiple of them."""
+    warps = min(ATT_WARPS, slots)
+    return slots - slots % warps, warps
+
+
+def attention_ring_plan(past, attend_len: int, b: int, kv_heads: int,
+                        nsplit: int, blocks: int, slots: int):
+    """The Hopper K7's attention ring (csrc/layer_tail.cu: wg::produce,
+    wg::consume) in plain code, for a ring of ``slots`` chunk slots: for
+    each of ``blocks`` blocks, the chunks that its x warp brings into the
+    ring, in order -- tuples (item, batch row, kv head, first key, keys,
+    warp): the block's items (item = blockIdx + k * blocks of B x Hkv x
+    nsplit, (b, kv head) = item // nsplit, split = item % nsplit) cut into
+    ``ATT_CHUNK``-key chunks of their ``key_splits`` range, the item's
+    chunk c read by warp c % warps (``ring_shape``): which warp sums which
+    keys depends on the item alone, not on the block's other items."""
+    past = [past] * b if isinstance(past, int) else list(past)
+    _, warps = ring_shape(slots)
+    out = []
+    for blk in range(blocks):
+        seq = []
+        for item in range(blk, b * kv_heads * nsplit, blocks):
+            split, bh = item % nsplit, item // nsplit
+            bb, hk = bh // kv_heads, bh % kv_heads
+            lo, hi = key_splits(min(past[bb], attend_len), nsplit)[split]
+            for c, k0 in enumerate(range(lo, hi, ATT_CHUNK)):
+                seq.append((item, bb, hk, k0, min(ATT_CHUNK, hi - k0),
+                            c % warps))
+        out.append(seq)
+    return out
+
+
+def ring_chunks_read(seq, slots: int) -> int:
+    """How many of one block's ring chunks (``attention_ring_plan``) are
+    read before the ring stalls: the producer fills chunk a once chunk a -
+    ``slots`` has been read; each warp reads its chunks in order, each once
+    filled, and an item's chunks only once every chunk of the block's
+    lower items has been read (the block's barrier between items). All of
+    them where no chunk waits on a later one."""
+    filled = read = 0
+    done = [False] * len(seq)
+    pos = {w: [a for a, c in enumerate(seq) if c[5] == w]
+           for w in range(ATT_WARPS)}
+
+    def items_before_read(item):
+        return all(done[a] for a, c in enumerate(seq) if c[0] < item)
+
+    progress = True
+    while progress:
+        progress = False
+        while filled < len(seq) and (filled < slots or done[filled - slots]):
+            filled += 1
+            progress = True
+        for todo in pos.values():
+            while (todo and todo[0] < filled
+                   and items_before_read(seq[todo[0]][0])):
+                done[todo.pop(0)] = True
+                read += 1
+                progress = True
+    return read
+
+
+def ring_waits_unsafe(seq, slots: int):
+    """The chunks of one block's ring sequence whose warp may wait on their
+    slot before the slot's previous fill (chunk a - ``slots``) has landed:
+    those read by another warp of the same item. An mbarrier's parity tells
+    only two phases apart, so such a wait can pass on the old phase (the
+    ring's loads land out of order). None where each slot's chunks of an
+    item stay with one warp."""
+    return [a for a in range(slots, len(seq))
+            if seq[a - slots][0] == seq[a][0]
+            and seq[a - slots][5] != seq[a][5]]
+
+
+def layer_tail_plan(b: int, hidden: int, heads: int, kv_heads: int,
+                    inter: int, attend_len: int, sms: int,
+                    qkv: bool = False):
+    """The Hopper K7's plan on ``sms`` SMs (csrc/layer_tail.cu:
+    launch_hopper): its GEMV phases -- qkv (``qkv``: ``layer_step``), o,
+    and with ``inter`` > 0 gate|up and down -- with attention before o
+    (``fused_plan``), and the key splits per (batch row, kv head): enough
+    work items to cover the grid, at most one a 128 keys of ``attend_len``.
+    Returns (plan, nsplit)."""
+    d = HEAD_DIM
+    shapes = ([("qkv", hidden, (heads + 2 * kv_heads) * d)] if qkv else [])
+    shapes.append(("o", heads * d, hidden))
+    if inter:
+        shapes += [("gateup", hidden, 2 * inter), ("down", inter, hidden)]
+    nsplit = max(1, min(sms // (b * kv_heads), max(1, attend_len // 128)))
+    return fused_plan(b, sms, shapes, attn_at=1 if qkv else 0), nsplit
+
+
 def layer_tail_split_plain(h, q, k_cache, v_cache, past_len, attend_len, o,
                            post_norm, gateup, down, eps, new_kv,
                            input_mask=None, impl="auto", k_scale=None,
-                           v_scale=None, *, blocks: int, nsplit: int,
-                           fault=None):
-    """``layer_tail`` as K7 decomposes it on a grid of ``blocks`` blocks
-    with ``nsplit`` key splits (``post_norm=None``: ``attn_block_o``)."""
+                           v_scale=None, *, blocks: int = None, nsplit: int,
+                           fault=None, plan: FusedPlan = None):
+    """``layer_tail`` as K7 decomposes it with ``nsplit`` key splits
+    (``post_norm=None``: ``attn_block_o``): with ``plan`` (``layer_tail_
+    plan``) the Hopper kernel's GEMV phases, with ``blocks`` the parent's
+    on a grid of that many blocks. ``fault``: "drop" / "twice" plant a
+    merge fault (``attention_split_plain``); with ``plan`` also
+    "residual_twice" (h added twice after o) and "silu_up" (silu applied
+    to up, not to gate)."""
     b, _, hidden = h.shape
-    attn = attention_split_plain(q, k_cache, v_cache, past_len, attend_len,
-                                 new_kv, input_mask, k_scale, v_scale,
-                                 nsplit=nsplit, fault=fault)
+    attn = attention_split_plain(
+        q, k_cache, v_cache, past_len, attend_len, new_kv, input_mask,
+        k_scale, v_scale, nsplit=nsplit,
+        fault=fault if fault in ("drop", "twice") else None)
     h2 = h.reshape(b, hidden)
-    h1 = h2 + fused_gemv_split_plain(attn.reshape(b, -1), o, blocks, impl=impl)
+    if plan is None:
+        h1 = h2 + fused_gemv_split_plain(attn.reshape(b, -1), o, blocks,
+                                         impl=impl)
+        if post_norm is not None:
+            gu = fused_gemv_split_plain(h1, gateup, blocks, post_norm, eps,
+                                        impl)
+            h1 = h1 + fused_gemv_split_plain(gu, down, blocks, impl=impl,
+                                             glu=down.in_features)
+        return h1.reshape(b, 1, hidden)
+    nb = plan.blocks
+    h1 = h2 + fused_wg_gemv_split_plain(attn.reshape(b, -1), o,
+                                        plan.phase("o"), nb)
+    if fault == "residual_twice":
+        h1 = h1 + h2
     if post_norm is not None:
-        gu = fused_gemv_split_plain(h1, gateup, blocks, post_norm, eps, impl)
-        h1 = h1 + fused_gemv_split_plain(gu, down, blocks, impl=impl,
-                                         glu=down.in_features)
+        ni = down.in_features
+        gu = fused_wg_gemv_split_plain(h1, gateup, plan.phase("gateup"), nb,
+                                       post_norm, eps)
+        if fault == "silu_up":
+            gu = torch.cat([gu[:, ni:2 * ni], gu[:, :ni]], dim=1)
+        h1 = h1 + fused_wg_gemv_split_plain(gu, down, plan.phase("down"), nb,
+                                            glu=ni)
     return h1.reshape(b, 1, hidden)
 
 
@@ -242,10 +379,15 @@ def layer_step_split_plain(h, qkv, input_norm, rope_sin, rope_cos, k_cache,
                            v_cache, past_len, attend_len, o, post_norm,
                            gateup, down, eps, heads, kv_heads, head_dim,
                            input_mask=None, impl="auto", k_scale=None,
-                           v_scale=None, *, blocks: int, nsplit: int):
-    """``layer_step`` as K7 decomposes it: the qkv phase split as planned,
+                           v_scale=None, *, blocks: int = None, nsplit: int,
+                           fault=None, plan: FusedPlan = None):
+    """``layer_step`` as K7 decomposes it: the qkv phase split as planned
+    (with ``plan``: the normed row rounded to bf16 before the products),
     then ``layer_tail_split_plain``."""
     def gemv(x, qt, norm_w, e):
+        if plan is not None:
+            return fused_wg_gemv_split_plain(x, qt, plan.phase("qkv"),
+                                             plan.blocks, norm_w, e)
         return fused_gemv_split_plain(x, qt, blocks, norm_w, e, impl)
 
     q, k, v = _qkv_rows_plain(h, qkv, input_norm, rope_sin, rope_cos, heads,
@@ -253,17 +395,18 @@ def layer_step_split_plain(h, qkv, input_norm, rope_sin, rope_cos, k_cache,
     out = layer_tail_split_plain(h, q, k_cache, v_cache, past_len, attend_len,
                                  o, post_norm, gateup, down, eps, (k, v),
                                  input_mask, impl, k_scale, v_scale,
-                                 blocks=blocks, nsplit=nsplit)
+                                 blocks=blocks, nsplit=nsplit, fault=fault,
+                                 plan=plan)
     return out, k, v
 
 
 # -------------------------------------------------------------------- K7
 
-def _bf16_vec(x, n):
+def _bf16_vec(x, n, tma):
     x = x.to(torch.bfloat16).contiguous()
     if x.shape != (n,):
         raise ValueError(f"norm weight shape {tuple(x.shape)} != ({n},)")
-    return x
+    return x.clone() if tma and x.data_ptr() % 16 else x    # rows TMA loads
 
 
 def _aligned(name, x, dtype):
@@ -313,6 +456,8 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
     h2 = h.reshape(b, hidden).contiguous()
     if h2.dtype != torch.bfloat16:
         raise TypeError("layer_tail takes a bf16 residual")
+    if not a8 and h2.data_ptr() % 16:
+        h2 = h2.clone()                         # rows TMA loads
     qts = [o, qkv, gateup, down]
     for qt in qts:
         if qt is not None:
@@ -328,12 +473,14 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
         if input_mask.shape[0] != b or input_mask.shape[1] < attend_len:
             raise ValueError("input_mask must be [B, >= attend_len]")
         mask = input_mask.to(device=dev, dtype=torch.bool).contiguous()
+        if not a8 and mask.data_ptr() % 16:
+            mask = mask.clone()                 # chunks bulk-copied whole
 
     k_row = v_row = sin = cos = None
     if qkv is not None:
         if qkv.out_features != (heads + 2 * hkv) * d or qkv.in_features != hidden:
             raise ValueError("layer_step: qkv shape")
-        input_norm = _bf16_vec(input_norm, hidden)
+        input_norm = _bf16_vec(input_norm, hidden, not a8)
         sin, cos = (r.to(torch.float32).reshape(-1, d).contiguous() for r in rope)
         if sin.shape[0] not in (1, b) or cos.shape != sin.shape:
             raise ValueError("layer_step: rope rows must be [1 | B, ..., D]")
@@ -358,13 +505,13 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
     inter = 0
     if post_norm is not None:
         inter = down.in_features
-        post_norm = _bf16_vec(post_norm, hidden)
+        post_norm = _bf16_vec(post_norm, hidden, not a8)
         if (gateup.in_features != hidden or gateup.out_features != 2 * inter
                 or down.out_features != hidden):
             raise ValueError("layer_tail: gate|up / down shapes")
 
     # scratch regions, 256-byte aligned: qkv rows, split partials, the
-    # attention row, h', gate|up, the barrier counter
+    # attention row, h', gate|up, (a8) the barrier counter
     nsplit_cap = max(1, attend_len // 128)
     sizes = [
         b * (heads + 2 * hkv) * d * 2 if qkv is not None else 0,
@@ -381,7 +528,11 @@ def _launch(h, k_cache, v_cache, past_len, attend_len, o, input_mask, *,
     scratch = torch.empty((total,), dtype=torch.uint8, device=dev)
     ptrs = [scratch.data_ptr() + off for off in offs]
     widest = max(hidden, 2 * inter, qkv.out_features if qkv is not None else 0)
-    gpart, gticket = fused_gemv_scratch(dev, b, widest, tickets=b * hkv)
+    if a8:
+        gpart, gticket = fused_gemv_scratch(dev, b, widest, tickets=b * hkv)
+    else:   # the barrier's counters: zeros kept in the ticket array
+        gpart, gticket, ptrs[5] = fused_wg_scratch(dev, b, widest,
+                                                   tickets=b * hkv)
     out = torch.empty_like(h2)
     P = kernels.ptr
 

@@ -636,6 +636,188 @@ def test_layer_tail_matches_plain(gen, entry, b, hkv, past, masked):
     _close(got, ref, 2e-2)
 
 
+# the exact-mode K6 / K7 libraries and their parents' (-DPARENT=1)
+_PARENT_LIBS = {"q4_mlp": "q4_mlp_stream", "layer_tail": "layer_tail_stream",
+                "layer_tail_kvq": "layer_tail_stream_kvq"}
+_PARENT_COUNTS = ("q4_mlp_stream_launches", "layer_tail_stream_launches",
+                  "layer_tail_stream_kvq_launches")
+
+
+def _on_parents(fn, monkeypatch, m, widest):
+    """fn() (a K6 / K7 wrapper call in the exact mode) on the parents' C
+    entries, the streaming GEMV, with their split scratch grown first."""
+    from exllama_tpu_torch import kernels
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    quant.fused_gemv_scratch(dev, m, widest, tickets=1024)
+    real = kernels.launcher
+    with monkeypatch.context() as mp:
+        mp.setattr(kernels, "launcher",
+                   lambda name: real(_PARENT_LIBS.get(name, name)))
+        return fn()
+
+
+@pytest.mark.parametrize("gs", [32, 128])
+@pytest.mark.parametrize("m", [1, 2, 8, 18, 24, 32])
+def test_q4_mlp_hopper_rows_and_parent(gen, m, gs, monkeypatch):
+    """The Hopper K6 at each of its row tiles (8: M = 1, 2, 8; 32: 18, 24,
+    32) and both folds (gs 32: a fold a half slab): 2e-2 of the output
+    scale against the plain version, and against its own decomposition
+    (q4_mlp_split_plain with the plan); two calls bit-equal; its parent on
+    the same inputs within the same limit, counted on its own C counter
+    only."""
+    from exllama_tpu_torch import kernels
+
+    hidden, inter = 1024, 2816
+    gateup = _qt(gen, hidden, 2 * inter, gs, False)
+    down = _qt(gen, inter, hidden, gs, False)
+    h = torch.randn((m, 1, hidden), generator=gen, device="cuda").bfloat16()
+    nw = (torch.rand(hidden, generator=gen, device="cuda") + 0.5).bfloat16()
+    ref = mlp.q4_mlp_plain(h, nw, gateup, down, 1e-6)
+    got = mlp.q4_mlp(h, nw, gateup, down, 1e-6)
+    _close(got, ref, 2e-2)
+    plan = mlp.q4_mlp_plan(m, hidden, inter, kernels.sm_count(h.device))
+    _close(got, mlp.q4_mlp_split_plain(h, nw, gateup, down, 1e-6, plan=plan),
+           2e-2)
+    assert torch.equal(got, mlp.q4_mlp(h, nw, gateup, down, 1e-6))
+    before = kernels.launcher("q4_mlp_stream_launches")()
+    par = _on_parents(lambda: mlp.q4_mlp(h, nw, gateup, down, 1e-6),
+                      monkeypatch, m, 2 * inter)
+    torch.cuda.synchronize()
+    assert kernels.launcher("q4_mlp_stream_launches")() == before + 1
+    _close(par, ref, 2e-2)
+
+
+@pytest.mark.parametrize("entry,b,hkv,kind,scales", [
+    ("layer_tail", 8, 2, "bf16", "bf16"),
+    ("layer_step", 8, 8, "bf16", "bf16"),
+    ("layer_step", 1, 8, "bf16", "f32"),
+    ("layer_tail", 2, 2, "int8", "f32"),
+    ("layer_step", 8, 2, "int4", "bf16"),
+])
+def test_layer_tail_hopper_cases(gen, entry, b, hkv, kind, scales,
+                                 monkeypatch):
+    """The Hopper K7 at 8 rows (GQA 4 and 1), over f32 scales and the
+    quantized caches, layer_step with its K/V rows (1e-2): 2e-2 of the
+    output scale against the plain version; two calls bit-equal; the
+    parent on the same inputs within the same limit."""
+    hidden, heads, d, inter, s_max, gs = 1024, 8, 128, 1152, 256, 128
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.5).bfloat16()
+
+    def qt(k, n):
+        t = _qt(gen, k, n, gs, False)
+        return t if scales == "bf16" else dataclasses.replace(
+            t, scales=t.scales.float(), zscale=t.zscale.float())
+
+    o, gateup, down = qt(hidden, hidden), qt(hidden, 2 * inter), qt(inter, hidden)
+    qkv = qt(hidden, (heads + 2 * hkv) * d)
+    h, q = rnd(b, 1, hidden), rnd(b, 1, heads, d)
+    if kind == "bf16":
+        kc, vc, ks, vs = rnd(b, hkv, s_max, d), rnd(b, hkv, s_max, d), None, None
+    else:
+        kc, vc, ks, vs = _quantized_cache(gen, kind, b, hkv, s_max, d, 230)
+    new_kv = (rnd(b, 1, hkv, d), rnd(b, 1, hkv, d))
+    iw = (torch.rand(hidden, generator=gen, device="cuda") + 0.5).bfloat16()
+    nw = (torch.rand(hidden, generator=gen, device="cuda") + 0.5).bfloat16()
+    past = torch.tensor([200 - 11 * i for i in range(b)], dtype=torch.int32,
+                        device="cuda")
+    sin_t, cos_t = rope.slice_tables(*rope.rope_tables(s_max, d, device="cuda"),
+                                     past, 1)
+    kw = dict(k_scale=ks, v_scale=vs)
+    if entry == "layer_tail":
+        args = (h, q, kc, vc, past, s_max, o, nw, gateup, down, 1e-6, new_kv)
+        fn = lambda: attn_block.layer_tail(*args, **kw)  # noqa: E731
+        ref = attn_block.layer_tail_plain(*args, **kw)
+        got, again = fn(), fn()
+    else:
+        args = (h, qkv, iw, sin_t, cos_t, kc, vc, past, s_max, o, nw,
+                gateup, down, 1e-6, heads, hkv, d)
+        fn = lambda: attn_block.layer_step(*args, **kw)  # noqa: E731
+        ref, kr_ref, vr_ref = attn_block.layer_step_plain(*args, **kw)
+        (got, kr, vr), (again, _, _) = fn(), fn()
+        _close(kr, kr_ref, 1e-2)
+        _close(vr, vr_ref, 1e-2)
+    _close(got, ref, 2e-2)
+    assert torch.equal(got, again)
+    if scales == "bf16":
+        par = _on_parents(fn, monkeypatch, b, 2 * inter)
+        _close(par if entry == "layer_tail" else par[0], ref, 2e-2)
+
+
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_layer_tail_rows_do_not_depend_on_each_other(gen, kind):
+    """The Hopper K7 at 8 rows with 2048 keys: row 0's output is bit-equal
+    when the other rows' lengths, cache, queries and residuals change (the
+    serving engine's batched requests must equal their runs alone; the
+    attention ring's blocks then see other items before row 0's)."""
+    hidden, heads, hkv, d, inter, s_max, gs, b = 1024, 8, 2, 128, 1152, 2048, 128, 8
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * 0.5).bfloat16()
+
+    o, gateup = _qt(gen, hidden, hidden, gs, False), _qt(gen, hidden, 2 * inter, gs, False)
+    down = _qt(gen, inter, hidden, gs, False)
+    nw = (torch.rand(hidden, generator=gen, device="cuda") + 0.5).bfloat16()
+    outs = []
+    for trial in range(2):
+        h, q = rnd(b, 1, hidden), rnd(b, 1, heads, d)
+        if kind == "bf16":
+            kc, vc, ks, vs = (rnd(b, hkv, s_max, d), rnd(b, hkv, s_max, d),
+                              None, None)
+        else:
+            kc, vc, ks, vs = _quantized_cache(gen, kind, b, hkv, s_max, d,
+                                              s_max - 8)
+        new_kv = (rnd(b, 1, hkv, d), rnd(b, 1, hkv, d))
+        past = [1900 - 170 * i * (trial + 1) % 1500 for i in range(b)]
+        if outs:   # row 0 as before, the other rows new
+            h[0], q[0], kc[0], vc[0] = h0, q0, kc0, vc0
+            new_kv[0][0], new_kv[1][0] = kn0, vn0
+            if ks is not None:
+                ks[0], vs[0] = ks0, vs0
+        h0, q0, kc0, vc0 = h[0].clone(), q[0].clone(), kc[0].clone(), vc[0].clone()
+        kn0, vn0 = new_kv[0][0].clone(), new_kv[1][0].clone()
+        if ks is not None:
+            ks0, vs0 = ks[0].clone(), vs[0].clone()
+        past[0] = 1900
+        pt = torch.tensor(past, dtype=torch.int32, device="cuda")
+        outs.append(attn_block.layer_tail(h, q, kc, vc, pt, s_max, o, nw,
+                                          gateup, down, 1e-6, new_kv,
+                                          k_scale=ks, v_scale=vs)[0])
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_no_wrapper_launches_the_k6_or_k7_parents(gen):
+    """K6's and K7's parents (the streaming GEMV, -DPARENT=1 builds),
+    chip_smoke.py's yardsticks only: the wrappers' exact-mode calls leave
+    their C launch counts where they were."""
+    from exllama_tpu_torch import kernels
+
+    before = [kernels.launcher(n)() for n in _PARENT_COUNTS]
+    hidden, inter, heads, d, s_max = 512, 640, 4, 128, 128
+    gateup = _qt(gen, hidden, 2 * inter, 128, False)
+    down = _qt(gen, inter, hidden, 128, False)
+    o = _qt(gen, heads * d, hidden, 128, False)
+    nw = torch.ones(hidden, dtype=torch.bfloat16, device="cuda")
+    for b in (1, 8, 32):
+        h = torch.randn((b, 1, hidden), generator=gen, device="cuda").bfloat16()
+        mlp.q4_mlp(h, nw, gateup, down, 1e-6)
+        q = torch.randn((b, 1, heads, d), generator=gen, device="cuda").bfloat16()
+        kc = torch.randn((b, heads, s_max, d), generator=gen,
+                         device="cuda").bfloat16()
+        new_kv = (q[:, :, :heads], q[:, :, :heads])
+        attn_block.layer_tail(h, q, kc, kc, 50, s_max, o, nw, gateup, down,
+                              1e-6, new_kv)
+        kq, vq, ks, vs = _quantized_cache(gen, "int8", b, heads, s_max, d, 60)
+        attn_block.attn_block_o(h, q, kq, vq, 50, s_max, o, new_kv,
+                                k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert [kernels.launcher(n)() for n in _PARENT_COUNTS] == before
+
+
 @pytest.mark.parametrize("impl", ["pallas_a8", "pallas_a8x2"])
 @pytest.mark.parametrize("m,hidden,inter,gs", [
     (1, 512, 384, 32), (5, 1024, 1152, 128), (18, 256, 640, 64),
@@ -1456,6 +1638,40 @@ def test_decode_graphs_replay_the_eager_step(gen, settings, tuning):
     step = next(iter(g._loop.graphs.values())).counts
     assert {k: 40 * n for k, n in step.items()} == {
         k: n for k, n in c_graph.items() if n}
+
+
+@pytest.mark.parametrize("tuning", [{}, dict(fuse_qkv=True,
+                                              commit_impl="pallas")])
+def test_decode_graph_replays_after_gen_begin(gen, tuning):
+    """One graphed decode step of the Hopper K7 (its tensor maps encode the
+    scratch buffers the captured launch holds) replayed after a second
+    gen_begin of the same shapes, which captures nothing: token and caches
+    bit-equal to the eager twin's same step."""
+    import numpy as np
+
+    import exllama_tpu_torch as port
+
+    model = _graph_model(**tuning)
+    ids = (np.arange(27, dtype=np.int32)[None] * 37 + 11) % 1000
+    ids2 = (np.arange(27, dtype=np.int32)[None] * 53 + 5) % 1000
+    runs = []
+    for m in (model, _eager_twin(model)):
+        g = port.ExLlamaGenerator(m, port.FakeTokenizer(),
+                                  port.ExLlamaCache(m), seed=0)
+        g.settings.top_k = 1
+        g.gen_begin(ids)
+        g.gen_tokens(3)
+        graphs = dict(g._loop.graphs)
+        g.gen_begin(ids2)
+        toks = g.gen_tokens(1)
+        assert g._loop.graphs == graphs
+        runs.append((g, toks))
+    (g, got), (e, ref) = runs
+    assert list(g._loop.graphs) == [32]
+    np.testing.assert_array_equal(got, ref)
+    for x, y in zip(g.cache._tensor_lists(), e.cache._tensor_lists()):
+        for s, t in zip(x, y):
+            assert torch.equal(s, t)
 
 
 @pytest.mark.parametrize("t,batch,prefix", [(1, 1, 20), (5, 2, 20),
